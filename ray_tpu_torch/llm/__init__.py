@@ -1,0 +1,12 @@
+"""ray_tpu_torch.llm — LLM serving on the port (counterpart of
+``ray_tpu.llm``): continuous batching over a paged KV pool on the card."""
+
+from ray_tpu_torch.llm.engine import (ContinuousBatchingEngine, Request,
+                                      SamplingParams)
+from ray_tpu_torch.llm.serving import LLMConfig, LLMServer
+from ray_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer
+
+__all__ = [
+    "ContinuousBatchingEngine", "SamplingParams", "Request",
+    "LLMConfig", "LLMServer", "ByteTokenizer", "load_tokenizer",
+]
