@@ -3,21 +3,32 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's CUDA kernels from ``ray_tpu_torch/csrc`` with nvcc.
+1. Builds the port's CUDA kernels from ``ray_tpu_torch/csrc`` with nvcc,
+   one compiler per source, all at once.
 2. Holds each kernel against its plain PyTorch version on the card: bf16 at
-   the serving slice's shapes (32 slots, 32 query / 8 KV heads, head_dim
-   128, block 32, lengths spread over 1..1024) and f32 at the repo's test
-   shapes, and times kernel, plain version and a library yardstick
-   (``scaled_dot_product_attention`` on the dense view; the port never calls
-   it) beside the least time the card could take.
-3. Drives the main path with every launch counter at 0: ``LLMServer`` on the
-   card with Llama-3-8B's widths (random weights from seed 0) answers 16
-   requests through ``__call__`` and ``stream`` (prompts of 32-256 tokens,
-   four sharing a 64-token prefix, 32 new tokens each), then one
+   the shapes its main path gives it and f32 at the repo's test shapes, and
+   times kernel, plain version and a library yardstick
+   (``scaled_dot_product_attention``; the port never calls it) beside the
+   least time the card could take. Decode kernels: 32 slots, 32 query / 8
+   KV heads, head_dim 128, block 32, lengths spread over 1..1024. Flash
+   kernel: bench_400m's attention, batch 8 x seq 2048, 8 query / 4 KV
+   heads, head_dim 128, causal; and its gradient (the blockwise recompute)
+   against autograd through the reference.
+3. Serving path, every launch counter at 0: ``LLMServer`` on the card with
+   Llama-3-8B's widths (random weights from seed 0) answers 16 requests
+   through ``__call__`` and ``stream`` (prompts of 32-256 tokens, four
+   sharing a 64-token prefix, 32 new tokens each), then one
    ``forward_step`` with T=1 on a dense cache. The paged kernel must have
    run once per layer per decode step, the ragged kernel once per layer.
 4. Compares ``decode_step_paged`` through the kernel with the reference
    implementation on identical (cloned) live pools at the repo's bf16 bar.
+5. Training path, every launch counter at 0 (the server freed first):
+   ``run_train`` on ``LlamaConfig.bench_400m()`` (443 M params, random from
+   seed 0), batch 8 x seq 2048, 2 warm-up + 10 timed AdamW steps of one
+   batch, full remat. The flash kernel must have run twice per layer per
+   step (forward and remat recompute), and the loss must fall.
+6. The loss through the flash kernel against the blockwise path on the
+   same f32 params and batch, at the repo's bar (rtol 1e-3, atol 1e-4).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -28,11 +39,13 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -43,6 +56,9 @@ PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core rate
 # atol covers outputs near 0, whose magnitude is ~1/sqrt(length)
 BF16_TOL = dict(atol=5e-3, rtol=1.6e-2)
 STEP_TOL = dict(atol=0.15, rtol=0.05)   # tests/test_llm_paged.py bf16 bar
+F32_FLASH_TOL = dict(atol=2e-5, rtol=2e-4)   # tests/test_ops.py:324
+GRAD_TOL = dict(atol=5e-4, rtol=5e-3)        # tests/test_ops.py:359
+LOSS_TOL = dict(atol=1e-4, rtol=1e-3)        # tests/test_ops.py:378
 
 
 def log(msg: str) -> None:
@@ -227,8 +243,89 @@ def check_kernels(dev, gen) -> list:
     return rows
 
 
+def check_flash(dev, gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import attention as attn
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # f32 at the repo's test shapes (tests/test_ops.py:318, 334)
+    errs_f32 = []
+    for B, S, H, Hkv, D, causal in ((2, 256, 4, 2, 32, True),
+                                    (2, 256, 4, 2, 32, False),
+                                    (1, 192, 2, 2, 16, True)):
+        q = rand((B, S, H, D), torch.float32)
+        k, v = rand((B, S, Hkv, D), torch.float32), \
+            rand((B, S, Hkv, D), torch.float32)
+        out = attn.flash_attention_kernel(q, k, v, causal)
+        plain = attn._flash_forward_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(out, plain, **F32_FLASH_TOL)
+        errs_f32.append((out - plain).abs().max().item())
+    # the Function's gradient against autograd through the reference
+    q, k, v = (rand((1, 128, 2, 16), torch.float32).requires_grad_()
+               for _ in range(3))
+    grads = torch.autograd.grad(
+        (attn.flash_attention(q, k, v, True) ** 2).sum(), (q, k, v))
+    ref = torch.autograd.grad(
+        (attn.reference_attention(q, k, v) ** 2).sum(), (q, k, v))
+    grad_err = 0.0
+    for a, b in zip(grads, ref):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+        grad_err = max(grad_err, (a - b).abs().max().item())
+    log(f"flash f32 at the repo's test shapes: max_abs_err {errs_f32} "
+        f"(rtol 2e-4 atol 2e-5); gradients vs the reference {grad_err:.3e} "
+        f"(rtol 5e-3 atol 5e-4)")
+
+    # bf16 at the training slice's shapes
+    B, S, H, Hkv, D = 8, 2048, 8, 4, 128
+    dt = torch.bfloat16
+    scale = D ** -0.5
+    q = rand((B, S, H, D), dt)
+    k, v = rand((B, S, Hkv, D), dt), rand((B, S, Hkv, D), dt)
+    out = attn.flash_attention_kernel(q, k, v, True)
+    plain = attn._flash_forward_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), plain.float(), **BF16_TOL)
+    # a wrong kernel to hold the bound against: each 64-row block of
+    # queries drops its last (diagonal) K tile; rows 64.. compared
+    rows = torch.arange(S, device=dev)
+    wrong = attn.reference_attention(q, k, v, positions_q=rows // 64 * 64 - 1,
+                                     positions_k=rows)
+    skip_ratio = tol_ratio(wrong[:, 64:], plain[:, 64:])
+    del wrong
+    ms = cuda_ms(lambda: attn._launch_flash(q, k, v, True, scale), 50)
+    plain_ms = cuda_ms(lambda: attn._flash_forward_plain(q, k, v,
+                                                         causal=True), 3, 1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    elt = 2
+    nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * elt   # q, o, k, v
+    ops = 4 * B * H * D * (S * (S + 1) // 2)       # causal (row, col) pairs
+    b_ms, b_by = bound_ms(nbytes, ops, dt)
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "ray_tpu_torch/csrc/flash_attention.cu",
+           "replaces": "ray_tpu/ops/attention.py:128",
+           "max_abs_err": (out.float() - plain.float()).abs().max().item(),
+           "tol_ratio": tol_ratio(out, plain), "skip_ratio": skip_ratio,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib_ms}
+    log(f"flash_attention: bf16 B={B} S={S} H={H} Hkv={Hkv} D={D} causal: "
+        f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+        f"max_abs_err {row['max_abs_err']:.3e}, {row['tol_ratio']:.2f}x the "
+        f"tolerance {BF16_TOL}; a version that drops each row block's "
+        f"diagonal K tile reads {skip_ratio:.2f}x it")
+    if skip_ratio <= 1:
+        raise RuntimeError("flash_attention: the bf16 tolerance does not "
+                           "tell a dropped K tile from the kernel")
+    return row
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the serving path
 # ---------------------------------------------------------------------------
 
 def serve_requests(server, vocab: int, rng) -> dict:
@@ -380,6 +477,53 @@ def live_pool_compare(server, rng) -> dict:
             "live_tokens": int(eng.offsets[active].sum())}
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the training path
+# ---------------------------------------------------------------------------
+
+def train_path(dev, n_layers: int) -> dict:
+    from ray_tpu_torch.bench import run_train
+    from ray_tpu_torch.ops import attention as attn
+    attn.flash_attention_kernel.launches = 0
+    out = run_train(dev, batch=8, seq=2048, steps=10, warmup=2, seed=0)
+    launches = attn.flash_attention_kernel.launches
+    steps = out["steps"] + out["warmup"]
+    log(f"run_train(bench_400m, {out['model_params']} params, batch 8 x seq "
+        f"2048, remat {out['remat']}): {out['tokens_per_sec']:.1f} tokens/s, "
+        f"step {out['step_ms']:.2f} ms, MFU {out['mfu']:.4f} (6N over 989 "
+        f"TFLOP/s), loss {out['loss_first']:.4f} -> {out['loss_last']:.4f}, "
+        f"grad_norm {out['grad_norm']:.4f}; flash launches {launches} "
+        f"({steps} steps x {n_layers} layers x 2)")
+    if launches != 2 * n_layers * steps:
+        raise RuntimeError(f"flash kernel launches {launches} != 2 x "
+                           f"{n_layers} layers x {steps} steps")
+    if not out["loss_last"] < out["loss_first"]:
+        raise RuntimeError(f"the loss did not fall: {out}")
+    out["launches"] = launches
+    return out
+
+
+def kernel_vs_blockwise_loss(dev) -> tuple:
+    """``loss`` through the flash kernel and through the blockwise path on
+    the same f32 params and batch."""
+    import torch
+    from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    cfg = LlamaConfig.bench_400m()
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (8, 2048)).astype(np.int64)).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    params = LlamaModel(cfg, device=dev).init(1, param_dtype=torch.float32)
+    losses = []
+    with torch.no_grad():
+        for impl in ("kernel", "blockwise"):
+            model = LlamaModel(dataclasses.replace(cfg, attention_impl=impl),
+                               device=dev)
+            losses.append(model.loss(params, tokens, targets))
+    torch.testing.assert_close(losses[0], losses[1], **LOSS_TOL)
+    return losses[0].item(), losses[1].item()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -389,6 +533,7 @@ def main() -> int:
     from ray_tpu_torch import _build
     from ray_tpu_torch.llm import LLMConfig, LLMServer
     from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.ops import decode_attention as dec
     from ray_tpu_torch.ops import paged_attention as paged
 
@@ -402,19 +547,27 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
 
-    # 1. build
+    log(smi)
+
+    # 1. build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    lib_path = _build.build("decode_attention")
-    _build.load_library("decode_attention")
-    log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    names = ("decode_attention", "flash_attention")
+    with ThreadPoolExecutor(len(names)) as pool:
+        lib_paths = list(pool.map(_build.build, names))
+    for name, lib_path in zip(names, lib_paths):
+        _build.load_library(name)
+        log(f"build: {lib_path.name}")
+        for line in lib_path.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+    log(f"built {len(names)} sources in {time.perf_counter() - t0:.1f} s")
 
     # 2. kernels against their plain versions
     rows = check_kernels(dev, gen)
+    rows.append(check_flash(dev, gen))
 
-    # 3. the main path, every counter at 0
+    # 3. the serving path, every counter at 0
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
                               decode_attention="kernel")
     t0 = time.perf_counter()
@@ -430,13 +583,15 @@ def main() -> int:
         steps0 = server.engine.stats["decode_steps"]
         paged.paged_decode_attention_kernel.launches = 0
         dec.ragged_decode_attention_kernel.launches = 0
+        attn.flash_attention_kernel.launches = 0
         serving = serve_requests(server, cfg.vocab_size, rng)
         server.shutdown()
         dense_decode(server.model, server.engine.params, gen, 32, 1024, rng)
         launches = {"paged_decode_attention":
                     paged.paged_decode_attention_kernel.launches,
                     "ragged_decode_attention":
-                    dec.ragged_decode_attention_kernel.launches}
+                    dec.ragged_decode_attention_kernel.launches,
+                    "flash_attention": attn.flash_attention_kernel.launches}
     finally:
         server.shutdown()
     stats = server.stats()
@@ -456,7 +611,10 @@ def main() -> int:
     if launches["ragged_decode_attention"] != cfg.n_layers:
         raise RuntimeError(f"ragged kernel launches {launches} != "
                            f"{cfg.n_layers}")
-    for r in rows:
+    if launches["flash_attention"]:
+        raise RuntimeError(f"the serving path launched the flash kernel: "
+                           f"{launches}")
+    for r in rows[:2]:
         r["launches"] = launches[r["name"]]
 
     # 4. kernel decode against reference decode on a live pool
@@ -467,6 +625,19 @@ def main() -> int:
         f"{live['logits_max_abs_err']:.3e} (atol 0.15 rtol 0.05); decode "
         f"step {live['step_ms']['kernel']:.2f} ms with the kernel, "
         f"{live['step_ms']['reference']:.2f} ms with the reference")
+    del server, live
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. the training path
+    train = train_path(dev, LlamaConfig.bench_400m().n_layers)
+    rows[2]["launches"] = train["launches"]
+
+    # 6. the flash kernel's loss against the blockwise path
+    loss_k, loss_b = kernel_vs_blockwise_loss(dev)
+    log(f"loss through the flash kernel {loss_k:.6f}, through the blockwise "
+        f"path {loss_b:.6f} (rtol 1e-3 atol 1e-4; bench_400m, f32 params, "
+        f"bf16 compute, batch 8 x seq 2048)")
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -9,8 +9,11 @@ reference it carries as its own copy.
 Entry points take ``device=None``, which means CUDA and raises when no card is
 present; only an explicit ``device="cpu"`` runs on the CPU (the tests do).
 
-Ported so far (the serving slice): ``ops`` (norms, rope, the paged- and
+Ported so far: the serving slice — ``ops`` (norms, rope, the paged- and
 ragged-decode attention kernels in ``csrc/``), ``models.llama`` (the KV-cache
 inference paths), ``llm`` (block pool, tokenizer, continuous-batching engine,
-``LLMServer``).
+``LLMServer``) — and the single-device training slice — ``ops.attention``
+(reference, blockwise and flash attention, the flash forward kernel in
+``csrc/``), ``models.llama`` (``apply``, ``loss``, remat), ``train``
+(``make_train_step``) and ``bench`` (``run_train``).
 """

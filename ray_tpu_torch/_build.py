@@ -35,6 +35,11 @@ _SIGNATURES = {
             _I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                  ctypes.c_float, _P]),
     },
+    "flash_attention": {
+        "rt_flash_attention_forward": (
+            _I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 ctypes.c_float, _P]),
+    },
 }
 
 _lock = threading.Lock()

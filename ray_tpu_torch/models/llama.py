@@ -1,14 +1,20 @@
-"""Llama-3 family, KV-cache inference paths (counterpart of
-``ray_tpu/models/llama.py``).
+"""Llama-3 family: the training forward and the KV-cache inference paths
+(counterpart of ``ray_tpu/models/llama.py``).
 
 Params keep the JAX package's pytree layout — a dict of stacked-layer
 tensors (``wq [L, d, H, hd]``, ``wo [L, H, hd, d]``, ...) — so a JAX param
 tree converts 1:1 (``models/convert.py``). Differences of idiom:
 
-- the matrices, the embedding and the LM head are stored in ``cfg.dtype``
-  once (JAX casts its f32 params with ``.astype(dt)`` at every use: the
-  same numbers); the norm weights stay f32;
-- ``lax.scan`` over layers is a Python loop over the stacked tensors;
+- every weight is cast to ``cfg.dtype`` at its use, as JAX casts with
+  ``.astype(dt)``. Training keeps every leaf in f32 (``init(...,
+  param_dtype=torch.float32)``, as JAX's ``init`` returns it) so autograd
+  reaches f32 leaves; serving stores the matrices, the embedding and the LM
+  head in ``cfg.dtype`` once (the same numbers), where the cast is a no-op
+  that returns the tensor itself. Norm weights stay f32;
+- ``lax.scan`` over layers is a Python loop over per-layer views of the
+  stacked tensors (one cast and one ``unbind`` per leaf and call, so the
+  backward stacks each leaf's gradient once); ``jax.checkpoint`` per layer is
+  ``torch.utils.checkpoint`` (``remat``);
 - JAX's donated functional cache/pool updates are in-place ``index_put_``
   writes here: ``forward_step`` and ``decode_step_paged`` MUTATE the cache or
   pool they are given (and return it). Callers that need the old state
@@ -17,19 +23,28 @@ tree converts 1:1 (``models/convert.py``). Differences of idiom:
   positions) and scatters drop (cache writes past the cache); a pool write
   that JAX drops lands in the pool's scratch block, which nothing reads.
 
-``apply``, ``loss`` and remat belong to the training slice (not ported yet).
+Only the one-device attention choices are ported (``attention_impl``):
+JAX's ``"ring"``/``"ulysses"`` context parallelism needs a mesh and waits for
+the parallel layer. The flash kernel's ``flash_block_q/k`` tiles are not
+carried over: the CUDA kernel picks its own tiles, and an option that does
+nothing on the card is left out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.ops.attention import NEG_INF, repeat_kv
+from ray_tpu_torch.ops.attention import (NEG_INF, attention,
+                                         blockwise_attention,
+                                         flash_attention, repeat_kv)
 from ray_tpu_torch.ops.indexing import gather_index, wrap_index
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -50,12 +65,31 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+    # recompute each layer in the backward (JAX's jax.checkpoint per layer):
+    # "full" recomputes everything, "dots" saves the matmul outputs and
+    # recomputes the rest (JAX's dots_saveable)
+    remat: bool = True
+    remat_policy: str = "full"
+    # training attention, one device (JAX name in brackets):
+    # "kernel" = the hand-written flash kernel of ops/attention.py ("flash";
+    # its plain version on CPU tensors); "blockwise" = online softmax over
+    # key chunks in plain PyTorch ("xla"); "auto" = the dispatcher, which
+    # JAX's "ring"/"ulysses" default reaches on one device
+    attention_impl: str = "auto"
     # KV-cache decode attention: "reference" masked fallback (JAX "xla") or
     # the hand-written CUDA "kernel" (JAX "pallas"; its plain version on
     # CPU tensors) — ops/paged_attention.py, ops/decode_attention.py.
     decode_attention: str = "reference"
 
     def __post_init__(self):
+        if self.attention_impl not in ("auto", "kernel", "blockwise"):
+            raise ValueError(
+                f"attention_impl must be 'auto', 'kernel' or 'blockwise', "
+                f"got {self.attention_impl!r}")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(
+                f"remat_policy must be 'full' or 'dots', "
+                f"got {self.remat_policy!r}")
         if self.decode_attention not in ("reference", "kernel"):
             raise ValueError(
                 f"decode_attention must be 'reference' or 'kernel', "
@@ -84,17 +118,17 @@ class LlamaConfig:
 
     @staticmethod
     def bench_400m(max_seq_len: int = 2048) -> "LlamaConfig":
-        """~440M params (the JAX preset's widths; its flash-attention
-        default waits for the training slice)."""
+        """~440M params, the JAX preset's widths; head_dim 128 and the
+        flash kernel, as the JAX preset defaults to its flash kernel."""
         return LlamaConfig(vocab_size=32_000, dim=1024, n_layers=24,
                            n_heads=8, n_kv_heads=4, ffn_dim=4096,
-                           max_seq_len=max_seq_len)
+                           max_seq_len=max_seq_len, attention_impl="kernel")
 
     @staticmethod
     def debug(vocab_size: int = 256, max_seq_len: int = 128) -> "LlamaConfig":
         return LlamaConfig(vocab_size=vocab_size, dim=64, n_layers=2,
                            n_heads=4, n_kv_heads=2, ffn_dim=128,
-                           max_seq_len=max_seq_len)
+                           max_seq_len=max_seq_len, remat=False)
 
 
 def param_shapes(cfg: LlamaConfig) -> Dict[str, object]:
@@ -129,6 +163,17 @@ def _fan_in(name: str, cfg: LlamaConfig) -> int:
     return cfg.ffn_dim if name == "w_down" else cfg.dim
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    matmul outputs, recompute the rest (``dots_saveable``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def take_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """``x[n, lengths[n] - 1]`` for x [N, T, ...]; a row whose length is
     out of range reads NaN, as JAX's ``take_along_axis`` fills it."""
@@ -141,8 +186,9 @@ def take_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 class LlamaModel:
-    """Functional model: ``init`` makes params; the step methods run the
-    KV-cache forward. All tensors live on ``self.device``."""
+    """Functional model: ``init`` makes params, ``apply``/``loss`` run the
+    training forward, the step methods the KV-cache forward. All tensors
+    live on ``self.device``."""
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = None):
         self.cfg = cfg
@@ -152,12 +198,16 @@ class LlamaModel:
                                         device=self.device)
 
     # -- init ---------------------------------------------------------------
-    def init(self, seed: int = 0) -> Params:
+    def init(self, seed: int = 0,
+             param_dtype: Optional[torch.dtype] = None) -> Params:
         """Random params, N(0, 1/fan_in) matrices and unit norms, drawn one
         leaf at a time on the device so the peak stays at one f32 leaf.
+        Matrices are stored in ``param_dtype``; ``None`` is ``cfg.dtype``
+        (serving), ``torch.float32`` gives the f32 leaves training updates.
         (``jax.random`` streams cannot be reproduced: to compare with the
         JAX package, convert its params with ``models.convert``.)"""
         cfg = self.cfg
+        matrix_dtype = param_dtype or cfg.dtype
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
 
         def leaf(name, shape):
@@ -167,7 +217,7 @@ class LlamaModel:
             x = torch.randn(shape, generator=gen, dtype=torch.float32,
                             device=self.device)
             x.mul_(_fan_in(name, cfg) ** -0.5)
-            return x.to(cfg.dtype)
+            return x.to(matrix_dtype)
 
         shapes = param_shapes(cfg)
         params: Params = {}
@@ -179,38 +229,52 @@ class LlamaModel:
         return params
 
     # -- shared pieces -----------------------------------------------------
+    def _layers(self, params: Params) -> List[Dict[str, torch.Tensor]]:
+        """One dict of views per layer of the stacked ``params["layers"]``,
+        the matrices in ``cfg.dtype``: one cast per leaf and call (JAX's
+        ``.astype(dt)`` at use), which returns the bf16 serving leaves
+        themselves; the norm weights stay f32."""
+        dt = self.cfg.dtype
+        stacked = params["layers"]
+        names = list(stacked)
+        per_leaf = [(stacked[n] if n in NORM_LEAVES else stacked[n].to(dt))
+                    .unbind(0) for n in names]
+        return [dict(zip(names, leaves)) for leaves in zip(*per_leaf)]
+
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        # gather, then cast: the same numbers as JAX's cast-then-gather
+        # without casting the whole table
         table = params["embed"]
-        return table[gather_index(tokens, table.shape[0])]
+        return table[gather_index(tokens, table.shape[0])].to(self.cfg.dtype)
 
     def _lm_head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         head = (params["embed"].t() if self.cfg.tie_embeddings
                 else params["lm_head"])
-        return (x @ head).float()
+        return (x @ head.to(self.cfg.dtype)).float()
 
-    def _qkv(self, layer: Dict[str, torch.Tensor], l: int, x, positions):
-        """Pre-norm q/k/v projections of layer ``l`` with rope applied.
+    def _qkv(self, layer: Dict[str, torch.Tensor], x, positions):
+        """Pre-norm q/k/v projections of one layer with rope applied.
         x [B, T, d] -> q [B, T, H, hd], k/v [B, T, Hkv, hd] in cfg.dtype."""
         cfg = self.cfg
         B, T, d = x.shape
-        h = rms_norm(x, layer["attn_norm"][l], eps=cfg.norm_eps)
-        q = (h @ layer["wq"][l].reshape(d, -1)).view(B, T, cfg.n_heads, -1)
-        k = (h @ layer["wk"][l].reshape(d, -1)).view(B, T, cfg.n_kv_heads, -1)
-        v = (h @ layer["wv"][l].reshape(d, -1)).view(B, T, cfg.n_kv_heads, -1)
+        h = rms_norm(x, layer["attn_norm"], eps=cfg.norm_eps)
+        q = (h @ layer["wq"].reshape(d, -1)).view(B, T, cfg.n_heads, -1)
+        k = (h @ layer["wk"].reshape(d, -1)).view(B, T, cfg.n_kv_heads, -1)
+        v = (h @ layer["wv"].reshape(d, -1)).view(B, T, cfg.n_kv_heads, -1)
         q = apply_rope(q, self._angles, positions)
         k = apply_rope(k, self._angles, positions)
         return q, k, v
 
-    def _out_and_mlp(self, layer, l: int, x, o):
+    def _out_and_mlp(self, layer, x, o):
         """Attention output projection + residual, then the SwiGLU MLP
         block. o [B, T, H, hd]."""
         cfg = self.cfg
         B, T = o.shape[:2]
-        x = x + o.reshape(B, T, -1) @ layer["wo"][l].reshape(-1, cfg.dim)
-        h = rms_norm(x, layer["mlp_norm"][l], eps=cfg.norm_eps)
-        gate = h @ layer["w_gate"][l]
-        up = h @ layer["w_up"][l]
-        return x + (F.silu(gate) * up) @ layer["w_down"][l]
+        x = x + o.reshape(B, T, -1) @ layer["wo"].reshape(-1, cfg.dim)
+        h = rms_norm(x, layer["mlp_norm"], eps=cfg.norm_eps)
+        gate = h @ layer["w_gate"]
+        up = h @ layer["w_up"]
+        return x + (F.silu(gate) * up) @ layer["w_down"]
 
     def _masked_attention(self, q, k, v, mask):
         """Softmax attention in f32 with ``mask`` [B, Tq, Tk] (True =
@@ -224,6 +288,61 @@ class LlamaModel:
         s = torch.where(mask[:, None], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         return torch.einsum("bhqk,bkhd->bqhd", p.to(cfg.dtype), vv)
+
+    # -- training forward --------------------------------------------------
+    def _attention(self, q, k, v, positions):
+        """Causal attention of one layer: the flash kernel ("kernel") or the
+        blockwise path ("blockwise") when positions are implicit, else the
+        dispatcher."""
+        impl = self.cfg.attention_impl
+        if impl == "kernel" and positions is None:
+            return flash_attention(q, k, v, True)
+        if impl == "blockwise" and positions is None:
+            return blockwise_attention(q, k, v, causal=True)
+        return attention(q, k, v, causal=True, positions_q=positions,
+                         positions_k=positions)
+
+    def _block(self, x, layer: Dict[str, torch.Tensor], positions):
+        q, k, v = self._qkv(layer, x, positions)
+        return self._out_and_mlp(layer, x, self._attention(q, k, v,
+                                                           positions))
+
+    def apply(self, params: Params, tokens: torch.Tensor,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [B, S] int -> logits [B, S, V] (f32). With ``cfg.remat``
+        each layer is recomputed in the backward: its forward runs twice a
+        training step, the flash kernel's included."""
+        cfg = self.cfg
+        block = self._block
+        if cfg.remat:
+            kwargs = dict(use_reentrant=False, preserve_rng_state=False)
+            if cfg.remat_policy == "dots":
+                kwargs["context_fn"] = functools.partial(
+                    create_selective_checkpoint_contexts, _save_matmuls)
+            block = functools.partial(checkpoint, self._block, **kwargs)
+        if positions is not None:
+            positions = positions.to(self.device)
+        x = self._embed(params, tokens.to(self.device))
+        for layer in self._layers(params):
+            x = block(x, layer, positions)
+        x = rms_norm(x, params["norm_f"], eps=cfg.norm_eps)
+        return self._lm_head(params, x)
+
+    def loss(self, params: Params, tokens: torch.Tensor,
+             targets: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mean next-token cross-entropy (f32); with ``mask`` the mean over
+        the masked-in tokens. A target outside the vocabulary reads NaN, as
+        JAX's ``take_along_axis`` fills it."""
+        logp = torch.log_softmax(self.apply(params, tokens), dim=-1)
+        idx, valid = wrap_index(targets.to(self.device, torch.int64),
+                                logp.shape[-1])
+        nll = -logp.gather(-1, idx[..., None])[..., 0]
+        nll = torch.where(valid, nll, float("nan"))
+        if mask is not None:
+            mask = mask.to(device=self.device, dtype=nll.dtype)
+            return (nll * mask).sum() / mask.sum().clamp(min=1)
+        return nll.mean()
 
     # -- dense KV cache ----------------------------------------------------
     def init_kv_cache(self, batch: int, max_seq: int) -> Params:
@@ -265,9 +384,8 @@ class LlamaModel:
             mask = (torch.arange(S, device=dev)[None, None, :]
                     <= q_pos[:, :, None])                           # [B,T,S]
         x = self._embed(params, tokens.to(dev))
-        layers = params["layers"]
-        for l in range(cfg.n_layers):
-            q, k_new, v_new = self._qkv(layers, l, x, q_pos)
+        for l, layer in enumerate(self._layers(params)):
+            q, k_new, v_new = self._qkv(layer, x, q_pos)
             k_cache, v_cache = cache["k"][l], cache["v"][l]
             # in-place scatter of the new k/v at each slot's write offsets
             # (JAX: a donated k_cache.at[...].set)
@@ -280,7 +398,7 @@ class LlamaModel:
                     q[:, 0], k_cache, v_cache, q_pos[:, 0] + 1)[:, None]
             else:
                 o = self._masked_attention(q, k_cache, v_cache, mask)
-            x = self._out_and_mlp(layers, l, x, o)
+            x = self._out_and_mlp(layer, x, o)
         x = rms_norm(x, params["norm_f"], eps=cfg.norm_eps)
         return self._lm_head(params, x), cache
 
@@ -332,9 +450,8 @@ class LlamaModel:
         impl = cfg.decode_attention
         from ray_tpu_torch.ops.paged_attention import paged_decode_attention
         x = self._embed(params, tokens.to(dev)[:, None])           # [B,1,d]
-        layers = params["layers"]
-        for l in range(cfg.n_layers):
-            q, k_new, v_new = self._qkv(layers, l, x, q_pos)
+        for l, layer in enumerate(self._layers(params)):
+            q, k_new, v_new = self._qkv(layer, x, q_pos)
             k_pool, v_pool = pool["k"][l], pool["v"][l]
             # each slot writes its own private tail block in place (JAX: a
             # donated k_pool.at[...].set). Inactive slots all write the
@@ -344,7 +461,7 @@ class LlamaModel:
             v_pool[dest_block, dest_off] = v_new[:, 0]
             o = paged_decode_attention(q[:, 0], k_pool, v_pool, tables_i32,
                                        lengths, impl=impl)
-            x = self._out_and_mlp(layers, l, x, o[:, None])
+            x = self._out_and_mlp(layer, x, o[:, None])
         x = rms_norm(x, params["norm_f"], eps=cfg.norm_eps)
         return self._lm_head(params, x)[:, 0], pool
 
@@ -381,13 +498,12 @@ class LlamaModel:
         k_out = torch.empty(shape, dtype=cfg.dtype, device=dev)
         v_out = torch.empty(shape, dtype=cfg.dtype, device=dev)
         x = self._embed(params, tokens.to(dev))
-        layers = params["layers"]
-        for l in range(cfg.n_layers):
-            q, k_new, v_new = self._qkv(layers, l, x, pos_q)
+        for l, layer in enumerate(self._layers(params)):
+            q, k_new, v_new = self._qkv(layer, x, pos_q)
             k_all = torch.cat([prefix_k[l].to(cfg.dtype), k_new], dim=1)
             v_all = torch.cat([prefix_v[l].to(cfg.dtype), v_new], dim=1)
             o = self._masked_attention(q, k_all, v_all, mask)
-            x = self._out_and_mlp(layers, l, x, o)
+            x = self._out_and_mlp(layer, x, o)
             k_out[l], v_out[l] = k_new, v_new
         x = rms_norm(x, params["norm_f"], eps=cfg.norm_eps)
         last = take_last(x, lengths)                               # [N, d]

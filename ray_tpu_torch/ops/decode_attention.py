@@ -22,9 +22,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ray_tpu_torch.ops.attention import NEG_INF, repeat_kv
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+from ray_tpu_torch.ops.attention import (DTYPE_CODES, NEG_INF,
+                                         check_kernel_tensors, repeat_kv)
 
 
 def ragged_decode_attention_reference(q, k, v, lengths, *,
@@ -94,22 +93,10 @@ def _ragged_decode_plain(q, k, v, lengths, *, block_k: int, scale: float):
 
 
 def check_cuda_operands(name: str, q, k, v, lengths, *, extra=()):
-    """What the CUDA launchers take: one CUDA device, bf16 or f32 q/k/v of
-    one dtype, contiguous, 16-byte aligned, head_dim a multiple of 8 up to
-    256, H a multiple of Hkv. Raises ValueError on anything else."""
-    tensors = (q, k, v, lengths, *extra)
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {q.device}")
-    if any(t.device != q.device for t in tensors):
-        raise ValueError(f"{name}: all operands must be on {q.device}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError(f"{name}: q/k/v must share dtype bfloat16 or "
-                         f"float32, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: operands must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{name}: q/k/v must be 16-byte aligned")
+    """What the decode launchers take: ``check_kernel_tensors``, plus
+    head_dim a multiple of 8 up to 256, H a multiple of Hkv and int32
+    lengths [B]. Raises ValueError on anything else."""
+    check_kernel_tensors(name, q, k, v, lengths, *extra)
     B, H, D = q.shape
     Hkv = k.shape[-2]
     if D % 8 or D > 256 or k.shape[-1] != D:
@@ -136,7 +123,7 @@ def _launch_ragged(q, k, v, lengths, scale: float):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rt_ragged_decode_attention(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, H, Hkv, D, S,
             float(scale), stream)
     _build.check(err, name)

@@ -27,8 +27,9 @@ from typing import Optional
 
 import torch
 
+from ray_tpu_torch.ops.attention import DTYPE_CODES
 from ray_tpu_torch.ops.decode_attention import (
-    _DTYPE_CODES, check_cuda_operands, online_decode_plain,
+    check_cuda_operands, online_decode_plain,
     ragged_decode_attention_reference)
 from ray_tpu_torch.ops.indexing import gather_index
 
@@ -82,7 +83,7 @@ def _launch_paged(q, k_pool, v_pool, block_tables, lengths, scale: float):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rt_paged_decode_attention(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+            DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), B, H, Hkv, D, NB, bs, tables.shape[1],
             float(scale), stream)

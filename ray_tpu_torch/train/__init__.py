@@ -1,0 +1,7 @@
+"""ray_tpu_torch.train — training on the port (counterpart of
+``ray_tpu.train``); so far the single-device train step."""
+
+from ray_tpu_torch.train.spmd import (TrainStep, make_train_step,
+                                      shard_batch)
+
+__all__ = ["TrainStep", "make_train_step", "shard_batch"]

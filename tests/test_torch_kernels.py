@@ -7,22 +7,29 @@ JAX, so the file runs on a machine that has only the port's dependencies:
 
 The plain versions are held against the JAX package on the CPU by
 tests/test_torch_ops.py. Tolerances: f32 inputs at the repo's own f32 bars
-(rtol 2e-5 / atol 2e-6 ragged, 1e-4 paged), sums taken in another order;
-bf16 outputs mostly relative, within two bf16 ulps (rtol 1.6e-2), with an
-atol of 5e-3 for outputs near 0 (as chip_smoke.py holds them).
+(rtol 2e-5 / atol 2e-6 ragged, 1e-4 paged, rtol 2e-4 / atol 2e-5 flash),
+sums taken in another order; bf16 outputs mostly relative, within two bf16
+ulps (rtol 1.6e-2), with an atol of 5e-3 for outputs near 0 (as
+chip_smoke.py holds them).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.ops import decode_attention as tdec
 from ray_tpu_torch.ops import paged_attention as tpaged
 
 pytestmark = pytest.mark.gpu
 
-TOL = {torch.float32: {"ragged": (2e-5, 2e-6), "paged": (1e-4, 1e-4)},
-       torch.bfloat16: {"ragged": (1.6e-2, 5e-3), "paged": (1.6e-2, 5e-3)}}
+TOL = {torch.float32: {"ragged": (2e-5, 2e-6), "paged": (1e-4, 1e-4),
+                       "flash": (2e-4, 2e-5)},
+       torch.bfloat16: {"ragged": (1.6e-2, 5e-3), "paged": (1.6e-2, 5e-3),
+                        "flash": (1.6e-2, 5e-3)}}
 
 
 @pytest.fixture
@@ -114,3 +121,110 @@ def test_kernel_wrappers_refuse_what_the_kernel_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         tdec.ragged_decode_attention_kernel(
             q, k.transpose(1, 2).contiguous().transpose(1, 2), k, lens)
+
+
+FLASH = [
+    # (B, S, H, Hkv, D, causal)
+    (2, 256, 4, 2, 32, True),                   # tests/test_ops.py
+    (2, 256, 4, 2, 32, False),
+    (1, 192, 2, 2, 16, True),                   # S % 64 != 0
+    (2, 2048, 8, 4, 128, True),                 # bench_400m widths
+    (1, 100, 4, 1, 8, True),                    # D=8, G=4
+    (2, 130, 6, 3, 96, True),                   # D padded to 128
+    (1, 77, 2, 2, 256, False),                  # D=256: >48 KB smem
+    (3, 64, 2, 1, 24, True),                    # one tile
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH)
+def test_flash_kernel_matches_plain(dev, case, dtype):
+    B, S, H, Hkv, D, causal = case
+    rng = np.random.default_rng(S + D + H)
+    q = _rand(rng, (B, S, H, D), dtype, dev)
+    k = _rand(rng, (B, S, Hkv, D), dtype, dev)
+    v = _rand(rng, (B, S, Hkv, D), dtype, dev)
+    before = tattn.flash_attention_kernel.launches
+    out = tattn.flash_attention_kernel(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_kernel.launches == before + 1
+    plain = tattn._flash_forward_plain(q, k, v, causal=causal)
+    rtol, atol = TOL[dtype]["flash"]
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), plain.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_function_grads_match_reference(dev):
+    """tests/test_ops.py:341-360: the kernel forward plus the blockwise
+    recompute backward against autograd through the reference, f32."""
+    rng = np.random.default_rng(2)
+    q, k, v = (_rand(rng, (1, 128, 2, 16), torch.float32, dev)
+               .requires_grad_() for _ in range(3))
+    out = tattn.flash_attention(q, k, v, True)
+    grads = torch.autograd.grad((out ** 2).sum(), (q, k, v))
+    ref = torch.autograd.grad(
+        (tattn.reference_attention(q, k, v) ** 2).sum(), (q, k, v))
+    for a, b in zip(grads, ref):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-4)
+
+
+def test_attention_dispatcher_takes_the_kernel_on_the_card(dev):
+    rng = np.random.default_rng(3)
+    q = _rand(rng, (1, 128, 4, 128), torch.bfloat16, dev)
+    k = _rand(rng, (1, 128, 2, 128), torch.bfloat16, dev)
+    before = tattn.flash_attention_kernel.launches
+    tattn.attention(q, k, k)
+    assert tattn.flash_attention_kernel.launches == before + 1
+    tattn.attention(q[:, :64], k[:, :64], k[:, :64])      # S < 128
+    pos = torch.arange(128, device=dev)
+    tattn.attention(q, k, k, positions_q=pos, positions_k=pos)
+    assert tattn.flash_attention_kernel.launches == before + 1
+
+
+def test_flash_wrapper_refuses_what_the_kernel_cannot_take(dev):
+    q = torch.zeros(1, 16, 2, 12, device=dev)             # D not % 8
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.flash_attention_kernel(q, q, q)
+    q = torch.zeros(1, 16, 2, 16, device=dev)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        tattn.flash_attention_kernel(q, q[:, :8], q[:, :8])
+    with pytest.raises(ValueError, match="dtype"):
+        tattn.flash_attention_kernel(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tattn.flash_attention_kernel(q.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), q, q)
+
+
+@pytest.mark.parametrize("remat,policy", [(False, "full"), (True, "full"),
+                                          (True, "dots")])
+def test_training_launches_and_remat_policies(dev, remat, policy):
+    """Through the model on the card: the kernel runs once a layer in the
+    forward and once more in the backward under remat (the forward re-runs;
+    the backward itself launches none), and every policy gives the same
+    loss and gradients. f32, so the comparison is tight."""
+    cfg = dataclasses.replace(LlamaConfig.debug(vocab_size=512),
+                              dtype=torch.float32, attention_impl="kernel")
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, 512, (2, 128))).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+
+    def loss_and_grads(cfg):
+        model = LlamaModel(cfg, device=dev)
+        params = model.init(0, param_dtype=torch.float32)
+        leaves = [params["embed"], *params["layers"].values()]
+        for p in leaves:
+            p.requires_grad_(True)
+        before = tattn.flash_attention_kernel.launches
+        loss = model.loss(params, tokens, targets)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss, grads, tattn.flash_attention_kernel.launches - before
+
+    ref_loss, ref_grads, _ = loss_and_grads(cfg)
+    loss, grads, launches = loss_and_grads(dataclasses.replace(
+        cfg, remat=remat, remat_policy=policy))
+    assert launches == (2 if remat else 1) * cfg.n_layers
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-6, atol=1e-6)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)

@@ -7,8 +7,10 @@ these plain versions on the card by tests/test_torch_kernels.py.
 """
 
 import ast
+import importlib
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,11 +24,14 @@ from ray_tpu.ops.rope import apply_rope as j_apply_rope
 from ray_tpu.ops.rope import rope_frequencies as j_rope_frequencies
 from ray_tpu_torch.ops import decode_attention as tdec
 from ray_tpu_torch.ops import paged_attention as tpaged
+from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.ops.attention import repeat_kv
 from ray_tpu_torch.ops.norms import layer_norm, rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
+# the module: ``ray_tpu.ops`` re-exports a function under the same name
+jattn = importlib.import_module("ray_tpu.ops.attention")
 
 
 def _t(a, dtype=torch.float32):
@@ -254,6 +259,147 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
                         str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+# ---------------------------------------------------------------------------
+# training attention: reference, blockwise, flash (tests/test_ops.py shapes
+# and tolerances)
+# ---------------------------------------------------------------------------
+
+def _qkv_inputs(seed, B, S, H, Hkv, D):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, H, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2)])
+def test_reference_attention_matches_jax(causal, heads):
+    H, Hkv = heads
+    q, k, v = _qkv_inputs(10, 2, 24, H, Hkv, 16)
+    out = tattn.reference_attention(_t(q), _t(k), _t(v), causal=causal)
+    ref = jattn.reference_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_reference_attention_positions_match_jax():
+    q, k, v = _qkv_inputs(11, 2, 12, 4, 2, 8)
+    pos_q = np.array([3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14], np.int32)
+    pos_k = np.array([0, 2, 4, 6, 8, 10, 12, 14, 16, 18, 20, 22], np.int32)
+    out = tattn.reference_attention(
+        _t(q), _t(k), _t(v), positions_q=torch.from_numpy(pos_q),
+        positions_k=torch.from_numpy(pos_k))
+    ref = jattn.reference_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        positions_q=jnp.asarray(pos_q), positions_k=jnp.asarray(pos_k))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_blockwise_attention_matches_jax(causal):
+    q, k, v = _qkv_inputs(3, 2, 40, 4, 2, 8)           # 40 % 16 != 0
+    out = tattn.blockwise_attention(_t(q), _t(k), _t(v), causal=causal,
+                                    block_k=16)
+    ref = jattn.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    block_k=16)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-5)
+    # and against the port's own reference, as the JAX test holds it
+    np.testing.assert_allclose(
+        out.numpy(), tattn.reference_attention(
+            _t(q), _t(k), _t(v), causal=causal).numpy(), rtol=2e-4,
+        atol=2e-5)
+
+
+def test_blockwise_attention_grad_matches_jax():
+    q, k, v = _qkv_inputs(3, 2, 40, 4, 2, 8)
+    jk, jv = jnp.asarray(k), jnp.asarray(v)
+    jgrad = jax.grad(lambda q_: jattn.blockwise_attention(
+        q_, jk, jv, block_k=16).sum())(jnp.asarray(q))
+    tq = _t(q).requires_grad_()
+    tattn.blockwise_attention(tq, _t(k), _t(v), block_k=16).sum().backward()
+    np.testing.assert_allclose(tq.grad.numpy(), np.asarray(jgrad),
+                               rtol=1e-4, atol=1e-5)
+
+
+FLASH_CASES = [
+    # (seed, B, S, H, Hkv, D, causal): tests/test_ops.py:314-338
+    (0, 2, 256, 4, 2, 32, True),
+    (0, 2, 256, 4, 2, 32, False),
+    (1, 1, 192, 2, 2, 16, True),                # tail block
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_plain_matches_pallas_interpret(case):
+    seed, B, S, H, Hkv, D, causal = case
+    q, k, v = _qkv_inputs(seed, B, S, H, Hkv, D)
+    pallas = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal, 128, 128, True)
+    before = tattn.flash_attention_kernel.launches
+    out = tattn.flash_attention_kernel(_t(q), _t(k), _t(v), causal)
+    assert tattn.flash_attention_kernel.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), rtol=2e-4,
+                               atol=2e-5)
+
+
+def test_flash_plain_bf16_matches_pallas_interpret():
+    q, k, v = _qkv_inputs(4, 1, 160, 4, 2, 32)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    pallas = jattn.flash_attention(*jargs, True, 128, 128, True)
+    out = tattn.flash_attention_kernel(*(_t(a, torch.bfloat16)
+                                         for a in (q, k, v)), True)
+    assert out.dtype == torch.bfloat16
+    # the same bf16 inputs and f32 sums; outputs within two bf16 ulps
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(pallas, np.float32), rtol=1.6e-2,
+                               atol=5e-3)
+
+
+def test_flash_function_grads_match_jax():
+    q, k, v = _qkv_inputs(2, 1, 128, 2, 2, 16)
+
+    def f_flash(q, k, v):
+        return (jattn.flash_attention(q, k, v, True, 64, 64, True) ** 2).sum()
+
+    jgrads = jax.grad(f_flash, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    (tattn.flash_attention(tq, tk, tv, True) ** 2).sum().backward()
+    for t, j in zip((tq, tk, tv), jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), rtol=5e-3,
+                                   atol=5e-4)
+    # inputs that need no grad get none
+    tq = _t(q).requires_grad_()
+    (tattn.flash_attention(tq, _t(k), _t(v), True) ** 2).sum().backward()
+    assert tq.grad is not None
+
+
+def test_attention_dispatcher_takes_the_reference_on_cpu():
+    q, k, v = _qkv_inputs(5, 1, 128, 4, 2, 128)        # tiles cleanly
+    before = tattn.flash_attention_kernel.launches
+    out = tattn.attention(_t(q), _t(k), _t(v))
+    ref = tattn.reference_attention(_t(q), _t(k), _t(v))
+    assert torch.equal(out, ref)
+    assert tattn.flash_attention_kernel.launches == before
+    ref = jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_flash_wrapper_rejects_bad_shapes():
+    q, k, v = _qkv_inputs(6, 1, 16, 3, 2, 8)            # 3 % 2 != 0
+    with pytest.raises(ValueError, match="multiple"):
+        tattn.flash_attention_kernel(_t(q), _t(k), _t(v))
+    with pytest.raises(ValueError, match="expected"):
+        tattn.flash_attention_kernel(_t(q)[0], _t(k), _t(v))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tattn.check_kernel_tensors("x", _t(q), _t(k), _t(v))
 
 
 # ---------------------------------------------------------------------------
