@@ -4,16 +4,21 @@
     python3 chip_smoke.py
 
 1. Builds the port's CUDA kernels from ``ray_tpu_torch/csrc`` with nvcc,
-   one compiler per source, all at once.
+   one compiler per source, all at once, and checks with ``cuobjdump`` that
+   the flash library holds wgmma and TMA loads and the decode library
+   cp.async.
 2. Holds each kernel against its plain PyTorch version on the card: bf16 at
    the shapes its main path gives it and f32 at the repo's test shapes, and
    times kernel, plain version and a library yardstick
    (``scaled_dot_product_attention``; the port never calls it) beside the
-   least time the card could take. Decode kernels: 32 slots, 32 query / 8
-   KV heads, head_dim 128, block 32, lengths spread over 1..1024. Flash
-   kernel: bench_400m's attention, batch 8 x seq 2048, 8 query / 4 KV
-   heads, head_dim 128, causal; and its gradient (the blockwise recompute)
-   against autograd through the reference.
+   least time the card could take, printing each kernel's rate (TFLOP/s or
+   TB/s), its share of the bound and its factor behind the yardstick. Kernel
+   and yardstick times are device time (CUDA-graph replay); the time of
+   back-to-back calls from Python is printed beside. Decode kernels: 32
+   slots, 32 query / 8 KV heads, head_dim 128, block 32, lengths spread
+   over 1..1024. Flash kernel: bench_400m's attention, batch 8 x seq 2048,
+   8 query / 4 KV heads, head_dim 128, causal; and its gradient (the
+   blockwise recompute) against autograd through the reference.
 3. Serving path, every launch counter at 0: ``LLMServer`` on the card with
    Llama-3-8B's widths (random weights from seed 0) answers 16 requests
    through ``__call__`` and ``stream`` (prompts of 32-256 tokens, four
@@ -72,22 +77,6 @@ def tol_ratio(a, b, tol=BF16_TOL) -> float:
         .max().item()
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound_ms(bytes_moved: float, ops: float, dtype) -> tuple:
     dname = str(dtype).replace("torch.", "")
     t_bytes = bytes_moved / HBM_BYTES_PER_S
@@ -112,14 +101,36 @@ def sdpa_ms(q, k_dense, v_dense, lengths, iters):
     view with a length mask and grouped heads."""
     import torch
     import torch.nn.functional as F
+    from ray_tpu_torch.profile_kernels import graph_ms
     S = k_dense.shape[1]
     qq = q[:, :, None, :]                                   # [B, H, 1, D]
     kk = k_dense.transpose(1, 2)                            # [B, Hkv, S, D]
     vv = v_dense.transpose(1, 2)
     mask = (torch.arange(S, device=q.device)[None, :]
             < lengths[:, None])[:, None, None, :]
-    return cuda_ms(lambda: F.scaled_dot_product_attention(
+    return graph_ms(lambda: F.scaled_dot_product_attention(
         qq, kk, vv, attn_mask=mask, enable_gqa=True), iters)
+
+
+# the Hopper instructions each library must hold: wgmma (HGMMA) fed by TMA
+# (UTMALDG) for the flash kernel, cp.async (LDGSTS) for the decode kernels
+SASS_NEEDS = {"flash_attention": ("HGMMA", "UTMALDG", "SYNCS"),
+              "decode_attention": ("LDGSTS",)}
+
+
+def check_sass(name: str, lib_path) -> None:
+    """Count the instructions of ``SASS_NEEDS`` in the built library with
+    the toolkit's ``cuobjdump -sass``; raise if one is missing."""
+    from pathlib import Path
+    from ray_tpu_torch import _build
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in SASS_NEEDS[name]}
+    log(f"  sass of {lib_path.name}: {counts}")
+    if not all(counts.values()):
+        raise RuntimeError(f"{name}: instructions missing from the build: "
+                           f"{counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +141,7 @@ def check_kernels(dev, gen) -> list:
     import torch
     from ray_tpu_torch.ops import decode_attention as dec
     from ray_tpu_torch.ops import paged_attention as paged
+    from ray_tpu_torch.profile_kernels import eager_ms, graph_ms
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -185,9 +197,9 @@ def check_kernels(dev, gen) -> list:
     torch.testing.assert_close(out.float(), plain.float(), **BF16_TOL)
     wrong = paged._paged_decode_plain(q, kp, vp, tables, short, scale=scale)
     skip_ratio = tol_ratio(wrong[long_slots], plain[long_slots])
-    ms = cuda_ms(lambda: paged._launch_paged(q, kp, vp, tables, lens,
-                                             scale), 50)
-    plain_ms = cuda_ms(lambda: paged._paged_decode_plain(
+    call = (lambda: paged._launch_paged(q, kp, vp, tables, lens, scale))
+    ms, host_ms = graph_ms(call), eager_ms(call)
+    plain_ms = eager_ms(lambda: paged._paged_decode_plain(
         q, kp, vp, tables, lens, scale=scale), 5)
     dense_k = kp[tables.long()].reshape(B, maxb * bs, Hkv, D)
     dense_v = vp[tables.long()].reshape(B, maxb * bs, Hkv, D)
@@ -203,7 +215,8 @@ def check_kernels(dev, gen) -> list:
                  .item(),
                  "tol_ratio": tol_ratio(out, plain), "skip_ratio": skip_ratio,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": lib_ms})
+                 "bound_by": b_by, "library_ms": lib_ms, "bytes": nbytes,
+                 "host_ms": host_ms})
 
     # ragged, dense cache [B, S, Hkv, D] with S = 1024
     S = maxb * bs
@@ -214,8 +227,9 @@ def check_kernels(dev, gen) -> list:
     wrong = dec._ragged_decode_plain(q, k, v, short, block_k=128,
                                      scale=scale)
     skip_ratio = tol_ratio(wrong[long_slots], plain[long_slots])
-    ms = cuda_ms(lambda: dec._launch_ragged(q, k, v, lens, scale), 50)
-    plain_ms = cuda_ms(lambda: dec._ragged_decode_plain(
+    call = (lambda: dec._launch_ragged(q, k, v, lens, scale))
+    ms, host_ms = graph_ms(call), eager_ms(call)
+    plain_ms = eager_ms(lambda: dec._ragged_decode_plain(
         q, k, v, lens, block_k=128, scale=scale), 5)
     lib_ms = sdpa_ms(q, k, v, lens, 20)
     nbytes, ops = decode_work(lengths, H, Hkv, D, 2)
@@ -228,10 +242,16 @@ def check_kernels(dev, gen) -> list:
                  .item(),
                  "tol_ratio": tol_ratio(out, plain), "skip_ratio": skip_ratio,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": lib_ms})
+                 "bound_by": b_by, "library_ms": lib_ms, "bytes": nbytes,
+                 "host_ms": host_ms})
     for r in rows:
         log(f"{r['name']}: bf16 B={B} H={H} Hkv={Hkv} D={D} "
-            f"sum(len)={int(lengths.sum())}: kernel {r['ms']:.4f} ms, plain "
+            f"sum(len)={int(lengths.sum())}: kernel {r['ms']:.4f} ms "
+            f"({r['bytes'] / r['ms'] / 1e9:.3f} TB/s, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound, "
+            f"{r['ms'] / r['library_ms']:.2f}x the sdpa time; "
+            f"{r['host_ms']:.4f} ms a call back to back, host included), "
+            f"plain "
             f"{r['plain_ms']:.3f} ms, sdpa {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
             f"{r['max_abs_err']:.3e}, {r['tol_ratio']:.2f}x the tolerance "
@@ -247,6 +267,7 @@ def check_flash(dev, gen) -> dict:
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.profile_kernels import eager_ms, graph_ms
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -287,19 +308,22 @@ def check_flash(dev, gen) -> dict:
     out = attn.flash_attention_kernel(q, k, v, True)
     plain = attn._flash_forward_plain(q, k, v, causal=True)
     torch.testing.assert_close(out.float(), plain.float(), **BF16_TOL)
-    # a wrong kernel to hold the bound against: each 64-row block of
-    # queries drops its last (diagonal) K tile; rows 64.. compared
+    # a wrong kernel to hold the bound against: each 128-row block of
+    # queries (the kernel's tile) drops its last (diagonal) K tile; rows
+    # 128.. compared
     rows = torch.arange(S, device=dev)
-    wrong = attn.reference_attention(q, k, v, positions_q=rows // 64 * 64 - 1,
+    wrong = attn.reference_attention(q, k, v,
+                                     positions_q=rows // 128 * 128 - 1,
                                      positions_k=rows)
-    skip_ratio = tol_ratio(wrong[:, 64:], plain[:, 64:])
+    skip_ratio = tol_ratio(wrong[:, 128:], plain[:, 128:])
     del wrong
-    ms = cuda_ms(lambda: attn._launch_flash(q, k, v, True, scale), 50)
-    plain_ms = cuda_ms(lambda: attn._flash_forward_plain(q, k, v,
+    call = (lambda: attn._launch_flash(q, k, v, True, scale))
+    ms, host_ms = graph_ms(call), eager_ms(call)
+    plain_ms = eager_ms(lambda: attn._flash_forward_plain(q, k, v,
                                                          causal=True), 3, 1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
     elt = 2
     nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * elt   # q, o, k, v
     ops = 4 * B * H * D * (S * (S + 1) // 2)       # causal (row, col) pairs
@@ -312,7 +336,9 @@ def check_flash(dev, gen) -> dict:
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": lib_ms}
     log(f"flash_attention: bf16 B={B} S={S} H={H} Hkv={Hkv} D={D} causal: "
-        f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * b_ms / ms:.1f} % of the bound, {ms / lib_ms:.2f}x the sdpa "
+        f"time; {host_ms:.4f} ms a call back to back, host included), plain "
         f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}; {ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
         f"max_abs_err {row['max_abs_err']:.3e}, {row['tol_ratio']:.2f}x the "
@@ -562,6 +588,8 @@ def main() -> int:
                     or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"built {len(names)} sources in {time.perf_counter() - t0:.1f} s")
+    for name, lib_path in zip(names, lib_paths):
+        check_sass(name, lib_path)
 
     # 2. kernels against their plain versions
     rows = check_kernels(dev, gen)

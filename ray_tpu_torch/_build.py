@@ -29,11 +29,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "decode_attention": {
         "rt_paged_decode_attention": (
-            _I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                 ctypes.c_float, _P]),
+            _I, [_I, *[_P] * 8, *[_I] * 9, ctypes.c_float, _P]),
         "rt_ragged_decode_attention": (
-            _I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                 ctypes.c_float, _P]),
+            _I, [_I, *[_P] * 7, *[_I] * 7, ctypes.c_float, _P]),
     },
     "flash_attention": {
         "rt_flash_attention_forward": (

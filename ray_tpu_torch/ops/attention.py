@@ -205,11 +205,8 @@ def _launch_flash(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     from ray_tpu_torch import _build
     name = "flash_attention_kernel"
     check_kernel_tensors(name, q, k, v)
-    B, S, H, D = q.shape
-    Hkv = k.shape[2]
-    if k.shape[1] != S:
-        raise ValueError(f"{name}: the kernel takes Sq == Sk (top-left "
-                         f"causal alignment), got {S} and {k.shape[1]}")
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     if D % 8 or D > 256:
         raise ValueError(f"{name}: head_dim must be a multiple of 8 up to "
                          f"256, got {D}")
@@ -221,7 +218,7 @@ def _launch_flash(q, k, v, causal: bool, scale: float) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rt_flash_attention_forward(
             DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, S, S, H, Hkv, D, int(causal), float(scale),
+            out.data_ptr(), B, Sq, Sk, H, Hkv, D, int(causal), float(scale),
             stream)
     _build.check(err, name)
     return out
@@ -230,8 +227,9 @@ def _launch_flash(q, k, v, causal: bool, scale: float) -> torch.Tensor:
 def flash_attention_kernel(q, k, v, causal: bool = True) -> torch.Tensor:
     """The hand-written flash-attention forward for CUDA tensors, the plain
     version of the Pallas kernel for CPU tensors. No fallback between the
-    two: a CUDA tensor the kernel cannot take raises. Not differentiable:
-    ``flash_attention`` is."""
+    two: a CUDA tensor the kernel cannot take raises. Sq and Sk may differ;
+    causal masking is then aligned top-left (row r sees keys 0..r), as in
+    the JAX kernel. Not differentiable: ``flash_attention`` is."""
     _check_flash_shapes(q, k, v)
     if q.device.type == "cpu":
         return _flash_forward_plain(q, k, v, causal=causal)

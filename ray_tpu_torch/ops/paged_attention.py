@@ -29,8 +29,8 @@ import torch
 
 from ray_tpu_torch.ops.attention import DTYPE_CODES
 from ray_tpu_torch.ops.decode_attention import (
-    check_cuda_operands, online_decode_plain,
-    ragged_decode_attention_reference)
+    check_cuda_operands, decode_split_plan, online_decode_plain,
+    ragged_decode_attention_reference, split_scratch)
 from ray_tpu_torch.ops.indexing import gather_index
 
 
@@ -70,7 +70,11 @@ def _paged_decode_plain(q, k_pool, v_pool, block_tables, lengths, *,
         lambda i: (k_pool[tables[:, i]], v_pool[tables[:, i]]), scale)
 
 
-def _launch_paged(q, k_pool, v_pool, block_tables, lengths, scale: float):
+def _launch_paged(q, k_pool, v_pool, block_tables, lengths, scale: float,
+                  scratch=None):
+    """One call of the entry point: the split kernel, then the merge.
+    ``scratch`` (``split_scratch``'s pair) receives the partials; by default
+    it is allocated here."""
     from ray_tpu_torch import _build
     name = "paged_decode_attention_kernel"
     lengths = lengths.to(torch.int32).contiguous()
@@ -78,6 +82,9 @@ def _launch_paged(q, k_pool, v_pool, block_tables, lengths, scale: float):
     check_cuda_operands(name, q, k_pool, v_pool, lengths, extra=(tables,))
     B, H, D = q.shape
     NB, bs, Hkv, _ = k_pool.shape
+    maxb = tables.shape[1]
+    split_rows, n_split = decode_split_plan(maxb * bs)
+    part_acc, part_ml = scratch or split_scratch(B, n_split, H, D, q.device)
     lib = _build.load_library("decode_attention")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -85,8 +92,8 @@ def _launch_paged(q, k_pool, v_pool, block_tables, lengths, scale: float):
         err = lib.rt_paged_decode_attention(
             DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, H, Hkv, D, NB, bs, tables.shape[1],
-            float(scale), stream)
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, H,
+            Hkv, D, NB, bs, maxb, n_split, split_rows, float(scale), stream)
     _build.check(err, name)
     return out
 

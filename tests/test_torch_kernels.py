@@ -51,6 +51,11 @@ PAGED = [
     (2, 32, 8, 128, 32, 70, 32, [1024, 517]),       # Llama-3-8B widths
     (2, 16, 2, 256, 8, 12, 5, [40, 7]),             # G=8, D=256: >48 KB smem
     (5, 6, 6, 8, 3, 40, 7, [21, 1, 2, 20, 9]),      # MHA, odd block size
+    # split-KV edges: lengths on and beside chunk edges (128 rows), an
+    # empty slot, a table width (33 * 32) that is no multiple of the chunk
+    (6, 32, 8, 128, 32, 200, 33, [0, 1, 255, 256, 257, 1024]),
+    (3, 64, 8, 128, 16, 100, 20, [255, 320, 0]),    # G=8, width 320
+    (4, 8, 8, 64, 32, 40, 9, [257, 288, 1, 256]),   # G=1, width 288
 ]
 
 
@@ -83,6 +88,9 @@ RAGGED = [
     (2, 96, 4, 4, 16, [37, 96]),                # S not a multiple of 32/64
     (3, 1024, 32, 8, 128, [1, 513, 1024]),      # Llama-3-8B widths
     (2, 40, 8, 1, 64, [0, 39]),                 # empty slot, G=8
+    (6, 1056, 32, 8, 128, [0, 1, 255, 256, 257, 1024]),   # chunk edges
+    (3, 300, 16, 2, 128, [300, 0, 256]),        # G=8, 2 chunks
+    (2, 513, 4, 4, 32, [513, 1]),               # G=1, 3 chunks
 ]
 
 
@@ -102,6 +110,62 @@ def test_ragged_kernel_matches_plain(dev, case, dtype):
     rtol, atol = TOL[dtype]["ragged"]
     torch.testing.assert_close(out.float(), plain.float(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [True, False])
+def test_split_partials_and_merge_match_plain(dev, paged, dtype):
+    """Each live chunk's partial (m, l, acc) against the plain online
+    softmax over that chunk, and the merge kernel against
+    ``_merge_splits_plain`` on the kernel's own partials."""
+    B, H, Hkv, D, bs, maxb = 6, 32, 8, 128, 32, 33
+    lengths = [0, 1, 255, 256, 257, 1024]
+    rng = np.random.default_rng(21)
+    q = _rand(rng, (B, H, D), dtype, dev)
+    kp = _rand(rng, (B * maxb, bs, Hkv, D), dtype, dev)
+    vp = _rand(rng, (B * maxb, bs, Hkv, D), dtype, dev)
+    tables = torch.from_numpy(rng.permutation(B * maxb).reshape(B, maxb)
+                              .astype(np.int32)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    split_rows, n_split = tdec.decode_split_plan(maxb * bs)
+    scratch = tdec.split_scratch(B, n_split, H, D, dev)
+    scale = D ** -0.5
+    if paged:
+        out = tpaged._launch_paged(q, kp, vp, tables, lens, scale, scratch)
+        tab = tables.long()
+
+        def kv_block(i):
+            return kp[tab[:, i]], vp[tab[:, i]]
+        nblk, blk = maxb, bs
+    else:
+        k = kp[tables.long()].reshape(B, maxb * bs, Hkv, D)
+        v = vp[tables.long()].reshape(B, maxb * bs, Hkv, D)
+        out = tdec._launch_ragged(q, k, v, lens, scale, scratch)
+
+        def kv_block(i):
+            return k[:, i * 32:(i + 1) * 32], v[:, i * 32:(i + 1) * 32]
+        nblk, blk = maxb * bs // 32, 32
+    torch.cuda.synchronize()
+    part_acc, part_ml = scratch
+    for c in range(n_split):
+        m, l, acc = tdec.online_decode_state(
+            q, lens, nblk, blk, kv_block, scale, lo=c * split_rows,
+            hi=(c + 1) * split_rows)
+        for b, n in enumerate(lengths):
+            if c * split_rows >= n:
+                continue                        # never written, never read
+            torch.testing.assert_close(part_ml[b, c, :, 0], m[b, :, 0],
+                                       rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(part_ml[b, c, :, 1], l[b, :, 0],
+                                       rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(part_acc[b, c], acc[b], rtol=1e-4,
+                                       atol=1e-4)
+    merged = tdec._merge_splits_plain(part_acc, part_ml, lens, split_rows,
+                                      dtype)
+    rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (1.6e-2, 5e-3)
+    torch.testing.assert_close(out.float(), merged.float(), rtol=rtol,
+                               atol=atol)
+    assert not out[0].any()                     # the empty slot gives 0
 
 
 def test_kernel_wrappers_refuse_what_the_kernel_cannot_take(dev):
@@ -133,6 +197,14 @@ FLASH = [
     (2, 130, 6, 3, 96, True),                   # D padded to 128
     (1, 77, 2, 2, 256, False),                  # D=256: >48 KB smem
     (3, 64, 2, 1, 24, True),                    # one tile
+    # the wgmma kernel (bf16, D=128) at its edges: partial last query and
+    # key tiles, and B*H*tiles leaving a partial last wave on 132 SMs
+    (1, 130, 4, 2, 128, True),
+    (1, 130, 4, 2, 128, False),
+    (2, 1000, 8, 4, 128, True),
+    (2, 1000, 8, 4, 128, False),
+    (1, 2047, 9, 3, 128, True),
+    (1, 2047, 9, 3, 128, False),
 ]
 
 
@@ -148,6 +220,34 @@ def test_flash_kernel_matches_plain(dev, case, dtype):
     out = tattn.flash_attention_kernel(q, k, v, causal)
     torch.cuda.synchronize()
     assert tattn.flash_attention_kernel.launches == before + 1
+    plain = tattn._flash_forward_plain(q, k, v, causal=causal)
+    rtol, atol = TOL[dtype]["flash"]
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), plain.float(), rtol=rtol,
+                               atol=atol)
+
+
+FLASH_SQ_SK = [
+    # (B, Sq, Sk, H, Hkv, D): causal aligned top-left, as in JAX
+    (2, 96, 160, 4, 2, 128),                    # the wgmma kernel
+    (2, 160, 96, 4, 2, 128),
+    (1, 300, 1000, 2, 1, 128),
+    (2, 96, 160, 4, 2, 32),                     # the mma.sync kernel
+    (2, 160, 96, 4, 2, 32),
+]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_SQ_SK)
+def test_flash_kernel_sq_ne_sk_matches_plain(dev, case, dtype, causal):
+    B, Sq, Sk, H, Hkv, D = case
+    rng = np.random.default_rng(Sq + Sk + D)
+    q = _rand(rng, (B, Sq, H, D), dtype, dev)
+    k = _rand(rng, (B, Sk, Hkv, D), dtype, dev)
+    v = _rand(rng, (B, Sk, Hkv, D), dtype, dev)
+    out = tattn.flash_attention_kernel(q, k, v, causal)
+    torch.cuda.synchronize()
     plain = tattn._flash_forward_plain(q, k, v, causal=causal)
     rtol, atol = TOL[dtype]["flash"]
     assert out.dtype == dtype and out.shape == q.shape
@@ -187,8 +287,6 @@ def test_flash_wrapper_refuses_what_the_kernel_cannot_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         tattn.flash_attention_kernel(q, q, q)
     q = torch.zeros(1, 16, 2, 16, device=dev)
-    with pytest.raises(ValueError, match="Sq == Sk"):
-        tattn.flash_attention_kernel(q, q[:, :8], q[:, :8])
     with pytest.raises(ValueError, match="dtype"):
         tattn.flash_attention_kernel(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="contiguous"):

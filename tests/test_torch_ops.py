@@ -240,6 +240,81 @@ def test_paged_wrapper_rejects_bad_shapes():
             torch.from_numpy(lens[:1]))
 
 
+# ---------------------------------------------------------------------------
+# split-KV decode (the kernels' chunking and merge, in plain PyTorch)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("width,plan", [(1024, (128, 8)), (1000, (128, 8)),
+                                        (257, (128, 3)), (256, (128, 2)),
+                                        (40, (128, 1)), (0, (128, 1))])
+def test_decode_split_plan_covers_the_table(width, plan):
+    split_rows, n_split = tdec.decode_split_plan(width)
+    assert (split_rows, n_split) == plan
+    assert split_rows % 32 == 0 and n_split * split_rows >= width
+
+
+# lengths on and beside chunk edges, an empty slot, a full table
+SPLIT_LENGTHS = [0, 1, 128, 255, 256, 257, 600]
+
+
+@pytest.mark.parametrize("G", [1, 4])
+def test_split_ragged_plain_matches_jax_reference(G):
+    q, k, v, lens = _ragged_inputs(12, 7, 600, 2 * G, 2, 8, SPLIT_LENGTHS)
+    # S = 600 walked in 64-row blocks (padded to 640): five 128-row chunks,
+    # the last one partly past the cache
+    ref = jdec.ragged_decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens))
+    kt = torch.nn.functional.pad(_t(k), (0, 0, 0, 0, 0, 40))    # 600 -> 640
+    vt = torch.nn.functional.pad(_t(v), (0, 0, 0, 0, 0, 40))
+    out = tdec.split_decode_plain(
+        _t(q), torch.from_numpy(lens), 10, 64,
+        lambda i: (kt[:, i * 64:(i + 1) * 64], vt[:, i * 64:(i + 1) * 64]),
+        8 ** -0.5)
+    # the empty slot: 0, as the Pallas kernel gives (l == 0 -> 1); the
+    # masked reference averages V uniformly there
+    assert not out[0].any()
+    np.testing.assert_allclose(out[1:].numpy(), np.asarray(ref)[1:],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_split_paged_plain_matches_jax_reference():
+    # width 40 * 16 = 640 rows: five 128-row chunks
+    lengths = [0, 256, 257, 513, 640, 17]
+    q, kp, vp, tables, lens = _paged_inputs(13, 6, 8, 2, 16, 16, 241, 40,
+                                            lengths)
+    ref = jpaged.paged_decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(lens))
+    kp_t, vp_t = _t(kp), _t(vp)
+    tab = torch.from_numpy(tables).long()
+    out = tdec.split_decode_plain(
+        _t(q), torch.from_numpy(lens), 40, 16,
+        lambda i: (kp_t[tab[:, i]], vp_t[tab[:, i]]), 16 ** -0.5)
+    assert not out[0].any()                  # the empty slot, as above
+    np.testing.assert_allclose(out[1:].numpy(), np.asarray(ref)[1:],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_merge_splits_plain_reads_only_live_chunks():
+    """Chunks that start at or past a slot's length are never read (the
+    kernel leaves them unwritten), and one chunk merges to itself."""
+    rng = np.random.default_rng(14)
+    acc = torch.from_numpy(rng.normal(size=(3, 4, 2, 8)).astype(np.float32))
+    ml = torch.from_numpy(np.stack(
+        [rng.normal(size=(3, 4, 2)), rng.uniform(1, 3, (3, 4, 2))],
+        -1).astype(np.float32))
+    lens = torch.tensor([0, 256, 700])
+    acc[0] = acc[1, 1:] = acc[2, 3] = float("nan")     # never written
+    ml[0] = ml[1, 1:] = ml[2, 3] = float("nan")
+    out = tdec._merge_splits_plain(acc, ml, lens, 256, torch.float32)
+    assert torch.isfinite(out).all() and not out[0].any()
+    torch.testing.assert_close(out[1], acc[1, 0] / ml[1, 0, :, 1:])
+    w = torch.exp(ml[2, :3, :, 0] - ml[2, :3, :, 0].amax(0))        # [3,H]
+    want = (w[..., None] * acc[2, :3]).sum(0) / \
+        (w * ml[2, :3, :, 1]).sum(0)[:, None]
+    torch.testing.assert_close(out[2], want)
+
+
 def test_cuda_operand_checks_refuse_cpu_tensors():
     q, k, v, lens = _ragged_inputs(6, 2, 16, 4, 2, 8, [3, 9])
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -344,6 +419,21 @@ def test_flash_plain_matches_pallas_interpret(case):
     before = tattn.flash_attention_kernel.launches
     out = tattn.flash_attention_kernel(_t(q), _t(k), _t(v), causal)
     assert tattn.flash_attention_kernel.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(96, 160), (160, 96)])
+def test_flash_plain_sq_ne_sk_matches_pallas_interpret(sq, sk, causal):
+    """Sq != Sk, causal aligned top-left as in the JAX kernel."""
+    rng = np.random.default_rng(sq + sk)
+    q = rng.normal(size=(1, sq, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(1, sk, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(1, sk, 2, 16)).astype(np.float32)
+    pallas = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal, 128, 128, True)
+    out = tattn.flash_attention_kernel(_t(q), _t(k), _t(v), causal)
     np.testing.assert_allclose(out.numpy(), np.asarray(pallas), rtol=2e-4,
                                atol=2e-5)
 
