@@ -17,8 +17,9 @@
    back-to-back calls from Python is printed beside. Decode kernels: 32
    slots, 32 query / 8 KV heads, head_dim 128, block 32, lengths spread
    over 1..1024. Flash kernel: bench_400m's attention, batch 8 x seq 2048,
-   8 query / 4 KV heads, head_dim 128, causal; and its gradient (the
-   blockwise recompute) against autograd through the reference.
+   8 query / 4 KV heads, head_dim 128, causal (and batch 2, the MoE path's
+   shapes); and its gradient (the blockwise recompute) against autograd
+   through the reference.
 3. Serving path, every launch counter at 0: ``LLMServer`` on the card with
    Llama-3-8B's widths (random weights from seed 0) answers 16 requests
    through ``__call__`` and ``stream`` (prompts of 32-256 tokens, four
@@ -34,6 +35,21 @@
    step (forward and remat recompute), and the loss must fall.
 6. The loss through the flash kernel against the blockwise path on the
    same f32 params and batch, at the repo's bar (rtol 1e-3, atol 1e-4).
+7. The other model families train on the card, one after another, each
+   from seed 0 through ``make_train_step`` with the default AdamW
+   (``ray_tpu_torch.bench.run_family``), the flash counter at 0 before each
+   and each freed before the next: the f32 MLP (784-512-512-10) on 256 rows
+   for 2 + 50 steps; GPT-2 125M on 8 x 1024 tokens, ViT-L/16 on 32 images of
+   224 x 224 x 3, both bf16 with remat, 2 + 10 steps; the einsum-dispatch
+   MoE at bench_400m's widths (8 experts, top-2) on 2 x 2048 tokens, 2 + 5
+   steps. Each prints step time, tokens/s or images/s, the first and last
+   loss and its params (MFU for GPT-2 and ViT); the loss must fall. The MoE
+   path must launch the flash kernel twice per layer per step, GPT-2 and
+   ViT (head_dim 64: the dispatcher's reference attention, JAX's rule) never.
+8. The MoE loss through the flash kernel against the blockwise path (f32
+   params, batch 2 x 2048) at phase 6's bar; GPT-2 125M and ViT-L/16 in
+   f32 on the card against the same port model on the CPU (GPT-2 1 x 256
+   tokens, ViT 2 images), rtol 1e-3.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -317,6 +333,13 @@ def check_flash(dev, gen) -> dict:
                                      positions_k=rows)
     skip_ratio = tol_ratio(wrong[:, 128:], plain[:, 128:])
     del wrong
+    # the MoE path's shapes (phase 7): batch 2 of the same widths
+    q2, k2, v2 = (t[:2].contiguous() for t in (q, k, v))
+    out2 = attn.flash_attention_kernel(q2, k2, v2, True).float()
+    plain2 = attn._flash_forward_plain(q2, k2, v2, causal=True).float()
+    torch.testing.assert_close(out2, plain2, **BF16_TOL)
+    moe_err = (out2 - plain2).abs().max().item()
+    del q2, k2, v2, out2, plain2
     call = (lambda: attn._launch_flash(q, k, v, True, scale))
     ms, host_ms = graph_ms(call), eager_ms(call)
     plain_ms = eager_ms(lambda: attn._flash_forward_plain(q, k, v,
@@ -343,7 +366,8 @@ def check_flash(dev, gen) -> dict:
         f"({b_by}; {ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
         f"max_abs_err {row['max_abs_err']:.3e}, {row['tol_ratio']:.2f}x the "
         f"tolerance {BF16_TOL}; a version that drops each row block's "
-        f"diagonal K tile reads {skip_ratio:.2f}x it")
+        f"diagonal K tile reads {skip_ratio:.2f}x it; at the MoE path's "
+        f"batch 2, max_abs_err {moe_err:.3e}")
     if skip_ratio <= 1:
         raise RuntimeError("flash_attention: the bf16 tolerance does not "
                            "tell a dropped K tile from the kernel")
@@ -529,25 +553,108 @@ def train_path(dev, n_layers: int) -> dict:
     return out
 
 
-def kernel_vs_blockwise_loss(dev) -> tuple:
+def kernel_vs_blockwise_loss(dev, model_cls, cfg, batch: int) -> tuple:
     """``loss`` through the flash kernel and through the blockwise path on
-    the same f32 params and batch."""
+    the same f32 params and batch (``batch`` x 2048 tokens)."""
     import torch
-    from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
-    cfg = LlamaConfig.bench_400m()
     rng = np.random.default_rng(1)
     tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (8, 2048)).astype(np.int64)).to(dev)
+        rng.integers(0, cfg.vocab_size, (batch, 2048)).astype(np.int64)) \
+        .to(dev)
     targets = torch.roll(tokens, -1, dims=1)
-    params = LlamaModel(cfg, device=dev).init(1, param_dtype=torch.float32)
+    params = model_cls(cfg, device=dev).init(1, param_dtype=torch.float32)
     losses = []
     with torch.no_grad():
         for impl in ("kernel", "blockwise"):
-            model = LlamaModel(dataclasses.replace(cfg, attention_impl=impl),
-                               device=dev)
+            model = model_cls(dataclasses.replace(cfg, attention_impl=impl),
+                              device=dev)
             losses.append(model.loss(params, tokens, targets))
     torch.testing.assert_close(losses[0], losses[1], **LOSS_TOL)
     return losses[0].item(), losses[1].item()
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the other model families
+# ---------------------------------------------------------------------------
+
+def free_card() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_families(dev, moe_layers: int) -> dict:
+    """Each family's run of ``bench.WORKLOADS`` on the card, the flash
+    counter set to 0 just before and read just after."""
+    import torch
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import attention as attn
+    runs = {}
+    for name in bench.WORKLOADS:
+        attn.flash_attention_kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = bench.run_family(name, dev)
+        out["launches"] = attn.flash_attention_kernel.launches
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        free_card()
+        steps = out["steps"] + out["warmup"]
+        want = 2 * moe_layers * steps if name == "moe" else 0
+        mfu = ("" if out["mfu"] is None
+               else f", MFU {out['mfu']} (6N over 989 TFLOP/s)")
+        shape = (f"{out['batch']} x {out['seq']}" if out["seq"]
+                 else f"{out['batch']}")
+        log(f"{name}: {out['params']:,} params, batch {shape}, "
+            f"{out['warmup']} + {out['steps']} steps: step "
+            f"{out['step_ms']:.2f} ms, {out['per_sec']:.1f} {out['unit']}/s"
+            f"{mfu}, loss {out['loss_first']:.4f} -> {out['loss_last']:.4f},"
+            f" grad_norm {out['grad_norm']:.4f}, peak allocated "
+            f"{out['peak_gib']:.2f} GiB; flash launches {out['launches']} "
+            f"(want {want})")
+        if out["launches"] != want:
+            raise RuntimeError(f"{name}: flash kernel launches "
+                               f"{out['launches']} != {want}")
+        if not out["loss_last"] < out["loss_first"]:
+            raise RuntimeError(f"{name}: the loss did not fall: {out}")
+        runs[name] = out
+    return runs
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def card_vs_cpu_loss(dev, name: str) -> tuple:
+    """The f32 loss of GPT-2 125M (1 x 256 tokens) or ViT-L/16 (2 images)
+    on the card against the same port model and params on the CPU."""
+    import torch
+    from ray_tpu_torch.models import GPT2Config, GPT2Model, ViTConfig, \
+        ViTModel
+    rng = np.random.default_rng(2)
+    if name == "gpt2":
+        cfg = dataclasses.replace(GPT2Config.gpt2_125m(), dtype=torch.float32)
+        model_cls = GPT2Model
+        tokens = rng.integers(0, cfg.vocab_size, (1, 256))
+        batch = (tokens, np.roll(tokens, -1, axis=1))
+    else:
+        cfg = dataclasses.replace(ViTConfig.vit_l16(), dtype=torch.float32)
+        model_cls = ViTModel
+        batch = (rng.normal(size=(2, 224, 224, 3)).astype(np.float32),
+                 rng.integers(0, cfg.num_classes, 2))
+    batch = tuple(torch.from_numpy(b) for b in batch)
+    cpu = model_cls(cfg, device="cpu")
+    params = cpu.init(2, param_dtype=torch.float32)
+    with torch.no_grad():
+        want = cpu.loss(params, *batch)
+        got = model_cls(cfg, device=dev).loss(to_device(params, dev), *batch)
+    if got.device.type != "cuda":
+        raise RuntimeError(f"{name}: the card's loss came from {got.device}")
+    got = got.cpu()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=0)
+    return got.item(), want.item()
 
 
 def main() -> int:
@@ -557,8 +664,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from ray_tpu_torch import _build
+    from ray_tpu_torch.bench import moe_bench_config
     from ray_tpu_torch.llm import LLMConfig, LLMServer
-    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.models import LlamaConfig, LlamaModel, MoEModel
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.ops import decode_attention as dec
     from ray_tpu_torch.ops import paged_attention as paged
@@ -662,10 +770,30 @@ def main() -> int:
     rows[2]["launches"] = train["launches"]
 
     # 6. the flash kernel's loss against the blockwise path
-    loss_k, loss_b = kernel_vs_blockwise_loss(dev)
+    loss_k, loss_b = kernel_vs_blockwise_loss(dev, LlamaModel,
+                                              LlamaConfig.bench_400m(), 8)
     log(f"loss through the flash kernel {loss_k:.6f}, through the blockwise "
         f"path {loss_b:.6f} (rtol 1e-3 atol 1e-4; bench_400m, f32 params, "
         f"bf16 compute, batch 8 x seq 2048)")
+    free_card()
+
+    # 7. the other model families train, every counter at 0 before each
+    moe_cfg = moe_bench_config()
+    runs = train_families(dev, moe_cfg.n_layers)
+    rows[2]["launches"] += runs["moe"]["launches"]
+
+    # 8. the MoE's flash path against its blockwise path; GPT-2 and ViT on
+    # the card against the CPU
+    loss_k, loss_b = kernel_vs_blockwise_loss(dev, MoEModel, moe_cfg, 2)
+    log(f"MoE loss through the flash kernel {loss_k:.6f}, through the "
+        f"blockwise path {loss_b:.6f} (rtol 1e-3 atol 1e-4; f32 params, "
+        f"bf16 compute, batch 2 x seq 2048)")
+    free_card()
+    for name in ("gpt2", "vit"):
+        card, cpu = card_vs_cpu_loss(dev, name)
+        log(f"{name} f32 loss on the card {card:.6f}, on the CPU {cpu:.6f} "
+            f"(rtol 1e-3; relative difference {abs(card / cpu - 1):.2e})")
+        free_card()
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

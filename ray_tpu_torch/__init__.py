@@ -12,8 +12,11 @@ present; only an explicit ``device="cpu"`` runs on the CPU (the tests do).
 Ported so far: the serving slice — ``ops`` (norms, rope, the paged- and
 ragged-decode attention kernels in ``csrc/``), ``models.llama`` (the KV-cache
 inference paths), ``llm`` (block pool, tokenizer, continuous-batching engine,
-``LLMServer``) — and the single-device training slice — ``ops.attention``
+``LLMServer``) — the single-device training slice — ``ops.attention``
 (reference, blockwise and flash attention, the flash forward kernel in
 ``csrc/``), ``models.llama`` (``apply``, ``loss``, remat), ``train``
-(``make_train_step``) and ``bench`` (``run_train``).
+(``make_train_step``) and ``bench`` (``run_train``) — and the other model
+families, each trained by the same ``make_train_step``: ``models.mlp``,
+``models.gpt2``, ``models.vit`` and ``models.moe`` (einsum dispatch, with the
+router math of ``ops.moe_dispatch``), benchmarked by ``bench.run_family``.
 """

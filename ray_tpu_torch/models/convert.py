@@ -1,9 +1,12 @@
 """Param conversion from the JAX package's layout.
 
-``LlamaModel.init`` in ``ray_tpu/models/llama.py`` returns a pytree of
-stacked-layer f32 arrays. Handed over as numpy arrays (``np.asarray`` of each
-leaf), ``params_from_numpy`` turns it into the port's params: the same keys
-and shapes on ``device``, norm weights in f32 and the matrices in
+Each family's ``init`` in ``ray_tpu/models/`` returns a pytree of f32 arrays
+(stacked layers for the transformers, a list of layers for the MLP). Handed
+over as numpy arrays (``jax.tree.map(np.asarray, tree)``),
+``params_from_numpy`` turns it into the port's params for the family of
+``cfg``: the same keys, nesting and shapes (each family's ``param_spec``) on
+``device``, the leaves the family keeps in f32 (``F32_LEAVES``: norms, the
+MoE router, ViT's head bias, all of the MLP) in f32 and the others in
 ``param_dtype`` (``None``: ``cfg.dtype``, for serving; ``torch.float32``
 keeps every leaf as JAX's ``init`` returns it, for training).
 """
@@ -16,30 +19,43 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models.llama import (NORM_LEAVES, LlamaConfig, Params,
-                                        param_shapes)
+from ray_tpu_torch.models.common import Leaf, build_tree
+from ray_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel, Params
+from ray_tpu_torch.models.mlp import MLPConfig, MLPModel
+from ray_tpu_torch.models.moe import MoEConfig, MoEModel
+from ray_tpu_torch.models.vit import ViTConfig, ViTModel
+
+# config class -> model class; MoEConfig before LlamaConfig, its base
+FAMILIES = ((MoEConfig, MoEModel), (LlamaConfig, LlamaModel),
+            (GPT2Config, GPT2Model), (ViTConfig, ViTModel),
+            (MLPConfig, MLPModel))
 
 
-def params_from_numpy(tree: Mapping, cfg: LlamaConfig,
-                      device: DeviceLike = None,
+def model_class(cfg):
+    """The port's model class for a config of any family."""
+    for config_cls, model_cls in FAMILIES:
+        if isinstance(cfg, config_cls):
+            return model_cls
+    raise TypeError(f"no model family for config {type(cfg).__name__}")
+
+
+def params_from_numpy(tree: Mapping, cfg, device: DeviceLike = None,
                       param_dtype: Optional[torch.dtype] = None) -> Params:
     dev = resolve_device(device)
-    matrix_dtype = param_dtype or cfg.dtype
+    model = model_class(cfg)
+    dtype = param_dtype or cfg.dtype
 
-    def leaf(name, arr, shape):
+    def leaf(path, spec: Leaf):
+        arr = tree
+        for key in path:
+            arr = arr[key]
         a = np.array(arr, dtype=np.float32)     # a copy; bf16 widens
-        if a.shape != tuple(shape):
+        if a.shape != spec.shape:
+            name = "/".join(map(str, path))
             raise ValueError(f"param {name}: shape {a.shape}, expected "
-                             f"{tuple(shape)} for this config")
-        dtype = torch.float32 if name in NORM_LEAVES else matrix_dtype
-        return torch.from_numpy(a).to(device=dev, dtype=dtype)
+                             f"{spec.shape} for this config")
+        out = torch.float32 if path[-1] in model.F32_LEAVES else dtype
+        return torch.from_numpy(a).to(device=dev, dtype=out)
 
-    shapes = param_shapes(cfg)
-    out: Params = {}
-    for name, shape in shapes.items():
-        if name == "layers":
-            out["layers"] = {n: leaf(n, tree["layers"][n], s)
-                             for n, s in shape.items()}
-        else:
-            out[name] = leaf(name, tree[name], shape)
-    return out
+    return build_tree(model.param_spec(cfg), leaf)

@@ -38,10 +38,12 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.models.common import (Leaf, init_params, layer_views,
+                                         remat, token_nll)
 from ray_tpu_torch.ops.attention import (NEG_INF, attention,
                                          blockwise_attention,
                                          flash_attention, repeat_kv)
@@ -131,36 +133,32 @@ class LlamaConfig:
                            max_seq_len=max_seq_len, remat=False)
 
 
-def param_shapes(cfg: LlamaConfig) -> Dict[str, object]:
-    """Leaf shapes of the param tree (``LlamaModel.init`` in the JAX
-    package), the same nesting: ``{"embed", "layers": {...}, "norm_f",
-    "lm_head"}``."""
-    d, hd, L = cfg.dim, cfg.head_dim, cfg.n_layers
-    shapes = {
-        "embed": (cfg.vocab_size, d),
-        "layers": {
-            "attn_norm": (L, d),
-            "wq": (L, d, cfg.n_heads, hd),
-            "wk": (L, d, cfg.n_kv_heads, hd),
-            "wv": (L, d, cfg.n_kv_heads, hd),
-            "wo": (L, cfg.n_heads, hd, d),
-            "mlp_norm": (L, d),
-            "w_gate": (L, d, cfg.ffn_dim),
-            "w_up": (L, d, cfg.ffn_dim),
-            "w_down": (L, cfg.ffn_dim, d),
-        },
-        "norm_f": (d,),
-    }
-    if not cfg.tie_embeddings:
-        shapes["lm_head"] = (d, cfg.vocab_size)
-    return shapes
-
-
 NORM_LEAVES = ("attn_norm", "mlp_norm", "norm_f")
 
 
-def _fan_in(name: str, cfg: LlamaConfig) -> int:
-    return cfg.ffn_dim if name == "w_down" else cfg.dim
+def param_spec(cfg: LlamaConfig) -> Dict[str, object]:
+    """The param tree of ``LlamaModel.init`` in the JAX package, the same
+    nesting (``{"embed", "layers": {...}, "norm_f", "lm_head"}``): matrices
+    N(0, 1/fan_in), norm weights ones."""
+    d, hd, L, f = cfg.dim, cfg.head_dim, cfg.n_layers, cfg.ffn_dim
+    spec = {
+        "embed": Leaf((cfg.vocab_size, d), d ** -0.5),
+        "layers": {
+            "attn_norm": Leaf((L, d), fill=1.0),
+            "wq": Leaf((L, d, cfg.n_heads, hd), d ** -0.5),
+            "wk": Leaf((L, d, cfg.n_kv_heads, hd), d ** -0.5),
+            "wv": Leaf((L, d, cfg.n_kv_heads, hd), d ** -0.5),
+            "wo": Leaf((L, cfg.n_heads, hd, d), d ** -0.5),
+            "mlp_norm": Leaf((L, d), fill=1.0),
+            "w_gate": Leaf((L, d, f), d ** -0.5),
+            "w_up": Leaf((L, d, f), d ** -0.5),
+            "w_down": Leaf((L, f, d), f ** -0.5),
+        },
+        "norm_f": Leaf((d,), fill=1.0),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = Leaf((d, cfg.vocab_size), d ** -0.5)
+    return spec
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -197,49 +195,26 @@ class LlamaModel:
                                         theta=cfg.rope_theta,
                                         device=self.device)
 
+    # the leaves kept in f32 whatever the compute dtype (JAX casts every
+    # other leaf with ``.astype(dt)`` at use)
+    F32_LEAVES = NORM_LEAVES
+    param_spec = staticmethod(param_spec)
+
     # -- init ---------------------------------------------------------------
     def init(self, seed: int = 0,
              param_dtype: Optional[torch.dtype] = None) -> Params:
-        """Random params, N(0, 1/fan_in) matrices and unit norms, drawn one
-        leaf at a time on the device so the peak stays at one f32 leaf.
-        Matrices are stored in ``param_dtype``; ``None`` is ``cfg.dtype``
-        (serving), ``torch.float32`` gives the f32 leaves training updates.
-        (``jax.random`` streams cannot be reproduced: to compare with the
-        JAX package, convert its params with ``models.convert``.)"""
-        cfg = self.cfg
-        matrix_dtype = param_dtype or cfg.dtype
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-
-        def leaf(name, shape):
-            if name in NORM_LEAVES:
-                return torch.ones(shape, dtype=torch.float32,
-                                  device=self.device)
-            x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                            device=self.device)
-            x.mul_(_fan_in(name, cfg) ** -0.5)
-            return x.to(matrix_dtype)
-
-        shapes = param_shapes(cfg)
-        params: Params = {}
-        for name, shape in shapes.items():
-            if name == "layers":
-                params["layers"] = {n: leaf(n, s) for n, s in shape.items()}
-            else:
-                params[name] = leaf(name, shape)
-        return params
+        """Random params after ``param_spec``, drawn one leaf at a time on
+        the device. Matrices are stored in ``param_dtype``; ``None`` is
+        ``cfg.dtype`` (serving), ``torch.float32`` gives the f32 leaves
+        training updates. Norm weights are f32."""
+        return init_params(self.param_spec(self.cfg), seed, self.device,
+                           param_dtype or self.cfg.dtype, self.F32_LEAVES)
 
     # -- shared pieces -----------------------------------------------------
     def _layers(self, params: Params) -> List[Dict[str, torch.Tensor]]:
-        """One dict of views per layer of the stacked ``params["layers"]``,
-        the matrices in ``cfg.dtype``: one cast per leaf and call (JAX's
-        ``.astype(dt)`` at use), which returns the bf16 serving leaves
-        themselves; the norm weights stay f32."""
-        dt = self.cfg.dtype
-        stacked = params["layers"]
-        names = list(stacked)
-        per_leaf = [(stacked[n] if n in NORM_LEAVES else stacked[n].to(dt))
-                    .unbind(0) for n in names]
-        return [dict(zip(names, leaves)) for leaves in zip(*per_leaf)]
+        """Per-layer views of ``params["layers"]``, the matrices in
+        ``cfg.dtype`` (the bf16 serving leaves themselves)."""
+        return layer_views(params["layers"], self.cfg.dtype, self.F32_LEAVES)
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         # gather, then cast: the same numbers as JAX's cast-then-gather
@@ -265,13 +240,14 @@ class LlamaModel:
         k = apply_rope(k, self._angles, positions)
         return q, k, v
 
-    def _out_and_mlp(self, layer, x, o):
-        """Attention output projection + residual, then the SwiGLU MLP
-        block. o [B, T, H, hd]."""
-        cfg = self.cfg
+    def _attn_out(self, layer, x, o):
+        """Attention output projection + residual. o [B, T, H, hd]."""
         B, T = o.shape[:2]
-        x = x + o.reshape(B, T, -1) @ layer["wo"].reshape(-1, cfg.dim)
-        h = rms_norm(x, layer["mlp_norm"], eps=cfg.norm_eps)
+        return x + o.reshape(B, T, -1) @ layer["wo"].reshape(-1, self.cfg.dim)
+
+    def _mlp(self, layer, x):
+        """The pre-norm SwiGLU MLP block + residual."""
+        h = rms_norm(x, layer["mlp_norm"], eps=self.cfg.norm_eps)
         gate = h @ layer["w_gate"]
         up = h @ layer["w_up"]
         return x + (F.silu(gate) * up) @ layer["w_down"]
@@ -304,8 +280,8 @@ class LlamaModel:
 
     def _block(self, x, layer: Dict[str, torch.Tensor], positions):
         q, k, v = self._qkv(layer, x, positions)
-        return self._out_and_mlp(layer, x, self._attention(q, k, v,
-                                                           positions))
+        o = self._attention(q, k, v, positions)
+        return self._mlp(layer, self._attn_out(layer, x, o))
 
     def apply(self, params: Params, tokens: torch.Tensor,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -315,11 +291,11 @@ class LlamaModel:
         cfg = self.cfg
         block = self._block
         if cfg.remat:
-            kwargs = dict(use_reentrant=False, preserve_rng_state=False)
+            kwargs = {}
             if cfg.remat_policy == "dots":
                 kwargs["context_fn"] = functools.partial(
                     create_selective_checkpoint_contexts, _save_matmuls)
-            block = functools.partial(checkpoint, self._block, **kwargs)
+            block = remat(self._block, **kwargs)
         if positions is not None:
             positions = positions.to(self.device)
         x = self._embed(params, tokens.to(self.device))
@@ -334,11 +310,10 @@ class LlamaModel:
         """Mean next-token cross-entropy (f32); with ``mask`` the mean over
         the masked-in tokens. A target outside the vocabulary reads NaN, as
         JAX's ``take_along_axis`` fills it."""
-        logp = torch.log_softmax(self.apply(params, tokens), dim=-1)
-        idx, valid = wrap_index(targets.to(self.device, torch.int64),
-                                logp.shape[-1])
-        nll = -logp.gather(-1, idx[..., None])[..., 0]
-        nll = torch.where(valid, nll, float("nan"))
+        return self._cross_entropy(self.apply(params, tokens), targets, mask)
+
+    def _cross_entropy(self, logits, targets, mask=None) -> torch.Tensor:
+        nll = token_nll(logits, targets)
         if mask is not None:
             mask = mask.to(device=self.device, dtype=nll.dtype)
             return (nll * mask).sum() / mask.sum().clamp(min=1)
@@ -398,7 +373,7 @@ class LlamaModel:
                     q[:, 0], k_cache, v_cache, q_pos[:, 0] + 1)[:, None]
             else:
                 o = self._masked_attention(q, k_cache, v_cache, mask)
-            x = self._out_and_mlp(layer, x, o)
+            x = self._mlp(layer, self._attn_out(layer, x, o))
         x = rms_norm(x, params["norm_f"], eps=cfg.norm_eps)
         return self._lm_head(params, x), cache
 
@@ -461,7 +436,7 @@ class LlamaModel:
             v_pool[dest_block, dest_off] = v_new[:, 0]
             o = paged_decode_attention(q[:, 0], k_pool, v_pool, tables_i32,
                                        lengths, impl=impl)
-            x = self._out_and_mlp(layer, x, o[:, None])
+            x = self._mlp(layer, self._attn_out(layer, x, o[:, None]))
         x = rms_norm(x, params["norm_f"], eps=cfg.norm_eps)
         return self._lm_head(params, x)[:, 0], pool
 
@@ -503,7 +478,7 @@ class LlamaModel:
             k_all = torch.cat([prefix_k[l].to(cfg.dtype), k_new], dim=1)
             v_all = torch.cat([prefix_v[l].to(cfg.dtype), v_new], dim=1)
             o = self._masked_attention(q, k_all, v_all, mask)
-            x = self._out_and_mlp(layer, x, o)
+            x = self._mlp(layer, self._attn_out(layer, x, o))
             k_out[l], v_out[l] = k_new, v_new
         x = rms_norm(x, params["norm_f"], eps=cfg.norm_eps)
         last = take_last(x, lengths)                               # [N, d]

@@ -267,8 +267,10 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """Flash attention with the kernel's forward and a blockwise-recompute
-    backward; q [B,S,H,D], k/v [B,S,Hkv,D]."""
-    return FlashAttention.apply(q, k, v, causal)
+    backward; q [B,S,H,D], k/v [B,S,Hkv,D], made contiguous for the kernel
+    (GPT-2 and ViT split q/k/v out of one fused projection)."""
+    return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal)
 
 
 def attention(q, k, v, *, causal: bool = True,

@@ -2,17 +2,20 @@
 
     python -m ray_tpu_torch.profile_train [--attention kernel|blockwise]
                                           [--remat full|dots|none]
+    python -m ray_tpu_torch.profile_train --family mlp|gpt2|vit|moe
 
 Builds ``LlamaConfig.bench_400m()`` (random f32 params from seed 0) and the
 train step of ``ray_tpu_torch.train`` on the CUDA device, one batch of 8 x
-2048 random tokens, and after two warm-up steps prints:
+2048 random tokens — or, with ``--family``, that family's model and batch of
+``ray_tpu_torch.bench.WORKLOADS`` — and after two warm-up steps prints:
 
 - the wall time of a synchronised step (median of 3) and its split into
   forward (``loss``), backward (with the gradient norm) and optimizer, from
   CUDA events that ``step_fn`` records at its phase ends;
-- one layer's attention at the step's shapes, from CUDA events: the forward
-  (the flash kernel, or the blockwise path) and the backward (the blockwise
-  recompute and its gradient, which the flash path's backward is);
+- for Llama, one layer's attention at the step's shapes, from CUDA events:
+  the forward (the flash kernel, or the blockwise path) and the backward
+  (the blockwise recompute and its gradient, which the flash path's
+  backward is);
 - from ``torch.profiler`` over 2 more steps, the device time of each kernel
   per step and the device's busy share of that window;
 - the peak of allocated device memory.
@@ -88,27 +91,42 @@ def _attention_ms(model, impl: str, dev) -> dict:
 
 def main(argv=None) -> int:
     from ray_tpu_torch._device import resolve_device
+    from ray_tpu_torch.bench import WORKLOADS, family_workload
     from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
     from ray_tpu_torch.train import make_train_step, shard_batch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--family", choices=("llama",) + tuple(WORKLOADS),
+                    default="llama")
     ap.add_argument("--attention", choices=("kernel", "blockwise"),
-                    default="kernel")
+                    default="kernel", help="llama only")
     ap.add_argument("--remat", choices=("full", "dots", "none"),
-                    default="full")
+                    default="full", help="llama only")
     args = ap.parse_args(argv)
 
     dev = resolve_device(None)
-    cfg = dataclasses.replace(
-        LlamaConfig.bench_400m(), attention_impl=args.attention,
-        remat=args.remat != "none",
-        remat_policy="full" if args.remat == "none" else args.remat)
-    model = LlamaModel(cfg, device=dev)
+    if args.family == "llama":
+        cfg = dataclasses.replace(
+            LlamaConfig.bench_400m(), attention_impl=args.attention,
+            remat=args.remat != "none",
+            remat_policy="full" if args.remat == "none" else args.remat)
+        model = LlamaModel(cfg, device=dev)
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(0, cfg.vocab_size, (BATCH, SEQ))
+        host_batch = (tokens, np.roll(tokens, -1, axis=1))
+        unit, label = "tokens", (f"bench_400m, batch {BATCH} x seq {SEQ}, "
+                                 f"attention {args.attention}, remat "
+                                 f"{args.remat}")
+    else:
+        model, host_batch = family_workload(args.family, dev)
+        unit = WORKLOADS[args.family][4]
+        shape = " x ".join(map(str, host_batch[0].shape))
+        label = f"{args.family}, batch {shape}"
+    units = (host_batch[0].shape[0] * host_batch[0].shape[1]
+             if unit == "tokens" else host_batch[0].shape[0])
     ts = make_train_step(model)
     params, opt = ts.init_fn(0)
-    rng = np.random.default_rng(0)
-    tokens = rng.integers(0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int64)
-    batch = shard_batch((tokens, np.roll(tokens, -1, axis=1)), ts)
+    batch = shard_batch(host_batch, ts)
 
     for _ in range(2):
         ts.step_fn(params, opt, batch)
@@ -141,29 +159,34 @@ def main(argv=None) -> int:
     kernels = []
     for evt in prof.key_averages():
         us = _self_device_us(evt)
+        # a user annotation ("Optimizer.step#AdamW.step") spans kernels that
+        # are counted on their own
+        if getattr(evt, "is_user_annotation", False):
+            continue
         if us > 0 and evt.device_type != torch.autograd.DeviceType.CPU:
             kernels.append((evt.key, us / 1e3 / n_prof, evt.count // n_prof))
     kernels.sort(key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
 
-    attn = _attention_ms(model, args.attention, dev)
+    attn = (_attention_ms(model, args.attention, dev)
+            if args.family == "llama" else None)
     name = torch.cuda.get_device_name(0)
-    tok_s = BATCH * SEQ / (wall / 1e3)
-    print(f"{name}; bench_400m, batch {BATCH} x seq {SEQ}, attention "
-          f"{args.attention}, remat {args.remat}")
-    print(f"step wall {wall:.2f} ms (median of {STEPS}; {tok_s:.1f} "
-          f"tokens/s): forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms, "
+    rate = units / (wall / 1e3)
+    print(f"{name}; {label}")
+    print(f"step wall {wall:.2f} ms (median of {STEPS}; {rate:.1f} "
+          f"{unit}/s): forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms, "
           f"optimizer {opt_ms:.2f} ms; peak allocated {peak_gib:.2f} GiB")
-    print(f"one layer's attention: forward {attn['forward']:.3f} ms, "
-          f"backward {attn['backward']:.3f} ms (x {cfg.n_layers} layers)")
+    if attn:
+        print(f"one layer's attention: forward {attn['forward']:.3f} ms, "
+              f"backward {attn['backward']:.3f} ms (x {cfg.n_layers} layers)")
     print(f"profiled window {window_ms:.2f} ms/step, device busy "
           f"{device_ms:.2f} ms/step ({100 * device_ms / window_ms:.1f} %), "
           f"{sum(k[2] for k in kernels)} kernel launches/step")
     for kname, ms, count in kernels[:20]:
         print(f"  {ms:9.3f} ms/step  {count:6d}x  {kname[:90]}")
     print(json.dumps({
-        "device": name, "attention": args.attention, "remat": args.remat,
-        "step_wall_ms": wall, "tokens_per_sec": tok_s,
+        "device": name, "family": args.family, "workload": label,
+        "step_wall_ms": wall, f"{unit}_per_sec": rate,
         "forward_ms": fwd_ms, "backward_ms": bwd_ms, "optimizer_ms": opt_ms,
         "attention_layer_ms": attn, "profiled_step_ms": window_ms,
         "device_busy_ms": device_ms, "peak_allocated_gib": peak_gib,

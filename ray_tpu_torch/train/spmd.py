@@ -18,7 +18,7 @@ optimizer. Here:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Mapping, Optional, Sequence
 
 import torch
 
@@ -30,10 +30,12 @@ def adamw(params: Sequence[torch.Tensor]) -> torch.optim.Optimizer:
 
 
 def param_leaves(params) -> List[torch.Tensor]:
-    """The tensors of a (nested dict) param tree, in insertion order."""
+    """The tensors of a param tree of nested dicts and lists (the MLP's
+    layers are a list), in insertion order."""
     if isinstance(params, torch.Tensor):
         return [params]
-    return [t for v in params.values() for t in param_leaves(v)]
+    children = params.values() if isinstance(params, Mapping) else params
+    return [t for v in children for t in param_leaves(v)]
 
 
 @dataclasses.dataclass
@@ -49,8 +51,9 @@ class TrainStep:
 def make_train_step(model, optimizer: Optional[Callable] = None,
                     mesh=None) -> TrainStep:
     """Build the train step for a model exposing ``init(seed,
-    param_dtype=...)``, ``loss(params, *batch)`` and ``device``. Params are
-    f32 leaves; the forward casts them to the model's compute dtype."""
+    param_dtype=...)``, ``loss(params, *batch)`` and ``device`` (every
+    family of ``ray_tpu_torch.models``). Params are f32 leaves; the forward
+    casts them to the model's compute dtype."""
     if mesh is not None:
         raise NotImplementedError(
             "ray_tpu_torch.train: a mesh (sharded training) is not ported "

@@ -19,10 +19,11 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from ray_tpu_torch.models import LlamaConfig, LlamaModel, MoEConfig, MoEModel
 from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.ops import decode_attention as tdec
 from ray_tpu_torch.ops import paged_attention as tpaged
+from ray_tpu_torch.train.spmd import param_leaves
 
 pytestmark = pytest.mark.gpu
 
@@ -280,6 +281,50 @@ def test_attention_dispatcher_takes_the_kernel_on_the_card(dev):
     pos = torch.arange(128, device=dev)
     tattn.attention(q, k, k, positions_q=pos, positions_k=pos)
     assert tattn.flash_attention_kernel.launches == before + 1
+
+
+def test_flash_function_takes_views_of_a_fused_projection(dev):
+    """GPT-2 and ViT split q/k/v out of one [B, S, 3, H, D] projection: the
+    views are not contiguous, and the Function hands the kernel copies."""
+    rng = np.random.default_rng(4)
+    qkv = _rand(rng, (2, 256, 3, 4, 128), torch.bfloat16, dev)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    before = tattn.flash_attention_kernel.launches
+    out = tattn.flash_attention(q, k, v, True)
+    assert tattn.flash_attention_kernel.launches == before + 1
+    torch.testing.assert_close(out, tattn.flash_attention_kernel(
+        q.contiguous(), k.contiguous(), v.contiguous(), True), rtol=0,
+        atol=0)
+
+
+def test_moe_kernel_path_on_the_card(dev):
+    """MoE (debug widths, f32) through the flash kernel: two launches a
+    layer under remat, the loss and gradients of the blockwise path."""
+    cfg = dataclasses.replace(MoEConfig.debug_moe(), dtype=torch.float32,
+                              attention_impl="kernel", remat=True)
+    rng = np.random.default_rng(8)
+    tokens = torch.from_numpy(rng.integers(0, 256, (2, 128))).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    params = MoEModel(cfg, device=dev).init(0, param_dtype=torch.float32)
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    results = []
+    for impl in ("kernel", "blockwise"):
+        model = MoEModel(dataclasses.replace(cfg, attention_impl=impl),
+                         device=dev)
+        before = tattn.flash_attention_kernel.launches
+        loss = model.loss(params, tokens, targets)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        results.append((loss, grads,
+                        tattn.flash_attention_kernel.launches - before))
+    (loss, grads, launches), (ref_loss, ref_grads, ref_launches) = results
+    assert (launches, ref_launches) == (2 * cfg.n_layers, 0)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-6)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_cannot_take(dev):
