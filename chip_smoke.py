@@ -51,6 +51,22 @@
    f32 on the card against the same port model on the CPU (GPT-2 1 x 256
    tokens, ViT 2 images), rtol 1e-3.
 
+9. The mesh path (``ray_tpu_torch.parallel``): ``build_mesh(MeshSpec())``
+   starts a world-size-1 NCCL group and a mesh with all six axes of size 1
+   (NCCL refuses two ranks on one card, so one card holds no mesh of more
+   than one rank; the sharded numbers are held against JAX on CPU meshes by
+   tests/test_torch_spmd.py). Every counter at 0: ``run_train(mesh=...)``
+   on bench_400m at phase 5's shapes, every leaf a DTensor and the flash
+   kernel run on each rank's local shards, twice per layer per step; its
+   first loss and grad norm must equal phase 5's (same seed and batch) at
+   rtol 1e-3, and its loss must fall. Step time, tokens/s, MFU and kernel
+   launches a step (one profiled step) are printed beside phase 5's. Then
+   the GPT-2 DP example at full width (GPT-2 125M, 8 x 1024 tokens, 2 + 5
+   steps, the all-dp mesh): the loss must fall; and phase 7's GPT-2 run on
+   the mesh, its first loss held to phase 7's. Last, the sharded bench_400m
+   params and AdamW state after one step are saved (``train.checkpoint``)
+   and restored onto the mesh and with no mesh: every leaf bit for bit.
+
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
 script then exits non-zero; without a CUDA device it exits 2 and prints no
@@ -657,6 +673,196 @@ def card_vs_cpu_loss(dev, name: str) -> tuple:
     return got.item(), want.item()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the mesh path
+# ---------------------------------------------------------------------------
+
+def launches_per_step(dev, mesh) -> int:
+    """CUDA kernels one bench_400m train step launches (batch 8 x 2048),
+    on ``mesh`` or with none: one warm step, then one under the
+    profiler."""
+    import torch
+    from ray_tpu_torch.models import LlamaConfig, LlamaModel
+    from ray_tpu_torch.train import make_train_step, shard_batch
+    cfg = LlamaConfig.bench_400m()
+    ts = make_train_step(LlamaModel(cfg, device=dev, mesh=mesh), mesh=mesh)
+    params, opt = ts.init_fn(0)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 2048))
+    batch = shard_batch((tokens, np.roll(tokens, -1, axis=1)), ts)
+    ts.step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ts.step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    del params, opt
+    free_card()
+    return n
+
+
+def mesh_train(dev, mesh, plain: dict, n_layers: int) -> dict:
+    """bench_400m through ``run_train(mesh=...)``, the flash counter at 0
+    just before and read just after, held against phase 5's run."""
+    from ray_tpu_torch.bench import run_train
+    from ray_tpu_torch.ops import attention as attn
+    attn.flash_attention_kernel.launches = 0
+    out = run_train(dev, batch=8, seq=2048, steps=10, warmup=2, seed=0,
+                    mesh=mesh)
+    out["launches"] = attn.flash_attention_kernel.launches
+    steps = out["steps"] + out["warmup"]
+    gaps = {k: abs(out[k] / plain[k] - 1)
+            for k in ("loss_first", "grad_norm_first")}
+    log(f"run_train(bench_400m, mesh {out['mesh']}): "
+        f"{out['tokens_per_sec']:.1f} tokens/s, step {out['step_ms']:.2f} ms, "
+        f"MFU {out['mfu']:.4f}, loss {out['loss_first']:.6f} -> "
+        f"{out['loss_last']:.6f}, first grad_norm "
+        f"{out['grad_norm_first']:.6f}; flash launches {out['launches']} "
+        f"({steps} steps x {n_layers} layers x 2)")
+    log(f"  against phase 5 (no mesh): step {plain['step_ms']:.2f} ms, "
+        f"{plain['tokens_per_sec']:.1f} tokens/s, MFU {plain['mfu']:.4f}; "
+        f"step time ratio mesh / no mesh "
+        f"{out['step_ms'] / plain['step_ms']:.4f}; first loss "
+        f"{plain['loss_first']:.6f} (relative gap {gaps['loss_first']:.2e}),"
+        f" first grad_norm {plain['grad_norm_first']:.6f} (relative gap "
+        f"{gaps['grad_norm_first']:.2e}); bar rtol 1e-3")
+    if out["launches"] != 2 * n_layers * steps:
+        raise RuntimeError(f"mesh path: flash kernel launches "
+                           f"{out['launches']} != 2 x {n_layers} x {steps}")
+    if not out["loss_last"] < out["loss_first"]:
+        raise RuntimeError(f"mesh path: the loss did not fall: {out}")
+    if max(gaps.values()) > 1e-3:
+        raise RuntimeError(f"mesh path: first step off phase 5's: {gaps}")
+    return out
+
+
+def mesh_checkpoint(dev, mesh) -> dict:
+    """The sharded bench_400m params and AdamW state after one step, saved
+    and restored onto the mesh and with no mesh: every leaf bit for bit."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from ray_tpu_torch.models import LlamaConfig, LlamaModel
+    from ray_tpu_torch.train import make_train_step, shard_batch
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+    from ray_tpu_torch.train.spmd import mirror_shardings
+    cfg = LlamaConfig.bench_400m()
+    ts = make_train_step(LlamaModel(cfg, device=dev, mesh=mesh), mesh=mesh)
+    params, opt = ts.init_fn(0)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 2048))
+    ts.step_fn(params, opt, shard_batch((tokens, np.roll(tokens, -1, 1)),
+                                        ts))
+    state = {"params": params, "opt": opt.state_dict()}
+    pl = {"params": ts.param_shardings,
+          "opt": mirror_shardings(state["opt"], ts.param_shardings)}
+    path = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt = Checkpoint.from_pytree(state, path)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        flat = []
+        compared = 0
+        for restored in (ckpt.to_pytree(pl, mesh), ckpt.to_pytree()):
+            compared += _same_tree(state, restored, flat)
+            del restored
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    del params, opt, state
+    free_card()
+    return {"save_s": save_s, "bytes": nbytes, "leaves": compared // 2,
+            "restored_dtensors": sum(flat)}
+
+
+def _same_tree(a, b, dtensors: list) -> int:
+    """Leaves compared; raises unless ``b`` equals ``a`` bit for bit (a
+    DTensor against its full value)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    if isinstance(a, torch.Tensor):
+        dtensors.append(isinstance(b, DTensor))
+        fa = a.full_tensor() if isinstance(a, DTensor) else a
+        fb = b.full_tensor() if isinstance(b, DTensor) else b
+        if fa.dtype != fb.dtype or not torch.equal(fa.detach().cpu(),
+                                                   fb.detach().cpu()):
+            raise RuntimeError("checkpoint: a restored leaf differs")
+        return 1
+    if isinstance(a, dict):
+        if list(a) != list(b):
+            raise RuntimeError(f"checkpoint: keys {list(a)} != {list(b)}")
+        return sum(_same_tree(a[k], b[k], dtensors) for k in a)
+    if isinstance(a, (list, tuple)):
+        return sum(_same_tree(x, y, dtensors) for x, y in zip(a, b))
+    if a != b:
+        raise RuntimeError(f"checkpoint: {a!r} != {b!r}")
+    return 0
+
+
+def mesh_gpt2(dev, mesh, plain: dict) -> dict:
+    """Phase 7's GPT-2 workload and timing on ``mesh``: its first loss
+    against phase 7's (same seed and batch) and its step time beside it."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import GPT2Config, GPT2Model
+    _, batch = bench.family_workload("gpt2", dev)
+    out = bench.time_train_steps(
+        GPT2Model(GPT2Config.gpt2_125m(), device=dev, mesh=mesh), batch,
+        steps=plain["steps"], warmup=plain["warmup"])
+    gap = abs(out["loss_first"] / plain["loss_first"] - 1)
+    log(f"gpt2 on the mesh (phase 7's workload and timing): step "
+        f"{out['step_ms']:.2f} ms against {plain['step_ms']:.2f} ms without "
+        f"(ratio {out['step_ms'] / plain['step_ms']:.4f}); first loss "
+        f"{out['loss_first']:.6f} against {plain['loss_first']:.6f} "
+        f"(relative gap {gap:.2e}, bar 1e-3), last {out['loss_last']:.4f}")
+    if gap > 1e-3 or not out["loss_last"] < out["loss_first"]:
+        raise RuntimeError(f"gpt2 on the mesh: {out}")
+    return out
+
+
+def mesh_path(dev, plain: dict, gpt2_plain: dict, n_layers: int) -> dict:
+    """Phase 9: the one-rank mesh, bench_400m on it, the GPT-2 DP example
+    and phase 7's GPT-2 run on it, the sharded checkpoint."""
+    import torch.distributed as dist
+    from ray_tpu_torch.examples import train_gpt2_dp
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    mesh = build_mesh(MeshSpec())
+    log(f"mesh {mesh}: world size {dist.get_world_size()}, backend "
+        f"{dist.get_backend()}")
+    if dist.get_world_size() != 1 or dist.get_backend() != "nccl" \
+            or mesh.mesh_dim_names != ("pp", "dp", "fsdp", "sp", "tp", "ep"):
+        raise RuntimeError(f"mesh path: not a one-rank NCCL mesh: {mesh}")
+    out = mesh_train(dev, mesh, plain, n_layers)
+    free_card()
+    per_step = {"no mesh": launches_per_step(dev, None),
+                "mesh": launches_per_step(dev, mesh)}
+    log(f"CUDA kernel launches a bench_400m step: {per_step} (ratio "
+        f"{per_step['mesh'] / per_step['no mesh']:.4f})")
+    gpt2 = train_gpt2_dp.main(debug=False, steps=7, batch=8, seq=1024)
+    free_card()
+    log(f"GPT-2 DP example (gpt2_125m, {gpt2['batch']} x {gpt2['seq']}, "
+        f"mesh {gpt2['mesh']}): loss {gpt2['losses'][0]:.4f} -> "
+        f"{gpt2['losses'][-1]:.4f}, step {gpt2['step_ms']:.2f} ms "
+        f"(mean of the last 5)")
+    if not gpt2["losses"][-1] < gpt2["losses"][0]:
+        raise RuntimeError(f"GPT-2 DP example: the loss did not fall: {gpt2}")
+    gpt2_timed = mesh_gpt2(dev, mesh, gpt2_plain)
+    free_card()
+    ck = mesh_checkpoint(dev, mesh)
+    log(f"checkpoint of the sharded bench_400m params + AdamW state: "
+        f"{ck['leaves']} leaves, {ck['bytes'] / 1e9:.3f} GB saved in "
+        f"{ck['save_s']:.2f} s ({ck['bytes'] / 1e9 / ck['save_s']:.3f} GB/s);"
+        f" restored onto the mesh ({ck['restored_dtensors']} DTensors) and "
+        f"with no mesh: bit for bit")
+    if ck["restored_dtensors"] == 0:
+        raise RuntimeError("checkpoint: nothing was restored onto the mesh")
+    out.update(per_step=per_step, gpt2=gpt2, gpt2_timed=gpt2_timed,
+               checkpoint=ck)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -794,6 +1000,11 @@ def main() -> int:
         log(f"{name} f32 loss on the card {card:.6f}, on the CPU {cpu:.6f} "
             f"(rtol 1e-3; relative difference {abs(card / cpu - 1):.2e})")
         free_card()
+
+    # 9. the mesh path, every counter at 0
+    mesh = mesh_path(dev, train, runs["gpt2"],
+                     LlamaConfig.bench_400m().n_layers)
+    rows[2]["launches"] += mesh["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

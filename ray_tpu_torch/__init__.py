@@ -18,5 +18,11 @@ inference paths), ``llm`` (block pool, tokenizer, continuous-batching engine,
 (``make_train_step``) and ``bench`` (``run_train``) — and the other model
 families, each trained by the same ``make_train_step``: ``models.mlp``,
 ``models.gpt2``, ``models.vit`` and ``models.moe`` (einsum dispatch, with the
-router math of ``ops.moe_dispatch``), benchmarked by ``bench.run_family``.
+router math of ``ops.moe_dispatch``), benchmarked by ``bench.run_family`` —
+and the parallel layer: ``parallel`` (the named ``DeviceMesh``, JAX's
+logical-axis rules as DTensor placements, process-group bring-up and the
+``spawn_ranks`` gloo launcher), the sharded ``make_train_step`` on
+DTensors with each family's ``param_shardings``, the vocab-parallel
+embedding, flash attention on local shards, ``train.checkpoint`` and the
+``examples`` that train on a mesh.
 """

@@ -39,12 +39,13 @@ H100_BF16_FLOPS = 989e12
 
 def time_train_steps(model, batch, *, steps: int, warmup: int,
                      seed: int = 0) -> dict:
-    """``make_train_step(model)`` (f32 params from ``seed``, the default
-    AdamW) for ``warmup`` + ``steps`` steps on one host ``batch``; the last
-    ``steps`` are timed by the host clock around work ended by a device
-    synchronise. Params and optimizer state are freed on return."""
+    """``make_train_step(model, mesh=model.mesh)`` (f32 params from
+    ``seed``, the default AdamW) for ``warmup`` + ``steps`` steps on one
+    host ``batch``; the last ``steps`` are timed by the host clock around
+    work ended by a device synchronise. Params and optimizer state are freed
+    on return."""
     dev = model.device
-    ts = make_train_step(model)
+    ts = make_train_step(model, mesh=getattr(model, "mesh", None))
     params, opt_state = ts.init_fn(seed)
     batch_t = shard_batch(batch, ts)
 
@@ -53,10 +54,11 @@ def time_train_steps(model, batch, *, steps: int, warmup: int,
             torch.cuda.synchronize(dev)
 
     launches0 = flash_attention_kernel.launches
-    losses = []
+    losses, norms = [], []
     for _ in range(warmup):
         params, opt_state, metrics = ts.step_fn(params, opt_state, batch_t)
         losses.append(metrics["loss"])
+        norms.append(metrics["grad_norm"])
     sync()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -67,6 +69,7 @@ def time_train_steps(model, batch, *, steps: int, warmup: int,
     return {"step_ms": dt / steps * 1e3,
             "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
             "grad_norm": float(metrics["grad_norm"]),
+            "grad_norm_first": float((norms or [metrics["grad_norm"]])[0]),
             "params": sum(p.numel() for p in param_leaves(params)),
             "steps": steps, "warmup": warmup,
             "flash_launches": flash_attention_kernel.launches - launches0}
@@ -78,16 +81,17 @@ def _on_card(dev: torch.device) -> bool:
 
 def run_train(device: DeviceLike = None, *, batch: int = 8, seq: int = 2048,
               steps: int = 10, warmup: int = 2, seed: int = 0,
-              config: Optional[LlamaConfig] = None) -> dict:
+              config: Optional[LlamaConfig] = None, mesh=None) -> dict:
     """Train ``config`` (default ``LlamaConfig.bench_400m``) for ``warmup``
     + ``steps`` steps on one batch of random tokens and time the last
-    ``steps``. MFU is reported on the card only ("not measured" elsewhere:
-    a CPU rate is no device metric)."""
+    ``steps``; with ``mesh``, the sharded step on that mesh (the same
+    numbers, placed as DTensors). MFU is reported on the card only ("not
+    measured" elsewhere: a CPU rate is no device metric)."""
     dev = resolve_device(device)
     cfg = config or LlamaConfig.bench_400m(max_seq_len=max(2048, seq))
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int64)
-    out = time_train_steps(LlamaModel(cfg, device=dev),
+    out = time_train_steps(LlamaModel(cfg, device=dev, mesh=mesh),
                            (tokens, np.roll(tokens, -1, axis=1)),
                            steps=steps, warmup=warmup, seed=seed)
     tokens_per_sec = batch * seq / (out["step_ms"] / 1e3)
@@ -101,6 +105,7 @@ def run_train(device: DeviceLike = None, *, batch: int = 8, seq: int = 2048,
         "loss_first": out["loss_first"],
         "loss_last": out["loss_last"],
         "grad_norm": out["grad_norm"],
+        "grad_norm_first": out["grad_norm_first"],
         "model_params": n_params,
         "attention_impl": cfg.attention_impl,
         "remat": cfg.remat_policy if cfg.remat else None,
@@ -108,6 +113,7 @@ def run_train(device: DeviceLike = None, *, batch: int = 8, seq: int = 2048,
         "device": (torch.cuda.get_device_name(dev) if _on_card(dev)
                    else str(dev)),
         "flash_launches": out["flash_launches"],
+        "mesh": None if mesh is None else str(mesh),
     }
 
 

@@ -8,7 +8,10 @@ over as numpy arrays (``jax.tree.map(np.asarray, tree)``),
 ``device``, the leaves the family keeps in f32 (``F32_LEAVES``: norms, the
 MoE router, ViT's head bias, all of the MLP) in f32 and the others in
 ``param_dtype`` (``None``: ``cfg.dtype``, for serving; ``torch.float32``
-keeps every leaf as JAX's ``init`` returns it, for training).
+keeps every leaf as JAX's ``init`` returns it, for training). With a
+``mesh``, each leaf of a family that declares param shardings is placed with
+its placements (``param_shardings``): this is how JAX params reach a sharded
+port model.
 """
 
 from __future__ import annotations
@@ -18,13 +21,15 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models.common import Leaf, build_tree
+from ray_tpu_torch._device import DeviceLike
+from ray_tpu_torch.models.common import (Leaf, at_path, build_tree,
+                                         model_device)
 from ray_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel, Params
 from ray_tpu_torch.models.mlp import MLPConfig, MLPModel
 from ray_tpu_torch.models.moe import MoEConfig, MoEModel
 from ray_tpu_torch.models.vit import ViTConfig, ViTModel
+from ray_tpu_torch.parallel.mesh import distribute
 
 # config class -> model class; MoEConfig before LlamaConfig, its base
 FAMILIES = ((MoEConfig, MoEModel), (LlamaConfig, LlamaModel),
@@ -41,21 +46,27 @@ def model_class(cfg):
 
 
 def params_from_numpy(tree: Mapping, cfg, device: DeviceLike = None,
-                      param_dtype: Optional[torch.dtype] = None) -> Params:
-    dev = resolve_device(device)
+                      param_dtype: Optional[torch.dtype] = None, mesh=None,
+                      rules: Optional[dict] = None) -> Params:
+    dev = model_device(device, mesh)
     model = model_class(cfg)
     dtype = param_dtype or cfg.dtype
+    shardings = None
+    if mesh is not None and hasattr(model, "param_shardings"):
+        shardings = model(cfg, device=dev, mesh=mesh,
+                          rules=rules).param_shardings()
 
     def leaf(path, spec: Leaf):
-        arr = tree
-        for key in path:
-            arr = arr[key]
-        a = np.array(arr, dtype=np.float32)     # a copy; bf16 widens
+        # a copy; bf16 widens
+        a = np.array(at_path(tree, path), dtype=np.float32)
         if a.shape != spec.shape:
             name = "/".join(map(str, path))
             raise ValueError(f"param {name}: shape {a.shape}, expected "
                              f"{spec.shape} for this config")
         out = torch.float32 if path[-1] in model.F32_LEAVES else dtype
-        return torch.from_numpy(a).to(device=dev, dtype=out)
+        t = torch.from_numpy(a).to(device=dev, dtype=out)
+        if shardings is None:
+            return t
+        return distribute(t, mesh, at_path(shardings, path))
 
     return build_tree(model.param_spec(cfg), leaf)

@@ -9,6 +9,12 @@ weights and biases is cast to ``cfg.dtype`` at use. GELU is
 (``common.gelu_tanh``). Attention goes through the dispatcher, whose rule is
 JAX's: at GPT-2's head_dim 64 it is the reference attention on the card
 too.
+
+On a mesh (``mesh=``) the leaves take the placements of
+``param_logical_axes`` (``param_shardings``); JAX constrains no activation
+of GPT-2, so DTensor's propagation alone places them. The token gather is
+the vocab-parallel lookup with JAX's clamp (``common.embed_lookup``), and
+attention runs on each rank's local rows and heads.
 """
 
 from __future__ import annotations
@@ -18,9 +24,11 @@ from typing import Dict, Optional
 
 import torch
 
-from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models.common import (Leaf, gelu_tanh, init_params,
-                                         layer_views, remat, token_nll)
+from ray_tpu_torch._device import DeviceLike
+from ray_tpu_torch.models.common import (Leaf, embed_lookup, gelu_tanh,
+                                         init_params, layer_views,
+                                         leaf_shardings, model_device, remat,
+                                         token_nll)
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.indexing import gather_index
 from ray_tpu_torch.ops.norms import layer_norm
@@ -65,12 +73,35 @@ class GPT2Config:
                 + self.n_layers * per_layer + 2 * d)
 
 
+def param_logical_axes(cfg: GPT2Config) -> Params:
+    return {
+        "wte": ("vocab", "embed_in"),
+        "wpe": (None, "embed_in"),
+        "layers": {
+            "ln1_w": (None, "embed_in"), "ln1_b": (None, "embed_in"),
+            "wqkv": (None, "embed_in", None, "heads", None),
+            "bqkv": (None, None, "heads", None),
+            "wo": (None, "heads", None, "embed_in"),
+            "bo": (None, "embed_in"),
+            "ln2_w": (None, "embed_in"), "ln2_b": (None, "embed_in"),
+            "w_up": (None, "embed_in", "mlp"), "b_up": (None, "mlp"),
+            "w_down": (None, "mlp", "embed_in"),
+            "b_down": (None, "embed_in"),
+        },
+        "lnf_w": ("embed_in",), "lnf_b": ("embed_in",),
+    }
+
+
 class GPT2Model:
     F32_LEAVES = ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "lnf_w", "lnf_b")
+    param_logical_axes = staticmethod(param_logical_axes)
 
-    def __init__(self, cfg: GPT2Config, device: DeviceLike = None):
+    def __init__(self, cfg: GPT2Config, device: DeviceLike = None,
+                 mesh=None, rules: Optional[Dict] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = rules
+        self.device = model_device(device, mesh)
 
     @staticmethod
     def param_spec(cfg: GPT2Config) -> Params:
@@ -96,17 +127,29 @@ class GPT2Model:
     def init(self, seed: int = 0,
              param_dtype: Optional[torch.dtype] = None) -> Params:
         """Random params after ``param_spec``; LayerNorm leaves f32, the
-        others in ``param_dtype`` (``None``: ``cfg.dtype``)."""
+        others in ``param_dtype`` (``None``: ``cfg.dtype``). On a mesh each
+        whole leaf is placed as it is drawn (``param_shardings``)."""
         return init_params(self.param_spec(self.cfg), seed, self.device,
-                           param_dtype or self.cfg.dtype, self.F32_LEAVES)
+                           param_dtype or self.cfg.dtype, self.F32_LEAVES,
+                           self.mesh, None if self.mesh is None
+                           else self.param_shardings())
+
+    def param_shardings(self):
+        """The tree of DTensor placements of the params on the mesh."""
+        return leaf_shardings(self.param_spec(self.cfg),
+                              param_logical_axes(self.cfg), self.mesh,
+                              self.rules)
 
     def _block(self, x, layer):
         cfg = self.cfg
         B, S, d = x.shape
         h = layer_norm(x, layer["ln1_w"], layer["ln1_b"], eps=cfg.norm_eps)
-        qkv = (h @ layer["wqkv"].reshape(d, -1)).view(
-            B, S, 3, cfg.n_heads, cfg.head_dim) + layer["bqkv"]
-        q, k, v = qkv.unbind(2)
+        # one product per q/k/v: on a mesh, DTensor cannot flatten
+        # (3, H, hd) with H sharded over tp
+        q, k, v = ((h @ w.reshape(d, -1)).view(B, S, cfg.n_heads,
+                                               cfg.head_dim) + b
+                   for w, b in zip(layer["wqkv"].unbind(1),
+                                   layer["bqkv"].unbind(0)))
         o = attention(q, k, v, causal=True)
         x = x + o.reshape(B, S, d) @ layer["wo"].reshape(d, d) + layer["bo"]
         h = layer_norm(x, layer["ln2_w"], layer["ln2_b"], eps=cfg.norm_eps)
@@ -117,10 +160,14 @@ class GPT2Model:
         """tokens [B, S] int -> logits [B, S, V] (f32)."""
         cfg = self.cfg
         dt = cfg.dtype
-        tokens = tokens.to(self.device)
         wte = params["wte"]
         # gather, then cast (JAX casts, then gathers: the same numbers)
-        x = wte[gather_index(tokens, wte.shape[0])].to(dt)
+        if self.mesh is not None:
+            x = embed_lookup(wte, tokens, self.mesh, self.rules, clamp=True,
+                             dtype=dt)
+        else:
+            tokens = tokens.to(self.device)
+            x = wte[gather_index(tokens, wte.shape[0])].to(dt)
         x = x + params["wpe"][:tokens.shape[1]].to(dt)[None]
         block = remat(self._block) if cfg.remat else self._block
         for layer in layer_views(params["layers"], dt, self.F32_LEAVES):

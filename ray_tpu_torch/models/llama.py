@@ -23,11 +23,16 @@ tree converts 1:1 (``models/convert.py``). Differences of idiom:
   positions) and scatters drop (cache writes past the cache); a pool write
   that JAX drops lands in the pool's scratch block, which nothing reads.
 
-Only the one-device attention choices are ported (``attention_impl``):
-JAX's ``"ring"``/``"ulysses"`` context parallelism needs a mesh and waits for
-the parallel layer. The flash kernel's ``flash_block_q/k`` tiles are not
-carried over: the CUDA kernel picks its own tiles, and an option that does
-nothing on the card is left out.
+On a mesh (``mesh=``, a ``DeviceMesh`` of ``ray_tpu_torch.parallel``) every
+leaf is a DTensor with the placements of ``param_logical_axes`` under the
+rules (``param_shardings``), and the activations are constrained where JAX
+constrains them (``_constrain``): DTensor's propagation takes GSPMD's place.
+The embedding is JAX's vocab-parallel lookup (``common.embed_lookup``), and
+attention runs on each rank's local batch rows and heads. JAX's
+``"ring"``/``"ulysses"`` context parallelism (an ``sp`` axis above 1) waits
+for ROADMAP A7b and raises. The flash kernel's ``flash_block_q/k`` tiles are
+not carried over: the CUDA kernel picks its own tiles, and an option that
+does nothing on the card is left out.
 """
 
 from __future__ import annotations
@@ -41,15 +46,19 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
-from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models.common import (Leaf, init_params, layer_views,
-                                         remat, token_nll)
+from ray_tpu_torch._device import DeviceLike
+from ray_tpu_torch.models.common import (Leaf, as_global, embed_lookup,
+                                         init_params, layer_views,
+                                         leaf_shardings, model_device, remat,
+                                         token_nll)
 from ray_tpu_torch.ops.attention import (NEG_INF, attention,
                                          blockwise_attention,
                                          flash_attention, repeat_kv)
 from ray_tpu_torch.ops.indexing import gather_index, wrap_index
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from ray_tpu_torch.parallel.mesh import (axis_size, distribute, replicated,
+                                         shard_constraint)
 
 Params = Dict[str, object]
 
@@ -161,6 +170,28 @@ def param_spec(cfg: LlamaConfig) -> Dict[str, object]:
     return spec
 
 
+# Logical axis names per param leaf (parallel/mesh.py DEFAULT_RULES).
+def param_logical_axes(cfg: LlamaConfig) -> Params:
+    axes = {
+        "embed": ("vocab", "embed_in"),
+        "layers": {
+            "attn_norm": (None, "embed_in"),
+            "wq": (None, "embed_in", "heads", None),
+            "wk": (None, "embed_in", "kv_heads", None),
+            "wv": (None, "embed_in", "kv_heads", None),
+            "wo": (None, "heads", None, "embed_in"),
+            "mlp_norm": (None, "embed_in"),
+            "w_gate": (None, "embed_in", "mlp"),
+            "w_up": (None, "embed_in", "mlp"),
+            "w_down": (None, "mlp", "embed_in"),
+        },
+        "norm_f": ("embed_in",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed_in", "vocab")
+    return axes
+
+
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
             torch.ops.aten.addmm.default)
 
@@ -186,19 +217,38 @@ def take_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 class LlamaModel:
     """Functional model: ``init`` makes params, ``apply``/``loss`` run the
     training forward, the step methods the KV-cache forward. All tensors
-    live on ``self.device``."""
+    live on ``self.device``.
 
-    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None):
+    ``mesh``/``rules`` (optional) shard the params and constrain the
+    activations (the training forward; serving stays on one device). The
+    device defaults to the mesh's device type."""
+
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None,
+                 mesh=None, rules: Optional[Dict] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = rules
+        self.device = model_device(device, mesh)
+        if axis_size(mesh, "sp") > 1:
+            if cfg.attention_impl == "kernel":
+                raise ValueError(
+                    "attention_impl='kernel' is a single-device kernel; an "
+                    "sp>1 mesh needs ring or Ulysses context parallelism, "
+                    "which the port does not have yet (ROADMAP A7b)")
+            raise NotImplementedError(
+                "an sp>1 mesh needs ring or Ulysses context parallelism, "
+                "which the port does not have yet (ROADMAP A7b)")
         self._angles = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
                                         theta=cfg.rope_theta,
                                         device=self.device)
+        if mesh is not None:
+            self._angles = distribute(self._angles, mesh, replicated(mesh))
 
     # the leaves kept in f32 whatever the compute dtype (JAX casts every
     # other leaf with ``.astype(dt)`` at use)
     F32_LEAVES = NORM_LEAVES
     param_spec = staticmethod(param_spec)
+    param_logical_axes = staticmethod(param_logical_axes)
 
     # -- init ---------------------------------------------------------------
     def init(self, seed: int = 0,
@@ -206,9 +256,26 @@ class LlamaModel:
         """Random params after ``param_spec``, drawn one leaf at a time on
         the device. Matrices are stored in ``param_dtype``; ``None`` is
         ``cfg.dtype`` (serving), ``torch.float32`` gives the f32 leaves
-        training updates. Norm weights are f32."""
+        training updates. Norm weights are f32. On a mesh each leaf is
+        drawn whole, as without one, and placed at once
+        (``param_shardings``): the same numbers, sharded."""
         return init_params(self.param_spec(self.cfg), seed, self.device,
-                           param_dtype or self.cfg.dtype, self.F32_LEAVES)
+                           param_dtype or self.cfg.dtype, self.F32_LEAVES,
+                           self.mesh, None if self.mesh is None
+                           else self.param_shardings())
+
+    # -- sharding helpers ---------------------------------------------------
+    def _constrain(self, x, *names):
+        if self.mesh is None:
+            return x
+        return shard_constraint(x, self.mesh, *names, rules=self.rules)
+
+    def param_shardings(self):
+        """The tree of DTensor placements of the params on the mesh (JAX's
+        NamedSharding pytree)."""
+        return leaf_shardings(self.param_spec(self.cfg),
+                              self.param_logical_axes(self.cfg), self.mesh,
+                              self.rules)
 
     # -- shared pieces -----------------------------------------------------
     def _layers(self, params: Params) -> List[Dict[str, torch.Tensor]]:
@@ -220,12 +287,21 @@ class LlamaModel:
         # gather, then cast: the same numbers as JAX's cast-then-gather
         # without casting the whole table
         table = params["embed"]
+        if self.mesh is not None:
+            # JAX's _embed_lookup: a plain (clamping) gather unless the
+            # vocabulary is sharded over tp
+            x = embed_lookup(table, tokens, self.mesh, self.rules,
+                             clamp=axis_size(self.mesh, "tp") == 1,
+                             dtype=self.cfg.dtype)
+            return self._constrain(x, "batch", "seq", "embed")
         return table[gather_index(tokens, table.shape[0])].to(self.cfg.dtype)
 
     def _lm_head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         head = (params["embed"].t() if self.cfg.tie_embeddings
                 else params["lm_head"])
-        return (x @ head.to(self.cfg.dtype)).float()
+        logits = self._constrain(x @ head.to(self.cfg.dtype), "batch", "seq",
+                                 "vocab")
+        return logits.float()
 
     def _qkv(self, layer: Dict[str, torch.Tensor], x, positions):
         """Pre-norm q/k/v projections of one layer with rope applied.
@@ -236,6 +312,7 @@ class LlamaModel:
         q = (h @ layer["wq"].reshape(d, -1)).view(B, T, cfg.n_heads, -1)
         k = (h @ layer["wk"].reshape(d, -1)).view(B, T, cfg.n_kv_heads, -1)
         v = (h @ layer["wv"].reshape(d, -1)).view(B, T, cfg.n_kv_heads, -1)
+        q = self._constrain(q, "batch", "seq", "heads", None)
         q = apply_rope(q, self._angles, positions)
         k = apply_rope(k, self._angles, positions)
         return q, k, v
@@ -243,14 +320,17 @@ class LlamaModel:
     def _attn_out(self, layer, x, o):
         """Attention output projection + residual. o [B, T, H, hd]."""
         B, T = o.shape[:2]
-        return x + o.reshape(B, T, -1) @ layer["wo"].reshape(-1, self.cfg.dim)
+        o = o.reshape(B, T, -1) @ layer["wo"].reshape(-1, self.cfg.dim)
+        return x + self._constrain(o, "batch", "seq", "embed")
 
     def _mlp(self, layer, x):
         """The pre-norm SwiGLU MLP block + residual."""
         h = rms_norm(x, layer["mlp_norm"], eps=self.cfg.norm_eps)
         gate = h @ layer["w_gate"]
         up = h @ layer["w_up"]
-        return x + (F.silu(gate) * up) @ layer["w_down"]
+        ff = self._constrain(F.silu(gate) * up, "batch", "seq", "mlp")
+        return x + self._constrain(ff @ layer["w_down"], "batch", "seq",
+                                   "embed")
 
     def _masked_attention(self, q, k, v, mask):
         """Softmax attention in f32 with ``mask`` [B, Tq, Tk] (True =
@@ -296,9 +376,8 @@ class LlamaModel:
                 kwargs["context_fn"] = functools.partial(
                     create_selective_checkpoint_contexts, _save_matmuls)
             block = remat(self._block, **kwargs)
-        if positions is not None:
-            positions = positions.to(self.device)
-        x = self._embed(params, tokens.to(self.device))
+        x = self._embed(params, self._tokens(tokens))
+        positions = self._positions(positions)
         for layer in self._layers(params):
             x = block(x, layer, positions)
         x = rms_norm(x, params["norm_f"], eps=cfg.norm_eps)
@@ -312,10 +391,29 @@ class LlamaModel:
         JAX's ``take_along_axis`` fills it."""
         return self._cross_entropy(self.apply(params, tokens), targets, mask)
 
+    def _tokens(self, tokens):
+        """Tokens on the device (a DTensor on a mesh stays as it is)."""
+        if self.mesh is None:
+            return tokens.to(self.device)
+        return tokens
+
+    def _positions(self, positions):
+        if positions is None:
+            return None
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "explicit positions on a mesh are not ported (ROADMAP A7b)")
+        return positions.to(self.device)
+
     def _cross_entropy(self, logits, targets, mask=None) -> torch.Tensor:
         nll = token_nll(logits, targets)
         if mask is not None:
-            mask = mask.to(device=self.device, dtype=nll.dtype)
+            if self.mesh is None:
+                mask = mask.to(device=self.device, dtype=nll.dtype)
+            else:
+                mask = as_global(torch.as_tensor(mask).to(nll.dtype),
+                                 self.mesh, "batch", "seq", rules=self.rules,
+                                 device=self.device)
             return (nll * mask).sum() / mask.sum().clamp(min=1)
         return nll.mean()
 

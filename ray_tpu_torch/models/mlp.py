@@ -13,8 +13,9 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models.common import Leaf, init_params, token_nll
+from ray_tpu_torch._device import DeviceLike
+from ray_tpu_torch.models.common import (Leaf, init_params, model_device,
+                                         token_nll)
 
 Params = Dict[str, object]
 
@@ -30,9 +31,14 @@ class MLPConfig:
 class MLPModel:
     F32_LEAVES = ("w", "b")
 
-    def __init__(self, cfg: MLPConfig, device: DeviceLike = None):
+    def __init__(self, cfg: MLPConfig, device: DeviceLike = None,
+                 mesh=None):
+        """``mesh`` is kept, as JAX keeps it; the MLP declares no param
+        shardings, so ``make_train_step`` trains it on one device even when
+        given a mesh, as JAX does."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = model_device(device, mesh)
 
     @staticmethod
     def param_spec(cfg: MLPConfig) -> Params:

@@ -10,9 +10,14 @@ As in JAX, the router stays f32 (its product is f32) while the expert
 weights are cast to ``cfg.dtype`` at use; the aux loss (router z-loss plus
 load balance) is summed over layers and added to the cross-entropy. With
 ``remat`` every layer is recomputed in the backward, whatever
-``remat_policy`` says (JAX's MoE checkpoints the whole block). The
-``"alltoall"`` scheme needs a device mesh, which waits for the parallel
-layer (ROADMAP A7): it raises, as JAX does without a mesh.
+``remat_policy`` says (JAX's MoE checkpoints the whole block).
+
+On a mesh the experts are sharded over ``ep`` (``moe_param_logical_axes``)
+and the einsum scheme's products run as DTensor ops; the router math runs
+whole on every rank (its slot positions are a cumsum over every token of
+the batch), on the tokens gathered from the batch axes. The ``"alltoall"``
+scheme (explicit expert all-to-all) waits for ROADMAP A7b: it raises,
+without a mesh as JAX does, and on one.
 """
 
 from __future__ import annotations
@@ -23,11 +28,14 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
 from ray_tpu_torch.models.common import Leaf, remat
 from ray_tpu_torch.models.llama import (NORM_LEAVES, LlamaConfig, LlamaModel,
-                                        Params)
+                                        Params, param_logical_axes)
 from ray_tpu_torch.ops.moe_dispatch import topk_dispatch
 from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.parallel.mesh import replicated, shard_map_compat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +46,7 @@ class MoEConfig(LlamaConfig):
     router_z_loss: float = 1e-3
     load_balance_loss: float = 1e-2
     # "einsum" = dense one-hot dispatch; "alltoall" = explicit expert
-    # all-to-all over a mesh (not ported: ROADMAP A7)
+    # all-to-all over a mesh (not ported: ROADMAP A7b)
     moe_dispatch: str = "einsum"
 
     def __post_init__(self):
@@ -55,11 +63,25 @@ class MoEConfig(LlamaConfig):
                          remat=False, num_experts=num_experts)
 
 
+def moe_param_logical_axes(cfg: MoEConfig) -> Params:
+    axes = param_logical_axes(cfg)
+    layers = dict(axes["layers"])
+    for key in ("w_gate", "w_up", "w_down"):
+        del layers[key]
+    layers["router"] = (None, "embed_in", "experts")
+    layers["e_gate"] = (None, "experts", "embed_in", "mlp")
+    layers["e_up"] = (None, "experts", "embed_in", "mlp")
+    layers["e_down"] = (None, "experts", "mlp", "embed_in")
+    axes["layers"] = layers
+    return axes
+
+
 class MoEModel(LlamaModel):
     """Llama with MoE FFN blocks; ``apply_with_aux`` returns the aux loss
     beside the logits."""
 
     F32_LEAVES = NORM_LEAVES + ("router",)
+    param_logical_axes = staticmethod(moe_param_logical_axes)
 
     @staticmethod
     def param_spec(cfg: MoEConfig) -> Params:
@@ -82,18 +104,29 @@ class MoEModel(LlamaModel):
         """h [B, S, D] -> (out [B, S, D], aux scalar f32)."""
         cfg: MoEConfig = self.cfg
         if cfg.moe_dispatch == "alltoall":
-            raise ValueError(
-                "moe_dispatch='alltoall' needs a device mesh, which the port "
-                "does not have yet (ROADMAP A7); use 'einsum'")
+            if self.mesh is None:
+                raise ValueError(
+                    "moe_dispatch='alltoall' needs a device mesh (pass mesh= "
+                    "to MoEModel); the port's expert all-to-all waits for "
+                    "ROADMAP A7b")
+            raise NotImplementedError(
+                "moe_dispatch='alltoall' (the expert all-to-all) is not "
+                "ported yet (ROADMAP A7b); use 'einsum'")
         dt = cfg.dtype
         B, S, D = h.shape
         E, K = cfg.num_experts, cfg.expert_top_k
         T = B * S
         C = max(1, int(cfg.capacity_factor * T * K / E))
         x = h.reshape(T, D)
-        dispatch, combine, aux = topk_dispatch(
-            x, layer["router"], E, K, C, cfg.router_z_loss,
-            cfg.load_balance_loss)
+
+        def route(x, router):
+            return topk_dispatch(x, router, E, K, C, cfg.router_z_loss,
+                                 cfg.load_balance_loss)
+        if isinstance(x, DTensor):
+            rep = replicated(self.mesh)
+            route = shard_map_compat(route, self.mesh, (rep, rep),
+                                     (rep, rep, rep))
+        dispatch, combine, aux = route(x, layer["router"])
         # "tec,td->ecd": each expert slot takes its token
         expert_in = (dispatch.to(dt).reshape(T, E * C).t() @ x.to(dt)) \
             .view(E, C, D)
@@ -119,13 +152,12 @@ class MoEModel(LlamaModel):
         layers)."""
         cfg = self.cfg
         block = remat(self._moe_block) if cfg.remat else self._moe_block
-        if positions is not None:
-            positions = positions.to(self.device)
-        x = self._embed(params, tokens.to(self.device))
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        x = self._embed(params, self._tokens(tokens))
+        positions = self._positions(positions)
+        aux = None          # JAX starts from 0.0: the same sum
         for layer in self._layers(params):
             x, aux_i = block(x, layer, positions)
-            aux = aux + aux_i
+            aux = aux_i if aux is None else aux + aux_i
         x = rms_norm(x, params["norm_f"], eps=cfg.norm_eps)
         return self._lm_head(params, x), aux
 

@@ -17,9 +17,10 @@ from typing import Dict, Optional
 
 import torch
 
-from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch._device import DeviceLike
 from ray_tpu_torch.models.common import (Leaf, gelu_tanh, init_params,
-                                         layer_views, remat, token_nll)
+                                         layer_views, model_device, remat,
+                                         token_nll)
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.norms import layer_norm
 
@@ -62,9 +63,15 @@ class ViTModel:
     F32_LEAVES = ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "lnf_w", "lnf_b",
                   "head_b")
 
-    def __init__(self, cfg: ViTConfig, device: DeviceLike = None):
+    def __init__(self, cfg: ViTConfig, device: DeviceLike = None,
+                 mesh=None, rules: Optional[Dict] = None):
+        """``mesh``/``rules`` are kept, as JAX keeps them; ViT declares no
+        param shardings, so ``make_train_step`` trains it on one device
+        even when given a mesh, as JAX does."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = rules
+        self.device = model_device(device, mesh)
 
     @staticmethod
     def param_spec(cfg: ViTConfig) -> Params:

@@ -16,6 +16,17 @@ Counterpart of ``ray_tpu/ops/attention.py``:
   as JAX's custom VJP does;
 - ``attention`` — the dispatcher.
 
+On a mesh (DTensor q/k/v) ``flash_attention``, ``blockwise_attention`` and
+``attention`` run on each rank's local shards (``local_map``, JAX's
+``shard_map``): attention is independent across batch rows and heads, so the
+batch may be sharded over any axes and the heads over tp; the kernel sees
+plain local tensors, and its recompute backward runs on them too. GQA stays
+right because query heads and kv heads are split into the same number of
+contiguous blocks (query head ``h`` of a block still reads kv head
+``h // group`` of that block); a kv-head count the head shards do not divide
+raises. A sharded sequence or head_dim (context parallelism, ROADMAP A7b)
+raises too: nothing here replicates and runs unsharded.
+
 The Pallas ``block_q``/``block_k`` and ``interpret`` arguments are gone: the
 CUDA kernel picks its own tiles, and the plain version keeps the Pallas
 defaults (``PALLAS_BLOCK``). Shapes follow the JAX package: [batch, seq,
@@ -27,7 +38,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
+
+from ray_tpu_torch.parallel.mesh import shard_map_compat
 
 NEG_INF = -1e30
 # the Pallas kernel's default block_q = block_k, the plain version's tiles
@@ -62,6 +76,28 @@ def check_kernel_tensors(name: str, q, k, v, *others) -> None:
         raise ValueError(f"{name}: operands must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: q/k/v must be 16-byte aligned")
+
+
+def _per_shard(fn, q, k, v):
+    """``fn(q, k, v)`` on each rank's local shards of DTensor q/k/v
+    [B, S, H(kv), D], laid out as ``q``: batch over any axes, heads over
+    any; k/v are moved to the same placements first."""
+    mesh = q.device_mesh
+    # a sum still to do (a product over a sharded contraction) is done
+    pl = tuple(Replicate() if p.is_partial() else p for p in q.placements)
+    head_shards = 1
+    for i, p in enumerate(pl):
+        if p.is_shard() and p.dim not in (0, 2):
+            raise ValueError(
+                f"attention on a mesh: q placements {pl}; only the batch "
+                "and head dims may be sharded (sequence parallelism waits "
+                "for ring/Ulysses attention, ROADMAP A7b)")
+        if p.is_shard(2):
+            head_shards *= mesh.size(i)
+    if k.shape[2] % head_shards:
+        raise ValueError(f"attention on a mesh: {k.shape[2]} kv heads not "
+                         f"divisible by the {head_shards} head shards (tp)")
+    return shard_map_compat(fn, mesh, (pl, pl, pl), list(pl))(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +304,11 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """Flash attention with the kernel's forward and a blockwise-recompute
     backward; q [B,S,H,D], k/v [B,S,Hkv,D], made contiguous for the kernel
-    (GPT-2 and ViT split q/k/v out of one fused projection)."""
+    (GPT-2 and ViT split q/k/v out of one fused projection). On DTensors,
+    the kernel runs on each rank's local shards."""
+    if isinstance(q, DTensor):
+        return _per_shard(lambda a, b, c: flash_attention(a, b, c, causal),
+                          q, k, v)
     return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal)
 
@@ -280,7 +320,14 @@ def attention(q, k, v, *, causal: bool = True,
     """Dispatcher. With ``use_flash=None`` the flash kernel runs when the
     tensors are on the card and tile cleanly (no explicit positions,
     ``head_dim % 128 == 0``, ``S >= 128``), the counterpart of JAX's "on TPU
-    and tiles cleanly"; otherwise ``reference_attention``."""
+    and tiles cleanly"; otherwise ``reference_attention``. DTensors run on
+    each rank's local shards, without explicit positions."""
+    if isinstance(q, DTensor):
+        if positions_q is not None or positions_k is not None:
+            raise NotImplementedError(
+                "attention on a mesh takes no explicit positions")
+        return _per_shard(lambda a, b, c: attention(
+            a, b, c, causal=causal, use_flash=use_flash), q, k, v)
     if use_flash is None:
         use_flash = (q.device.type == "cuda" and positions_q is None
                      and positions_k is None and q.shape[-1] % 128 == 0

@@ -4,8 +4,8 @@
 top-k routing into capacity-bounded expert slots, as dense one-hot tensors
 that ``models/moe.py``'s einsum scheme contracts with plain matrix products.
 The JAX module's other half, ``expert_alltoall_ffn`` (explicit expert
-all-to-all inside ``shard_map``), needs a device mesh and waits for the
-parallel layer (ROADMAP A7).
+all-to-all inside ``shard_map``), waits for the port's expert all-to-all
+(ROADMAP A7b).
 
 Differences of idiom: ``jax.nn.one_hot`` of an index past the last class is a
 zero row, where ``F.one_hot`` raises (and device-asserts on CUDA); here every

@@ -1,5 +1,6 @@
 """ray_tpu_torch.train — training on the port (counterpart of
-``ray_tpu.train``); so far the single-device train step."""
+``ray_tpu.train``): the train step on one device or a mesh, and
+checkpoints (``train.checkpoint``)."""
 
 from ray_tpu_torch.train.spmd import (TrainStep, make_train_step,
                                       shard_batch)

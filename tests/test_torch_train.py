@@ -199,8 +199,10 @@ def test_step_fn_reports_its_phases_in_order():
 
 
 def test_make_train_step_refuses_a_mesh():
+    """A mesh is a DeviceMesh of ray_tpu_torch.parallel (the sharded step
+    itself is tests/test_torch_spmd.py's)."""
     _, tcfg = _configs("kernel")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(LlamaModel(tcfg, device="cpu"), mesh=object())
 
 
