@@ -66,6 +66,22 @@
    the mesh, its first loss held to phase 7's. Last, the sharded bench_400m
    params and AdamW state after one step are saved (``train.checkpoint``)
    and restored onto the mesh and with no mesh: every leaf bit for bit.
+10. Sequence, expert and pipeline parallelism, every counter at 0 before
+   each run: (a) phase 7's MoE workload with the expert all-to-all
+   (``moe_dispatch="alltoall"``) on the one-rank mesh: at ep 1 it is the
+   einsum scheme's math, so its first loss must equal phase 7's at rtol
+   1e-3; the loss must fall and flash launch twice per layer per step;
+   (b) ring and Ulysses attention at sp 1 (no exchange runs) at
+   bench_400m's attention shapes: bf16 against the flash kernel at the
+   bf16 bar, f32 gradients against autograd through the reference at the
+   gradient bar, each timed; (c) the GPipe schedule (``pipelined``) over
+   the mesh's one stage of bench_400m's 24 layers, ``PipelinedLlama``'s
+   stage body and apply, 4 microbatches of 2 x 2048, remat: first loss
+   against phase 5's at rtol 1e-3, flash launched 2 x 24 x 4 times a
+   step, step time beside phase 5's; (d) ``dryrun_mesh(8)``: one step of
+   each parallel layout on 8 gloo ranks of this machine's CPU (NCCL holds
+   one rank a card, so meshes of more ranks meet this torch here), each
+   loss against the port's one-device loss.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -677,29 +693,46 @@ def card_vs_cpu_loss(dev, name: str) -> tuple:
 # phase 9: the mesh path
 # ---------------------------------------------------------------------------
 
-def launches_per_step(dev, mesh) -> int:
-    """CUDA kernels one bench_400m train step launches (batch 8 x 2048),
-    on ``mesh`` or with none: one warm step, then one under the
-    profiler."""
+def step_profile(model, batch) -> dict:
+    """CUDA kernel launches and their summed device time in one train step
+    of ``model`` on the host ``batch`` (one warm step, then one under the
+    profiler), beside the step's wall time under the profiler."""
     import torch
-    from ray_tpu_torch.models import LlamaConfig, LlamaModel
     from ray_tpu_torch.train import make_train_step, shard_batch
-    cfg = LlamaConfig.bench_400m()
-    ts = make_train_step(LlamaModel(cfg, device=dev, mesh=mesh), mesh=mesh)
+    ts = make_train_step(model, mesh=getattr(model, "mesh", None))
     params, opt = ts.init_fn(0)
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 2048))
-    batch = shard_batch((tokens, np.roll(tokens, -1, axis=1)), ts)
-    ts.step_fn(params, opt, batch)
+    data = shard_batch(batch, ts)
+    ts.step_fn(params, opt, data)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        ts.step_fn(params, opt, batch)
+        ts.step_fn(params, opt, data)
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
     del params, opt
     free_card()
-    return n
+    return {"launches": sum(e.count for e in kernels),
+            "device_ms": sum(e.self_device_time_total for e in kernels)
+            / 1e3, "profiled_wall_ms": wall}
+
+
+def bench_batch(cfg, rows: int = 8):
+    """Phase 5's batch: ``rows`` x 2048 tokens from seed 0."""
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               (rows, 2048))
+    return tokens, np.roll(tokens, -1, axis=1)
+
+
+def launches_per_step(dev, mesh) -> dict:
+    """One bench_400m train step (batch 8 x 2048) on ``mesh`` or with
+    none, profiled (``step_profile``)."""
+    from ray_tpu_torch.models import LlamaConfig, LlamaModel
+    cfg = LlamaConfig.bench_400m()
+    return step_profile(LlamaModel(cfg, device=dev, mesh=mesh),
+                        bench_batch(cfg))
 
 
 def mesh_train(dev, mesh, plain: dict, n_layers: int) -> dict:
@@ -838,8 +871,9 @@ def mesh_path(dev, plain: dict, gpt2_plain: dict, n_layers: int) -> dict:
     free_card()
     per_step = {"no mesh": launches_per_step(dev, None),
                 "mesh": launches_per_step(dev, mesh)}
-    log(f"CUDA kernel launches a bench_400m step: {per_step} (ratio "
-        f"{per_step['mesh'] / per_step['no mesh']:.4f})")
+    ratio = per_step["mesh"]["launches"] / per_step["no mesh"]["launches"]
+    log(f"one profiled bench_400m step (CUDA kernel launches, their device "
+        f"ms, wall ms): {per_step} (launch ratio {ratio:.4f})")
     gpt2 = train_gpt2_dp.main(debug=False, steps=7, batch=8, seq=1024)
     free_card()
     log(f"GPT-2 DP example (gpt2_125m, {gpt2['batch']} x {gpt2['seq']}, "
@@ -860,6 +894,179 @@ def mesh_path(dev, plain: dict, gpt2_plain: dict, n_layers: int) -> dict:
         raise RuntimeError("checkpoint: nothing was restored onto the mesh")
     out.update(per_step=per_step, gpt2=gpt2, gpt2_timed=gpt2_timed,
                checkpoint=ck)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: sequence, expert and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def moe_alltoall(dev, mesh, plain: dict, n_layers: int) -> dict:
+    """(a) Phase 7's MoE workload with the expert all-to-all on ``mesh``:
+    the same seed and batch, so at ep 1 the same first loss."""
+    import torch
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import MoEModel
+    from ray_tpu_torch.ops import attention as attn
+    cfg = dataclasses.replace(bench.moe_bench_config(),
+                              moe_dispatch="alltoall")
+    _, batch = bench.family_workload("moe", dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    attn.flash_attention_kernel.launches = 0
+    out = bench.time_train_steps(MoEModel(cfg, device=dev, mesh=mesh), batch,
+                                 steps=plain["steps"], warmup=plain["warmup"])
+    out["launches"] = attn.flash_attention_kernel.launches
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    free_card()
+    out["profile"] = {
+        "einsum, no mesh": step_profile(MoEModel(bench.moe_bench_config(),
+                                                 device=dev), batch),
+        "alltoall, mesh": step_profile(MoEModel(cfg, device=dev, mesh=mesh),
+                                       batch)}
+    log(f"  one profiled MoE step (CUDA kernel launches, their device ms, "
+        f"wall ms): {out['profile']}")
+    steps = out["steps"] + out["warmup"]
+    tokens = batch[0].size
+    gap = abs(out["loss_first"] / plain["loss_first"] - 1)
+    log(f"moe[alltoall] on the mesh (phase 7's workload): step "
+        f"{out['step_ms']:.2f} ms, {tokens / out['step_ms'] * 1e3:.1f} "
+        f"tokens/s, against phase 7's einsum {plain['step_ms']:.2f} ms, "
+        f"{plain['per_sec']:.1f} tokens/s (ratio "
+        f"{out['step_ms'] / plain['step_ms']:.4f}); first loss "
+        f"{out['loss_first']:.6f} against {plain['loss_first']:.6f} "
+        f"(relative gap {gap:.2e}, bar 1e-3), last {out['loss_last']:.4f}; "
+        f"peak allocated {out['peak_gib']:.2f} GiB; flash launches "
+        f"{out['launches']} ({steps} steps x {n_layers} layers x 2)")
+    if out["launches"] != 2 * n_layers * steps:
+        raise RuntimeError(f"moe[alltoall]: flash launches "
+                           f"{out['launches']} != 2 x {n_layers} x {steps}")
+    if gap > 1e-3 or not out["loss_last"] < out["loss_first"]:
+        raise RuntimeError(f"moe[alltoall]: {out}")
+    return out
+
+
+def context_parallel_sp1(dev, gen) -> dict:
+    """(b) Ring and Ulysses attention at sp 1 at bench_400m's attention
+    shapes: bf16 forward against the flash kernel, f32 gradients against
+    autograd through the reference, bf16 forward and forward+backward
+    times."""
+    import torch
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops.ring_attention import ring_attention
+    from ray_tpu_torch.ops.ulysses import ulysses_attention
+    from ray_tpu_torch.profile_kernels import eager_ms
+    B, S, H, Hkv, D = 8, 2048, 8, 4, 128
+    shapes = ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))
+    q, k, v = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+               for sh in shapes)
+    flash = attn.flash_attention_kernel(q, k, v, True)
+    out = {}
+    for name, fn in (("ring", ring_attention), ("ulysses",
+                                                 ulysses_attention)):
+        got = fn(q, k, v)
+        torch.testing.assert_close(got.float(), flash.float(), **BF16_TOL)
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def fwd_bwd():
+            fn(qg, kg, vg).float().sum().backward()
+        out[name] = {"max_abs_err": (got.float() - flash.float()).abs()
+                     .max().item(), "tol_ratio": tol_ratio(got, flash),
+                     "ms": eager_ms(lambda: fn(q, k, v), 5, 1),
+                     "fwd_bwd_ms": eager_ms(fwd_bwd, 3, 1)}
+        del got, qg, kg, vg
+        free_card()
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    cot = torch.randn((B, S, H, D), generator=gen, device=dev)
+    ref = torch.autograd.grad((attn.reference_attention(q32, k32, v32)
+                               * cot).sum(), (q32, k32, v32))
+    for name, fn in (("ring", ring_attention), ("ulysses",
+                                                 ulysses_attention)):
+        grads = torch.autograd.grad((fn(q32, k32, v32) * cot).sum(),
+                                    (q32, k32, v32))
+        for a, b in zip(grads, ref):
+            torch.testing.assert_close(a, b, **GRAD_TOL)
+        out[name]["grad_err"] = max((a - b).abs().max().item()
+                                    for a, b in zip(grads, ref))
+        del grads
+        free_card()
+    del ref, flash
+    free_card()
+    for name, r in out.items():
+        log(f"{name}_attention at sp 1, bf16 B={B} S={S} H={H} Hkv={Hkv} "
+            f"D={D} causal: forward {r['ms']:.3f} ms, forward+backward "
+            f"{r['fwd_bwd_ms']:.3f} ms; against the flash kernel max_abs_err "
+            f"{r['max_abs_err']:.3e} ({r['tol_ratio']:.2f}x the tolerance "
+            f"{BF16_TOL}); f32 gradients against the reference "
+            f"{r['grad_err']:.3e} ({GRAD_TOL})")
+    return out
+
+
+def pipeline_one_stage(dev, mesh, plain: dict, n_layers: int) -> dict:
+    """(c) bench_400m through ``pipelined`` over the mesh's one pp stage:
+    ``PipelinedLlama``'s init, stage body and apply, 4 microbatches of
+    2 x 2048 (phase 5's batch and seed), remat."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import LlamaConfig, LlamaModel, PipelinedLlama
+    from ray_tpu_torch.ops import attention as attn
+
+    class OneStage(PipelinedLlama):
+        """PipelinedLlama over one stage: the class refuses pp < 2, as
+        JAX's does, while ``pipelined`` takes one stage."""
+
+        def __init__(self, cfg, mesh, num_microbatches, device):
+            self.cfg, self.mesh, self.rules = cfg, mesh, None
+            self.num_microbatches, self.num_stages = num_microbatches, 1
+            self.device = device
+            self._base = LlamaModel(cfg, device=device, mesh=mesh)
+
+    cfg = LlamaConfig.bench_400m()
+    micro = 4
+    attn.flash_attention_kernel.launches = 0
+    out = bench.time_train_steps(OneStage(cfg, mesh, micro, dev),
+                                 bench_batch(cfg), steps=3, warmup=2)
+    out["launches"] = attn.flash_attention_kernel.launches
+    free_card()
+    out["profile"] = step_profile(OneStage(cfg, mesh, micro, dev),
+                                  bench_batch(cfg))
+    log(f"  one profiled pipelined step (CUDA kernel launches, their device "
+        f"ms, wall ms): {out['profile']}")
+    steps = out["steps"] + out["warmup"]
+    want = 2 * n_layers * micro * steps
+    gap = abs(out["loss_first"] / plain["loss_first"] - 1)
+    log(f"pipelined bench_400m over one stage ({micro} microbatches of "
+        f"2 x 2048, remat): step {out['step_ms']:.2f} ms against phase 5's "
+        f"{plain['step_ms']:.2f} ms (ratio "
+        f"{out['step_ms'] / plain['step_ms']:.4f}); first loss "
+        f"{out['loss_first']:.6f} against {plain['loss_first']:.6f} "
+        f"(relative gap {gap:.2e}, bar 1e-3), last {out['loss_last']:.4f}; "
+        f"flash launches {out['launches']} ({steps} steps x {n_layers} "
+        f"layers x {micro} microbatches x 2)")
+    if out["launches"] != want:
+        raise RuntimeError(f"pipeline: flash launches {out['launches']} != "
+                           f"{want}")
+    if gap > 1e-3 or not out["loss_last"] < out["loss_first"]:
+        raise RuntimeError(f"pipeline: {out}")
+    return out
+
+
+def parallel_layouts(dev, gen, plain: dict, moe_plain: dict,
+                     n_layers: int) -> dict:
+    """Phase 10 on the one-rank mesh of phase 9, then ``dryrun_mesh(8)``
+    on this machine's CPU."""
+    from ray_tpu_torch.dryrun import dryrun_mesh
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    mesh = build_mesh(MeshSpec())
+    out = {"moe": moe_alltoall(dev, mesh, moe_plain, n_layers)}
+    out["context"] = context_parallel_sp1(dev, gen)
+    out["pipeline"] = pipeline_one_stage(dev, mesh, plain, n_layers)
+    log("dryrun_mesh(8): 8 gloo ranks on this machine's CPU, by design: "
+        "NCCL holds one rank a card, so the multi-rank meshes meet this "
+        "torch here")
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_mesh(8)
+    log(f"dryrun_mesh(8): {len(out['dryrun'])} layouts in "
+        f"{time.perf_counter() - t0:.1f} s, each at its one-device loss "
+        f"(rtol 1e-4)")
     return out
 
 
@@ -1005,6 +1212,12 @@ def main() -> int:
     mesh = mesh_path(dev, train, runs["gpt2"],
                      LlamaConfig.bench_400m().n_layers)
     rows[2]["launches"] += mesh["launches"]
+
+    # 10. sequence, expert and pipeline parallelism, every counter at 0
+    par = parallel_layouts(dev, gen, train, runs["moe"],
+                           LlamaConfig.bench_400m().n_layers)
+    rows[2]["launches"] += par["moe"]["launches"] + \
+        par["pipeline"]["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

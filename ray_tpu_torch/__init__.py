@@ -24,5 +24,11 @@ logical-axis rules as DTensor placements, process-group bring-up and the
 ``spawn_ranks`` gloo launcher), the sharded ``make_train_step`` on
 DTensors with each family's ``param_shardings``, the vocab-parallel
 embedding, flash attention on local shards, ``train.checkpoint`` and the
-``examples`` that train on a mesh.
+``examples`` that train on a mesh — and sequence, expert and pipeline
+parallelism on that mesh: ``parallel.collectives`` (JAX's ppermute,
+all_to_all, psum, pmean and pvary with their transposes), ring and Ulysses
+attention (``ops.ring_attention``, ``ops.ulysses``), the MoE's expert
+all-to-all (``ops.moe_dispatch.expert_alltoall_ffn``), the GPipe schedule
+(``parallel.pipeline``), ``models.llama_pp.PipelinedLlama`` and
+``dryrun.dryrun_mesh``.
 """

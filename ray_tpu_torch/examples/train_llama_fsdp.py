@@ -1,11 +1,10 @@
-"""BASELINE config 3: Llama-3 sharded training on an fsdp x tp x dp mesh
+"""BASELINE config 3: Llama-3 sharded training on an fsdp x tp x sp mesh
 (counterpart of ``examples/train_llama_fsdp.py``).
 
 FSDP is the sharding: the params carry fsdp/tp logical axes and DTensor
-all-gathers them and reduce-scatters their gradients. On 8 ranks the mesh is
-fsdp 2 x tp 2 x dp 2 where the JAX example takes fsdp 2 x tp 2 x sp 2: the
-sp axis (ring attention) waits for the port's context parallelism (ROADMAP
-A7b). On any other rank count the mesh is all dp.
+all-gathers them and reduce-scatters their gradients; ring attention takes
+the sp axis. On 8 ranks the mesh is JAX's demo shape, fsdp 2 x tp 2 x sp 2;
+on any other rank count it is all dp.
 
 Run on the cards, one process a card:
   torchrun --nproc-per-node 8 -m ray_tpu_torch.examples.train_llama_fsdp
@@ -30,8 +29,9 @@ def main(debug: bool = True, steps: int = 3,
     """Train for ``steps`` steps on one batch; returns the losses."""
     initialize_multihost()
     n = dist.get_world_size() if dist.is_initialized() else 1
-    # 8-rank demo shape: fsdp=2, tp=2, dp=2 (JAX's sp=2 waits for A7b)
-    spec = MeshSpec.auto(n, fsdp=2, tp=2) if n % 8 == 0 else MeshSpec.auto(n)
+    # demo shape: fsdp=2, tp=2, sp=2
+    spec = (MeshSpec.auto(n, fsdp=2, tp=2, sp=2) if n % 8 == 0
+            else MeshSpec.auto(n))
     mesh = build_mesh(spec, device=device)
     cfg = (LlamaConfig.debug(vocab_size=512, max_seq_len=128) if debug
            else LlamaConfig.llama3_8b())

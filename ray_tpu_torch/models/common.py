@@ -134,7 +134,8 @@ def embed_lookup(table, tokens, mesh, rules=None, *, clamp: bool,
     ``clamp``: ids are first clamped into the table (JAX's plain gather);
     otherwise an id outside every rank's range reads zeros (JAX's lookup
     with tp > 1). Returns [B, S, D] in ``dtype``, batch over dp, D over
-    fsdp."""
+    fsdp, and the sequence over sp where sp (above 1) divides it, as JAX
+    shards it."""
     V = table.shape[0]
     mesh = active_mesh(mesh)
     names = mesh.mesh_dim_names
@@ -150,15 +151,20 @@ def embed_lookup(table, tokens, mesh, rules=None, *, clamp: bool,
     else:
         vshard, start = V, 0
     # tokens: batch over dp only (each fsdp rank looks up its D-slice of
-    # the same rows); out: [B, S, D] batch over dp, D where the table's D
-    # is, the vocab axis a sum still to do
-    tok_pl = [Shard(0) if n == "dp" else Replicate() for n in names]
-    out_pl = [Shard(0) if n == "dp" else Partial() if p == Shard(0)
+    # the same rows), the sequence over sp where sp divides it (a decode
+    # step's one token does not); out: [B, S, D] batch over dp, sequence
+    # over sp, D where the table's D is, the vocab axis a sum still to do
+    split = {"dp": 0}
+    if "sp" in names and tokens.shape[1] % mesh.size(names.index("sp")) == 0:
+        split["sp"] = 1
+    tok_pl = [Shard(split[n]) if n in split else Replicate() for n in names]
+    out_pl = [Shard(split[n]) if n in split else Partial() if p == Shard(0)
               else Shard(2) if p == Shard(1) else Replicate()
               for n, p in zip(names, table_pl)]
-    # each dp rank saw its share of the batch: the table's gradient is a
-    # sum over dp
-    grad_pl = [Partial() if n == "dp" else p for n, p in zip(names, table_pl)]
+    # each dp (and sp) rank saw its share of the tokens: the table's
+    # gradient is a sum over those axes
+    grad_pl = [Partial() if n in split else p
+               for n, p in zip(names, table_pl)]
     if not isinstance(tokens, DTensor):
         tokens = distribute(torch.as_tensor(tokens).to(table.device), mesh,
                             tok_pl)

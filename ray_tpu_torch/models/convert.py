@@ -11,7 +11,9 @@ MoE router, ViT's head bias, all of the MLP) in f32 and the others in
 keeps every leaf as JAX's ``init`` returns it, for training). With a
 ``mesh``, each leaf of a family that declares param shardings is placed with
 its placements (``param_shardings``): this is how JAX params reach a sharded
-port model.
+port model. A Llama tree whose layers JAX's ``stack_stages`` stacked by
+pipeline stage ([S, L/S, ...]) converts as it is, and on a mesh takes
+``PipelinedLlama``'s placements (the mesh's pp must be S).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ray_tpu_torch.models.common import (Leaf, at_path, build_tree,
                                          model_device)
 from ray_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel, Params
+from ray_tpu_torch.models.llama_pp import PipelinedLlama, stacked_param_spec
 from ray_tpu_torch.models.mlp import MLPConfig, MLPModel
 from ray_tpu_torch.models.moe import MoEConfig, MoEModel
 from ray_tpu_torch.models.vit import ViTConfig, ViTModel
@@ -51,8 +54,20 @@ def params_from_numpy(tree: Mapping, cfg, device: DeviceLike = None,
     dev = model_device(device, mesh)
     model = model_class(cfg)
     dtype = param_dtype or cfg.dtype
+    spec = model.param_spec(cfg)
+    # JAX's pipelined Llama stacks the layers by stage: [S, L/S, ...]
+    stages = (np.shape(tree["layers"]["wq"])[0] if model is LlamaModel
+              and np.ndim(tree["layers"]["wq"]) == 5 else 0)
+    if stages:
+        spec = stacked_param_spec(cfg, stages)
     shardings = None
-    if mesh is not None and hasattr(model, "param_shardings"):
+    if mesh is not None and stages:
+        pipe = PipelinedLlama(cfg, mesh, device=dev)
+        if pipe.num_stages != stages:
+            raise ValueError(f"params stacked for {stages} stages, the "
+                             f"mesh has pp={pipe.num_stages}")
+        shardings = pipe.param_shardings()
+    elif mesh is not None and hasattr(model, "param_shardings"):
         shardings = model(cfg, device=dev, mesh=mesh,
                           rules=rules).param_shardings()
 
@@ -69,4 +84,4 @@ def params_from_numpy(tree: Mapping, cfg, device: DeviceLike = None,
             return t
         return distribute(t, mesh, at_path(shardings, path))
 
-    return build_tree(model.param_spec(cfg), leaf)
+    return build_tree(spec, leaf)

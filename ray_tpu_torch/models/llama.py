@@ -28,9 +28,10 @@ leaf is a DTensor with the placements of ``param_logical_axes`` under the
 rules (``param_shardings``), and the activations are constrained where JAX
 constrains them (``_constrain``): DTensor's propagation takes GSPMD's place.
 The embedding is JAX's vocab-parallel lookup (``common.embed_lookup``), and
-attention runs on each rank's local batch rows and heads. JAX's
-``"ring"``/``"ulysses"`` context parallelism (an ``sp`` axis above 1) waits
-for ROADMAP A7b and raises. The flash kernel's ``flash_block_q/k`` tiles are
+attention runs on each rank's local batch rows and heads. On an ``sp`` axis
+above 1 the sequence is sharded too, and attention is JAX's context
+parallelism: ring attention (``ops/ring_attention.py``) or Ulysses
+(``ops/ulysses.py``). The flash kernel's ``flash_block_q/k`` tiles are
 not carried over: the CUDA kernel picks its own tiles, and an option that
 does nothing on the card is left out.
 """
@@ -56,9 +57,16 @@ from ray_tpu_torch.ops.attention import (NEG_INF, attention,
                                          flash_attention, repeat_kv)
 from ray_tpu_torch.ops.indexing import gather_index, wrap_index
 from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.ring_attention import (ring_attention,
+                                              ring_attention_sharded)
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
-from ray_tpu_torch.parallel.mesh import (axis_size, distribute, replicated,
-                                         shard_constraint)
+from ray_tpu_torch.ops.ulysses import (ulysses_attention,
+                                       ulysses_attention_sharded)
+from ray_tpu_torch.parallel.collectives import axis_index, psum, pvary
+from ray_tpu_torch.parallel.mesh import (axis_size, distribute,
+                                         named_sharding, placements,
+                                         replicated, shard_constraint,
+                                         shard_map_compat, summed_over)
 
 Params = Dict[str, object]
 
@@ -81,11 +89,14 @@ class LlamaConfig:
     # recomputes the rest (JAX's dots_saveable)
     remat: bool = True
     remat_policy: str = "full"
-    # training attention, one device (JAX name in brackets):
-    # "kernel" = the hand-written flash kernel of ops/attention.py ("flash";
-    # its plain version on CPU tensors); "blockwise" = online softmax over
-    # key chunks in plain PyTorch ("xla"); "auto" = the dispatcher, which
-    # JAX's "ring"/"ulysses" default reaches on one device
+    # training attention (JAX name in brackets): "kernel" = the hand-written
+    # flash kernel of ops/attention.py ("flash"; its plain version on CPU
+    # tensors); "blockwise" = online softmax over key chunks in plain
+    # PyTorch ("xla"); "ring" / "ulysses" = JAX's context parallelism on an
+    # sp axis above 1; "auto" = the dispatcher, which "ring" and "ulysses"
+    # also reach without sp (JAX's default "ring" on one device). On sp > 1
+    # "ulysses" runs Ulysses, "kernel" is refused and every other name
+    # runs ring, as in JAX.
     attention_impl: str = "auto"
     # KV-cache decode attention: "reference" masked fallback (JAX "xla") or
     # the hand-written CUDA "kernel" (JAX "pallas"; its plain version on
@@ -93,10 +104,11 @@ class LlamaConfig:
     decode_attention: str = "reference"
 
     def __post_init__(self):
-        if self.attention_impl not in ("auto", "kernel", "blockwise"):
+        if self.attention_impl not in ("auto", "kernel", "blockwise",
+                                       "ring", "ulysses"):
             raise ValueError(
-                f"attention_impl must be 'auto', 'kernel' or 'blockwise', "
-                f"got {self.attention_impl!r}")
+                f"attention_impl must be 'auto', 'kernel', 'blockwise', "
+                f"'ring' or 'ulysses', got {self.attention_impl!r}")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(
                 f"remat_policy must be 'full' or 'dots', "
@@ -192,6 +204,21 @@ def param_logical_axes(cfg: LlamaConfig) -> Params:
     return axes
 
 
+# The layout of one layer's leaves inside ``LlamaModel.local_block``:
+# heads and ffn over tp (Megatron's column/row split), the rest whole
+LAYER_SPECS: Dict[str, tuple] = {
+    "attn_norm": (None,),
+    "wq": (None, "tp", None),
+    "wk": (None, "tp", None),
+    "wv": (None, "tp", None),
+    "wo": ("tp", None, None),
+    "mlp_norm": (None,),
+    "w_gate": (None, "tp"),
+    "w_up": (None, "tp"),
+    "w_down": ("tp", None),
+}
+
+
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
             torch.ops.aten.addmm.default)
 
@@ -229,18 +256,16 @@ class LlamaModel:
         self.mesh = mesh
         self.rules = rules
         self.device = model_device(device, mesh)
-        if axis_size(mesh, "sp") > 1:
-            if cfg.attention_impl == "kernel":
-                raise ValueError(
-                    "attention_impl='kernel' is a single-device kernel; an "
-                    "sp>1 mesh needs ring or Ulysses context parallelism, "
-                    "which the port does not have yet (ROADMAP A7b)")
-            raise NotImplementedError(
-                "an sp>1 mesh needs ring or Ulysses context parallelism, "
-                "which the port does not have yet (ROADMAP A7b)")
+        self._sp = axis_size(mesh, "sp")
+        if self._sp > 1 and cfg.attention_impl == "kernel":
+            raise ValueError(
+                "attention_impl='kernel' is a single-device kernel; with an "
+                "sp>1 mesh use 'ring' or 'ulysses' context parallelism")
         self._angles = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
                                         theta=cfg.rope_theta,
                                         device=self.device)
+        # the plain table for local_block
+        self._local_angles = self._angles
         if mesh is not None:
             self._angles = distribute(self._angles, mesh, replicated(mesh))
 
@@ -298,9 +323,10 @@ class LlamaModel:
 
     def _lm_head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         head = (params["embed"].t() if self.cfg.tie_embeddings
-                else params["lm_head"])
-        logits = self._constrain(x @ head.to(self.cfg.dtype), "batch", "seq",
-                                 "vocab")
+                else params["lm_head"]).to(self.cfg.dtype)
+        if self._sp > 1:
+            return self._local_head(x, head).float()
+        logits = self._constrain(x @ head, "batch", "seq", "vocab")
         return logits.float()
 
     def _qkv(self, layer: Dict[str, torch.Tensor], x, positions):
@@ -347,10 +373,17 @@ class LlamaModel:
 
     # -- training forward --------------------------------------------------
     def _attention(self, q, k, v, positions):
-        """Causal attention of one layer: the flash kernel ("kernel") or the
-        blockwise path ("blockwise") when positions are implicit, else the
-        dispatcher."""
+        """Causal attention of one layer. On an sp axis above 1: Ulysses
+        ("ulysses") or ring attention (any other name) on DTensors, for
+        ``MoEModel``'s layers (Llama's own run ``_cp_block``). Otherwise the
+        flash kernel ("kernel") or the blockwise path ("blockwise") when
+        positions are implicit, else the dispatcher."""
         impl = self.cfg.attention_impl
+        if self._sp > 1:
+            if impl == "ulysses":
+                return ulysses_attention_sharded(q, k, v, self.mesh,
+                                                 causal=True)
+            return ring_attention_sharded(q, k, v, self.mesh, causal=True)
         if impl == "kernel" and positions is None:
             return flash_attention(q, k, v, True)
         if impl == "blockwise" and positions is None:
@@ -359,9 +392,84 @@ class LlamaModel:
                          positions_k=positions)
 
     def _block(self, x, layer: Dict[str, torch.Tensor], positions):
+        if self._sp > 1:
+            return self._cp_block(x, layer)
         q, k, v = self._qkv(layer, x, positions)
         o = self._attention(q, k, v, positions)
         return self._mlp(layer, self._attn_out(layer, x, o))
+
+    # -- layers on local shards (sp > 1, and the pipeline's stages) --------
+    def local_block(self, x, layer: Dict[str, torch.Tensor], attend,
+                    positions: Optional[torch.Tensor] = None):
+        """One layer on this rank's local shards, inside
+        ``shard_map_compat``: x [B, T, d] whole over tp, the layer's leaves
+        laid out as ``LAYER_SPECS`` (heads and ffn over tp, Megatron's
+        column/row split), ``attend(q, k, v)`` the attention on local
+        heads. Megatron's collectives over tp: the normed input enters the
+        tp-split products through ``pvary`` (its gradient summed over tp)
+        and each half's output leaves through ``psum`` (its gradient passed
+        through), as JAX's transposes do. ``positions`` are this rank's
+        rope positions (0..T-1 when None)."""
+        cfg, mesh = self.cfg, self.mesh
+        B, T, d = x.shape
+        h = pvary(rms_norm(x, layer["attn_norm"], eps=cfg.norm_eps), mesh,
+                  "tp")
+        q = (h @ layer["wq"].reshape(d, -1)).view(B, T, -1, cfg.head_dim)
+        k = (h @ layer["wk"].reshape(d, -1)).view(B, T, -1, cfg.head_dim)
+        v = (h @ layer["wv"].reshape(d, -1)).view(B, T, -1, cfg.head_dim)
+        q = apply_rope(q, self._local_angles, positions)
+        k = apply_rope(k, self._local_angles, positions)
+        o = attend(q, k, v).reshape(B, T, -1) @ layer["wo"].reshape(-1, d)
+        x = x + psum(o, mesh, "tp")
+        h = pvary(rms_norm(x, layer["mlp_norm"], eps=cfg.norm_eps), mesh,
+                  "tp")
+        ff = F.silu(h @ layer["w_gate"]) * (h @ layer["w_up"])
+        return x + psum(ff @ layer["w_down"], mesh, "tp")
+
+    def _cp_block(self, x, layer: Dict[str, torch.Tensor]):
+        """A layer on an sp axis above 1: ``local_block`` on each rank's
+        batch rows and sequence chunk with ring or Ulysses attention (JAX's
+        GSPMD layer around ``ring/ulysses_attention_sharded``; DTensor's
+        propagation over a sequence sharded inside a flattened matmul dim
+        takes minutes an op on three mesh axes). fsdp's shards of the
+        weights are gathered for the layer; their gradients are sums over
+        the ranks that saw other tokens."""
+        mesh = self.mesh
+        names = list(layer)
+        x_pl = named_sharding(mesh, "batch", "seq", "embed",
+                              rules=self.rules)
+        w_pl = [placements(mesh, LAYER_SPECS[n], layer[n].shape)
+                for n in names]
+        g_pl = [summed_over(mesh, pl, ("dp", "fsdp", "sp")) for pl in w_pl]
+        cp = (ulysses_attention if self.cfg.attention_impl == "ulysses"
+              else ring_attention)
+
+        def body(x, *leaves):
+            T = x.shape[1]
+            pos = axis_index(mesh, "sp") * T + torch.arange(T,
+                                                            device=x.device)
+            return self.local_block(
+                x, dict(zip(names, leaves)),
+                lambda q, k, v: cp(q, k, v, mesh, causal=True), pos)
+
+        fn = shard_map_compat(body, mesh, (x_pl, *w_pl), x_pl,
+                              in_grad_specs=(x_pl, *g_pl))
+        return fn(x, *(layer[n] for n in names))
+
+    def _local_head(self, x, head):
+        """The LM head on each rank's rows and sequence chunk (sp > 1): the
+        vocabulary over tp, fsdp's shards of the head gathered."""
+        mesh = self.mesh
+        x_pl = named_sharding(mesh, "batch", "seq", "embed",
+                              rules=self.rules)
+        h_pl = placements(mesh, (None, "tp"), head.shape)
+        out_pl = named_sharding(mesh, "batch", "seq", "vocab",
+                                rules=self.rules)
+        fn = shard_map_compat(
+            torch.matmul, mesh, (x_pl, h_pl), out_pl,
+            in_grad_specs=(summed_over(mesh, x_pl, ("tp",)),
+                           summed_over(mesh, h_pl, ("dp", "fsdp", "sp"))))
+        return fn(x, head)
 
     def apply(self, params: Params, tokens: torch.Tensor,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -398,12 +506,19 @@ class LlamaModel:
         return tokens
 
     def _positions(self, positions):
+        """Explicit positions on the device; on a mesh, whole on every rank
+        (the rope table and the dispatcher read them there)."""
         if positions is None:
             return None
-        if self.mesh is not None:
+        if self._sp > 1:
             raise NotImplementedError(
-                "explicit positions on a mesh are not ported (ROADMAP A7b)")
-        return positions.to(self.device)
+                "explicit positions are not supported with sp>1: the "
+                "context-parallel causal mask assumes contiguous 0..S-1")
+        if self.mesh is None:
+            return positions.to(self.device)
+        positions = torch.as_tensor(positions)
+        return as_global(positions, self.mesh, *([None] * positions.dim()),
+                         rules=self.rules, device=self.device)
 
     def _cross_entropy(self, logits, targets, mask=None) -> torch.Tensor:
         nll = token_nll(logits, targets)

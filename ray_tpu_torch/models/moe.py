@@ -16,8 +16,9 @@ On a mesh the experts are sharded over ``ep`` (``moe_param_logical_axes``)
 and the einsum scheme's products run as DTensor ops; the router math runs
 whole on every rank (its slot positions are a cumsum over every token of
 the batch), on the tokens gathered from the batch axes. The ``"alltoall"``
-scheme (explicit expert all-to-all) waits for ROADMAP A7b: it raises,
-without a mesh as JAX does, and on one.
+scheme (``ops/moe_dispatch.expert_alltoall_ffn``) routes each rank's own
+tokens and moves the expert slots over ``ep`` with two all-to-alls; it
+needs a mesh, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ from torch.distributed.tensor import DTensor
 from ray_tpu_torch.models.common import Leaf, remat
 from ray_tpu_torch.models.llama import (NORM_LEAVES, LlamaConfig, LlamaModel,
                                         Params, param_logical_axes)
-from ray_tpu_torch.ops.moe_dispatch import topk_dispatch
+from ray_tpu_torch.ops.moe_dispatch import expert_alltoall_ffn, topk_dispatch
 from ray_tpu_torch.ops.norms import rms_norm
-from ray_tpu_torch.parallel.mesh import replicated, shard_map_compat
+from ray_tpu_torch.parallel.mesh import (active_mesh, replicated,
+                                         shard_map_compat)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +48,7 @@ class MoEConfig(LlamaConfig):
     router_z_loss: float = 1e-3
     load_balance_loss: float = 1e-2
     # "einsum" = dense one-hot dispatch; "alltoall" = explicit expert
-    # all-to-all over a mesh (not ported: ROADMAP A7b)
+    # all-to-all over a mesh's ep axis
     moe_dispatch: str = "einsum"
 
     def __post_init__(self):
@@ -107,11 +109,14 @@ class MoEModel(LlamaModel):
             if self.mesh is None:
                 raise ValueError(
                     "moe_dispatch='alltoall' needs a device mesh (pass mesh= "
-                    "to MoEModel); the port's expert all-to-all waits for "
-                    "ROADMAP A7b")
-            raise NotImplementedError(
-                "moe_dispatch='alltoall' (the expert all-to-all) is not "
-                "ported yet (ROADMAP A7b); use 'einsum'")
+                    "to MoEModel)")
+            out, aux = expert_alltoall_ffn(
+                h, layer["router"], layer["e_gate"], layer["e_up"],
+                layer["e_down"], self.mesh, num_experts=cfg.num_experts,
+                top_k=cfg.expert_top_k, capacity_factor=cfg.capacity_factor,
+                z_coef=cfg.router_z_loss, lb_coef=cfg.load_balance_loss,
+                dtype=cfg.dtype)
+            return out, aux.mean()
         dt = cfg.dtype
         B, S, D = h.shape
         E, K = cfg.num_experts, cfg.expert_top_k
@@ -123,7 +128,9 @@ class MoEModel(LlamaModel):
             return topk_dispatch(x, router, E, K, C, cfg.router_z_loss,
                                  cfg.load_balance_loss)
         if isinstance(x, DTensor):
+            # the router and the slots take every token, gathered once
             rep = replicated(self.mesh)
+            x = x.redistribute(active_mesh(self.mesh), rep)
             route = shard_map_compat(route, self.mesh, (rep, rep),
                                      (rep, rep, rep))
         dispatch, combine, aux = route(x, layer["router"])
@@ -143,7 +150,12 @@ class MoEModel(LlamaModel):
         x = self._attn_out(layer, x, self._attention(q, k, v, positions))
         h = rms_norm(x, layer["mlp_norm"], eps=self.cfg.norm_eps)
         ffn, aux = self._moe_ffn(h, layer)
-        return x + ffn, aux
+        # laid out as the residual stream, forward and backward: the
+        # tokens otherwise come back (or their gradient arrives) sharded on
+        # more than one mesh axis, which the flattening reshapes turn into
+        # strided shards that DTensor takes minutes an op to plan on three
+        # mesh axes
+        return x + self._constrain(ffn, "batch", "seq", "embed"), aux
 
     def apply_with_aux(self, params: Params, tokens: torch.Tensor,
                        positions: Optional[torch.Tensor] = None

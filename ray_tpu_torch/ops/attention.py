@@ -24,8 +24,9 @@ plain local tensors, and its recompute backward runs on them too. GQA stays
 right because query heads and kv heads are split into the same number of
 contiguous blocks (query head ``h`` of a block still reads kv head
 ``h // group`` of that block); a kv-head count the head shards do not divide
-raises. A sharded sequence or head_dim (context parallelism, ROADMAP A7b)
-raises too: nothing here replicates and runs unsharded.
+raises. A sharded sequence or head_dim raises too, as JAX's single-device
+kernel refuses an sp>1 mesh: context parallelism is ``ops/ring_attention.py``
+and ``ops/ulysses.py``.
 
 The Pallas ``block_q``/``block_k`` and ``interpret`` arguments are gone: the
 CUDA kernel picks its own tiles, and the plain version keeps the Pallas
@@ -41,7 +42,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
-from ray_tpu_torch.parallel.mesh import shard_map_compat
+from ray_tpu_torch.parallel.mesh import replicated, shard_map_compat
 
 NEG_INF = -1e30
 # the Pallas kernel's default block_q = block_k, the plain version's tiles
@@ -78,10 +79,11 @@ def check_kernel_tensors(name: str, q, k, v, *others) -> None:
         raise ValueError(f"{name}: q/k/v must be 16-byte aligned")
 
 
-def _per_shard(fn, q, k, v):
-    """``fn(q, k, v)`` on each rank's local shards of DTensor q/k/v
+def _per_shard(fn, q, k, v, *rest):
+    """``fn(q, k, v, *rest)`` on each rank's local shards of DTensor q/k/v
     [B, S, H(kv), D], laid out as ``q``: batch over any axes, heads over
-    any; k/v are moved to the same placements first."""
+    any; k/v are moved to the same placements first. ``rest`` (explicit
+    positions, or None) are whole on every rank."""
     mesh = q.device_mesh
     # a sum still to do (a product over a sharded contraction) is done
     pl = tuple(Replicate() if p.is_partial() else p for p in q.placements)
@@ -90,14 +92,17 @@ def _per_shard(fn, q, k, v):
         if p.is_shard() and p.dim not in (0, 2):
             raise ValueError(
                 f"attention on a mesh: q placements {pl}; only the batch "
-                "and head dims may be sharded (sequence parallelism waits "
-                "for ring/Ulysses attention, ROADMAP A7b)")
+                "and head dims may be sharded (a sequence sharded over sp "
+                "takes attention_impl='ring' or 'ulysses')")
         if p.is_shard(2):
             head_shards *= mesh.size(i)
     if k.shape[2] % head_shards:
         raise ValueError(f"attention on a mesh: {k.shape[2]} kv heads not "
                          f"divisible by the {head_shards} head shards (tp)")
-    return shard_map_compat(fn, mesh, (pl, pl, pl), list(pl))(q, k, v)
+    whole = [replicated(mesh) if isinstance(r, DTensor) else None
+             for r in rest]
+    return shard_map_compat(fn, mesh, (pl, pl, pl, *whole), list(pl))(
+        q, k, v, *rest)
 
 
 # ---------------------------------------------------------------------------
@@ -321,13 +326,11 @@ def attention(q, k, v, *, causal: bool = True,
     tensors are on the card and tile cleanly (no explicit positions,
     ``head_dim % 128 == 0``, ``S >= 128``), the counterpart of JAX's "on TPU
     and tiles cleanly"; otherwise ``reference_attention``. DTensors run on
-    each rank's local shards, without explicit positions."""
+    each rank's local shards, explicit positions whole on each."""
     if isinstance(q, DTensor):
-        if positions_q is not None or positions_k is not None:
-            raise NotImplementedError(
-                "attention on a mesh takes no explicit positions")
-        return _per_shard(lambda a, b, c: attention(
-            a, b, c, causal=causal, use_flash=use_flash), q, k, v)
+        return _per_shard(lambda a, b, c, pq, pk: attention(
+            a, b, c, causal=causal, positions_q=pq, positions_k=pk,
+            use_flash=use_flash), q, k, v, positions_q, positions_k)
     if use_flash is None:
         use_flash = (q.device.type == "cuda" and positions_q is None
                      and positions_k is None and q.shape[-1] % 128 == 0

@@ -1,6 +1,8 @@
 """ray_tpu_torch.parallel — the parallel layer of the port (counterpart of
 ``ray_tpu.parallel``): the named 6-axis ``DeviceMesh``, JAX's logical-axis
-rules as DTensor placements, and the process-group bring-up."""
+rules as DTensor placements, the process-group bring-up, the differentiable
+collectives over one mesh axis (``collectives``) and the GPipe pipeline
+(``pipeline``)."""
 
 from ray_tpu_torch.parallel.mesh import (DEFAULT_AXIS_ORDER, DEFAULT_RULES,
                                          MeshSpec, build_mesh, distribute,

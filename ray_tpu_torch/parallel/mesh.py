@@ -37,7 +37,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard)
 from torch.distributed.tensor.experimental import local_map
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
@@ -255,6 +256,17 @@ def shard_constraint(x: DTensor, mesh: DeviceMesh, *names: Optional[str],
 
 def replicated(mesh: DeviceMesh) -> List[Placement]:
     return [Replicate() for _ in range(active_mesh(mesh).ndim)]
+
+
+def summed_over(mesh: DeviceMesh, pl: Sequence[Placement],
+                axes: Sequence[str]) -> List[Placement]:
+    """``pl`` with ``Partial()`` on the mesh dims of ``axes`` where ``pl``
+    replicates: the placements of a gradient computed on local shards
+    whose ranks along those axes each saw their own share of the data (the
+    sum ``shard_map``'s transpose takes over an axis a spec leaves out)."""
+    names = active_mesh(mesh).mesh_dim_names
+    return [Partial() if n in axes and p == Replicate() else p
+            for n, p in zip(names, pl)]
 
 
 def local_mesh_devices(n: Optional[int] = None) -> List[int]:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import datetime
 import multiprocessing as mp
 import os
+import pickle
 import queue
 import shutil
 import tempfile
@@ -116,10 +117,12 @@ def process_shard(n: int) -> Tuple[int, int]:
 # the gloo launcher
 # ---------------------------------------------------------------------------
 
-def _rank_main(rank: int, world_size: int, store_path: str, fn: Callable,
-               args: tuple, results) -> None:
+def _rank_main(rank: int, world_size: int, store_path: str,
+               payload_path: str, results) -> None:
     torch.set_num_threads(1)
     try:
+        with open(payload_path, "rb") as f:
+            fn, args = pickle.load(f)
         store = dist.FileStore(store_path, world_size)
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=world_size)
@@ -147,16 +150,24 @@ def spawn_ranks(world_size: int, fn: Callable, *args: Any,
 
     Each rank is a fresh process (the ``spawn`` start method), so ``fn``
     and its arguments must pickle: a function of an importable module that
-    does not import JAX. The ranks meet through a ``FileStore`` in a
-    temporary directory, never a fixed port. A rank's exception is raised
-    here, with that rank's traceback in its notes; a run that takes longer
-    than ``timeout`` seconds is killed and raises ``TimeoutError``."""
+    does not import JAX. They reach the ranks through a file, not the
+    process arguments: a start sends those through a pipe that the child
+    reads only after importing the parent's main module, so arguments past
+    the pipe's buffer would start the ranks one after another (seconds
+    each), and gloo's connection timeout then fails the first. The ranks
+    meet through a ``FileStore`` in a temporary directory, never a fixed
+    port. A rank's exception is raised here, with that rank's traceback in
+    its notes; a run that takes longer than ``timeout`` seconds is killed
+    and raises ``TimeoutError``."""
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="ray_tpu_torch_ranks_")
+    payload = os.path.join(tmp, "payload.pkl")
+    with open(payload, "wb") as f:
+        pickle.dump((fn, args), f)
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world_size, os.path.join(tmp, "store"), fn,
-                               args, results))
+                         args=(r, world_size, os.path.join(tmp, "store"),
+                               payload, results))
              for r in range(world_size)]
     try:
         for p in procs:

@@ -20,7 +20,9 @@ shard over (dp, fsdp), and jit emits the collectives. Here:
   family's placements, the optimizer's moments take the placements of their
   params (JAX's ``_mirror_shardings``), batches are placed with ``Shard(0)``
   over ``batch_axes``, and DTensor inserts the collectives. A model without
-  ``param_shardings`` (ViT, the MLP) takes the one-device path, as in JAX.
+  ``param_shardings`` (ViT, the MLP) takes the one-device path, as in JAX;
+  ``PipelinedLlama`` (``models/llama_pp.py``) trains through the same step,
+  its stages' collectives inside its loss.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Rank bodies of the port's mesh tests (tests/test_torch_parallel.py,
-tests/test_torch_spmd.py).
+tests/test_torch_spmd.py, tests/test_torch_context.py,
+tests/test_torch_pipeline.py).
 
 ``spawn_ranks`` runs each of these on CPU ranks joined by gloo, in fresh
 processes that import this module: it imports torch, numpy and the port
@@ -193,8 +194,11 @@ def masked_loss(trees_tokens: np.ndarray):
 
 
 def refusals():
-    """ViT/MLP take the one-device path on a mesh; sp>1 and the expert
-    all-to-all raise, naming A7b."""
+    """ViT/MLP take the one-device path on a mesh; on an sp>1 mesh
+    ``"kernel"`` is refused and ``"blockwise"`` runs ring attention (its
+    loss and ``"ring"``'s, each against one device); the expert
+    all-to-all runs on a mesh (its loss against the einsum scheme's, with
+    capacity for every token)."""
     from ray_tpu_torch.models import MLPConfig, MLPModel, ViTConfig, ViTModel
     out = {}
     mesh = build_mesh(MeshSpec(dp=4), device="cpu")
@@ -209,14 +213,28 @@ def refusals():
                          for p in param_leaves(params)),
                      str(model.device))
     sp_mesh = build_mesh(MeshSpec(dp=2, sp=2), device="cpu")
-    for impl in ("kernel", "blockwise"):
+    cfg, _ = _config("llama", attention_impl="kernel")
+    out["sp-kernel"] = _error(lambda: LlamaModel(cfg, mesh=sp_mesh))
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (4, 16)))
+    for impl in ("blockwise", "ring"):
         cfg, _ = _config("llama", attention_impl=impl)
-        out[f"sp-{impl}"] = _error(lambda: LlamaModel(cfg, mesh=sp_mesh))
-    cfg, _ = _config("moe", moe_dispatch="alltoall")
-    model = MoEModel(cfg, mesh=mesh)
-    tokens = torch.zeros((4, 8), dtype=torch.int64)
-    out["alltoall"] = _error(lambda: model.loss(model.init(0), tokens,
-                                                tokens))
+        model = LlamaModel(cfg, mesh=sp_mesh)
+        loss = model.loss(model.init(0, param_dtype=torch.float32), tokens,
+                          tokens.roll(-1, 1))
+        out[f"sp-{impl}"] = float(_full(loss))
+    plain = LlamaModel(cfg, device="cpu")
+    out["sp-one-device"] = float(plain.loss(
+        plain.init(0, param_dtype=torch.float32), tokens,
+        tokens.roll(-1, 1)))
+    losses = []
+    for dispatch in ("alltoall", "einsum"):
+        cfg, _ = _config("moe", moe_dispatch=dispatch, capacity_factor=8.0)
+        model = MoEModel(cfg, mesh=mesh)
+        losses.append(float(_full(model.loss(
+            model.init(0, param_dtype=torch.float32), tokens[:, :8],
+            tokens[:, :8]))))
+    out["alltoall"] = losses
     return out
 
 
@@ -306,8 +324,8 @@ def multihost_explicit(address: str, world: int, rank: int, out_dir: str):
 def two_steps(cases: list):
     """For each (name, family, mesh spec, numpy params, tokens, config
     overrides): two default-AdamW steps on the mesh from the given params,
-    and two on one device; rank 0 returns the metrics and every param
-    whole."""
+    and two on one device (none for the expert all-to-all, which needs a
+    mesh); rank 0 returns the metrics and every param whole."""
     out = {}
     for name, family, spec, tree, tokens, kw in cases:
         mesh = build_mesh(MeshSpec(**spec), device="cpu")
@@ -315,7 +333,8 @@ def two_steps(cases: list):
         batch = (tokens, np.roll(tokens, -1, axis=1))
         runs = []
         # the one-device run once, on rank 0
-        for m in (mesh, None) if dist.get_rank() == 0 else (mesh,):
+        plain = dist.get_rank() == 0 and kw.get("moe_dispatch") != "alltoall"
+        for m in (mesh, None) if plain else (mesh,):
             model = model_cls(cfg, device="cpu", mesh=m)
             ts = make_train_step(model, mesh=m)
             params = params_from_numpy(tree, cfg, device="cpu", mesh=m,
@@ -340,3 +359,166 @@ def raise_on_rank_one():
     if dist.get_rank() == 1:
         raise ValueError("a bad spec on one rank")
     dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_context.py
+# ---------------------------------------------------------------------------
+
+def _sp_attention(fn, spec: dict, q, k, v, cot=None, **kw):
+    """``fn`` (ring or Ulysses, sharded) on q/k/v sharded over sp (batch
+    and heads whole); the output whole, and with ``cot`` the gradients of
+    ``sum(out * cot)`` with respect to q, k and v."""
+    from ray_tpu_torch.parallel.mesh import placements
+    mesh = build_mesh(MeshSpec(**spec), device="cpu")
+    pl = placements(mesh, (None, "sp", None, None))
+    args = [distribute(torch.from_numpy(t), mesh, pl) for t in (q, k, v)]
+    if cot is not None:
+        for a in args:
+            a.requires_grad_(True)
+    out = fn(*args, mesh, batch_axes=(), head_axis=None, **kw)
+    if cot is None:
+        return _full(out)
+    (out.full_tensor() * torch.from_numpy(cot)).sum().backward()
+    return _full(out), [_full(a.grad) for a in args]
+
+
+def context_ops(inputs: dict):
+    """Ring and Ulysses attention on sp=4 and sp=2 meshes of 4 ranks (the
+    cases of tests/test_ops.py)."""
+    from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
+    from ray_tpu_torch.ops.ulysses import ulysses_attention_sharded
+    sp4, sp2 = dict(sp=4), dict(dp=2, sp=2)
+    return {
+        "ring": _sp_attention(ring_attention_sharded, sp4, *inputs["ring"]),
+        "ring_full": _sp_attention(ring_attention_sharded, sp2,
+                                   *inputs["ring_full"], causal=False),
+        "ring_grad": _sp_attention(ring_attention_sharded, sp4,
+                                   *inputs["ring_grad"]),
+        "ulysses": _sp_attention(ulysses_attention_sharded, sp4,
+                                 *inputs["ulysses"]),
+        "ulysses_ring": [_sp_attention(f, sp4, *inputs["ulysses_ring"])
+                         for f in (ulysses_attention_sharded,
+                                   ring_attention_sharded)],
+        "ulysses_grad": _sp_attention(ulysses_attention_sharded, sp4,
+                                      *inputs["ulysses_grad"]),
+        "ulysses_heads": _error(lambda: _sp_attention(
+            ulysses_attention_sharded, sp4, *inputs["ulysses_heads"])),
+    }
+
+
+def context_four(inputs: dict, tree: dict, tokens: np.ndarray,
+                 positions: np.ndarray):
+    """On 4 ranks: the attention ops (``context_ops``); on dp 2 x sp 2
+    explicit positions refused; on dp 2 x tp 2 the logits of explicit
+    positions from JAX's params."""
+    out = {"ops": context_ops(inputs)}
+    cfg, _ = _config("llama")
+    tok = torch.from_numpy(tokens)
+    pos = torch.from_numpy(positions)
+    sp_mesh = build_mesh(MeshSpec(dp=2, sp=2), device="cpu")
+    model = LlamaModel(cfg, mesh=sp_mesh)
+    out["sp_positions"] = _error(lambda: model.apply(
+        model.init(0, param_dtype=torch.float32), tok, pos))
+    mesh = build_mesh(MeshSpec(dp=2, tp=2), device="cpu")
+    model = LlamaModel(cfg, mesh=mesh)
+    params = params_from_numpy(tree, cfg, mesh=mesh,
+                               param_dtype=torch.float32)
+    out["positions"] = _full(model.apply(params, tok, pos))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_pipeline.py
+# ---------------------------------------------------------------------------
+
+def _tanh_stage(w, x):
+    return torch.tanh(x @ w)
+
+
+def _pipelined(ws: np.ndarray, batch: np.ndarray, pp: int, micro: int,
+               grad: bool):
+    """``pipelined`` of a tanh stage on ``MeshSpec.auto(8, pp=pp)``: its
+    output whole, or the gradient of mean(out**2) with respect to the
+    stacked weights."""
+    from ray_tpu_torch.parallel.mesh import placements
+    from ray_tpu_torch.parallel.pipeline import pipelined
+    mesh = build_mesh(MeshSpec.auto(8, pp=pp), device="cpu")
+    w = distribute(torch.from_numpy(ws), mesh,
+                   placements(mesh, ("pp", None, None)))
+    x = distribute(torch.from_numpy(batch), mesh,
+                   placements(mesh, (("dp", "fsdp"), None)))
+    run = pipelined(_tanh_stage, mesh, num_microbatches=micro)
+    if not grad:
+        return _full(run(w, x))
+    w.requires_grad_(True)
+    (run(w, x) ** 2).mean().backward()
+    return _full(w.grad)
+
+
+def _pp_loss(spec: dict, micro: int, stacked: dict, tokens: np.ndarray):
+    from ray_tpu_torch.models import PipelinedLlama
+    cfg = pp_config()
+    mesh = build_mesh(MeshSpec(**spec), device="cpu")
+    model = PipelinedLlama(cfg, mesh, num_microbatches=micro)
+    params = params_from_numpy(stacked, cfg, mesh=mesh,
+                               param_dtype=torch.float32)
+    tok = torch.from_numpy(tokens)
+    return float(_full(model.loss(params, tok, tok.roll(-1, 1))))
+
+
+def pp_config() -> LlamaConfig:
+    """tests/test_pipeline_llama.py's config, f32."""
+    return LlamaConfig(vocab_size=128, dim=32, n_layers=4, n_heads=4,
+                       n_kv_heads=2, ffn_dim=64, max_seq_len=32,
+                       remat=False, dtype=torch.float32)
+
+
+def _pp_sgd(stacked: dict, tokens: np.ndarray):
+    """One SGD(1e-2) step of ``PipelinedLlama`` on pp 2 x dp 2 x tp 2 from
+    JAX's stacked params: the loss and every param whole (stacked)."""
+    from ray_tpu_torch.models import PipelinedLlama
+    cfg = pp_config()
+    mesh = build_mesh(MeshSpec(pp=2, dp=2, tp=2), device="cpu")
+    model = PipelinedLlama(cfg, mesh, num_microbatches=2)
+    ts = make_train_step(model, lambda ps: torch.optim.SGD(ps, lr=1e-2),
+                         mesh=mesh)
+    params = params_from_numpy(stacked, cfg, mesh=mesh,
+                               param_dtype=torch.float32)
+    opt = ts.opt_init(params)
+    params, _, m = ts.step_fn(params, opt, shard_batch(
+        (tokens, np.roll(tokens, -1, axis=1)), ts))
+    return float(m["loss"]), {n: _full(p) for n, p in _named(params)}
+
+
+def pp_refusals():
+    """PipelinedLlama's refusals: pp < 2, layers pp does not divide, sp or
+    ep above 1."""
+    from ray_tpu_torch.models import PipelinedLlama
+    cfg = pp_config()
+    cases = {"pp1": (cfg, dict(dp=8)),
+             "layers": (dataclasses.replace(cfg, n_layers=3),
+                        dict(pp=2, dp=4)),
+             "sp": (cfg, dict(pp=2, sp=2, dp=2))}
+    return {name: _error(lambda: PipelinedLlama(
+        c, build_mesh(MeshSpec(**spec), device="cpu")))
+        for name, (c, spec) in cases.items()}
+
+
+def pipeline_eight(inputs: dict, trees: dict, moe_cases: list):
+    """On 8 ranks: ``pipelined`` (pp 4, 8 microbatches) and its gradient
+    (pp 2); ``PipelinedLlama``'s loss on pp 2 x dp 2 x tp 2 and pp 4 x dp 2
+    and its SGD step; its refusals; two AdamW steps of the MoE's expert
+    all-to-all (``two_steps``)."""
+    return {
+        "forward": _pipelined(*inputs["forward"], pp=4, micro=8,
+                              grad=False),
+        "grad": _pipelined(*inputs["grad"], pp=2, micro=4, grad=True),
+        "loss_pp2": _pp_loss(dict(pp=2, dp=2, tp=2), 2, trees["pp2"],
+                             inputs["tokens"]),
+        "loss_pp4": _pp_loss(dict(pp=4, dp=2), 4, trees["pp4"],
+                             inputs["tokens8"]),
+        "sgd": _pp_sgd(trees["pp2"], inputs["tokens"]),
+        "refusals": pp_refusals(),
+        "moe": two_steps(moe_cases),
+    }
