@@ -82,6 +82,23 @@
    each parallel layout on 8 gloo ranks of this machine's CPU (NCCL holds
    one rank a card, so meshes of more ranks meet this torch here), each
    loss against the port's one-device loss.
+11. The RL learners (``ray_tpu_torch.rl``), every kernel counter at 0
+   before and read after (they launch none of the port's kernels), in
+   this process: ``LocalAlgorithm`` does what the JAX package's
+   ``Algorithm.train`` does with two host ``EnvRunner``s on CartPole and
+   the learner on the card (sample, update, send the weights back; IMPALA
+   and APPO one fragment an update, the weights to the runner that
+   delivered it). (a) Each learner at the CPU tests' configurations
+   (``RL_CASES``) takes one update on the card and on the CPU from the
+   same state (``load_learner_state``), held to the tests' bars; (b) the
+   JAX tests' learning bars on the card (PPO, IMPALA, SAC, DQN, BC and
+   CQL from logged batches); (c) the tuned CartPole contracts
+   (``TUNED``, the repo's full-width RL configurations), reported and not
+   gated: best return and iterations, update ms on the card and on this
+   machine's CPU (median of 5), gradient steps a second, and one profiled
+   update's launches a step and device-busy share; (d) ``LearnerGroup`` on
+   the one-rank NCCL mesh, PPO's and IMPALA's update against the plain
+   learner's at rtol 1e-6.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -1070,6 +1087,426 @@ def parallel_layouts(dev, gen, plain: dict, moe_plain: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the RL learners
+# ---------------------------------------------------------------------------
+
+# The CPU tests' configurations (tests/test_torch_rl.py holds the port's
+# learners to JAX's with each): the learner's keywords, what one update
+# takes (``rl_case_data``) and the bar, JAX's own for learner equality
+# (tests/test_rl.py:259-264 for PPO; :284-289, IMPALA's, for the other
+# Adam and RMSprop learners; the SGD learners at the first-step bar).
+IMPALA_BAR = dict(rtol=5e-4, atol=5e-5)
+RL_CASES = {
+    "PPO": (dict(epochs=1, minibatch_size=128), "fragment",
+            dict(rtol=2e-4, atol=2e-5)),
+    "IMPALA": ({}, "fragment", IMPALA_BAR),
+    "APPO": ({}, "fragment", IMPALA_BAR),
+    "DQN": (dict(batch_size=64, updates_per_iter=4, target_update_every=2),
+            "fragments", IMPALA_BAR),
+    "SAC": (dict(batch_size=128, updates_per_call=4), "fragments",
+            IMPALA_BAR),
+    "BC": ({}, "batches", dict(rtol=1e-5, atol=1e-6)),
+    "OfflineDQN": (dict(target_update_every=2), "batches",
+                   dict(rtol=1e-5, atol=1e-6)),
+}
+
+# ray_tpu/rl/tuned_examples.py:29-58 and :105-121: the repo's full-width RL
+# configurations, each with its target return within 40 iterations
+TUNED = {
+    "PPO": (dict(runners=2, fragment=512, lr=3e-4, epochs=6,
+                 minibatch_size=128, ent_coef=0.01), 200.0),
+    "DQN": (dict(runners=2, fragment=256), 80.0),
+    "IMPALA": (dict(runners=2, fragment=256), 100.0),
+    "APPO": (dict(runners=2, fragment=256), 100.0),
+    "SAC": (dict(runners=2, fragment=256), 40.0),
+}
+
+
+def transitions(fragments) -> dict:
+    """EnvRunner fragments as (obs, next_obs, action, reward, done) rows, as
+    the JAX package's ``write_experiences`` flattens them
+    (``rl/offline.py:42-53``)."""
+    def cat(key):
+        return np.concatenate([f[key] for f in fragments])
+    return {"obs": cat("obs"),
+            "next_obs": np.concatenate([np.concatenate(
+                [f["obs"][1:], f["next_obs_last"][None]])
+                for f in fragments]),
+            "actions": cat("actions").astype(np.int64),
+            "rewards": cat("rewards"), "dones": cat("dones")}
+
+
+class Transitions:
+    """An experience dataset in memory: ``iter_batches`` over transition
+    rows in order, as the JAX package's parquet reader yields them."""
+
+    def __init__(self, rows: dict):
+        self.rows = rows
+
+    def iter_batches(self, batch_size: int):
+        n = len(self.rows["rewards"])
+        for lo in range(0, n, batch_size):
+            yield {k: v[lo:lo + batch_size] for k, v in self.rows.items()}
+
+
+def rl_case_data(seed: int = 0) -> dict:
+    """The inputs of ``RL_CASES``' updates, numpy only: two CartPole
+    fragments of 256 steps (runners seeded ``seed`` + 1 and + 2, each with
+    a seed-``seed`` ``ActorCriticPolicy`` on the host), and four batches of
+    64 of their transitions."""
+    from ray_tpu_torch import rl
+    frags = [rl.EnvRunner(rl.CartPoleEnv, lambda: rl.ActorCriticPolicy(
+        4, 2, seed=seed, device="cpu"), seed=seed + 1 + i).sample(256)
+        for i in range(2)]
+    rows = transitions(frags)
+    return {"fragment": frags[:1], "fragments": frags,
+            "batches": [{k: v[i * 64:(i + 1) * 64] for k, v in rows.items()}
+                        for i in range(4)]}
+
+
+def rl_case_update(learner, name: str, data: dict) -> dict:
+    """One update of case ``name`` on a learner of either package."""
+    kind = RL_CASES[name][1]
+    if kind != "batches":
+        return learner.update(data[kind])
+    for batch in data["batches"]:
+        metrics = learner.update(batch)
+    return metrics
+
+
+def make_learner(name: str, dev, seed: int = 0, **kwargs):
+    """The port's learner of algorithm ``name`` on CartPole."""
+    from ray_tpu_torch import rl
+    cls = {"PPO": rl.PPOLearner, "DQN": rl.DQNLearner,
+           "IMPALA": rl.ImpalaLearner, "APPO": rl.APPOLearner,
+           "SAC": rl.SACLearner, "BC": rl.BCLearner,
+           "OfflineDQN": rl.OfflineDQNLearner}[name]
+    return cls(4, 2, seed=seed, device=dev, **kwargs)
+
+
+class LocalAlgorithm:
+    """What ``ray_tpu.rl.Algorithm.train`` does (``rl/algorithm.py:237-306``)
+    in this process, with the port's ``EnvRunner``s on the host (runner i
+    seeded ``seed + 1 + i``, its policy on the CPU) and the learner on
+    ``dev``. PPO, DQN and SAC sample every runner, update once and send the
+    weights to all. IMPALA and APPO keep one fragment in flight a runner and
+    update once a fragment, the weights going back to the runner that
+    delivered it (``_run_async_loop``): one update a runner a ``train()``."""
+
+    def __init__(self, name: str, dev, *, runners: int = 2,
+                 fragment: int = 256, seed: int = 0, **learner_kwargs):
+        from ray_tpu_torch import rl
+        self.name = name
+        self.fragment = fragment
+        self.learner = make_learner(name, dev, seed, **learner_kwargs)
+        policy = {"DQN": rl.QPolicy, "SAC": rl.SACPolicy}.get(
+            name, rl.ActorCriticPolicy)
+        self.runners = [rl.EnvRunner(rl.CartPoleEnv, lambda: policy(
+            4, 2, seed=seed, device="cpu"), seed=seed + 1 + i)
+            for i in range(runners)]
+        weights = self.learner.get_weights()
+        for r in self.runners:
+            r.set_weights(weights)
+        self._in_flight = []
+
+    def train(self) -> dict:
+        if self.name in ("IMPALA", "APPO"):
+            if not self._in_flight:
+                self._in_flight = [(r, r.sample(self.fragment))
+                                   for r in self.runners]
+            metrics = {}
+            for _ in self.runners:
+                runner, rollout = self._in_flight.pop(0)
+                metrics.update(self.learner.update([rollout]))
+                runner.set_weights(self.learner.get_weights())
+                self._in_flight.append((runner, runner.sample(self.fragment)))
+        else:
+            metrics = self.learner.update(
+                [r.sample(self.fragment) for r in self.runners])
+            weights = self.learner.get_weights()
+            for r in self.runners:
+                r.set_weights(weights)
+        returns = [x for r in self.runners for x in r.episode_returns()]
+        metrics["episode_return_mean"] = (float(np.mean(returns)) if returns
+                                          else float("nan"))
+        metrics["num_episodes"] = len(returns)
+        return metrics
+
+
+def flat_tree(tree, path: str = "") -> dict:
+    """{path: numpy array} of a tree of dicts and lists (tensor, JAX or
+    numpy leaves)."""
+    if isinstance(tree, dict):
+        return {p: v for k, sub in tree.items()
+                for p, v in flat_tree(sub, f"{path}/{k}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {p: v for i, sub in enumerate(tree)
+                for p, v in flat_tree(sub, f"{path}/{i}").items()}
+    if hasattr(tree, "detach"):
+        tree = tree.detach().cpu()
+    return {path: np.asarray(tree)}
+
+
+def flat_state(learner) -> dict:
+    """``learner_state`` as {path: array}."""
+    from ray_tpu_torch.rl import learner_state
+    return flat_tree(learner_state(learner))
+
+
+def state_ratio(a, b, bar: dict) -> float:
+    """The worst ``tol_ratio`` over two learners' states."""
+    import torch
+    sa, sb = flat_state(a), flat_state(b)
+    if set(sa) != set(sb):
+        raise RuntimeError(f"states differ in keys: {sorted(sa)} "
+                           f"{sorted(sb)}")
+    return max(tol_ratio(torch.from_numpy(sa[k]), torch.from_numpy(sb[k]),
+                         bar) for k in sa)
+
+
+def rl_card_vs_cpu(dev) -> dict:
+    """(a) Each case's learner on the CPU and on ``dev`` from the same state
+    (``load_learner_state``) takes the same update; params and metrics are
+    held to the case's bar."""
+    import torch
+    from ray_tpu_torch.rl import learner_state, load_learner_state
+    data = rl_case_data()
+    worst = {}
+    for name, (kw, _, bar) in RL_CASES.items():
+        cpu, card = (make_learner(name, d, **kw) for d in ("cpu", dev))
+        load_learner_state(card, learner_state(cpu))
+        m_cpu, m_card = (rl_case_update(x, name, data) for x in (cpu, card))
+        ratio = state_ratio(card, cpu, bar)
+        for k, v in m_cpu.items():
+            ratio = max(ratio, tol_ratio(torch.tensor(float(m_card[k])),
+                                         torch.tensor(float(v)), bar))
+        worst[name] = ratio
+        if ratio > 1:
+            raise RuntimeError(f"RL {name}: the card's update is off the "
+                               f"CPU's by {ratio:.3f}x the bar {bar}")
+    log("RL card vs CPU, one update each from the same state, worst "
+        "|card - cpu| / (atol + rtol |cpu|) at the CPU tests' bars: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    return worst
+
+
+def rl_learning(dev) -> dict:
+    """(b) The JAX package's learning bars (tests/test_rl.py), learners on
+    ``dev``."""
+    from ray_tpu_torch import rl
+    out = {}
+    # PPO, tests/test_rl.py:24-43
+    algo = LocalAlgorithm("PPO", dev, runners=2, fragment=256, lr=1e-3,
+                          epochs=4, minibatch_size=128)
+    rets = [algo.train()["episode_return_mean"] for _ in range(12)]
+    rets = [r for r in rets if np.isfinite(r)]
+    out["PPO"] = (rets[0], rets[-1])
+    if not (rets[-1] > rets[0] and rets[-1] > 40):
+        raise RuntimeError(f"PPO did not learn: returns {rets}")
+    # IMPALA, :193-216
+    algo = LocalAlgorithm("IMPALA", dev, runners=2, fragment=256, lr=1e-3,
+                          ent_coef=0.01)
+    rets = []
+    for _ in range(12):
+        m = algo.train()
+        if not np.isnan(m["episode_return_mean"]):
+            rets.append(m["episode_return_mean"])
+    leading, trailing = float(np.mean(rets[:3])), float(np.mean(rets[-3:]))
+    out["IMPALA"] = (leading, trailing, m["num_learner_updates"])
+    if not (m["num_learner_updates"] >= 24 and trailing > 35
+            and trailing > leading * 0.7):
+        raise RuntimeError(f"IMPALA did not learn: {out['IMPALA']} {rets}")
+    # SAC, :218-233
+    algo = LocalAlgorithm("SAC", dev, runners=1, fragment=256,
+                          batch_size=128, updates_per_call=8)
+    for _ in range(4):
+        m = algo.train()
+    out["SAC"] = (m["alpha"], m["entropy"], m["num_learner_updates"])
+    if not (m["num_learner_updates"] >= 16 and np.isfinite(m["q_loss"])
+            and m["alpha"] > 0 and 0 < m["entropy"] <= np.log(2) + 1e-5):
+        raise RuntimeError(f"SAC off its bars: {m}")
+    # DQN, :46-61
+    algo = LocalAlgorithm("DQN", dev, runners=2, fragment=128, lr=1e-3,
+                          updates_per_iter=16)
+    eps = []
+    for _ in range(4):
+        m = algo.train()
+        eps.append(m["epsilon"])
+    out["DQN"] = (eps[0], eps[-1], m["td_loss"])
+    if not (eps[-1] < eps[0] and np.isfinite(m["td_loss"])):
+        raise RuntimeError(f"DQN off its bars: {eps} {m}")
+    # BC and CQL from the runner's logged batches, :130-162 without the
+    # parquet IO
+    runner = rl.EnvRunner(rl.CartPoleEnv, lambda: rl.ActorCriticPolicy(
+        4, 2, seed=0, device="cpu"), seed=0)
+    ds = Transitions(transitions([runner.sample(128) for _ in range(2)]))
+    bc = rl.BCLearner(4, 2, seed=0, lr=3e-3, device=dev)
+    first = next(ds.iter_batches(batch_size=256))
+    before = bc.evaluate_accuracy(first)
+    m = rl.train_offline(ds, bc, batch_size=64, epochs=10)
+    after = bc.evaluate_accuracy(first)
+    out["BC"] = (before, after)
+    if not (np.isfinite(m["bc_loss"]) and after >= before and after > 0.45):
+        raise RuntimeError(f"BC off its bars: {before} -> {after}, {m}")
+    cql = rl.OfflineDQNLearner(4, 2, seed=0, cql_alpha=1.0, device=dev)
+    m = rl.train_offline(ds, cql, batch_size=64, epochs=2)
+    out["CQL"] = (m["loss"], m["cql_penalty"])
+    if not (np.isfinite(m["loss"]) and m["cql_penalty"] >= 0.0
+            and cql.act(np.zeros(4, np.float32)) in (0, 1)):
+        raise RuntimeError(f"CQL off its bars: {m}")
+    log(f"RL learning bars on {dev} (tests/test_rl.py): PPO return "
+        f"{out['PPO'][0]:.1f} -> {out['PPO'][1]:.1f} (> first, > 40); "
+        f"IMPALA leading {leading:.1f}, trailing {trailing:.1f} (> 35) "
+        f"after {out['IMPALA'][2]} updates; SAC alpha {out['SAC'][0]:.4f}, "
+        f"entropy {out['SAC'][1]:.4f} (0 < H <= ln 2); DQN epsilon "
+        f"{eps[0]:.4f} -> {eps[-1]:.4f}, td_loss {out['DQN'][2]:.4f}; BC "
+        f"accuracy {before:.4f} -> {after:.4f} (> 0.45); CQL loss "
+        f"{out['CQL'][0]:.4f}, penalty {out['CQL'][1]:.4f}")
+    return out
+
+
+def sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def rl_update_profile(name: str, cfg: dict, dev) -> dict:
+    """A fresh learner of a tuned config on ``dev`` and on the CPU, on the
+    same rollouts (IMPALA and APPO: one fragment, their update's input):
+    update ms, the median of 5 after a warm-up update (which fills DQN's
+    and SAC's replay buffers); gradient steps an update; and one profiled
+    update on ``dev``: kernel launches, their device time and its share of
+    the update's wall time."""
+    import torch
+    kw = {k: v for k, v in cfg.items() if k not in ("runners", "fragment")}
+    sampler = LocalAlgorithm(name, "cpu", runners=cfg["runners"],
+                             fragment=cfg["fragment"], **kw)
+    rollouts = [r.sample(cfg["fragment"]) for r in sampler.runners]
+    if name in ("IMPALA", "APPO"):
+        rollouts = rollouts[:1]
+    out = {}
+    for key, where in (("card_ms", dev), ("cpu_ms", "cpu")):
+        learner = make_learner(name, where, **kw)
+        learner.update(rollouts)
+        times = []
+        for _ in range(5):
+            sync(where)
+            t0 = time.perf_counter()
+            learner.update(rollouts)
+            sync(where)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[key] = float(np.median(times))
+        if key == "card_ms":
+            card = learner
+    rows = sum(len(r["rewards"]) for r in rollouts)
+    if name == "PPO":
+        out["steps"] = card.epochs * -(-rows // card.minibatch_size)
+    else:
+        out["steps"] = {"DQN": getattr(card, "updates_per_iter", 1),
+                        "SAC": getattr(card, "updates_per_call", 1)}.get(
+                            name, 1)
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        card.update(rollouts)
+        sync(dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["launches"] = sum(e.count for e in kernels)
+    out["device_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
+    out["profiled_wall_ms"] = wall
+    return out
+
+
+def rl_contracts(dev) -> dict:
+    """(c) The tuned CartPole contracts on ``dev``, reported and not gated:
+    each trains until its target return or its 40 iterations; then its
+    update's time on the card and on this machine's CPU, and one profiled
+    update."""
+    out = {}
+    for name, (cfg, target) in TUNED.items():
+        algo = LocalAlgorithm(name, dev, **cfg)
+        best, its = float("-inf"), 0
+        t0 = time.perf_counter()
+        for its in range(1, 41):
+            ret = algo.train()["episode_return_mean"]
+            if np.isfinite(ret):
+                best = max(best, float(ret))
+            if best >= target:
+                break
+        wall = time.perf_counter() - t0
+        prof = rl_update_profile(name, cfg, dev)
+        out[name] = dict(prof, best=best, iterations=its, target=target,
+                         wall_s=wall)
+        log(f"RL tuned {name} ({cfg}): best return {best:.1f} in {its} "
+            f"iterations (target {target:g}: "
+            f"{'met' if best >= target else 'NOT met'}; {wall:.1f} s); "
+            f"update {prof['card_ms']:.2f} ms on the card, "
+            f"{prof['cpu_ms']:.2f} ms on the CPU ({prof['steps']} gradient "
+            f"steps: {prof['steps'] / prof['card_ms'] * 1e3:.1f} steps/s on "
+            f"the card, {prof['steps'] / prof['cpu_ms'] * 1e3:.1f} on the "
+            f"CPU); profiled update: {prof['launches']} launches "
+            f"({prof['launches'] / prof['steps']:.1f} a step), "
+            f"{prof['device_ms']:.3f} ms of device time: busy "
+            f"{prof['device_ms'] / prof['card_ms']:.1%} of the update's "
+            f"{prof['card_ms']:.2f} ms, "
+            f"{prof['device_ms'] / prof['profiled_wall_ms']:.1%} of its "
+            f"{prof['profiled_wall_ms']:.2f} ms under the profiler")
+    return out
+
+
+def rl_group_one_rank(dev, mesh) -> dict:
+    """(d) ``LearnerGroup`` on the one-rank mesh: PPO's and IMPALA's update
+    against the plain learner's at rtol 1e-6."""
+    from ray_tpu_torch.rl import LearnerGroup
+    data = rl_case_data()
+    out = {}
+    for name in ("PPO", "IMPALA"):
+        kw, kind, _ = RL_CASES[name]
+        plain, grouped = (make_learner(name, dev, **kw) for _ in range(2))
+        group = LearnerGroup(grouped, mesh=mesh)
+        plain.update(data[kind])
+        group.update(data[kind])
+        out[name] = state_ratio(grouped, plain, dict(rtol=1e-6, atol=0.0))
+        if out[name] > 1:
+            raise RuntimeError(f"LearnerGroup {name} on the one-rank mesh is "
+                               f"off the plain learner: {out[name]:.3f}x "
+                               "rtol 1e-6")
+    log(f"LearnerGroup on the one-rank mesh (dp {group.num_learners}) "
+        f"against the plain learner, rtol 1e-6: " + ", ".join(
+            f"{k} {v:.3g}x the bar" for k, v in out.items()))
+    return out
+
+
+def rl_path(dev) -> dict:
+    """Phase 11, every kernel counter at 0 before and read after: the RL
+    learners launch none of the port's kernels."""
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops import decode_attention as dec
+    from ray_tpu_torch.ops import paged_attention as paged
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    counters = (attn.flash_attention_kernel,
+                dec.ragged_decode_attention_kernel,
+                paged.paged_decode_attention_kernel)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": rl_card_vs_cpu(dev), "learning": rl_learning(dev),
+           "contracts": rl_contracts(dev),
+           "group": rl_group_one_rank(dev, build_mesh(MeshSpec()))}
+    launches = [c.launches for c in counters]
+    if any(launches):
+        raise RuntimeError(f"the RL path launched the port's kernels: "
+                           f"{launches}")
+    log(f"phase 11 (RL) in {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches {launches}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1218,6 +1655,9 @@ def main() -> int:
                            LlamaConfig.bench_400m().n_layers)
     rows[2]["launches"] += par["moe"]["launches"] + \
         par["pipeline"]["launches"]
+
+    # 11. the RL learners, every counter at 0: no kernel of the port runs
+    rl_path(dev)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -30,5 +30,10 @@ all_to_all, psum, pmean and pvary with their transposes), ring and Ulysses
 attention (``ops.ring_attention``, ``ops.ulysses``), the MoE's expert
 all-to-all (``ops.moe_dispatch.expert_alltoall_ffn``), the GPipe schedule
 (``parallel.pipeline``), ``models.llama_pp.PipelinedLlama`` and
-``dryrun.dryrun_mesh``.
+``dryrun.dryrun_mesh`` — and the RL learners: ``rl`` (the numpy envs,
+connectors and multi-agent runner as the port's own copies; PPO, DQN,
+IMPALA/APPO, SAC, BC and offline DQN taking their gradient steps in torch
+on the learner's device, optax's Adam and RMSprop in ``rl.optim``, JAX
+learner state carried across by ``rl.convert``, and the data-parallel
+``LearnerGroup`` over the mesh's ``dp`` axis).
 """

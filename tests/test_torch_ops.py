@@ -513,3 +513,43 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "ray_tpu"}, (path, roots)
+
+
+def _imports_with_scope(path):
+    """(root, inside a function) for each absolute import of ``path``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = []
+
+    def visit(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                found.extend((a.name.split(".")[0], in_function)
+                             for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                found.append((child.module.split(".")[0], in_function))
+            visit(child, in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)))
+
+    visit(tree, False)
+    return found
+
+
+def test_port_imports_only_the_stdlib_torch_and_numpy():
+    """The card's machine has torch and numpy, not optax, pyarrow or JAX:
+    the port and chip_smoke.py import nothing else outside the stdlib and
+    the port itself. The one exception copies JAX's tokenizer: a lazy
+    ``transformers`` import inside a function of ``llm/tokenizer.py``."""
+    import sys
+    allowed = set(sys.stdlib_module_names) | {"torch", "numpy",
+                                              "ray_tpu_torch"}
+    files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    lazy = []
+    for path in files:
+        for root, in_function in _imports_with_scope(path):
+            if root == "transformers" and path.name == "tokenizer.py":
+                assert in_function, path
+                lazy.append(path)
+                continue
+            assert root in allowed, (path, root)
+    assert lazy == [REPO / "ray_tpu_torch" / "llm" / "tokenizer.py"]

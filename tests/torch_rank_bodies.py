@@ -1,6 +1,6 @@
 """Rank bodies of the port's mesh tests (tests/test_torch_parallel.py,
 tests/test_torch_spmd.py, tests/test_torch_context.py,
-tests/test_torch_pipeline.py).
+tests/test_torch_pipeline.py, tests/test_torch_rl_group.py).
 
 ``spawn_ranks`` runs each of these on CPU ranks joined by gloo, in fresh
 processes that import this module: it imports torch, numpy and the port
@@ -522,3 +522,36 @@ def pipeline_eight(inputs: dict, trees: dict, moe_cases: list):
         "refusals": pp_refusals(),
         "moe": two_steps(moe_cases),
     }
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_rl_group.py
+# ---------------------------------------------------------------------------
+
+def rl_group(cases: dict):
+    """Each case's learner (seeded with JAX's state) wrapped in a
+    ``LearnerGroup`` over every rank, one ``update``: its metrics and its
+    state; then the group's refusals."""
+    import chip_smoke
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ray_tpu_torch import rl
+    world = dist.get_world_size()
+    out = {}
+    for key, (name, kw, state, rollouts, ragged) in cases.items():
+        learner = chip_smoke.make_learner(name, "cpu", **kw)
+        rl.load_learner_state(learner, state)
+        group = rl.LearnerGroup(learner, num_learners=world, ragged=ragged)
+        out[key] = (group.num_learners, group.update(rollouts),
+                    rl.learner_state(learner))
+    learner = chip_smoke.make_learner("PPO", "cpu")
+    out["refusals"] = {
+        "more": _error(lambda: rl.LearnerGroup(learner,
+                                               num_learners=world + 1)),
+        "no-dp": _error(lambda: rl.LearnerGroup(learner, mesh=DeviceMesh(
+            "cpu", list(range(world)), mesh_dim_names=("tp",)))),
+        "conflict": _error(lambda: rl.LearnerGroup(
+            learner, mesh=build_mesh(MeshSpec(dp=world), device="cpu"),
+            num_learners=2 * world)),
+    }
+    return out
