@@ -20,12 +20,14 @@
    8 query / 4 KV heads, head_dim 128, causal (and batch 2, the MoE path's
    shapes); and its gradient (the blockwise recompute) against autograd
    through the reference.
-3. Serving path, every launch counter at 0: ``LLMServer`` on the card with
-   Llama-3-8B's widths (random weights from seed 0) answers 16 requests
-   through ``__call__`` and ``stream`` (prompts of 32-256 tokens, four
-   sharing a 64-token prefix, 32 new tokens each), then one
-   ``forward_step`` with T=1 on a dense cache. The paged kernel must have
-   run once per layer per decode step, the ragged kernel once per layer.
+3. Serving path: ``LLMServer`` on the card with Llama-3-8B's widths (random
+   weights from seed 0) answers one lone greedy request (96 prompt tokens,
+   32 new; its token ids are kept for phase 12), then, every launch
+   counter at 0, 16 requests through ``__call__`` and ``stream`` (prompts
+   of 32-256 tokens, four sharing a 64-token prefix, 32 new tokens each),
+   then one ``forward_step`` with T=1 on a dense cache. The paged kernel
+   must have run once per layer per decode step, the ragged kernel once per
+   layer.
 4. Compares ``decode_step_paged`` through the kernel with the reference
    implementation on identical (cloned) live pools at the repo's bf16 bar.
 5. Training path, every launch counter at 0 (the server freed first):
@@ -82,23 +84,39 @@
    each parallel layout on 8 gloo ranks of this machine's CPU (NCCL holds
    one rank a card, so meshes of more ranks meet this torch here), each
    loss against the port's one-device loss.
-11. The RL learners (``ray_tpu_torch.rl``), every kernel counter at 0
-   before and read after (they launch none of the port's kernels), in
-   this process: ``LocalAlgorithm`` does what the JAX package's
-   ``Algorithm.train`` does with two host ``EnvRunner``s on CartPole and
-   the learner on the card (sample, update, send the weights back; IMPALA
-   and APPO one fragment an update, the weights to the runner that
-   delivered it). (a) Each learner at the CPU tests' configurations
-   (``RL_CASES``) takes one update on the card and on the CPU from the
-   same state (``load_learner_state``), held to the tests' bars; (b) the
-   JAX tests' learning bars on the card (PPO, IMPALA, SAC, DQN, BC and
-   CQL from logged batches); (c) the tuned CartPole contracts
-   (``TUNED``, the repo's full-width RL configurations), reported and not
-   gated: best return and iterations, update ms on the card and on this
-   machine's CPU (median of 5), gradient steps a second, and one profiled
-   update's launches a step and device-busy share; (d) ``LearnerGroup`` on
+11. The RL learners (``ray_tpu_torch.rl``) on the port's runtime, every
+   kernel counter at 0 before and read after (they launch none of the
+   port's kernels): ``rl.Algorithm`` drives EnvRunner actors of
+   ``ray_tpu_torch.init()`` on CartPole with the learner and the runners'
+   policies on the card (sample, update, send the weights back through the
+   object store's device tier; IMPALA and APPO one fragment an update, the
+   weights to the runner that delivered it). (a) Each learner at the CPU
+   tests' configurations (``RL_CASES``) takes one update on the card and
+   on the CPU from the same state (``load_learner_state``), held to the
+   tests' bars; (b) the JAX tests' learning bars on the card (PPO, IMPALA,
+   SAC, DQN through ``Algorithm``; BC and CQL from logged batches); (c) the
+   five tuned CartPole contracts through ``rl.tuned_examples.run`` (JAX's
+   full-width RL configurations), reported and not gated: best return and
+   iterations, update ms on the card and on this machine's CPU (median of
+   5), gradient steps a second, one profiled update's launches a step and
+   device-busy share, and an iteration split into the learner's update,
+   the runners' work and the runtime's own cost; (d) ``LearnerGroup`` on
    the one-rank NCCL mesh, PPO's and IMPALA's update against the plain
    learner's at rtol 1e-6.
+12. The runtime on the card (``ray_tpu_torch.init()``): (a) the card is
+   detected as ``GPU``, a ``num_gpus=1`` task runs in this process on it
+   and gives the resource back; (b) a 256 MiB bf16 CUDA tensor through
+   ``put``/``get`` keeps its storage and allocates nothing, a
+   ``num_gpus=1`` task's sum of it equals this process's, and it is freed on
+   ``del``; (c) ``LLMServer`` as a ``num_gpus=1``, ``max_concurrency=16``
+   actor with phase 3's config: the lone request gives phase 3's token ids
+   and, every counter at 0, phase 3's 16 requests go through
+   ``__call__.remote`` and streaming ``stream`` calls, collected with
+   ``wait``; the prefix path runs, the paged kernel once per layer per
+   decode step and no other kernel; a ``num_gpus=1`` task submitted while
+   the actor lives stays pending until ``kill``; tokens/s beside phase 3's;
+   (d) no-op tasks, actor calls and 1 MiB put/get round trips a second;
+   (e) phase 11's iteration split, printed with the card's power limit.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -427,16 +445,25 @@ def check_flash(dev, gen) -> dict:
 # phase 3: the serving path
 # ---------------------------------------------------------------------------
 
-def serve_requests(server, vocab: int, rng) -> dict:
-    """16 requests through ``__call__`` and ``stream``; four share a
-    64-token prefix and arrive once the first of them has its first token
-    (its prompt blocks are sealed at admission), so the prefix path runs."""
+def request_mix(vocab: int, rng) -> dict:
+    """The serving mix: 12 plain prompts of 32-256 tokens and four sharing a
+    64-token prefix; then one lone prompt of 96 tokens."""
     prefix = [int(t) for t in rng.integers(0, vocab, 64)]
     plain_lens = rng.integers(32, 257, 12)
     prompts = [[int(t) for t in rng.integers(0, vocab, n)]
                for n in plain_lens]
     sharers = [prefix + [int(t) for t in rng.integers(0, vocab, n)]
                for n in (20, 60, 120, 192)]
+    lone = [int(t) for t in rng.integers(0, vocab, 96)]
+    return {"prompts": prompts, "sharers": sharers, "lone": lone,
+            "prompt_tokens": int(plain_lens.sum()) + sum(map(len, sharers))}
+
+
+def serve_requests(server, mix: dict) -> dict:
+    """16 requests through ``__call__`` and ``stream``; four share a
+    64-token prefix and arrive once the first of them has its first token
+    (its prompt blocks are sealed at admission), so the prefix path runs."""
+    prompts, sharers = mix["prompts"], mix["sharers"]
     results = {}
     lock = threading.Lock()
 
@@ -488,7 +515,7 @@ def serve_requests(server, vocab: int, rng) -> dict:
             raise RuntimeError(f"request {i}: finish {reason!r}, {n} tokens")
     tokens = sum(n for _, n in results.values())
     return {"wall_s": wall, "tokens": tokens,
-            "prompt_tokens": int(plain_lens.sum()) + sum(map(len, sharers))}
+            "prompt_tokens": mix["prompt_tokens"]}
 
 
 def dense_decode(model, params, gen, B: int, S: int, rng) -> None:
@@ -1111,16 +1138,13 @@ RL_CASES = {
                    dict(rtol=1e-5, atol=1e-6)),
 }
 
-# ray_tpu/rl/tuned_examples.py:29-58 and :105-121: the repo's full-width RL
-# configurations, each with its target return within 40 iterations
-TUNED = {
-    "PPO": (dict(runners=2, fragment=512, lr=3e-4, epochs=6,
-                 minibatch_size=128, ent_coef=0.01), 200.0),
-    "DQN": (dict(runners=2, fragment=256), 80.0),
-    "IMPALA": (dict(runners=2, fragment=256), 100.0),
-    "APPO": (dict(runners=2, fragment=256), 100.0),
-    "SAC": (dict(runners=2, fragment=256), 40.0),
-}
+# The repo's full-width RL configurations (ray_tpu/rl/tuned_examples.py:29-58,
+# targets :105-121), run through the port's copy of the registry
+# (ray_tpu_torch/rl/tuned_examples.py): each trains until its target return
+# or its 40 iterations.
+TUNED = {"PPO": "ppo-cartpole", "DQN": "dqn-cartpole",
+         "IMPALA": "impala-cartpole", "APPO": "appo-cartpole",
+         "SAC": "sac-cartpole"}
 
 
 def transitions(fragments) -> dict:
@@ -1185,53 +1209,16 @@ def make_learner(name: str, dev, seed: int = 0, **kwargs):
     return cls(4, 2, seed=seed, device=dev, **kwargs)
 
 
-class LocalAlgorithm:
-    """What ``ray_tpu.rl.Algorithm.train`` does (``rl/algorithm.py:237-306``)
-    in this process, with the port's ``EnvRunner``s on the host (runner i
-    seeded ``seed + 1 + i``, its policy on the CPU) and the learner on
-    ``dev``. PPO, DQN and SAC sample every runner, update once and send the
-    weights to all. IMPALA and APPO keep one fragment in flight a runner and
-    update once a fragment, the weights going back to the runner that
-    delivered it (``_run_async_loop``): one update a runner a ``train()``."""
-
-    def __init__(self, name: str, dev, *, runners: int = 2,
-                 fragment: int = 256, seed: int = 0, **learner_kwargs):
-        from ray_tpu_torch import rl
-        self.name = name
-        self.fragment = fragment
-        self.learner = make_learner(name, dev, seed, **learner_kwargs)
-        policy = {"DQN": rl.QPolicy, "SAC": rl.SACPolicy}.get(
-            name, rl.ActorCriticPolicy)
-        self.runners = [rl.EnvRunner(rl.CartPoleEnv, lambda: policy(
-            4, 2, seed=seed, device="cpu"), seed=seed + 1 + i)
-            for i in range(runners)]
-        weights = self.learner.get_weights()
-        for r in self.runners:
-            r.set_weights(weights)
-        self._in_flight = []
-
-    def train(self) -> dict:
-        if self.name in ("IMPALA", "APPO"):
-            if not self._in_flight:
-                self._in_flight = [(r, r.sample(self.fragment))
-                                   for r in self.runners]
-            metrics = {}
-            for _ in self.runners:
-                runner, rollout = self._in_flight.pop(0)
-                metrics.update(self.learner.update([rollout]))
-                runner.set_weights(self.learner.get_weights())
-                self._in_flight.append((runner, runner.sample(self.fragment)))
-        else:
-            metrics = self.learner.update(
-                [r.sample(self.fragment) for r in self.runners])
-            weights = self.learner.get_weights()
-            for r in self.runners:
-                r.set_weights(weights)
-        returns = [x for r in self.runners for x in r.episode_returns()]
-        metrics["episode_return_mean"] = (float(np.mean(returns)) if returns
-                                          else float("nan"))
-        metrics["num_episodes"] = len(returns)
-        return metrics
+def algorithm(name: str, dev, *, runners: int = 2, fragment: int = 256,
+              seed: int = 0, **learner_kwargs):
+    """The port's ``rl.Algorithm`` of ``name`` on CartPole through the
+    port's runtime: ``runners`` EnvRunner actors (runner i seeded ``seed +
+    1 + i``), the learner and the runners' policies on ``dev``."""
+    from ray_tpu_torch import rl
+    return (rl.AlgorithmConfig(algo=name, seed=seed)
+            .environment("CartPole-v1")
+            .env_runners(runners, rollout_fragment_length=fragment)
+            .training(device=dev, **learner_kwargs).build())
 
 
 def flat_tree(tree, path: str = "") -> dict:
@@ -1292,47 +1279,51 @@ def rl_card_vs_cpu(dev) -> dict:
 
 
 def rl_learning(dev) -> dict:
-    """(b) The JAX package's learning bars (tests/test_rl.py), learners on
-    ``dev``."""
+    """(b) The JAX package's learning bars (tests/test_rl.py) through the
+    port's ``Algorithm``, learners on ``dev``."""
     from ray_tpu_torch import rl
     out = {}
     # PPO, tests/test_rl.py:24-43
-    algo = LocalAlgorithm("PPO", dev, runners=2, fragment=256, lr=1e-3,
-                          epochs=4, minibatch_size=128)
+    algo = algorithm("PPO", dev, runners=2, fragment=256, lr=1e-3,
+                     epochs=4, minibatch_size=128)
     rets = [algo.train()["episode_return_mean"] for _ in range(12)]
+    algo.stop()
     rets = [r for r in rets if np.isfinite(r)]
     out["PPO"] = (rets[0], rets[-1])
     if not (rets[-1] > rets[0] and rets[-1] > 40):
         raise RuntimeError(f"PPO did not learn: returns {rets}")
     # IMPALA, :193-216
-    algo = LocalAlgorithm("IMPALA", dev, runners=2, fragment=256, lr=1e-3,
-                          ent_coef=0.01)
+    algo = algorithm("IMPALA", dev, runners=2, fragment=256, lr=1e-3,
+                     ent_coef=0.01)
     rets = []
     for _ in range(12):
         m = algo.train()
         if not np.isnan(m["episode_return_mean"]):
             rets.append(m["episode_return_mean"])
+    algo.stop()
     leading, trailing = float(np.mean(rets[:3])), float(np.mean(rets[-3:]))
     out["IMPALA"] = (leading, trailing, m["num_learner_updates"])
     if not (m["num_learner_updates"] >= 24 and trailing > 35
             and trailing > leading * 0.7):
         raise RuntimeError(f"IMPALA did not learn: {out['IMPALA']} {rets}")
     # SAC, :218-233
-    algo = LocalAlgorithm("SAC", dev, runners=1, fragment=256,
-                          batch_size=128, updates_per_call=8)
+    algo = algorithm("SAC", dev, runners=1, fragment=256, batch_size=128,
+                     updates_per_call=8)
     for _ in range(4):
         m = algo.train()
+    algo.stop()
     out["SAC"] = (m["alpha"], m["entropy"], m["num_learner_updates"])
     if not (m["num_learner_updates"] >= 16 and np.isfinite(m["q_loss"])
             and m["alpha"] > 0 and 0 < m["entropy"] <= np.log(2) + 1e-5):
         raise RuntimeError(f"SAC off its bars: {m}")
     # DQN, :46-61
-    algo = LocalAlgorithm("DQN", dev, runners=2, fragment=128, lr=1e-3,
-                          updates_per_iter=16)
+    algo = algorithm("DQN", dev, runners=2, fragment=128, lr=1e-3,
+                     updates_per_iter=16)
     eps = []
     for _ in range(4):
         m = algo.train()
         eps.append(m["epsilon"])
+    algo.stop()
     out["DQN"] = (eps[0], eps[-1], m["td_loss"])
     if not (eps[-1] < eps[0] and np.isfinite(m["td_loss"])):
         raise RuntimeError(f"DQN off its bars: {eps} {m}")
@@ -1372,18 +1363,29 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def rl_update_profile(name: str, cfg: dict, dev) -> dict:
+def tuned_config(name: str):
+    """The registry's config of tuned contract ``name`` (ray_tpu_torch.rl.
+    tuned_examples, JAX's configs)."""
+    from ray_tpu_torch.rl.tuned_examples import TUNED as registry
+    return registry[TUNED[name]].make_config()
+
+
+def rl_update_profile(name: str, dev) -> dict:
     """A fresh learner of a tuned config on ``dev`` and on the CPU, on the
-    same rollouts (IMPALA and APPO: one fragment, their update's input):
-    update ms, the median of 5 after a warm-up update (which fills DQN's
-    and SAC's replay buffers); gradient steps an update; and one profiled
-    update on ``dev``: kernel launches, their device time and its share of
-    the update's wall time."""
+    same rollouts (sampled by the config's ``Algorithm`` on the CPU; IMPALA
+    and APPO: one fragment, their update's input): update ms, the median of
+    5 after a warm-up update (which fills DQN's and SAC's replay buffers);
+    gradient steps an update; and one profiled update on ``dev``: kernel
+    launches, their device time and its share of the update's wall
+    time."""
     import torch
-    kw = {k: v for k, v in cfg.items() if k not in ("runners", "fragment")}
-    sampler = LocalAlgorithm(name, "cpu", runners=cfg["runners"],
-                             fragment=cfg["fragment"], **kw)
-    rollouts = [r.sample(cfg["fragment"]) for r in sampler.runners]
+    import ray_tpu_torch as rt
+    cfg = tuned_config(name)
+    kw = dict(cfg.learner_kwargs)
+    sampler = cfg.training(device="cpu").build()
+    rollouts = rt.get([r.sample.remote(cfg.rollout_fragment_length)
+                       for r in sampler.runners])
+    sampler.stop()
     if name in ("IMPALA", "APPO"):
         rollouts = rollouts[:1]
     out = {}
@@ -1422,27 +1424,89 @@ def rl_update_profile(name: str, cfg: dict, dev) -> dict:
     return out
 
 
-def rl_contracts(dev) -> dict:
-    """(c) The tuned CartPole contracts on ``dev``, reported and not gated:
-    each trains until its target return or its 40 iterations; then its
-    update's time on the card and on this machine's CPU, and one profiled
-    update."""
-    out = {}
-    for name, (cfg, target) in TUNED.items():
-        algo = LocalAlgorithm(name, dev, **cfg)
-        best, its = float("-inf"), 0
+def iteration_split(algo, iterations: int = 3) -> dict:
+    """Where ``iterations`` calls of ``algo.train()`` spend their time, in
+    ms an iteration: the wall time; the learner's update; the runners' own
+    work (their sample, set_weights and episode_returns bodies, summed
+    over the runners' threads); and the main thread's calls into the runtime —
+    submits (``.remote``), ``wait``, ``get`` (both include waiting for the
+    runners) and the weight ``put``. ``runtime_ms`` is the runtime's own
+    cost as the main thread feels it: submits and puts, plus the time blocked in
+    ``get`` and ``wait`` beyond the runners' work (none where the runners
+    sample while the learner updates, as IMPALA's and APPO's do)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import actor as actor_mod
+    from ray_tpu_torch._private import worker
+    spent = dict.fromkeys(("update", "runners", "submit", "wait", "get",
+                           "put"), 0.0)
+    lock = threading.Lock()
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with lock:
+                    spent[key] += time.perf_counter() - t0
+        return wrapper
+
+    instances = [worker.global_worker()._actor_executors[
+        h._ray_actor_id].instance for h in algo.runners]
+    saved_api = {k: getattr(rt, k) for k in ("wait", "get", "put")}
+    saved_remote = actor_mod.ActorMethod.remote
+    try:
+        for k, fn in saved_api.items():
+            setattr(rt, k, timed(k, fn))
+        actor_mod.ActorMethod.remote = timed("submit", saved_remote)
+        algo.learner.update = timed("update", algo.learner.update)
+        for inst in instances:
+            for m in ("sample", "set_weights", "episode_returns"):
+                setattr(inst, m, timed("runners", getattr(inst, m)))
+        sync(algo.learner.device)
         t0 = time.perf_counter()
-        for its in range(1, 41):
-            ret = algo.train()["episode_return_mean"]
-            if np.isfinite(ret):
-                best = max(best, float(ret))
-            if best >= target:
-                break
+        for _ in range(iterations):
+            algo.train()
+        sync(algo.learner.device)
         wall = time.perf_counter() - t0
-        prof = rl_update_profile(name, cfg, dev)
+    finally:
+        for k, fn in saved_api.items():
+            setattr(rt, k, fn)
+        actor_mod.ActorMethod.remote = saved_remote
+        del algo.learner.update
+        for inst in instances:
+            for m in ("sample", "set_weights", "episode_returns"):
+                delattr(inst, m)
+    out = {f"{k}_ms": v * 1e3 / iterations for k, v in spent.items()}
+    out["wall_ms"] = wall * 1e3 / iterations
+    blocked = out["get_ms"] + out["wait_ms"] - out["runners_ms"]
+    out["runtime_ms"] = out["submit_ms"] + out["put_ms"] + max(blocked, 0.0)
+    return out
+
+
+def rl_contracts(dev) -> dict:
+    """(c) The tuned CartPole contracts on ``dev`` through
+    ``rl.tuned_examples.run``, reported and not gated: each trains until
+    its target return or its 40 iterations; then its update's time on the
+    card and on this machine's CPU, one profiled update, and where an
+    iteration of the runtime-driven loop spends its time."""
+    from ray_tpu_torch.rl.tuned_examples import TUNED as registry
+    from ray_tpu_torch.rl.tuned_examples import run
+    out = {}
+    for name, key in TUNED.items():
+        t0 = time.perf_counter()
+        m = run(key, device=dev)
+        wall = time.perf_counter() - t0
+        best, its = m["best_return"], m["training_iteration"]
+        target = registry[key].target_return
+        prof = rl_update_profile(name, dev)
+        algo = tuned_config(name).training(device=dev).build()
+        algo.train()        # warm-up: fills the replay buffers
+        split = iteration_split(algo)
+        algo.stop()
         out[name] = dict(prof, best=best, iterations=its, target=target,
-                         wall_s=wall)
-        log(f"RL tuned {name} ({cfg}): best return {best:.1f} in {its} "
+                         wall_s=wall, split=split)
+        log(f"RL tuned {name} ({key}): best return {best:.1f} in {its} "
             f"iterations (target {target:g}: "
             f"{'met' if best >= target else 'NOT met'}; {wall:.1f} s); "
             f"update {prof['card_ms']:.2f} ms on the card, "
@@ -1456,6 +1520,14 @@ def rl_contracts(dev) -> dict:
             f"{prof['card_ms']:.2f} ms, "
             f"{prof['device_ms'] / prof['profiled_wall_ms']:.1%} of its "
             f"{prof['profiled_wall_ms']:.2f} ms under the profiler")
+        log(f"  an iteration through the runtime ({key}, learner on {dev}; "
+            f"ms, mean of 3): wall {split['wall_ms']:.2f}, learner update "
+            f"{split['update_ms']:.2f}, runners' own work "
+            f"{split['runners_ms']:.2f}, the runtime's own "
+            f"{split['runtime_ms']:.2f} "
+            f"({split['runtime_ms'] / split['wall_ms']:.1%}); calls into the runtime: "
+            f"submit {split['submit_ms']:.3f}, wait {split['wait_ms']:.2f}, "
+            f"get {split['get_ms']:.2f}, weight put {split['put_ms']:.3f}")
     return out
 
 
@@ -1483,8 +1555,9 @@ def rl_group_one_rank(dev, mesh) -> dict:
 
 
 def rl_path(dev) -> dict:
-    """Phase 11, every kernel counter at 0 before and read after: the RL
-    learners launch none of the port's kernels."""
+    """Phase 11 on the port's runtime (its EnvRunner actors sample, the
+    learner is on the card), every kernel counter at 0 before and read
+    after: the RL learners launch none of the port's kernels."""
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.ops import decode_attention as dec
     from ray_tpu_torch.ops import paged_attention as paged
@@ -1492,18 +1565,289 @@ def rl_path(dev) -> dict:
     counters = (attn.flash_attention_kernel,
                 dec.ragged_decode_attention_kernel,
                 paged.paged_decode_attention_kernel)
+    import ray_tpu_torch as rt
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
-    out = {"card_vs_cpu": rl_card_vs_cpu(dev), "learning": rl_learning(dev),
-           "contracts": rl_contracts(dev),
-           "group": rl_group_one_rank(dev, build_mesh(MeshSpec()))}
+    rt.init()
+    try:
+        out = {"card_vs_cpu": rl_card_vs_cpu(dev),
+               "learning": rl_learning(dev), "contracts": rl_contracts(dev),
+               "group": rl_group_one_rank(dev, build_mesh(MeshSpec()))}
+    finally:
+        rt.shutdown()
     launches = [c.launches for c in counters]
     if any(launches):
         raise RuntimeError(f"the RL path launched the port's kernels: "
                            f"{launches}")
     log(f"phase 11 (RL) in {time.perf_counter() - t0:.1f} s; kernel "
         f"launches {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the runtime on the card
+# ---------------------------------------------------------------------------
+
+def runtime_resources() -> dict:
+    """(a) ``init()`` detects the card as ``GPU``; a ``num_gpus=1`` task runs
+    in this process on the card and gives its resource back."""
+    import os
+    import torch
+    import ray_tpu_torch as rt
+    total = rt.cluster_resources()
+    if total.get("GPU") != torch.cuda.device_count():
+        raise RuntimeError(f"GPU not detected: {total}")
+
+    @rt.remote(num_gpus=1)
+    def where():
+        return os.getpid(), torch.cuda.current_device()
+
+    pid, current = rt.get(where.remote(), timeout=120)
+    if pid != os.getpid():
+        raise RuntimeError(f"a num_gpus task ran in process {pid}, not the "
+                           f"caller's {os.getpid()}")
+    avail = rt.available_resources()
+    if avail.get("GPU") != total["GPU"]:
+        raise RuntimeError(f"GPU not given back: {avail} of {total}")
+    log(f"runtime resources {total}; a num_gpus=1 task ran in this process "
+        f"(pid {pid}) on cuda:{current}; available afterwards {avail}")
+    return {"total": total, "device": current}
+
+
+def runtime_device_tier(gen) -> dict:
+    """(b) A 256 MiB bf16 CUDA tensor through ``put``/``get`` keeps its
+    storage and allocates nothing; a ``num_gpus=1`` task sums it on the
+    card; dropping the ref and the tensor frees it."""
+    import torch
+    import ray_tpu_torch as rt
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    x = torch.randn(128 << 20, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    nbytes = x.numel() * x.element_size()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ref = rt.put(x)
+    got = rt.get(ref)
+    round_trip_ms = (time.perf_counter() - t0) * 1e3
+    after = torch.cuda.memory_allocated()
+    if got.data_ptr() != x.data_ptr() or after > held:
+        raise RuntimeError(f"device tier copied: data_ptr {got.data_ptr()} "
+                           f"vs {x.data_ptr()}, allocated {after} vs {held}")
+
+    @rt.remote(num_gpus=1)
+    def total(t):
+        return t.float().sum()
+
+    remote_sum = rt.get(total.remote(ref), timeout=120)
+    local_sum = x.float().sum()
+    if not torch.equal(remote_sum, local_sum):
+        raise RuntimeError(f"sum in the task {remote_sum.item()} != the "
+                           f"caller's {local_sum.item()}")
+    del ref, got, x, remote_sum, local_sum
+    # the task's bookkeeping finishes on the runtime's threads: allow it
+    # a moment to drop the last pin (other objects the collector frees
+    # meanwhile may take the total below the base: released means the
+    # tensor's bytes are gone)
+    deadline = time.perf_counter() + 10.0
+    while True:
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = torch.cuda.memory_allocated()
+        if held - freed >= nbytes or time.perf_counter() > deadline:
+            break
+        time.sleep(0.01)
+    if held - freed < nbytes:
+        raise RuntimeError(f"device-tier object not released: {freed} "
+                           f"bytes allocated, {held} with it, {base} "
+                           f"before")
+    log(f"device tier: put/get of a {nbytes} byte bf16 tensor in "
+        f"{round_trip_ms:.3f} ms, same storage, allocated {after - held} "
+        f"more bytes; a num_gpus=1 task's sum equal to the caller's; "
+        f"released on del ({freed} bytes allocated, {base} before)")
+    return {"bytes": nbytes, "round_trip_ms": round_trip_ms}
+
+
+def actor_requests(server, mix: dict) -> dict:
+    """Phase 3's mix through the ``LLMServer`` actor: the 12 plain prompts
+    through ``__call__.remote``, the four prefix sharers through
+    ``stream.options(num_returns="streaming").remote``, the last three once
+    the first sharer's first token is out; everything collected with
+    ``wait``."""
+    import ray_tpu_torch as rt
+    t0 = time.perf_counter()
+    streams = [server.stream.options(num_returns="streaming").remote(
+        {"prompt": mix["sharers"][0], "max_tokens": 32})]
+    calls = [server.__call__.remote({"prompt": p, "max_tokens": 32})
+             for p in mix["prompts"]]
+    first = streams[0].next(timeout=600)
+    streams += [server.stream.options(num_returns="streaming").remote(
+        {"prompt": p, "max_tokens": 32}) for p in mix["sharers"][1:]]
+    ready, pending = rt.wait(calls, num_returns=len(calls), timeout=900)
+    if pending:
+        raise RuntimeError(f"{len(pending)} calls not back in 900 s")
+    # each stream's chunk refs, as the actor reports them
+    chunk_refs = [first] + [ref for gen in streams for ref in gen]
+    ready, pending = rt.wait(chunk_refs, num_returns=len(chunk_refs),
+                             timeout=900)
+    if pending:
+        raise RuntimeError(f"{len(pending)} chunks not back in 900 s")
+    wall = time.perf_counter() - t0
+    results = [(out["finish_reason"], len(out["token_ids"]))
+               for out in rt.get(calls)]
+    by_request = {}
+    for c in rt.get(chunk_refs):
+        by_request.setdefault(c["id"], []).append(c)
+    for cs in by_request.values():
+        done = [c for c in cs if c.get("done")]
+        results.append((done[0]["finish_reason"] if done else None,
+                        len(cs) - len(done)))
+    if len(results) != 16:
+        raise RuntimeError(f"{len(results)} of 16 requests answered")
+    for i, (reason, n) in enumerate(results):
+        # phase 3's bar: 32 tokens, or fewer ending on the stop token
+        if not (reason == "length" and n == 32
+                or reason == "stop" and 1 <= n <= 32):
+            raise RuntimeError(f"request {i}: finish {reason!r}, {n} tokens")
+    return {"wall_s": wall, "tokens": sum(n for _, n in results),
+            "full": sum(n == 32 for _, n in results)}
+
+
+def runtime_serving(llm_config, mix: dict, lone_ids: list,
+                    phase3: dict) -> dict:
+    """(c) ``LLMServer`` as a ``num_gpus=1`` actor with phase 3's config:
+    the lone request gives phase 3's token ids, phase 3's mix goes through
+    it, the paged kernel runs once a layer a decode step; a ``num_gpus=1``
+    task waits for the card until the actor is killed."""
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops import decode_attention as dec
+    from ray_tpu_torch.ops import paged_attention as paged
+    n_layers = llm_config.model_config.n_layers
+    t0 = time.perf_counter()
+    server = rt.remote(LLMServer).options(
+        num_gpus=1, max_concurrency=16).remote(llm_config)
+    stats0 = rt.get(server.stats.remote(), timeout=900)
+    torch.cuda.synchronize()    # the actor's weight init is queued work
+    up_s = time.perf_counter() - t0
+    for c in (paged.paged_decode_attention_kernel,
+              dec.ragged_decode_attention_kernel,
+              attn.flash_attention_kernel):
+        c.launches = 0
+    lone = rt.get(server.__call__.remote(
+        {"prompt": mix["lone"], "max_tokens": 32}), timeout=600)
+    if lone["token_ids"] != lone_ids:
+        raise RuntimeError(f"the lone request through the actor gave "
+                           f"{lone['token_ids']}, phase 3 {lone_ids}")
+    served = actor_requests(server, mix)
+    stats = rt.get(server.stats.remote())
+    launches = {"paged_decode_attention":
+                paged.paged_decode_attention_kernel.launches,
+                "ragged_decode_attention":
+                dec.ragged_decode_attention_kernel.launches,
+                "flash_attention": attn.flash_attention_kernel.launches}
+    steps = stats["decode_steps"] - stats0["decode_steps"]
+    if stats["prefix_prefills"] < 3 or stats["prefix_tokens_reused"] < 192:
+        raise RuntimeError(f"the prefix path did not run: {stats}")
+    if steps < 1 or launches["paged_decode_attention"] != n_layers * steps:
+        raise RuntimeError(f"paged kernel launches {launches} != "
+                           f"{n_layers} x {steps} decode steps")
+    if launches["ragged_decode_attention"] or launches["flash_attention"]:
+        raise RuntimeError(f"the actor's path launched other kernels: "
+                           f"{launches}")
+
+    @rt.remote(num_gpus=1)
+    def on_card():
+        return torch.cuda.current_device()
+
+    probe = on_card.remote()
+    ready, _ = rt.wait([probe], timeout=2.0)
+    if ready:
+        raise RuntimeError("a num_gpus=1 task ran while the actor held the "
+                           "card")
+    rt.get(server.shutdown.remote(), timeout=120)   # stop its engine thread
+    rt.kill(server)
+    rt.get(probe, timeout=120)
+    del server
+    free_card()
+    rate, rate3 = (served["tokens"] / served["wall_s"],
+                   phase3["tokens"] / phase3["wall_s"])
+    log(f"LLMServer actor (num_gpus=1, max_concurrency=16) up in "
+        f"{up_s:.1f} s; the lone request's 32 token ids equal phase 3's; "
+        f"phase 3's 16 requests ({served['full']} of 16 gave 32 tokens): "
+        f"{served['tokens']} tokens in "
+        f"{served['wall_s']:.2f} s ({rate:.1f} tokens/s against phase 3's "
+        f"direct {rate3:.1f}: x{rate / rate3:.3f}); engine stats {stats}; "
+        f"launches {launches} ({steps} decode steps x {n_layers} layers); "
+        f"a num_gpus=1 task stayed pending until kill(), then ran")
+    return {"launches": launches, "steps": steps, "tokens": served["tokens"],
+            "wall_s": served["wall_s"], "up_s": up_s}
+
+
+def runtime_rates(smi: str) -> dict:
+    """(d) The runtime's own cost on this host: no-op tasks, calls on one
+    actor and put/get round trips of a 1 MiB numpy array, a second each."""
+    import ray_tpu_torch as rt
+
+    @rt.remote
+    def noop():
+        return None
+
+    @rt.remote
+    class Pinger:
+        def ping(self):
+            return None
+
+    out = {}
+    rt.get([noop.remote() for _ in range(100)])           # warm-up
+    t0 = time.perf_counter()
+    rt.get([noop.remote() for _ in range(1000)])
+    out["tasks_per_s"] = 1000 / (time.perf_counter() - t0)
+    actor = Pinger.remote()
+    rt.get([actor.ping.remote() for _ in range(100)])     # warm-up
+    t0 = time.perf_counter()
+    rt.get([actor.ping.remote() for _ in range(1000)])
+    out["actor_calls_per_s"] = 1000 / (time.perf_counter() - t0)
+    rt.kill(actor)
+    arr = np.arange(1 << 20, dtype=np.uint8)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        got = rt.get(rt.put(arr))
+    out["put_get_per_s"] = 100 / (time.perf_counter() - t0)
+    if not np.array_equal(got, arr):
+        raise RuntimeError("put/get changed the array")
+    log(f"runtime cost on this host ({smi}): {out['tasks_per_s']:.0f} "
+        f"no-op tasks/s, {out['actor_calls_per_s']:.0f} actor calls/s, "
+        f"{out['put_get_per_s']:.0f} put/get round trips/s of 1 MiB")
+    return out
+
+
+def runtime_path(gen, llm_config, mix: dict, lone_ids: list, phase3: dict,
+                 rl: dict, smi: str) -> dict:
+    """Phase 12: the runtime on the card, (a)-(d), then (e) phase 11's
+    RL-through-the-runtime figures."""
+    import ray_tpu_torch as rt
+    t0 = time.perf_counter()
+    rt.init()
+    try:
+        out = {"resources": runtime_resources(),
+               "device_tier": runtime_device_tier(gen),
+               "serving": runtime_serving(llm_config, mix, lone_ids,
+                                          phase3),
+               "rates": runtime_rates(smi)}
+    finally:
+        rt.shutdown()
+    for name, c in rl["contracts"].items():
+        split = c["split"]
+        log(f"RL through the runtime ({name}, phase 11): an iteration "
+            f"{split['wall_ms']:.2f} ms, the learner's update "
+            f"{split['update_ms']:.2f} ms, the runtime's share "
+            f"{split['runtime_ms']:.2f} ms ({smi})")
+    log(f"phase 12 (runtime) in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -1557,20 +1901,25 @@ def main() -> int:
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
                               decode_attention="kernel")
     t0 = time.perf_counter()
-    server = LLMServer(LLMConfig(model_id="llama3-8b", model_config=cfg,
-                                 max_slots=32, max_seq=1024, seed=0),
-                       device=dev)
+    llm_config = LLMConfig(model_id="llama3-8b", model_config=cfg,
+                           max_slots=32, max_seq=1024, seed=0)
+    server = LLMServer(llm_config, device=dev)
     torch.cuda.synchronize()
     log(f"LLMServer(llama3_8b, {cfg.num_params() / 1e9:.2f} B params, "
         f"{server.engine.num_blocks + 1} pool blocks of "
         f"{server.engine.block_size}) up in {time.perf_counter() - t0:.1f} s;"
         f" {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    mix = request_mix(cfg.vocab_size, rng)
     try:
+        # the lone greedy request that phase 12 repeats through the actor
+        lone = server({"prompt": mix["lone"], "max_tokens": 32})
+        if len(lone["token_ids"]) != 32:
+            raise RuntimeError(f"the lone request gave {lone}")
         steps0 = server.engine.stats["decode_steps"]
         paged.paged_decode_attention_kernel.launches = 0
         dec.ragged_decode_attention_kernel.launches = 0
         attn.flash_attention_kernel.launches = 0
-        serving = serve_requests(server, cfg.vocab_size, rng)
+        serving = serve_requests(server, mix)
         server.shutdown()
         dense_decode(server.model, server.engine.params, gen, 32, 1024, rng)
         launches = {"paged_decode_attention":
@@ -1656,8 +2005,15 @@ def main() -> int:
     rows[2]["launches"] += par["moe"]["launches"] + \
         par["pipeline"]["launches"]
 
-    # 11. the RL learners, every counter at 0: no kernel of the port runs
-    rl_path(dev)
+    # 11. the RL learners on the runtime, every counter at 0: no kernel of
+    # the port runs
+    rl = rl_path(dev)
+
+    # 12. the runtime on the card: resources, the device tier, phase 3's
+    # serving through an LLMServer actor (counters at 0), its own cost
+    runtime = runtime_path(gen, llm_config, mix, lone["token_ids"], serving,
+                           rl, smi)
+    rows[0]["launches"] += runtime["serving"]["launches"][rows[0]["name"]]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

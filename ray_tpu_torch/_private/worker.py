@@ -1,0 +1,1075 @@
+"""The Runtime: task submission, execution, objects, actors (counterpart of
+``ray_tpu/_private/worker.py``).
+
+The core-worker role: task submission, the dependency resolver, result
+storage (an inline memory store for small values, node object stores for
+large ones), reference-counting hooks, task retries, streaming generators
+and the actor lifecycle driven through GCS state.
+
+Topology: one Runtime per process hosts N virtual nodes. Every task
+and actor runs in this process, on the nodes' pooled threads — the
+reference's runtime with process workers off (``RAY_TPU_PROCESS_WORKERS=0``,
+no cluster), where its routing collapses to ``_execute_inline``. That is
+also the path the reference gives accelerator work in any case: a
+``num_gpus`` actor owns the card in that process, and CUDA tensors stay in the
+object store's device tier with no copy.
+"""
+
+from __future__ import annotations
+
+import copy
+import inspect
+import os
+import shutil
+import tempfile
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+
+from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch._private import runtime_context
+from ray_tpu_torch._private.gcs import GCS, ActorInfo, ActorState
+from ray_tpu_torch._private.ids import (ActorID, JobID, NodeID, ObjectID,
+                                        TaskID, WorkerID)
+from ray_tpu_torch._private.node import ActorExecutor, Node
+from ray_tpu_torch._private.object_ref import FutureTable, ObjectRef
+from ray_tpu_torch._private.object_store import LocalObjectStore, _nbytes_of
+from ray_tpu_torch._private.refcount import LineageTable, ReferenceCounter
+from ray_tpu_torch._private.scheduler import (ClusterScheduler,
+                                              SchedulingError,
+                                              bump_cluster_epoch)
+from ray_tpu_torch._private.task_spec import TaskKind, TaskSpec
+
+# Values at or below this go to the owner's in-process memory store
+# (the reference's max_direct_call_object_size, 100 KiB).
+INLINE_OBJECT_SIZE = 100 * 1024
+
+_global_runtime: Optional["Runtime"] = None
+_global_lock = threading.Lock()
+
+
+def global_runtime() -> Optional["Runtime"]:
+    return _global_runtime
+
+
+def global_worker() -> "Runtime":
+    if _global_runtime is None:
+        raise RuntimeError(
+            "ray_tpu_torch has not been initialized; call "
+            "ray_tpu_torch.init() first")
+    return _global_runtime
+
+
+class TaskState:
+    PENDING_DEPS = "PENDING_ARGS_AVAIL"
+    QUEUED = "PENDING_NODE_ASSIGNMENT"
+    RUNNING = "RUNNING"
+    FINISHED = "FINISHED"
+    FAILED = "FAILED"
+    CANCELLED = "CANCELLED"
+
+
+class _InFlightTask:
+    __slots__ = ("spec", "state", "node_id", "cancelled", "deps_remaining",
+                 "lock")
+
+    def __init__(self, spec: TaskSpec):
+        self.spec = spec
+        self.state = TaskState.PENDING_DEPS
+        self.node_id: Optional[NodeID] = None
+        self.cancelled = False
+        self.deps_remaining = 0
+        self.lock = threading.Lock()
+
+
+class GeneratorState:
+    """Producer/consumer state for a streaming-generator task: items are
+    reported as they are produced, and an optional backpressure bound
+    parks the producer until the consumer catches up."""
+
+    def __init__(self, backpressure_num_objects: int = -1):
+        self.cond = threading.Condition()
+        self.items: List[ObjectRef] = []
+        self.produced = 0
+        self.consumed = 0
+        self.finished = False
+        self.error: Optional[BaseException] = None
+        self.backpressure = backpressure_num_objects
+
+    def report_item(self, ref: ObjectRef) -> None:
+        with self.cond:
+            self.items.append(ref)
+            self.produced += 1
+            self.cond.notify_all()
+            if self.backpressure > 0:
+                while (not self.finished
+                       and self.produced - self.consumed >= self.backpressure):
+                    self.cond.wait(1.0)
+
+    def finish(self, error: Optional[BaseException] = None) -> None:
+        with self.cond:
+            self.finished = True
+            self.error = error
+            self.cond.notify_all()
+
+    def next_ref(self, index: int, timeout: Optional[float] = None):
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self.cond:
+            while True:
+                if index < len(self.items):
+                    ref = self.items[index]
+                    # handed out once: the consumer's ref keeps the item
+                    # alive from here, and this table must not pin it
+                    self.items[index] = None
+                    self.consumed = max(self.consumed, index + 1)
+                    self.cond.notify_all()
+                    return ref
+                if self.finished:
+                    if self.error is not None:
+                        raise self.error
+                    raise StopIteration
+                remaining = None
+                if deadline is not None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise exc.GetTimeoutError("generator item timeout")
+                self.cond.wait(remaining)
+
+
+class Runtime:
+    def __init__(self, num_nodes: int = 1,
+                 resources_per_node: Optional[Dict[str, float]] = None,
+                 object_store_memory: int = 2 * 1024 ** 3,
+                 namespace: Optional[str] = None,
+                 session_dir: Optional[str] = None):
+        self.job_id = JobID.from_random()
+        self.worker_id = WorkerID.from_random()
+        self.namespace = namespace or self.job_id.hex()
+        # spilled objects land here; created on the first spill only
+        self.session_dir = session_dir or os.path.join(
+            tempfile.gettempdir(), "ray_tpu_torch",
+            f"session_{self.job_id.hex()}")
+
+        self.gcs = GCS()
+        self.scheduler = ClusterScheduler()
+        self.futures = FutureTable()
+        self.lineage = LineageTable()
+        self.refcounter = ReferenceCounter(on_zero=self._free_object)
+
+        # Owner memory store: inline values and error objects.
+        self.memory_store = LocalObjectStore(
+            NodeID.nil(), capacity_bytes=1 << 62)
+
+        self._nodes: Dict[NodeID, Node] = {}  #: guarded by self._nodes_lock
+        self._nodes_lock = threading.RLock()
+        #: guarded by self._loc_lock
+        self._locations: Dict[ObjectID, Set[NodeID]] = {}
+        self._loc_lock = threading.Lock()
+
+        self._tasks: Dict[TaskID, _InFlightTask] = {}  #: guarded by self._tasks_lock
+        self._tasks_lock = threading.Lock()
+
+        #: guarded by self._actor_lock
+        self._actor_pending_tasks: Dict[ActorID, List[TaskSpec]] = {}
+        self._actor_lock = threading.RLock()
+        self._actor_executors: Dict[ActorID, ActorExecutor] = {}
+
+        self._generators: Dict[TaskID, GeneratorState] = {}
+        self._shutdown = False
+
+        if resources_per_node is None:
+            resources_per_node = self._detect_resources()
+        for _ in range(num_nodes):
+            self.add_node(dict(resources_per_node),
+                          object_store_memory=object_store_memory)
+
+    # ------------------------------------------------------------------
+    # cluster topology
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _detect_resources() -> Dict[str, float]:
+        """This host's CPUs, and its CUDA cards as ``GPU`` when it has any:
+        a host without a card has no ``GPU`` key, so a ``num_gpus`` demand
+        fails there instead of running on the CPU."""
+        res: Dict[str, float] = {"CPU": float(os.cpu_count() or 1)}
+        import torch
+        if torch.cuda.is_available():
+            res["GPU"] = float(torch.cuda.device_count())
+        return res
+
+    def add_node(self, resources: Dict[str, float],
+                 labels: Optional[Dict[str, str]] = None,
+                 object_store_memory: int = 2 * 1024 ** 3) -> Node:
+        node_id = NodeID.from_random()
+        store = LocalObjectStore(
+            node_id, object_store_memory,
+            spill_dir=os.path.join(self.session_dir, "spill",
+                                   node_id.hex()[:8]))
+        node = Node(node_id, resources, labels or {}, store,
+                    execute_task=self._execute_on_node)
+        with self._nodes_lock:
+            self._nodes[node_id] = node
+        self.gcs.register_node(node.info())
+        bump_cluster_epoch()
+        return node
+
+    def nodes(self) -> List[Node]:
+        with self._nodes_lock:
+            return list(self._nodes.values())
+
+    def alive_nodes(self) -> List[Node]:
+        return [n for n in self.nodes() if n.alive]
+
+    def get_node(self, node_id: NodeID) -> Optional[Node]:
+        with self._nodes_lock:
+            return self._nodes.get(node_id)
+
+    def head_node(self) -> Node:
+        nodes = self.alive_nodes()
+        if not nodes:
+            raise RuntimeError("cluster has no alive nodes")
+        return nodes[0]
+
+    def cluster_resources(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for n in self.alive_nodes():
+            for k, v in n.ledger.total.items():
+                out[k] = out.get(k, 0.0) + v
+        return out
+
+    def available_resources(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for n in self.alive_nodes():
+            for k, v in n.ledger.available().items():
+                out[k] = out.get(k, 0.0) + v
+        return out
+
+    # ------------------------------------------------------------------
+    # objects
+    # ------------------------------------------------------------------
+    def put(self, value: Any) -> ObjectRef:
+        if isinstance(value, ObjectRef):
+            raise TypeError("put() of an ObjectRef is not allowed "
+                            "(pass the ref itself instead)")
+        oid = ObjectID.from_random()
+        ref = ObjectRef(oid, owner_hex=self.worker_id.hex(), task_name="put")
+        self._store_value(oid, value)
+        self.futures.complete(oid)
+        return ref
+
+    def _store_value(self, oid: ObjectID, value: Any,
+                     prefer_node: Optional[Node] = None) -> None:
+        nested = _find_nested_refs(value)
+        if nested:
+            self.refcounter.add_nested_refs(oid, [r.id for r in nested])
+        size = _nbytes_of(value)
+        if size <= INLINE_OBJECT_SIZE or prefer_node is None:
+            self.memory_store.put(oid, value, nbytes=size)
+            return
+        prefer_node.store.put(oid, value, nbytes=size)
+        with self._loc_lock:
+            self._locations.setdefault(oid, set()).add(prefer_node.node_id)
+
+    def _free_object(self, oid: ObjectID) -> None:
+        """Refcount hit zero: drop the value everywhere + its lineage."""
+        self.memory_store.delete(oid)
+        with self._loc_lock:
+            locs = self._locations.pop(oid, set())
+        for node_id in locs:
+            node = self.get_node(node_id)
+            if node is not None:
+                node.store.delete(oid)
+        self.lineage.release(oid)
+
+    def _fetch_value(self, oid: ObjectID) -> Tuple[bool, Any]:
+        """Return (found, value) looking across memory store + node stores."""
+        if self.memory_store.contains(oid):
+            return True, self.memory_store.get(oid)
+        with self._loc_lock:
+            locs = list(self._locations.get(oid, ()))
+        for node_id in locs:
+            node = self.get_node(node_id)
+            if node is not None and node.alive and node.store.contains(oid):
+                return True, node.store.get(oid)
+        return False, None
+
+    def get(self, refs: Sequence[ObjectRef],
+            timeout: Optional[float] = None) -> List[Any]:
+        deadline = None if timeout is None else time.monotonic() + timeout
+        out: List[Any] = []
+        for ref in refs:
+            remaining = None
+            if deadline is not None:
+                remaining = max(deadline - time.monotonic(), 0.0)
+            if not self.futures.wait_for(ref.id, remaining):
+                raise exc.GetTimeoutError(
+                    f"get() timed out waiting for {ref}")
+            value = self._get_one(ref, deadline)
+            if isinstance(value, exc.TaskError):
+                raise value.as_instanceof_cause()
+            if isinstance(value, exc.RayTpuError):
+                raise value
+            out.append(value)
+        return out
+
+    def _get_one(self, ref: ObjectRef, deadline: Optional[float],
+                 _depth: int = 0) -> Any:
+        found, value = self._fetch_value(ref.id)
+        if found:
+            return value
+        # The value is gone: recompute it from its lineage.
+        if _depth > 100:
+            raise exc.ObjectReconstructionFailedError(
+                ref.id, "reconstruction recursion limit hit")
+        self._recover_object(ref)
+        remaining = None
+        if deadline is not None:
+            remaining = max(deadline - time.monotonic(), 0.0)
+        if not self.futures.wait_for(ref.id, remaining):
+            raise exc.GetTimeoutError(
+                f"get() timed out waiting for reconstruction of {ref}")
+        return self._get_one(ref, deadline, _depth + 1)
+
+    def _recover_object(self, ref: ObjectRef) -> None:
+        """Resubmit the producing task of a lost object (lineage recovery)."""
+        spec = self.lineage.producer_of(ref.id)
+        if spec is None:
+            err = exc.ObjectLostError(
+                ref.id, f"object {ref.id.hex()[:12]} was lost and has no "
+                        f"lineage to reconstruct it (e.g. created by put())")
+            self._store_value(ref.id, err)
+            self.futures.complete(ref.id)
+            return
+        with self._tasks_lock:
+            inflight = self._tasks.get(spec.task_id)
+            if inflight is not None and inflight.state in (
+                    TaskState.PENDING_DEPS, TaskState.QUEUED,
+                    TaskState.RUNNING):
+                return  # already being recomputed
+        respec = _clone_spec_for_retry(spec)
+        for oid in respec.return_ids:
+            self.futures.reset(oid)
+        self.submit_task(respec, record_lineage=False)
+
+    def wait(self, refs: Sequence[ObjectRef], num_returns: int = 1,
+             timeout: Optional[float] = None,
+             fetch_local: bool = True) -> Tuple[List[ObjectRef],
+                                                List[ObjectRef]]:
+        if num_returns > len(refs):
+            raise ValueError("num_returns exceeds the number of refs")
+        ids = [r.id for r in refs]
+        # cap at num_returns even if more completed (API contract)
+        done_list = self.futures.wait_any(ids, num_returns, timeout)
+        done_ids = set(done_list[:num_returns])
+        ready = [r for r in refs if r.id in done_ids]
+        not_ready = [r for r in refs if r.id not in done_ids]
+        return ready, not_ready
+
+    # ------------------------------------------------------------------
+    # task submission
+    # ------------------------------------------------------------------
+    def submit_task(self, spec: TaskSpec,
+                    record_lineage: bool = True) -> List[ObjectRef]:
+        refs = [ObjectRef(oid, owner_hex=self.worker_id.hex(),
+                          task_name=spec.name) for oid in spec.return_ids]
+        for oid in spec.return_ids:
+            self.futures.register(oid)
+        deps = spec.dependencies()
+        if deps:
+            self.refcounter.add_submitted_task_refs(deps)
+        if record_lineage and spec.max_retries != 0:
+            self.lineage.record(spec.return_ids, spec)
+        if spec.num_returns in ("streaming", "dynamic"):
+            # Pre-create the generator state so the configured backpressure
+            # applies even if the consumer races the producer to it.
+            self._generators.setdefault(
+                spec.task_id, GeneratorState(spec.backpressure_num_objects))
+
+        inflight = _InFlightTask(spec)
+        with self._tasks_lock:
+            self._tasks[spec.task_id] = inflight
+
+        if spec.kind == TaskKind.ACTOR_TASK:
+            self._submit_actor_task(spec, inflight, deps)
+        else:
+            self._submit_with_deps(spec, inflight, deps)
+        return refs
+
+    def _submit_with_deps(self, spec: TaskSpec, inflight: _InFlightTask,
+                          deps: List[ObjectID]) -> None:
+        pending = [d for d in deps if not self.futures.is_done(d)]
+        inflight.deps_remaining = len(pending)
+        if not pending:
+            self._schedule(spec, inflight)
+            return
+        counter_lock = threading.Lock()
+
+        def on_dep_done(_oid):
+            with counter_lock:
+                inflight.deps_remaining -= 1
+                ready = inflight.deps_remaining == 0
+            if ready:
+                self._schedule(spec, inflight)
+
+        for d in pending:
+            self.futures.add_done_callback(d, on_dep_done)
+
+    def _schedule(self, spec: TaskSpec, inflight: _InFlightTask) -> None:
+        with inflight.lock:
+            if inflight.cancelled:
+                return
+            inflight.state = TaskState.QUEUED
+        try:
+            node = self.scheduler.pick_node(spec, self.nodes(),
+                                            preferred=self._locality_node(spec))
+        except SchedulingError as e:
+            self._fail_unschedulable(spec, exc.TaskError(e, spec.name))
+            return
+        inflight.node_id = node.node_id
+        node.enqueue(spec)
+
+    def _fail_unschedulable(self, spec: TaskSpec,
+                            error: exc.TaskError) -> None:
+        """An infeasible placement fails the actor too, not just its
+        creation task (else it would stay pending with its calls
+        buffering)."""
+        if spec.kind == TaskKind.ACTOR_CREATION:
+            self._actor_creation_failed(spec, error)
+        else:
+            self._fail_task(spec, error)
+
+    def _locality_node(self, spec: TaskSpec) -> Optional[Node]:
+        """Prefer the node holding the largest dependency (locality-aware)."""
+        with self._nodes_lock:
+            nodes = dict(self._nodes)
+        with self._loc_lock:
+            dep_locs = [(dep, list(self._locations.get(dep, ())))
+                        for dep in spec.dependencies()]
+        best, best_size = None, 0
+        for dep, node_ids in dep_locs:
+            for node_id in node_ids:
+                node = nodes.get(node_id)
+                if node is None or not node.alive:
+                    continue
+                size = node.store.nbytes_of(dep)
+                if size > best_size:
+                    best, best_size = node, size
+        return best
+
+    # ------------------------------------------------------------------
+    # task execution (runs on node worker threads)
+    # ------------------------------------------------------------------
+    def _execute_on_node(self, spec: TaskSpec, node: Node) -> None:
+        with self._tasks_lock:
+            inflight = self._tasks.get(spec.task_id)
+        if inflight is not None:
+            with inflight.lock:
+                if inflight.cancelled:
+                    return
+                inflight.state = TaskState.RUNNING
+        if spec.kind == TaskKind.ACTOR_CREATION:
+            self._execute_actor_creation(spec, node)
+            return
+        try:
+            args, kwargs = self._resolve_args(spec)
+        except exc.TaskError as te:
+            self._finish_task(spec, node, error=te)
+            return
+        self._execute_inline(spec, node, args, kwargs)
+
+    def _execute_inline(self, spec: TaskSpec, node: Node, args: tuple,
+                        kwargs: dict) -> None:
+        """In-process execution on the node's pooled thread."""
+        token = runtime_context._set_context(
+            job_id=spec.job_id or self.job_id, task_id=spec.task_id,
+            node_id=node.node_id, actor_id=None, resources=spec.resources,
+            task_name=spec.name)
+        try:
+            result = spec.func(*args, **kwargs)
+        except BaseException as e:  # noqa: BLE001
+            self._finish_task(spec, node,
+                              error=exc.TaskError(e, spec.name))
+            return
+        finally:
+            runtime_context._reset_context(token)
+        if spec.num_returns in ("streaming", "dynamic") or inspect.isgenerator(
+                result):
+            self._drain_generator(spec, node, result)
+            return
+        self._finish_task(spec, node, result=result)
+
+    def _resolve_args(self, spec: TaskSpec) -> Tuple[tuple, dict]:
+        def resolve(a):
+            if isinstance(a, ObjectRef):
+                value = self._get_one(a, deadline=None)
+                if isinstance(value, exc.TaskError):
+                    raise value
+                if isinstance(value, exc.RayTpuError):
+                    raise exc.TaskError(value, spec.name)
+                return value
+            return a
+
+        try:
+            args = tuple(resolve(a) for a in spec.args)
+            kwargs = {k: resolve(v) for k, v in spec.kwargs.items()}
+        except exc.TaskError:
+            raise
+        except exc.RayTpuError as e:
+            raise exc.TaskError(e, spec.name)
+        return args, kwargs
+
+    def _finish_task(self, spec: TaskSpec, node: Optional[Node],
+                     result: Any = None,
+                     error: Optional[exc.TaskError] = None) -> None:
+        if node is not None and not node.alive:
+            # the node was shut down under the running thread: its results
+            # are lost with it
+            self.on_node_task_lost(spec, node)
+            return
+        if error is not None:
+            if self._maybe_retry_app_error(spec, error):
+                return
+            self._fail_task(spec, error)
+            return
+        # Release the task's resources before completing the futures: a
+        # caller unblocked by get() must observe the node's ledger already
+        # freed (the node's dispatch `finally` skips the release via the
+        # spec flag).
+        self._release_task_resources(spec, node)
+        values: List[Any]
+        n = spec.num_returns
+        if n == 1 or not isinstance(n, int):
+            values = [result]
+        elif n == 0:
+            values = []
+        else:
+            if not isinstance(result, (tuple, list)) or len(result) != n:
+                self._fail_task(spec, exc.TaskError(
+                    ValueError(f"task declared num_returns={n} but returned "
+                               f"{type(result).__name__}"), spec.name))
+                return
+            values = list(result)
+        for oid, value in zip(spec.return_ids, values):
+            self._store_value(oid, value, prefer_node=node)
+            self.futures.complete(oid)
+        self._on_task_done(spec, TaskState.FINISHED)
+
+    def _fail_task(self, spec: TaskSpec, error: exc.TaskError) -> None:
+        for oid in spec.return_ids:
+            self._store_value(oid, error)
+            self.futures.complete(oid)
+        gen = self._generators.get(spec.task_id)
+        if gen is not None:
+            gen.finish(error.as_instanceof_cause())
+        self._on_task_done(spec, TaskState.FAILED)
+
+    def _on_task_done(self, spec: TaskSpec, state: str) -> None:
+        deps = spec.dependencies()
+        if deps:
+            self.refcounter.remove_submitted_task_refs(deps)
+        with self._tasks_lock:
+            inflight = self._tasks.get(spec.task_id)
+            if inflight is not None:
+                inflight.state = state
+                # drop terminal entries so the in-flight table doesn't
+                # leak specs and their arg pins
+                del self._tasks[spec.task_id]
+
+    def _maybe_retry_app_error(self, spec: TaskSpec,
+                               error: exc.TaskError) -> bool:
+        retry_on = spec.retry_exceptions
+        if retry_on is False or not _retries_left(spec):
+            return False
+        if retry_on is not True:
+            try:
+                if not isinstance(error.cause, tuple(retry_on)):
+                    return False
+            except TypeError:
+                return False
+        self._retry(spec)
+        return True
+
+    def on_node_task_lost(self, spec: TaskSpec, node: Node) -> None:
+        """A node went away holding this queued/running task."""
+        if _retries_left(spec) and not self._shutdown:
+            self._retry(spec)
+        else:
+            self._fail_task(spec, exc.TaskError(
+                exc.NodeDiedError(
+                    f"task {spec.name} lost to death of node "
+                    f"{node.node_id.hex()[:8]} and retries exhausted"),
+                spec.name))
+
+    def _retry(self, spec: TaskSpec) -> None:
+        """Resubmit the task under its own task id, one attempt later."""
+        if self._shutdown:
+            return
+        respec = _clone_spec_for_retry(spec)
+        # one critical section for check + replace: a gap between the pop
+        # and the reinsert would hide the task from a concurrent cancel()
+        with self._tasks_lock:
+            old = self._tasks.get(spec.task_id)
+            if old is None:
+                # terminal state reached meanwhile (a force cancel already
+                # failed it): do not re-run a cancelled or failed body
+                return
+            if not old.cancelled:
+                inflight = _InFlightTask(respec)
+                self._tasks[respec.task_id] = inflight
+        if old.cancelled:
+            self._fail_task(spec, exc.TaskError(
+                exc.TaskCancelledError(spec.task_id), spec.name))
+            return
+        deps = respec.dependencies()
+        if respec.kind == TaskKind.ACTOR_TASK:
+            # replay on the actor, not the task path
+            self._submit_actor_task(respec, inflight, deps)
+        else:
+            self._submit_with_deps(respec, inflight, deps)
+
+    def _release_task_resources(self, spec: TaskSpec,
+                                node: Optional[Node]) -> None:
+        """Idempotent early release (on the worker thread, strictly before
+        the exec pool's own `finally` release)."""
+        if (node is not None and spec.kind != TaskKind.ACTOR_CREATION
+                and not getattr(spec, "_resources_released", False)):
+            spec._resources_released = True
+            node.stage_release(spec.resources)
+
+    # -- streaming generators ----------------------------------------------
+    def _drain_generator(self, spec: TaskSpec, node: Node, gen) -> None:
+        state = self._generators.setdefault(
+            spec.task_id, GeneratorState(spec.backpressure_num_objects))
+        # On a retry, skip items already reported by the previous attempt
+        # (streams are assumed deterministic, as in lineage reconstruction).
+        skip = len(state.items)
+        try:
+            for item in gen:
+                if skip > 0:
+                    skip -= 1
+                    continue
+                oid = ObjectID.from_random()
+                self._store_value(oid, item, prefer_node=node)
+                self.futures.complete(oid)
+                ref = ObjectRef(oid, owner_hex=self.worker_id.hex(),
+                                task_name=spec.name)
+                state.report_item(ref)
+        except BaseException as e:  # noqa: BLE001
+            te = exc.TaskError(e, spec.name)
+            state.finish(te.as_instanceof_cause())
+            self._fail_task(spec, te)
+            return
+        state.finish()
+        # The task's own return value is the generator handle sentinel.
+        for oid in spec.return_ids:
+            self._store_value(oid, _StreamingGeneratorSentinel(spec.task_id))
+            self.futures.complete(oid)
+        self._on_task_done(spec, TaskState.FINISHED)
+
+    def generator_state(self, task_id: TaskID) -> GeneratorState:
+        return self._generators.setdefault(task_id, GeneratorState())
+
+    # ------------------------------------------------------------------
+    # actors
+    # ------------------------------------------------------------------
+    def create_actor(self, spec: TaskSpec,
+                     get_if_exists: bool = False) -> ActorID:
+        actor_id = spec.actor_id
+        info = ActorInfo(
+            actor_id=actor_id, name=spec.actor_name,
+            namespace=spec.namespace or self.namespace,
+            max_restarts=spec.max_restarts,
+            max_task_retries=spec.max_task_retries,
+            detached=(spec.lifetime == "detached"),
+            creation_spec=spec,
+            class_name=getattr(spec.func, "__name__", "Actor"),
+            method_options=dict(spec.method_options))
+        if get_if_exists and spec.actor_name:
+            actor_id, created = self.gcs.register_actor_or_get_existing(info)
+            if not created:
+                return actor_id
+        else:
+            self.gcs.register_actor(info)
+        with self._actor_lock:
+            self._actor_pending_tasks[actor_id] = []
+        self.submit_task(spec, record_lineage=False)
+        return actor_id
+
+    def _execute_actor_creation(self, spec: TaskSpec, node: Node) -> None:
+        """The actor's instance is built in this process, on the node's
+        pooled thread, holding its resources for its lifetime."""
+        actor_id = spec.actor_id
+        try:
+            args, kwargs = self._resolve_args(spec)
+        except exc.TaskError as te:
+            self._actor_creation_failed(spec, te, node)
+            return
+        token = runtime_context._set_context(
+            job_id=spec.job_id or self.job_id, task_id=spec.task_id,
+            node_id=node.node_id, actor_id=actor_id,
+            resources=spec.resources, task_name=spec.name)
+        try:
+            instance = spec.func(*args, **kwargs)
+        except BaseException as e:  # noqa: BLE001
+            self._actor_creation_failed(spec, exc.TaskError(e, spec.name),
+                                        node)
+            return
+        finally:
+            runtime_context._reset_context(token)
+
+        # The actor may have been killed while __init__ was running; do not
+        # resurrect it (install nothing, free the lifetime resources).
+        info = self.gcs.get_actor_info(actor_id)
+        if info is not None and info.state == ActorState.DEAD:
+            if node.alive:
+                node.ledger.release(spec.resources)
+            for oid in spec.return_ids:
+                self._store_value(oid, exc.ActorDiedError(
+                    actor_id, info.death_cause or "actor killed"))
+                self.futures.complete(oid)
+            self._on_task_done(spec, TaskState.FAILED)
+            return
+
+        is_async = _class_is_async(type(instance))
+        executor = ActorExecutor(
+            actor_id, spec.max_concurrency,
+            run_task=lambda s, inst: self._execute_actor_task(s, inst, node),
+            run_task_async=lambda s, inst: self._execute_actor_task_async(
+                s, inst, node),
+            concurrency_groups=spec.concurrency_groups)
+        executor.start(instance, is_async)
+        node.host_actor(executor)
+        with self._actor_lock:
+            self._actor_executors[actor_id] = executor
+            pending = self._actor_pending_tasks.pop(actor_id, [])
+        self.gcs.update_actor_state(actor_id, ActorState.ALIVE,
+                                    node_id=node.node_id)
+        # Creation-task return: the actor handle's readiness object.
+        for oid in spec.return_ids:
+            self._store_value(oid, actor_id)
+            self.futures.complete(oid)
+        self._on_task_done(spec, TaskState.FINISHED)
+        for pspec in pending:
+            executor.submit(pspec)
+
+    def _actor_creation_failed(self, spec: TaskSpec, error: exc.TaskError,
+                               node: Optional[Node] = None) -> None:
+        actor_id = spec.actor_id
+        if node is not None and node.alive:
+            node.ledger.release(spec.resources)
+        self.gcs.update_actor_state(actor_id, ActorState.DEAD,
+                                    death_cause=str(error.cause))
+        with self._actor_lock:
+            pending = self._actor_pending_tasks.pop(actor_id, [])
+        self._fail_task(spec, error)
+        died = exc.ActorError(
+            exc.ActorDiedError(actor_id,
+                               f"actor __init__ failed: {error.cause!r}"),
+            spec.name, actor_id)
+        for pspec in pending:
+            self._fail_task(pspec, died)
+
+    def _submit_actor_task(self, spec: TaskSpec, inflight: _InFlightTask,
+                           deps: List[ObjectID]) -> None:
+        actor_id = spec.actor_id
+        info = self.gcs.get_actor_info(actor_id)
+        if info is None:
+            self._fail_task(spec, exc.TaskError(
+                ValueError(f"unknown actor {actor_id}"), spec.name))
+            return
+        if info.state == ActorState.DEAD:
+            self._fail_task(spec, exc.ActorError(
+                exc.ActorDiedError(actor_id, info.death_cause or "actor died"),
+                spec.name, actor_id))
+            return
+
+        pending = [d for d in deps if not self.futures.is_done(d)]
+        if not pending:
+            self._enqueue_actor_task_when_ready(spec)
+            return
+        inflight.deps_remaining = len(pending)
+        counter_lock = threading.Lock()
+
+        def on_dep_done(_oid):
+            with counter_lock:
+                inflight.deps_remaining -= 1
+                ready = inflight.deps_remaining == 0
+            if ready:
+                self._enqueue_actor_task_when_ready(spec)
+
+        for d in pending:
+            self.futures.add_done_callback(d, on_dep_done)
+
+    def _enqueue_actor_task_when_ready(self, spec: TaskSpec) -> None:
+        actor_id = spec.actor_id
+        with self._actor_lock:
+            executor = self._actor_executors.get(actor_id)
+            if executor is None:
+                info = self.gcs.get_actor_info(actor_id)
+                if info is None or info.state == ActorState.DEAD:
+                    self._fail_task(spec, exc.ActorError(
+                        exc.ActorDiedError(
+                            actor_id,
+                            (info.death_cause if info else None)
+                            or "actor is dead"),
+                        spec.name, actor_id))
+                    return
+                # PENDING or RESTARTING: buffer until alive.
+                self._actor_pending_tasks.setdefault(actor_id, []).append(spec)
+                return
+        if not executor.submit(spec):
+            # The executor died but _handle_actor_death has not unregistered
+            # it yet: drop the stale executor and re-evaluate against GCS
+            # state (buffered if pending/restarting, failed on death).
+            with self._actor_lock:
+                if self._actor_executors.get(actor_id) is executor:
+                    self._actor_executors.pop(actor_id, None)
+            self._enqueue_actor_task_when_ready(spec)
+
+    def _execute_actor_task(self, spec: TaskSpec, instance: Any,
+                            node: Node) -> None:
+        with self._tasks_lock:
+            inflight = self._tasks.get(spec.task_id)
+        if inflight is not None:
+            with inflight.lock:
+                if inflight.cancelled:
+                    return
+                inflight.state = TaskState.RUNNING
+        try:
+            args, kwargs = self._resolve_args(spec)
+        except exc.TaskError as te:
+            self._finish_task(spec, node, error=te)
+            return
+        token = runtime_context._set_context(
+            job_id=spec.job_id or self.job_id, task_id=spec.task_id,
+            node_id=node.node_id, actor_id=spec.actor_id,
+            resources=spec.resources, task_name=spec.name)
+        try:
+            method = getattr(instance, spec.method_name)
+            result = method(*args, **kwargs)
+        except _ExitActor:
+            self._finish_task(spec, node, result=None)
+            self.kill_actor(spec.actor_id, no_restart=True,
+                            cause="exit_actor() called")
+            return
+        except BaseException as e:  # noqa: BLE001
+            self._finish_task(spec, node, error=exc.ActorError(
+                e, spec.name, spec.actor_id))
+            return
+        finally:
+            runtime_context._reset_context(token)
+        if inspect.isgenerator(result) or spec.num_returns in (
+                "streaming", "dynamic"):
+            self._drain_generator(spec, node, result)
+            return
+        self._finish_task(spec, node, result=result)
+
+    async def _execute_actor_task_async(self, spec: TaskSpec, instance: Any,
+                                        node: Node) -> None:
+        with self._tasks_lock:
+            inflight = self._tasks.get(spec.task_id)
+        if inflight is not None:
+            with inflight.lock:
+                if inflight.cancelled:
+                    return
+                inflight.state = TaskState.RUNNING
+        try:
+            args, kwargs = self._resolve_args(spec)
+        except exc.TaskError as te:
+            self._finish_task(spec, node, error=te)
+            return
+        token = runtime_context._set_context(
+            job_id=spec.job_id or self.job_id, task_id=spec.task_id,
+            node_id=node.node_id, actor_id=spec.actor_id,
+            resources=spec.resources, task_name=spec.name)
+        try:
+            method = getattr(instance, spec.method_name)
+            result = method(*args, **kwargs)
+            if inspect.iscoroutine(result):
+                result = await result
+        except _ExitActor:
+            runtime_context._reset_context(token)
+            self._finish_task(spec, node, result=None)
+            self.kill_actor(spec.actor_id, no_restart=True,
+                            cause="exit_actor() called")
+            return
+        except BaseException as e:  # noqa: BLE001
+            runtime_context._reset_context(token)
+            self._finish_task(spec, node, error=exc.ActorError(
+                e, spec.name, spec.actor_id))
+            return
+        runtime_context._reset_context(token)
+        self._finish_task(spec, node, result=result)
+
+    def kill_actor(self, actor_id: ActorID, no_restart: bool = True,
+                   cause: str = "ray_tpu_torch.kill() called") -> None:
+        # stop the executor first so no queued spec can still be dispatched
+        with self._actor_lock:
+            executor = self._actor_executors.pop(actor_id, None)
+        pending = executor.kill(cause) if executor is not None else []
+        info = self.gcs.get_actor_info(actor_id)
+        if info is not None and info.node_id is not None:
+            node = self.get_node(info.node_id)
+            if node is not None:
+                node.evict_actor(actor_id)
+        self._handle_actor_death(actor_id, cause, pending_tasks=pending,
+                                 may_restart=not no_restart)
+
+    def _handle_actor_death(self, actor_id: ActorID, cause: str,
+                            pending_tasks: List[TaskSpec],
+                            may_restart: bool) -> None:
+        info = self.gcs.get_actor_info(actor_id)
+        if info is None:
+            return
+        with self._actor_lock:
+            self._actor_executors.pop(actor_id, None)
+        # Release the actor's lifetime resource hold on its (alive) node.
+        if info.node_id is not None and info.creation_spec is not None:
+            host = self.get_node(info.node_id)
+            if host is not None and host.alive:
+                host.ledger.release(info.creation_spec.resources)
+            info.node_id = None
+        can_restart = (may_restart and info.creation_spec is not None
+                       and (info.max_restarts == -1
+                            or info.num_restarts < info.max_restarts))
+        if can_restart:
+            info.num_restarts += 1
+            self.gcs.update_actor_state(actor_id, ActorState.RESTARTING)
+            if info.max_task_retries != 0:
+                # pending tasks survive the restart and replay on the new
+                # incarnation
+                with self._actor_lock:
+                    self._actor_pending_tasks.setdefault(
+                        actor_id, []).extend(pending_tasks)
+            else:
+                for spec in pending_tasks:
+                    self._fail_task(spec, exc.ActorError(
+                        exc.ActorUnavailableError(
+                            f"actor restarting: {cause}"),
+                        spec.name, actor_id))
+            respec = _clone_spec_for_retry(info.creation_spec)
+            respec.actor_id = actor_id
+            with self._tasks_lock:
+                inflight = _InFlightTask(respec)
+                self._tasks[respec.task_id] = inflight
+            self._submit_with_deps(respec, inflight, respec.dependencies())
+        else:
+            self.gcs.update_actor_state(actor_id, ActorState.DEAD,
+                                        death_cause=cause)
+            err_base = exc.ActorDiedError(actor_id, cause)
+            with self._actor_lock:
+                buffered = self._actor_pending_tasks.pop(actor_id, [])
+            for spec in list(pending_tasks) + buffered:
+                self._fail_task(spec, exc.ActorError(err_base, spec.name,
+                                                     actor_id))
+
+    # ------------------------------------------------------------------
+    # cancellation
+    # ------------------------------------------------------------------
+    def cancel(self, ref: ObjectRef, force: bool = False,
+               recursive: bool = True) -> None:
+        """Cancel the task producing ``ref``. A task not yet running fails
+        with TaskCancelledError; a running one is failed only with
+        ``force`` — its thread runs on, and its result is dropped."""
+        while True:
+            with self._tasks_lock:
+                target = None
+                for inflight in self._tasks.values():
+                    if ref.id in inflight.spec.return_ids:
+                        target = inflight
+                        break
+            if target is None:
+                return
+            with target.lock:
+                if target.state in (TaskState.FINISHED,
+                                    TaskState.FAILED):
+                    return
+                target.cancelled = True
+                was_running = target.state == TaskState.RUNNING
+            # a retry replaces the _tasks entry (same task_id, fresh
+            # _InFlightTask): if that happened between the lookup and the
+            # flag set, cancel the live incarnation
+            with self._tasks_lock:
+                if self._tasks.get(target.spec.task_id) is target:
+                    break
+        if not was_running or force:
+            self._fail_task(target.spec, exc.TaskError(
+                exc.TaskCancelledError(target.spec.task_id),
+                target.spec.name))
+
+    # ------------------------------------------------------------------
+    # shutdown
+    # ------------------------------------------------------------------
+    def shutdown(self) -> None:
+        self._shutdown = True
+        for node in self.nodes():
+            node.shutdown()
+            node.store.close()
+        with self._nodes_lock:
+            self._nodes.clear()
+        self.memory_store.clear()
+        shutil.rmtree(self.session_dir, ignore_errors=True)
+
+
+class _StreamingGeneratorSentinel:
+    def __init__(self, task_id: TaskID):
+        self.task_id = task_id
+
+
+class _ExitActor(BaseException):
+    pass
+
+
+def _class_is_async(cls) -> bool:
+    return any(inspect.iscoroutinefunction(m)
+               for _, m in inspect.getmembers(cls,
+                                              predicate=inspect.isfunction))
+
+
+def _clone_spec_for_retry(spec: TaskSpec) -> TaskSpec:
+    # The task_id stays stable across attempts (attempt_number grows), so
+    # streaming generator consumers and in-flight bookkeeping stay bound.
+    respec = copy.copy(spec)
+    respec.attempt_number = spec.attempt_number + 1
+    return respec
+
+
+def _retries_left(spec: TaskSpec) -> bool:
+    """max_retries < 0 means unlimited retries."""
+    return spec.max_retries < 0 or spec.attempt_number < spec.max_retries
+
+
+def _find_nested_refs(value: Any, _depth: int = 0) -> List[ObjectRef]:
+    """Shallow recursive scan for ObjectRefs inside standard containers."""
+    if _depth > 6:
+        return []
+    if isinstance(value, ObjectRef):
+        return [value]
+    out: List[ObjectRef] = []
+    if isinstance(value, (list, tuple, set, frozenset)):
+        for v in value:
+            out.extend(_find_nested_refs(v, _depth + 1))
+    elif isinstance(value, dict):
+        for k, v in value.items():
+            out.extend(_find_nested_refs(k, _depth + 1))
+            out.extend(_find_nested_refs(v, _depth + 1))
+    return out
+
+
+def init_runtime(**kwargs) -> Runtime:
+    global _global_runtime
+    with _global_lock:
+        if _global_runtime is not None:
+            raise RuntimeError("ray_tpu_torch is already initialized")
+        _global_runtime = Runtime(**kwargs)
+        return _global_runtime
+
+
+def shutdown_runtime() -> None:
+    from ray_tpu_torch._private.config import reset as _cfg_reset
+    _cfg_reset()
+    global _global_runtime
+    with _global_lock:
+        if _global_runtime is not None:
+            _global_runtime.shutdown()
+            _global_runtime = None

@@ -8,11 +8,12 @@ on the host in numpy, and ``LearnerGroup`` runs PPO's and IMPALA's step
 data-parallel over the mesh's ``dp`` axis. ``rl.convert`` carries a JAX
 learner's state across; ``rl.optim`` holds optax's Adam and RMSprop.
 
-``Algorithm``/``AlgorithmConfig`` and the tuned examples drive remote
-EnvRunner actors through the runtime and wait for its port; so does the
-parquet IO of ``offline.py``, which needs the data layer.
+``Algorithm``/``AlgorithmConfig`` drive EnvRunner actors of the port's
+runtime, and ``rl.tuned_examples`` holds JAX's tuned configs; the parquet IO
+of ``offline.py`` waits for the data layer.
 """
 
+from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rl.convert import (learner_state, load_learner_state,
                                       params_from_numpy)
 from ray_tpu_torch.rl.dqn import DQNLearner, QPolicy, ReplayBuffer
@@ -28,7 +29,7 @@ from ray_tpu_torch.rl.offline import (BCLearner, OfflineDQNLearner,
 from ray_tpu_torch.rl.ppo import ActorCriticPolicy, PPOLearner, compute_gae
 from ray_tpu_torch.rl.sac import SACLearner, SACPolicy
 
-__all__ = ["learner_state", "load_learner_state", "params_from_numpy",
+__all__ = ["Algorithm", "AlgorithmConfig", "learner_state", "load_learner_state", "params_from_numpy",
            "DQNLearner", "QPolicy", "ReplayBuffer", "CartPoleEnv",
            "EnvRunner", "GridWorldEnv", "MountainCarEnv", "make_env",
            "register_env", "APPOLearner", "ImpalaLearner", "vtrace",

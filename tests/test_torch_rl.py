@@ -17,8 +17,8 @@ the JAX package's (``ray_tpu.rl``) on the CPU, on numpy inputs from a seed.
   same cases): PPO rtol 2e-4, atol 2e-5 and a loss gap under 1e-3
   (tests/test_rl.py:259-264); IMPALA, APPO, DQN and SAC rtol 5e-4, atol
   5e-5 (:284-289); BC and OfflineDQN rtol 1e-5, atol 1e-6.
-- PPO learns through chip_smoke.py's local training loop at
-  tests/test_rl.py:24-43's bar.
+- PPO learns through the port's ``Algorithm`` at tests/test_rl.py:24-43's
+  bar.
 
 The data-parallel ``LearnerGroup`` is in tests/test_torch_rl_group.py.
 """
@@ -507,10 +507,22 @@ def test_entry_points_default_to_the_card():
 
 
 def test_ppo_improves_on_cartpole_in_the_local_loop():
-    """tests/test_rl.py:24-43's bar, through chip_smoke.py's loop."""
-    algo = chip_smoke.LocalAlgorithm("PPO", "cpu", runners=2, fragment=256,
-                                     lr=1e-3, epochs=4, minibatch_size=128)
-    returns = [algo.train()["episode_return_mean"] for _ in range(12)]
+    """tests/test_rl.py:24-43's bar, through the port's ``Algorithm`` on the
+    port's runtime, as chip_smoke.py's phase 11 drives it."""
+    import ray_tpu_torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # 64-wide products; workers share the cores
+    ray_tpu_torch.init(num_nodes=1, resources={"CPU": 8})
+    try:
+        algo = (rl.AlgorithmConfig(algo="PPO")
+                .env_runners(2, rollout_fragment_length=256)
+                .training(lr=1e-3, epochs=4, minibatch_size=128,
+                          device="cpu").build())
+        returns = [algo.train()["episode_return_mean"] for _ in range(12)]
+        algo.stop()
+    finally:
+        ray_tpu_torch.shutdown()
+        torch.set_num_threads(threads)
     returns = [r for r in returns if np.isfinite(r)]
     assert returns[-1] > returns[0]     # learning happened
     assert returns[-1] > 40             # clearly better than random (~20)
