@@ -22,7 +22,7 @@
    through the reference.
 3. Serving path: ``LLMServer`` on the card with Llama-3-8B's widths (random
    weights from seed 0) answers one lone greedy request (96 prompt tokens,
-   32 new; its token ids are kept for phase 12), then, every launch
+   32 new; its token ids are kept for phases 12 and 13), then, every launch
    counter at 0, 16 requests through ``__call__`` and ``stream`` (prompts
    of 32-256 tokens, four sharing a 64-token prefix, 32 new tokens each),
    then one ``forward_step`` with T=1 on a dense cache. The paged kernel
@@ -117,6 +117,28 @@
    the actor lives stays pending until ``kill``; tokens/s beside phase 3's;
    (d) no-op tasks, actor calls and 1 MiB put/get round trips a second;
    (e) phase 11's iteration split, printed with the card's power limit.
+13. Serve on the card (``ray_tpu_torch.serve``), on a fresh ``init()``
+   once phase 12's runtime and its server are gone, with phase 3's config
+   and mix: (a) ``serve.run(build_llm_app(config))`` (one replica, weights
+   from seed 0 in the replica): the lone request through the handle gives
+   phase 3's token ids; every counter at 0, phase 3's 16 requests, 8
+   unary and 8 streams (``handle.options(stream=True)``) in phase 12's
+   order; the prefix path runs, the paged kernel once per layer per decode
+   step of the replica's engine and no other kernel; tokens/s beside
+   phases 3 and 12, the client's time to each stream's first chunk and the
+   engine's ``ttft_s``; (b) ``serve.start_http_proxy``: the lone request as
+   JSON and as SSE gives phase 3's token ids, then ``[DONE]``; (c)
+   ``serve.delete``: no engine thread is left and the card's allocated
+   bytes are back within 256 MiB of the base; (d)
+   ``build_pd_disagg_app`` (one prefill, one decode replica, about 37 GB):
+   the lone request through the orchestrator gives phase 3's token ids,
+   then phase 3's 16 prompts at once, the paged kernel once per layer per
+   decode step of the decode engine; tokens/s, the KV handoff's bytes and
+   ms a request; freed on ``serve.shutdown`` as in (c); (e) the serve data
+   plane's own cost on this host: 1,000 sequential handle calls and 1,000
+   in flight at once on 2 no-op replicas, a second each, beside phase 12's
+   actor calls. Alone: ``python -c "import chip_smoke, torch;
+   chip_smoke.serve_path(torch.device('cuda'))"``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -601,6 +623,37 @@ def live_pool_compare(server, rng) -> dict:
     return {"logits_max_abs_err": err, "step_ms": times,
             "active_slots": len(active),
             "live_tokens": int(eng.offsets[active].sum())}
+
+
+def prefix_logits_compare(server, prompt: list) -> dict:
+    """The last-token logits of ``prompt`` through a full prefill and
+    through the prefix path (its first whole blocks but one token taken
+    from that prefill's K/V, the rest prefilled over them: the path a
+    repeated prompt takes) at the repo's bf16 step bar."""
+    import torch
+    eng = server.engine
+    n, bs = len(prompt), eng.block_size
+    shared = (n - 1) // bs * bs
+
+    def bucketed(seq):
+        toks = np.zeros((1, eng._bucket_for(len(seq))), np.int32)
+        toks[0, :len(seq)] = seq
+        return eng._dev(toks)
+
+    def count(k):
+        return eng._dev(np.asarray([k], np.int32))
+
+    full, small = eng._prefill(eng.params, bucketed(prompt), count(n))
+    part, _ = eng.model.prefill_with_prefix(
+        eng.params, bucketed(prompt[shared:]), small["k"][:, :, :shared],
+        small["v"][:, :, :shared], count(shared), count(n - shared))
+    torch.cuda.synchronize()
+    err = (part - full).abs().max().item()
+    torch.testing.assert_close(part, full, **STEP_TOL)
+    top2 = full[0].topk(2).values
+    return {"shared": shared, "max_abs_err": err,
+            "argmax_equal": bool(part.argmax() == full.argmax()),
+            "top2_gap": (top2[0] - top2[1]).item()}
 
 
 # ---------------------------------------------------------------------------
@@ -1586,6 +1639,39 @@ def rl_path(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 12 and 13: what both check
+# ---------------------------------------------------------------------------
+
+def kernel_counters() -> tuple:
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops import decode_attention as dec
+    from ray_tpu_torch.ops import paged_attention as paged
+    return (paged.paged_decode_attention_kernel,
+            dec.ragged_decode_attention_kernel, attn.flash_attention_kernel)
+
+
+def read_launches() -> dict:
+    return {c.__name__.replace("_kernel", ""): c.launches
+            for c in kernel_counters()}
+
+
+def check_paged_only(what: str, launches: dict, steps: int,
+                     n_layers: int) -> None:
+    """The paged kernel once per layer per decode step, no other kernel."""
+    if steps < 1 or launches["paged_decode_attention"] != n_layers * steps:
+        raise RuntimeError(f"{what}: paged kernel launches {launches} != "
+                           f"{n_layers} x {steps} decode steps")
+    if launches["ragged_decode_attention"] or launches["flash_attention"]:
+        raise RuntimeError(f"{what}: other kernels launched: {launches}")
+
+
+def finished_ok(reason, n: int) -> bool:
+    """Phase 3's bar: 32 tokens, or fewer ending on the stop token."""
+    return reason == "length" and n == 32 or \
+        reason == "stop" and 1 <= n <= 32
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the runtime on the card
 # ---------------------------------------------------------------------------
 
@@ -1707,9 +1793,7 @@ def actor_requests(server, mix: dict) -> dict:
     if len(results) != 16:
         raise RuntimeError(f"{len(results)} of 16 requests answered")
     for i, (reason, n) in enumerate(results):
-        # phase 3's bar: 32 tokens, or fewer ending on the stop token
-        if not (reason == "length" and n == 32
-                or reason == "stop" and 1 <= n <= 32):
+        if not finished_ok(reason, n):
             raise RuntimeError(f"request {i}: finish {reason!r}, {n} tokens")
     return {"wall_s": wall, "tokens": sum(n for _, n in results),
             "full": sum(n == 32 for _, n in results)}
@@ -1724,9 +1808,6 @@ def runtime_serving(llm_config, mix: dict, lone_ids: list,
     import torch
     import ray_tpu_torch as rt
     from ray_tpu_torch.llm import LLMServer
-    from ray_tpu_torch.ops import attention as attn
-    from ray_tpu_torch.ops import decode_attention as dec
-    from ray_tpu_torch.ops import paged_attention as paged
     n_layers = llm_config.model_config.n_layers
     t0 = time.perf_counter()
     server = rt.remote(LLMServer).options(
@@ -1734,9 +1815,7 @@ def runtime_serving(llm_config, mix: dict, lone_ids: list,
     stats0 = rt.get(server.stats.remote(), timeout=900)
     torch.cuda.synchronize()    # the actor's weight init is queued work
     up_s = time.perf_counter() - t0
-    for c in (paged.paged_decode_attention_kernel,
-              dec.ragged_decode_attention_kernel,
-              attn.flash_attention_kernel):
+    for c in kernel_counters():
         c.launches = 0
     lone = rt.get(server.__call__.remote(
         {"prompt": mix["lone"], "max_tokens": 32}), timeout=600)
@@ -1745,20 +1824,11 @@ def runtime_serving(llm_config, mix: dict, lone_ids: list,
                            f"{lone['token_ids']}, phase 3 {lone_ids}")
     served = actor_requests(server, mix)
     stats = rt.get(server.stats.remote())
-    launches = {"paged_decode_attention":
-                paged.paged_decode_attention_kernel.launches,
-                "ragged_decode_attention":
-                dec.ragged_decode_attention_kernel.launches,
-                "flash_attention": attn.flash_attention_kernel.launches}
+    launches = read_launches()
     steps = stats["decode_steps"] - stats0["decode_steps"]
     if stats["prefix_prefills"] < 3 or stats["prefix_tokens_reused"] < 192:
         raise RuntimeError(f"the prefix path did not run: {stats}")
-    if steps < 1 or launches["paged_decode_attention"] != n_layers * steps:
-        raise RuntimeError(f"paged kernel launches {launches} != "
-                           f"{n_layers} x {steps} decode steps")
-    if launches["ragged_decode_attention"] or launches["flash_attention"]:
-        raise RuntimeError(f"the actor's path launched other kernels: "
-                           f"{launches}")
+    check_paged_only("the actor's path", launches, steps, n_layers)
 
     @rt.remote(num_gpus=1)
     def on_card():
@@ -1851,6 +1921,391 @@ def runtime_path(gen, llm_config, mix: dict, lone_ids: list, phase3: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: serve on the card
+# ---------------------------------------------------------------------------
+
+def serving_config(rng=None):
+    """Phase 3's server config and request mix: Llama-3-8B widths (random
+    weights from seed 0), the paged kernel, 32 slots, max_seq 1024; the mix
+    drawn from ``rng`` (a fresh generator of seed 0 by default)."""
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.models import LlamaConfig
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              decode_attention="kernel")
+    llm_config = LLMConfig(model_id="llama3-8b", model_config=cfg,
+                           max_slots=32, max_seq=1024, seed=0)
+    rng = np.random.default_rng(0) if rng is None else rng
+    return llm_config, request_mix(cfg.vocab_size, rng)
+
+
+def engine_threads() -> list:
+    return [t for t in threading.enumerate()
+            if t.name == "llm-engine" and t.is_alive()]
+
+
+def wait_freed(base: int, what: str, timeout: float = 10.0) -> tuple:
+    """Poll with ``gc.collect()`` until no engine thread is left and the
+    card's allocated bytes are back within 256 MiB of ``base``. Each poll
+    first clears torch's cuBLAS workspaces (one a thread that ran a matmul,
+    32 MiB on Hopper, kept by torch for the process's life): torch's cache,
+    not the app's. Returns (allocated bytes, bytes the clearing released)."""
+    import torch
+    deadline = time.perf_counter() + timeout
+    workspaces = 0
+    while True:
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
+        left, alloc = engine_threads(), torch.cuda.memory_allocated()
+        workspaces += held - alloc
+        if not left and alloc - base <= 256 << 20:
+            return alloc, workspaces
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"{what}: {len(left)} engine threads left, "
+                               f"{alloc - base} bytes above the base "
+                               f"after {timeout} s")
+        time.sleep(0.05)
+
+
+def handle_requests(handle, mix: dict) -> dict:
+    """Phase 3's mix through a serve handle, in phase 12's order: the first
+    prefix sharer, then the 12 plain prompts at once, then, once the first
+    sharer's first chunk is out, the other three. Eight stream through
+    ``handle.options(stream=True)`` (sharers 0 and 2, the even plain
+    prompts), eight are unary (the odd plain prompts, sharers 1 and 3)."""
+    prompts, sharers = mix["prompts"], mix["sharers"]
+    lock = threading.Lock()
+    streams = {}                # index -> (reason, tokens, first s, ttft)
+
+    def stream(i, prompt, first=None):
+        t0 = time.perf_counter()
+        gen = handle.options(stream=True).remote(
+            {"prompt": prompt, "max_tokens": 32, "stream": True})
+        n, t_first, last = 0, None, None
+        for chunk in gen:
+            if chunk.get("done"):
+                last = chunk
+                continue
+            n += 1
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+                if first is not None:
+                    first.set()
+        with lock:
+            streams[i] = (last and last["finish_reason"], n, t_first,
+                          last and last["ttft_s"])
+
+    def start_stream(i, prompt, first=None):
+        t = threading.Thread(target=stream, args=(i, prompt, first))
+        t.start()
+        return t
+
+    t0 = time.perf_counter()
+    first = threading.Event()
+    threads = [start_stream(0, sharers[0], first)]
+    threads += [start_stream(1 + i, p)
+                for i, p in enumerate(prompts) if i % 2 == 0]
+    unary = [handle.remote({"prompt": p, "max_tokens": 32})
+             for i, p in enumerate(prompts) if i % 2]
+    if not first.wait(600):
+        raise RuntimeError("no first chunk from the prefix owner")
+    unary.append(handle.remote({"prompt": sharers[1], "max_tokens": 32}))
+    threads.append(start_stream(13, sharers[2]))
+    unary.append(handle.remote({"prompt": sharers[3], "max_tokens": 32}))
+    outs = [r.result(timeout=900) for r in unary]
+    for t in threads:
+        t.join(900)
+        if t.is_alive():
+            raise RuntimeError("a stream did not finish in 900 s")
+    wall = time.perf_counter() - t0
+    results = [(o["finish_reason"], len(o["token_ids"])) for o in outs]
+    results += [(r, n) for r, n, _, _ in streams.values()]
+    if len(results) != 16:
+        raise RuntimeError(f"{len(results)} of 16 requests answered")
+    for i, (reason, n) in enumerate(results):
+        if not finished_ok(reason, n):
+            raise RuntimeError(f"request {i}: finish {reason!r}, {n} tokens")
+    return {"wall_s": wall, "tokens": sum(n for _, n in results),
+            "first_chunk_s": sorted(f for _, _, f, _ in streams.values()),
+            "ttft_s": sorted([o["ttft_s"] for o in outs]
+                             + [t for _, _, _, t in streams.values()])}
+
+
+def http_lone(port: int, prompt: list, lone_ids: list) -> None:
+    """(b) The lone prompt through the HTTP proxy: one JSON ``POST`` gives
+    ``lone_ids``, and so do the ``data:`` chunks of one SSE request, then
+    ``[DONE]``."""
+    import urllib.request
+    url = f"http://127.0.0.1:{port}/"
+
+    def post(payload):
+        return urllib.request.urlopen(urllib.request.Request(
+            url, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"}), timeout=600)
+
+    with post({"prompt": prompt, "max_tokens": 32}) as resp:
+        out = json.loads(resp.read())
+    if out.get("token_ids") != lone_ids:
+        raise RuntimeError(f"HTTP JSON gave {out}, the handle {lone_ids}")
+    ids, done = [], False
+    with post({"prompt": prompt, "max_tokens": 32, "stream": True}) as resp:
+        if resp.headers["Content-Type"] != "text/event-stream":
+            raise RuntimeError(f"SSE content type {resp.headers}")
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            body = line[len("data: "):]
+            if body == "[DONE]":
+                done = True
+                break
+            chunk = json.loads(body)
+            if "token_id" in chunk:
+                ids.append(chunk["token_id"])
+    if not done or ids != lone_ids:
+        raise RuntimeError(f"SSE gave {ids} (done {done}), the handle "
+                           f"{lone_ids}")
+
+
+def serve_llm_app(config, mix: dict, lone_ids: list, smi: str,
+                  base: int) -> dict:
+    """(a) the LLM app through a serve handle, (b) over HTTP, (c) freed on
+    ``serve.delete``."""
+    import torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import build_llm_app
+    n_layers = config.model_config.n_layers
+    t0 = time.perf_counter()
+    handle = serve.run(build_llm_app(config))
+    torch.cuda.synchronize()    # the replica's weight init is queued work
+    up_s = time.perf_counter() - t0
+    lone = handle.remote({"prompt": mix["lone"], "max_tokens": 32}) \
+        .result(timeout=900)
+    if lone["token_ids"] != lone_ids:
+        raise RuntimeError(f"the lone request through the handle gave "
+                           f"{lone['token_ids']}, phase 3 {lone_ids}")
+    stats0 = handle.stats.remote().result(timeout=60)
+    for c in kernel_counters():
+        c.launches = 0
+    served = handle_requests(handle, mix)
+    launches = read_launches()
+    stats = handle.stats.remote().result(timeout=60)
+    steps = stats["decode_steps"] - stats0["decode_steps"]
+    if stats["prefix_prefills"] < 3:
+        raise RuntimeError(f"the prefix path did not run: {stats}")
+    check_paged_only("serve handle", launches, steps, n_layers)
+    first, ttft = served["first_chunk_s"], served["ttft_s"]
+    log(f"serve LLM app (one replica) up in {up_s:.1f} s; the lone "
+        f"request's 32 token ids equal phase 3's; phase 3's 16 requests "
+        f"(8 unary, 8 streams): {served['tokens']} tokens in "
+        f"{served['wall_s']:.2f} s ({served['tokens'] / served['wall_s']:.1f}"
+        f" tokens/s); client time to the first chunk of the 8 streams "
+        f"median {np.median(first) * 1e3:.1f} ms, max {first[-1] * 1e3:.1f}"
+        f" ms; engine ttft_s median {np.median(ttft) * 1e3:.1f} ms, max "
+        f"{ttft[-1] * 1e3:.1f} ms; launches {launches} ({steps} decode "
+        f"steps x {n_layers} layers); engine stats {stats} ({smi})")
+
+    # The lone prompt's blocks are in the engine's prefix cache since its
+    # first request: asked again, it takes the prefix path (2 of its 3
+    # blocks reused), whose bf16 numbers differ from a full prefill's, so
+    # its ids are held to the handle's answer in the same state, not to
+    # phase 3's cold request.
+    warm = handle.remote({"prompt": mix["lone"], "max_tokens": 32}) \
+        .result(timeout=900)
+    stats_warm = handle.stats.remote().result(timeout=60)
+    if stats_warm["prefix_prefills"] != stats["prefix_prefills"] + 1:
+        raise RuntimeError(f"the repeated lone prompt missed the prefix "
+                           f"cache: {stats} then {stats_warm}")
+    same = next((i for i, (a, b) in enumerate(zip(warm["token_ids"],
+                                                  lone_ids)) if a != b), 32)
+    port = serve.start_http_proxy(port=0)
+    http_lone(port, mix["lone"], warm["token_ids"])
+    log(f"HTTP proxy (port {port}): the lone prompt again (a prefix hit, "
+        f"{stats_warm['prefix_tokens_reused'] - stats['prefix_tokens_reused']}"
+        f" tokens reused) as JSON and as SSE gave the handle's 32 token ids "
+        f"for it, then [DONE]; those equal phase 3's cold ids for the first "
+        f"{same} tokens ({smi})")
+
+    serve.delete("default")
+    del handle
+    freed, workspaces = wait_freed(base, "serve.delete of the LLM app")
+    log(f"serve.delete: no engine thread left, {freed} bytes allocated "
+        f"({base} before the app; {workspaces} bytes of cuBLAS workspaces "
+        f"cleared) ({smi})")
+    return {"launches": launches["paged_decode_attention"], "steps": steps,
+            "tokens": served["tokens"], "wall_s": served["wall_s"],
+            "first_chunk_s": first, "ttft_s": ttft, "up_s": up_s}
+
+
+def serve_pd_app(config, mix: dict, lone_ids: list, smi: str,
+                 base: int) -> dict:
+    """(d) the prefill/decode graph: the lone request, then phase 3's 16
+    prompts at once through the orchestrator; freed on ``serve.shutdown``."""
+    import torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.disagg import build_pd_disagg_app
+    n_layers = config.model_config.n_layers
+    t0 = time.perf_counter()
+    handle = serve.run(build_pd_disagg_app(config, num_prefill=1,
+                                           num_decode=1), name="pd")
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    peak = torch.cuda.memory_allocated()
+    lone = handle.remote({"prompt": mix["lone"], "max_tokens": 32}) \
+        .result(timeout=900)
+    if lone["token_ids"] != lone_ids:
+        raise RuntimeError(f"the lone request through prefill/decode gave "
+                           f"{lone['token_ids']}, phase 3 {lone_ids}")
+    decode = serve.get_deployment_handle(f"{config.model_id}-decode")
+    prefill = serve.get_deployment_handle(f"{config.model_id}-prefill")
+    stats0 = decode.stats.remote().result(timeout=60)
+    for c in kernel_counters():
+        c.launches = 0
+    t0 = time.perf_counter()
+    outs = [handle.remote({"prompt": p, "max_tokens": 32})
+            for p in mix["prompts"] + mix["sharers"]]
+    outs = [o.result(timeout=900) for o in outs]
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = decode.stats.remote().result(timeout=60)
+    pre = prefill.stats.remote().result(timeout=60)
+    steps = stats["decode_steps"] - stats0["decode_steps"]
+    for i, o in enumerate(outs):
+        if not finished_ok(o["finish_reason"], len(o["token_ids"])):
+            raise RuntimeError(f"request {i}: {o}")
+    check_paged_only("prefill/decode", launches, steps, n_layers)
+    tokens = sum(len(o["token_ids"]) for o in outs)
+    handoffs = stats["handoffs"][-16:]
+    kv_mb = np.median([b for b, _ in handoffs]) / 1e6
+    copy_ms = np.median([s for _, s in handoffs]) * 1e3
+    prefill_ms = np.median(pre["prefill_s"][-16:]) * 1e3
+    log(f"prefill/decode graph (1 prefill + 1 decode replica, "
+        f"{peak / 2**30:.1f} GiB allocated) up in {up_s:.1f} s; the lone "
+        f"request's 32 token ids equal phase 3's; phase 3's 16 prompts at "
+        f"once: {tokens} tokens in {wall:.2f} s ({tokens / wall:.1f} "
+        f"tokens/s); KV handoff a request, median: {kv_mb:.2f} MB, its "
+        f"copy onto the card {copy_ms:.2f} ms (host time, the stream's "
+        f"queued work first), the prefill and its copy to the host "
+        f"{prefill_ms:.2f} ms; launches "
+        f"{launches} ({steps} decode steps x {n_layers} layers) ({smi})")
+    del handle, decode, prefill
+    serve.shutdown()
+    freed, workspaces = wait_freed(
+        base, "serve.shutdown of the prefill/decode graph")
+    log(f"serve.shutdown: no engine thread left, {freed} bytes allocated "
+        f"({base} before the apps; {workspaces} bytes of cuBLAS workspaces "
+        f"cleared) ({smi})")
+    return {"launches": launches["paged_decode_attention"], "steps": steps,
+            "tokens": tokens, "wall_s": wall, "kv_mb": kv_mb,
+            "copy_ms": copy_ms, "prefill_ms": prefill_ms}
+
+
+def serve_rates(smi: str, actor_calls_per_s=None) -> dict:
+    """(e) The serve data plane's own cost on this host: a no-op function
+    deployment with 2 replicas, 1,000 sequential calls and 1,000 in flight
+    at once, a second each."""
+    from ray_tpu_torch import serve
+
+    @serve.deployment(num_replicas=2)
+    def noop(x):
+        return x
+
+    handle = serve.run(noop.bind(), name="noop")
+    for i in range(100):                                  # warm-up
+        handle.remote(i).result(timeout=60)
+    t0 = time.perf_counter()
+    for i in range(1000):
+        handle.remote(i).result(timeout=60)
+    seq = 1000 / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    resps = [handle.remote(i) for i in range(1000)]
+    got = [r.result(timeout=120) for r in resps]
+    burst = 1000 / (time.perf_counter() - t0)
+    if got != list(range(1000)):
+        raise RuntimeError("the no-op deployment changed its inputs")
+    beside = (f"phase 12's actor calls {actor_calls_per_s:.0f}/s"
+              if actor_calls_per_s else "phase 12 not run")
+    log(f"serve data plane on this host ({smi}): {seq:.0f} sequential "
+        f"handle calls/s, {burst:.0f} calls/s with 1,000 in flight "
+        f"(2 no-op replicas), beside {beside}")
+    serve.shutdown()
+    return {"sequential_per_s": seq, "in_flight_per_s": burst}
+
+
+def log_prefix_compare(server, prompt: list) -> None:
+    cmp = prefix_logits_compare(server, prompt)
+    log(f"the lone prompt's last logits through the prefix path "
+        f"({cmp['shared']} tokens cached) against a full prefill: max abs "
+        f"err {cmp['max_abs_err']:.3e} (atol 0.15 rtol 0.05), argmax equal "
+        f"{cmp['argmax_equal']}, top-2 gap of the full prefill "
+        f"{cmp['top2_gap']:.3e}")
+
+
+def serve_path(dev, llm_config=None, mix=None, lone_ids=None, phase3=None,
+               phase12=None, smi=None) -> dict:
+    """Phase 13: serve on the card, (a)-(e), on a fresh ``init()``. Alone
+    (``python -c "import chip_smoke, torch;
+    chip_smoke.serve_path(torch.device('cuda'))"``) it first runs phase 3's
+    lone request on a direct ``LLMServer`` for the token ids to hold."""
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.llm import LLMServer
+    t0 = time.perf_counter()
+    if smi is None:
+        smi = card_name()
+    if llm_config is None:
+        llm_config, mix = serving_config()
+    if lone_ids is None:
+        server = LLMServer(llm_config, device=dev)
+        try:
+            lone_ids = server({"prompt": mix["lone"],
+                               "max_tokens": 32})["token_ids"]
+            log_prefix_compare(server, mix["lone"])
+        finally:
+            server.shutdown()
+        del server
+    if rt.is_initialized() or engine_threads():
+        raise RuntimeError("phase 12's runtime or an engine thread is "
+                           "still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    log(f"phase 13: no runtime and no engine thread up (phase 12's server "
+        f"is gone); {base} bytes allocated as the base ({smi})")
+    rt.init()
+    try:
+        app = serve_llm_app(llm_config, mix, lone_ids, smi, base)
+        pd = serve_pd_app(llm_config, mix, lone_ids, smi, base)
+        rates = serve_rates(smi, phase12 and phase12["rates"][
+            "actor_calls_per_s"])
+    finally:
+        rt.shutdown()
+    rate = app["tokens"] / app["wall_s"]
+    beside = []
+    if phase3:
+        beside.append(f"phase 3's direct server "
+                      f"{phase3['tokens'] / phase3['wall_s']:.1f}")
+    if phase12:
+        served = phase12["serving"]
+        beside.append(f"phase 12's actor "
+                      f"{served['tokens'] / served['wall_s']:.1f}")
+    log(f"phase 13 (serve) in {time.perf_counter() - t0:.1f} s: the LLM "
+        f"app {rate:.1f} tokens/s beside {', '.join(beside) or 'nothing'};"
+        f" prefill/decode {pd['tokens'] / pd['wall_s']:.1f} tokens/s "
+        f"({smi})")
+    return {"app": app, "pd": pd, "rates": rates,
+            "launches": app["launches"] + pd["launches"]}
+
+
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1859,7 +2314,7 @@ def main() -> int:
         return 2
     from ray_tpu_torch import _build
     from ray_tpu_torch.bench import moe_bench_config
-    from ray_tpu_torch.llm import LLMConfig, LLMServer
+    from ray_tpu_torch.llm import LLMServer
     from ray_tpu_torch.models import LlamaConfig, LlamaModel, MoEModel
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.ops import decode_attention as dec
@@ -1868,10 +2323,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_name()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -1898,18 +2350,15 @@ def main() -> int:
     rows.append(check_flash(dev, gen))
 
     # 3. the serving path, every counter at 0
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
-                              decode_attention="kernel")
+    llm_config, mix = serving_config(rng)
+    cfg = llm_config.model_config
     t0 = time.perf_counter()
-    llm_config = LLMConfig(model_id="llama3-8b", model_config=cfg,
-                           max_slots=32, max_seq=1024, seed=0)
     server = LLMServer(llm_config, device=dev)
     torch.cuda.synchronize()
     log(f"LLMServer(llama3_8b, {cfg.num_params() / 1e9:.2f} B params, "
         f"{server.engine.num_blocks + 1} pool blocks of "
         f"{server.engine.block_size}) up in {time.perf_counter() - t0:.1f} s;"
         f" {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    mix = request_mix(cfg.vocab_size, rng)
     try:
         # the lone greedy request that phase 12 repeats through the actor
         lone = server({"prompt": mix["lone"], "max_tokens": 32})
@@ -1960,6 +2409,7 @@ def main() -> int:
         f"{live['logits_max_abs_err']:.3e} (atol 0.15 rtol 0.05); decode "
         f"step {live['step_ms']['kernel']:.2f} ms with the kernel, "
         f"{live['step_ms']['reference']:.2f} ms with the reference")
+    log_prefix_compare(server, mix["lone"])
     del server, live
     gc.collect()
     torch.cuda.empty_cache()
@@ -2014,6 +2464,12 @@ def main() -> int:
     runtime = runtime_path(gen, llm_config, mix, lone["token_ids"], serving,
                            rl, smi)
     rows[0]["launches"] += runtime["serving"]["launches"][rows[0]["name"]]
+
+    # 13. serve on the card: the LLM app through a handle and over HTTP,
+    # freed on delete, the prefill/decode graph, the data plane's cost
+    served = serve_path(dev, llm_config, mix, lone["token_ids"], serving,
+                        runtime, smi)
+    rows[0]["launches"] += served["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

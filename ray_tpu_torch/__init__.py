@@ -41,7 +41,10 @@ core: tasks, actors, objects, named and detached actors (``init``,
 ``ray_tpu``'s core API below), every task and actor running in the calling
 process with the card as the ``GPU`` resource and CUDA tensors kept in the
 object store's device tier, with ``rl.Algorithm`` and ``rl.tuned_examples``
-on it.
+on it — and serve on that core: ``serve`` (deployments, handles with
+power-of-two-choices routing, the controller, the HTTP proxy) with
+``util.metrics``, and the serving app (``llm.build_llm_app``,
+``llm.prefix_router``, ``llm.disagg``'s prefill/decode graph).
 
 Importing the package imports no ``torch``: the runtime checks for tensors
 only once ``torch`` is in ``sys.modules``, and detects the card at ``init``.

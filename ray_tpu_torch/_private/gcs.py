@@ -2,7 +2,8 @@
 ``ray_tpu/_private/gcs.py``).
 
 Node membership, the actor directory with named actors per namespace, the
-internal KV and a pubsub bus for state changes, as an in-process service
+internal KV, a table of live objects (the port's own: serve's controller
+checkpoint) and a pubsub bus for state changes, as an in-process service
 owned by the Runtime.
 """
 
@@ -78,6 +79,7 @@ class GCS:
         self.actors: Dict[ActorID, ActorInfo] = {}
         self._named_actors: Dict[Tuple[str, str], ActorID] = {}
         self._kv: Dict[str, Dict[bytes, bytes]] = {}
+        self._live: Dict[str, Any] = {}
         self.pubsub = Pubsub()
 
     # -- nodes -------------------------------------------------------------
@@ -199,3 +201,19 @@ class GCS:
 
     def kv_exists(self, key: bytes, namespace: bytes = b"") -> bool:
         return self.kv_get(key, namespace) is not None
+
+    # -- live objects (the in-process topology only) -----------------------
+    def live_put(self, key: str, value: Any) -> None:
+        """Keep ``value`` itself under ``key``, uncopied, for as long as
+        the runtime lives (serve's controller checkpoint: its specs hold
+        classes defined in functions and the init arguments of replicas,
+        weights on the card among them). ``None`` drops the key."""
+        with self._lock:
+            if value is None:
+                self._live.pop(key, None)
+            else:
+                self._live[key] = value
+
+    def live_get(self, key: str) -> Any:
+        with self._lock:
+            return self._live.get(key)

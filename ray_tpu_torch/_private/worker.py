@@ -956,6 +956,9 @@ class Runtime:
         else:
             self.gcs.update_actor_state(actor_id, ActorState.DEAD,
                                         death_cause=cause)
+            # no restart can come: the creation spec's arguments (a
+            # server's weights on the card) must not outlive the actor
+            info.creation_spec = None
             err_base = exc.ActorDiedError(actor_id, cause)
             with self._actor_lock:
                 buffered = self._actor_pending_tasks.pop(actor_id, [])

@@ -1,8 +1,9 @@
-"""LLM serving on the port (counterpart of ``ray_tpu/llm/serving.py``).
+"""LLM serving on the port's serve (counterpart of
+``ray_tpu/llm/serving.py``).
 
 ``LLMServer`` hosts one ``ContinuousBatchingEngine`` on a background thread;
-requests stream through per-request queues. ``build_llm_app`` needs the
-serve runtime, which the port has not ported yet.
+requests stream through per-request queues. ``build_llm_app`` makes it one
+serve deployment, each replica an engine on ``device``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ import dataclasses
 import threading
 from typing import Any, Dict, Optional
 
-from ray_tpu_torch._device import DeviceLike
+from ray_tpu_torch import serve
+from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.llm.engine import ContinuousBatchingEngine, SamplingParams
 from ray_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer
 
@@ -23,11 +25,54 @@ class LLMConfig:
     tokenizer: Optional[str] = None          # None -> ByteTokenizer
     max_slots: int = 8
     max_seq: int = 512
+    num_replicas: int = 1
+    max_ongoing_requests: int = 64
     seed: int = 0
     # paged KV pool: block granularity and total pool size;
     # num_blocks=None sizes the pool to max_slots * max_seq
     block_size: Optional[int] = None   # None -> engine default (32)
     num_blocks: Optional[int] = None
+
+
+class _EngineLoop:
+    """What an engine thread holds: the engine, the stop event and the
+    error. Never the server: a thread bound to the server's own method
+    keeps the server alive, so a dropped or killed server would never be
+    collected, its ``__del__`` would never stop the engine, and the
+    engine would go on stepping with its weights and KV pool allocated."""
+
+    def __init__(self, engine: ContinuousBatchingEngine,
+                 stop: threading.Event):
+        self.engine = engine
+        self.stop = stop
+        self.error: Optional[BaseException] = None
+
+    def run(self) -> None:
+        """The engine loop. If a step raises, the error is kept in
+        ``self.error`` and every request in flight finishes with reason
+        ``"error"``, so no caller waits forever."""
+        try:
+            self.engine.run_forever(self.stop)
+        except Exception as exc:   # the serving thread's boundary
+            self.error = exc
+            pending = [r for r in self.engine.slots if r is not None]
+            pending += list(self.engine.waiting)
+            for req in pending:
+                req.finish_reason = "error"
+                req.stream.put(None)
+                req.done.set()
+            raise
+
+
+def start_engine_loop(engine: ContinuousBatchingEngine):
+    """Start ``engine`` on a daemon thread; returns (stop event, loop,
+    thread)."""
+    stop = threading.Event()
+    loop = _EngineLoop(engine, stop)
+    thread = threading.Thread(target=loop.run, daemon=True,
+                              name="llm-engine")
+    thread.start()
+    return stop, loop, thread
 
 
 class LLMServer:
@@ -51,26 +96,13 @@ class LLMServer:
             self.model, params, max_slots=config.max_slots,
             max_seq=config.max_seq, block_size=config.block_size,
             num_blocks=config.num_blocks)
-        self.error: Optional[BaseException] = None
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
+        self._stop, self._loop, self._thread = start_engine_loop(
+            self.engine)
 
-    def _run(self) -> None:
-        """The engine loop. If a step raises, the error is kept in
-        ``self.error`` and every request in flight finishes with reason
-        ``"error"``, so no caller waits forever."""
-        try:
-            self.engine.run_forever(self._stop)
-        except Exception as exc:   # the serving thread's boundary
-            self.error = exc
-            pending = [r for r in self.engine.slots if r is not None]
-            pending += list(self.engine.waiting)
-            for req in pending:
-                req.finish_reason = "error"
-                req.stream.put(None)
-                req.done.set()
-            raise
+    @property
+    def error(self) -> Optional[BaseException]:
+        """The exception that ended the engine thread, if one did."""
+        return self._loop.error
 
     def _parse(self, request: Dict[str, Any]):
         prompt = request.get("prompt", "")
@@ -139,3 +171,16 @@ class LLMServer:
             self._stop.set()
         except AttributeError:   # __init__ failed before the event existed
             pass
+
+
+def build_llm_app(config: LLMConfig, *, params=None,
+                  device: DeviceLike = None) -> serve.Application:
+    """`build_openai_app` equivalent: one autoscalable LLM deployment, each
+    replica ``LLMServer(config, params, device)``. ``device=None`` is the
+    card, and raises here on a host without one."""
+    device = resolve_device(device)
+    dep = serve.deployment(
+        LLMServer, name=config.model_id,
+        num_replicas=config.num_replicas,
+        max_ongoing_requests=config.max_ongoing_requests)
+    return dep.bind(config, params, device)

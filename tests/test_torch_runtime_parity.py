@@ -285,3 +285,103 @@ def test_named_actors_per_namespace(pkg):
     assert table.kv_put(b"k", b"v") and not table.kv_put(
         b"k", b"w", overwrite=False)
     assert table.kv_get(b"k") == b"v" and table.kv_keys(b"") == [b"k"]
+
+
+def test_serve_exports_jax_names():
+    import ray_tpu.serve
+    import ray_tpu_torch.serve
+    assert ray_tpu_torch.serve.__all__ == ray_tpu.serve.__all__
+    for name in ray_tpu_torch.serve.__all__:
+        assert hasattr(ray_tpu_torch.serve, name), name
+
+
+def _serve_script(pkg) -> dict:
+    """Composition, ``@serve.batch``, ``@serve.multiplexed``, streaming,
+    status and ``local_testing_mode`` on one package's serve."""
+    import importlib
+    serve = importlib.import_module(pkg.__name__ + ".serve")
+    out = {}
+
+    @serve.deployment
+    class Pre:
+        def __call__(self, x):
+            return x * 2
+
+    @serve.deployment
+    class Model:
+        def __init__(self, pre):
+            self.pre = pre
+
+        def __call__(self, x):
+            return self.pre.remote(x).result() + 1
+
+    handle = serve.run(Model.bind(Pre.bind()))
+    out["composition"] = [handle.remote(i).result(timeout=30)
+                          for i in range(4)]
+
+    @serve.deployment(max_ongoing_requests=16)
+    class Batched:
+        @serve.batch(max_batch_size=4, batch_wait_timeout_s=0.05)
+        def handle(self, items):
+            return [i * 10 for i in items]
+
+        def __call__(self, x):
+            return self.handle(x)
+
+    handle = serve.run(Batched.bind(), name="batched")
+    out["batch"] = sorted(r.result(timeout=30)
+                          for r in [handle.remote(i) for i in range(8)])
+
+    @serve.deployment
+    class Multi:
+        @serve.multiplexed(max_num_models_per_replica=2)
+        def get_model(self, model_id):
+            return f"model-{model_id}"
+
+        def __call__(self, model_id):
+            return (self.get_model(model_id),
+                    self.get_model._model_cache.ids(),
+                    serve.get_multiplexed_model_id())
+
+    handle = serve.run(Multi.bind(), name="multi")
+    out["multiplexed"] = [handle.remote(m).result(timeout=30)
+                          for m in ("a", "b", "a", "c")]
+
+    @serve.deployment
+    def count(n):
+        for i in range(n):
+            yield {"i": i}
+
+    handle = serve.run(count.bind(), name="stream")
+    out["streaming"] = list(handle.options(stream=True).remote(4))
+    out["unary_of_stream"] = type(
+        handle.remote(2).result(timeout=30)).__name__
+    status = serve.status()
+    out["status"] = {name: (st["num_replicas"], st["target_replicas"],
+                            st["autoscaling"])
+                     for name, st in status.items()}
+    serve.delete("stream")
+    out["after_delete"] = sorted(serve.status())
+    local = serve.run(Model.bind(Pre.bind()), local_testing_mode=True)
+    out["local_testing"] = [local.remote(i).result() for i in range(4)]
+    serve.shutdown()
+    return out
+
+
+def test_one_serve_script_gives_equal_results(jax_in_process):
+    ray_tpu.init(num_nodes=1, resources={"CPU": 8})
+    try:
+        jax_out = _serve_script(ray_tpu)
+    finally:
+        ray_tpu.shutdown()
+    ray_tpu_torch.init(num_nodes=1, resources={"CPU": 8})
+    try:
+        port_out = _serve_script(ray_tpu_torch)
+    finally:
+        ray_tpu_torch.shutdown()
+    assert port_out == jax_out
+    assert port_out["composition"] == [1, 3, 5, 7]
+    assert port_out["batch"] == [i * 10 for i in range(8)]
+    assert port_out["multiplexed"][-1] == ("model-c", ["a", "c"], "")
+    assert port_out["streaming"] == [{"i": i} for i in range(4)]
+    assert port_out["local_testing"] == [1, 3, 5, 7]
