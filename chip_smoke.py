@@ -139,6 +139,40 @@
    in flight at once on 2 no-op replicas, a second each, beside phase 12's
    actor calls. Alone: ``python -c "import chip_smoke, torch;
    chip_smoke.serve_path(torch.device('cuda'))"``.
+14. The open-loop serving bench (``ray_tpu_torch.llm.bench``) on a fresh
+   ``init()``, every counter at 0 before each run: (a)
+   ``run_serving_bench()`` (``bench_400m`` at max_seq 1024, random from
+   seed 0, one replica of 32 slots, the paged kernel; seeded Poisson
+   arrivals at 6 requests/s for 16 s, 64 clients, prompts of 32-256 tokens,
+   64 new tokens, every prefill bucket warmed first), streams through the
+   handle: every scheduled request completes with no error and no
+   abandoned client, the paged kernel once per layer per decode step of the
+   replica's engine and no other kernel; ``serving_section`` with the
+   client's TTFT/E2E/TPOT percentiles, goodput and the engine's own
+   ``ttft_s``; (b) the same load as unary calls (the router's waiter path),
+   beside (a); (c) ``run_http_proxy_bench()``: 64 requests, 16 at a time,
+   64 tokens, every SSE stream ending in ``[DONE]``; then the card's
+   allocated bytes are back within 256 MiB of the base. Before (a), the
+   paged kernel is held to its plain version at the bench's shapes (B 32,
+   8 query / 4 KV heads, D 128, block 32, lengths 32-320 across the
+   128-row chunk edges, bf16). Alone:
+   ``python -c "import chip_smoke, torch;
+   chip_smoke.serving_bench_path(torch.device('cuda'))"``.
+15. The train driver (``ray_tpu_torch.train.JaxTrainer``) on a fresh
+   ``init()``, the flash counter at 0 before each run: (a) one worker in a
+   placement group whose bundle holds the card (``ScalingConfig(use_gpu=
+   True)``) trains bench_400m for 6 AdamW steps at phase 5's batch (8 x
+   2048, seed 0, full remat) through ``make_train_step``: the flash kernel
+   2 x 24 times a step, the first loss held to phase 5's, a ``num_gpus=1``
+   task submitted during ``fit()`` pending until the group is gone, the
+   step time beside phase 5's; (b) the same with
+   ``FailureConfig(max_failures=1)``: rank 0 checkpoints params and AdamW
+   state after step 3 (5.3 GB in f32), the loop raises once before step 4,
+   the group re-forms from the checkpoint and steps 4-5 are held to (a)'s;
+   the checkpoint's write and restore seconds; (c) no train worker thread
+   left and the card's allocated bytes back within 256 MiB of the base.
+   Alone (it runs phase 5 first): ``python -c "import chip_smoke, torch;
+   chip_smoke.train_driver_path(torch.device('cuda'))"``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -1944,12 +1978,14 @@ def engine_threads() -> list:
             if t.name == "llm-engine" and t.is_alive()]
 
 
-def wait_freed(base: int, what: str, timeout: float = 10.0) -> tuple:
-    """Poll with ``gc.collect()`` until no engine thread is left and the
-    card's allocated bytes are back within 256 MiB of ``base``. Each poll
-    first clears torch's cuBLAS workspaces (one a thread that ran a matmul,
-    32 MiB on Hopper, kept by torch for the process's life): torch's cache,
-    not the app's. Returns (allocated bytes, bytes the clearing released)."""
+def wait_freed(base: int, what: str, timeout: float = 10.0,
+               threads=engine_threads) -> tuple:
+    """Poll with ``gc.collect()`` until ``threads()`` (the engine threads by
+    default) is empty and the card's allocated bytes are back within 256 MiB
+    of ``base``. Each poll first clears torch's cuBLAS workspaces (one a
+    thread that ran a matmul, 32 MiB on Hopper, kept by torch for the
+    process's life): torch's cache, not the app's. Returns (allocated
+    bytes, bytes the clearing released)."""
     import torch
     deadline = time.perf_counter() + timeout
     workspaces = 0
@@ -1958,13 +1994,13 @@ def wait_freed(base: int, what: str, timeout: float = 10.0) -> tuple:
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch._C._cuda_clearCublasWorkspaces()
-        left, alloc = engine_threads(), torch.cuda.memory_allocated()
+        left, alloc = threads(), torch.cuda.memory_allocated()
         workspaces += held - alloc
         if not left and alloc - base <= 256 << 20:
             return alloc, workspaces
         if time.perf_counter() > deadline:
-            raise RuntimeError(f"{what}: {len(left)} engine threads left, "
-                               f"{alloc - base} bytes above the base "
+            raise RuntimeError(f"{what}: threads {[t.name for t in left]} "
+                               f"left, {alloc - base} bytes above the base "
                                f"after {timeout} s")
         time.sleep(0.05)
 
@@ -2299,6 +2335,370 @@ def serve_path(dev, llm_config=None, mix=None, lone_ids=None, phase3=None,
             "launches": app["launches"] + pd["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the open-loop serving bench
+# ---------------------------------------------------------------------------
+
+def bench_row(what: str, out: dict, smi: str) -> dict:
+    """Check one ``run_serving_bench`` result: every scheduled request
+    completed, no error, no abandoned client; the paged kernel once per
+    layer per decode step of the replica's engine (counters at 0 before the
+    run) and no other kernel. Prints ``serving_section``."""
+    from ray_tpu_torch.llm.bench import serving_section
+    detail, s = out["detail"], out["serving"]
+    if (s["completed"] != detail["scheduled_requests"] or s["errors"]
+            or detail.get("abandoned_clients")):
+        raise RuntimeError(f"{what}: {s['completed']} of "
+                           f"{detail['scheduled_requests']} completed, "
+                           f"{s['errors']} errors, "
+                           f"{detail.get('abandoned_clients', 0)} clients "
+                           f"abandoned")
+    from ray_tpu_torch.models import LlamaConfig
+    n_layers = LlamaConfig.bench_400m().n_layers
+    launches = read_launches()
+    steps = sum(st["decode_steps"] for st in detail["engine_stats"])
+    check_paged_only(what, launches, steps, n_layers)
+    log(f"{what}: serving {json.dumps(serving_section(detail))}; engine "
+        f"ttft_s {json.dumps(detail['engine_ttft_s'])}; e2e "
+        f"{json.dumps(detail['e2e_s'])}; queue "
+        f"{json.dumps(detail['queue_s'])}; wall {detail['wall_s']} s; "
+        f"launches {launches} ({steps} decode steps x {n_layers} layers); "
+        f"engine stats {detail['engine_stats']} ({smi})")
+    return {"serving": s, "launches": launches["paged_decode_attention"],
+            "steps": steps, "engine_ttft_s": detail["engine_ttft_s"]}
+
+
+def check_bench_paged(dev, smi: str) -> dict:
+    """The paged kernel against its plain version at the bench engine's
+    shapes: 32 slots of ``bench_400m`` (8 query / 4 KV heads, D 128), block
+    32, a 32-block table (max_seq 1024, 8 chunks of 128 rows), bf16, at
+    lengths from 32 to 320 that sit on and beside every chunk edge those
+    lengths reach. A version that drops the last 32-row tile of the slots
+    longer than 128 must read above the tolerance."""
+    import torch
+    from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.ops import paged_attention as paged
+    cfg = LlamaConfig.bench_400m(max_seq_len=1024)
+    B, H, Hkv, D, bs = 32, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 32
+    maxb = 1024 // bs
+    NB = B * maxb + 1                          # + the engine's scratch block
+    dt, scale = torch.bfloat16, D ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(14)
+    edges = [32, 33, 63, 64, 65, 96, 127, 128, 129, 160, 191, 192, 193,
+             224, 255, 256, 257, 288, 319, 320]
+    rng = np.random.default_rng(14)
+    lengths = np.array(edges + list(rng.integers(32, 321, B - len(edges))),
+                       dtype=np.int32)
+    lens = torch.from_numpy(lengths).to(dev)
+    short = torch.from_numpy(lengths - ((lengths - 1) % bs + 1)).to(dev)
+    long_slots = torch.from_numpy(np.flatnonzero(lengths > 128)).to(dev)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    q, kp, vp = rand((B, H, D)), rand((NB, bs, Hkv, D)), \
+        rand((NB, bs, Hkv, D))
+    tables = torch.randperm(NB - 1, generator=gen, device=dev) \
+        .view(B, maxb).int()
+    out = paged.paged_decode_attention_kernel(q, kp, vp, tables, lens)
+    plain = paged._paged_decode_plain(q, kp, vp, tables, lens, scale=scale)
+    torch.testing.assert_close(out.float(), plain.float(), **BF16_TOL)
+    wrong = paged._paged_decode_plain(q, kp, vp, tables, short, scale=scale)
+    row = {"max_abs_err": (out.float() - plain.float()).abs().max().item(),
+           "tol_ratio": tol_ratio(out, plain),
+           "skip_ratio": tol_ratio(wrong[long_slots], plain[long_slots])}
+    log(f"paged kernel at the bench's shapes (bf16 B={B} H={H} Hkv={Hkv} "
+        f"D={D} block {bs}, lengths {lengths.min()}-{lengths.max()} across "
+        f"the 128-row chunk edges): max_abs_err {row['max_abs_err']:.3e}, "
+        f"{row['tol_ratio']:.2f}x the tolerance {BF16_TOL}; a version that "
+        f"skips the last tile of the slots longer than 128 reads "
+        f"{row['skip_ratio']:.2f}x it ({smi})")
+    if row["skip_ratio"] <= 1:
+        raise RuntimeError("paged kernel at the bench's shapes: the bf16 "
+                           "tolerance does not tell a skipped last tile "
+                           "from the kernel")
+    return row
+
+
+def serving_bench_path(dev, smi=None) -> dict:
+    """Phase 14: ``ray_tpu_torch.llm.bench`` on a fresh ``init()``, the
+    paged kernel first held to its plain version at the bench's shapes,
+    then every counter at 0 before each run: (a) ``run_serving_bench()``
+    streaming through the handle, (b) the same load unary (the router's
+    waiter path), (c) ``run_http_proxy_bench()``; then the card's allocated
+    bytes are back within 256 MiB of the base. Alone: ``python -c "import
+    chip_smoke, torch; chip_smoke.serving_bench_path(torch.device('cuda'))"``.
+    ``python -m ray_tpu_torch.profile_serving`` compares the streams with
+    the same load straight into an ``LLMServer``."""
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.llm.bench import run_http_proxy_bench, \
+        run_serving_bench
+    from ray_tpu_torch.models import LlamaConfig
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    kernel_check = check_bench_paged(dev, smi)
+    if rt.is_initialized() or engine_threads():
+        raise RuntimeError("a runtime or an engine thread is still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    rt.init()
+    try:
+        rows = {}
+        for key, stream in (("stream", True), ("unary", False)):
+            for c in kernel_counters():
+                c.launches = 0
+            out = run_serving_bench(dev, stream=stream)
+            if out["device"] != smi:
+                raise RuntimeError(f"the bench names {out['device']!r}")
+            rows[key] = bench_row(
+                f"open-loop bench ({'streams' if stream else 'unary'}, "
+                f"bench_400m, 6 requests/s for 16 s, 64 clients)", out, smi)
+        a, b = rows["stream"]["serving"], rows["unary"]["serving"]
+        log(f"unary beside streams: {b['requests_per_second']} / "
+            f"{a['requests_per_second']} requests/s, ttft p99 "
+            f"{b['ttft_p99_s']} / {a['ttft_p99_s']} s, e2e p99 "
+            f"{b['e2e_p99_s']} / {a['e2e_p99_s']} s, goodput "
+            f"{b['goodput_requests_per_second']} / "
+            f"{a['goodput_requests_per_second']} requests/s ({smi})")
+        for c in kernel_counters():
+            c.launches = 0
+        http = run_http_proxy_bench(dev)
+        launches = read_launches()
+        d = http["detail"]
+        steps = sum(st["decode_steps"] for st in d["engine_stats"])
+        if d["streams_done"] != d["requests"] or d["requests"] != 64 \
+                or d["output_tokens"] != 64 * 64:
+            raise RuntimeError(f"HTTP bench: {d}")
+        n_layers = LlamaConfig.bench_400m().n_layers
+        check_paged_only("HTTP bench", launches, steps, n_layers)
+        log(f"HTTP bench (64 requests, 16 at a time, 64 tokens, SSE): "
+            f"every stream ended in [DONE]; {http['value']} tokens/s, ttft "
+            f"p50 / p90 / p99 {d['ttft_p50_ms']} / {d['ttft_p90_ms']} / "
+            f"{d['ttft_p99_ms']} ms, wall {d['wall_s']} s; launches "
+            f"{launches} ({steps} decode steps x {n_layers} layers) ({smi})")
+        rows["http"] = {"launches": launches["paged_decode_attention"],
+                        "tokens_per_s": http["value"], "detail": d}
+        freed, workspaces = wait_freed(base, "serve.shutdown of the bench")
+        log(f"after the bench's serve.shutdown: no engine thread left, "
+            f"{freed} bytes allocated ({base} before; {workspaces} bytes of "
+            f"cuBLAS workspaces cleared) ({smi})")
+    finally:
+        rt.shutdown()
+    rows["launches"] = sum(rows[k]["launches"]
+                           for k in ("stream", "unary", "http"))
+    rows["kernel_check"] = kernel_check
+    log(f"phase 14 (open-loop bench) in {time.perf_counter() - t0:.1f} s; "
+        f"paged launches {rows['launches']} ({smi})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the train driver
+# ---------------------------------------------------------------------------
+
+def bench_train_loop(config: dict) -> None:
+    """One rank of phase 15: bench_400m at phase 5's batch (8 x 2048, seed
+    0) through ``make_train_step`` on the card, ``config["steps"]`` AdamW
+    steps, each reported with its loss and time; rank 0 checkpoints params
+    and AdamW state after step ``ckpt_at`` and raises once before step
+    ``fail_at`` (the marker file says it did); a restarted group resumes
+    from the checkpoint."""
+    import os
+    import torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import LlamaConfig, LlamaModel
+    dev = torch.device(config["device"])
+    cfg = LlamaConfig.bench_400m()
+    ts = train.make_train_step(LlamaModel(cfg, device=dev))
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 2048)).astype(np.int64)
+    batch = train.shard_batch((tokens, np.roll(tokens, -1, axis=1)), ts)
+    prev, start, restore_s = train.get_checkpoint(), 0, None
+    if prev is None:
+        params, opt = ts.init_fn(0)
+    else:
+        t0 = time.perf_counter()
+        state = prev.to_pytree(device=dev)
+        params = state["params"]
+        opt = ts.opt_init(params)
+        opt.load_state_dict(state["opt"])
+        start = state["step"] + 1
+        del state
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+    rank0 = train.get_context().get_world_rank() == 0
+    for step in range(start, config["steps"]):
+        if step == config.get("fail_at") and \
+                not os.path.exists(config["marker"]):
+            open(config["marker"], "w").close()
+            raise RuntimeError(f"injected failure before step {step}")
+        t0 = time.perf_counter()
+        params, opt, m = ts.step_fn(params, opt, batch)
+        metrics = {"step": step, "loss": m["loss"].item(),
+                   "step_s": time.perf_counter() - t0}
+        if restore_s is not None:
+            metrics["restore_s"], restore_s = restore_s, None
+        ck = None
+        if rank0 and step == config.get("ckpt_at"):
+            t0 = time.perf_counter()
+            ck = train.Checkpoint.from_pytree(
+                {"params": params, "opt": opt.state_dict(), "step": step},
+                os.path.join(config["dir"], f"step{step}"))
+            metrics["write_s"] = time.perf_counter() - t0
+        train.report(metrics, checkpoint=ck)
+
+
+def train_worker_threads() -> list:
+    """Executor threads of the runtime's ``_TrainWorker`` actors."""
+    from ray_tpu_torch._private import worker
+    rt = worker.global_runtime()
+    ids = {aid.hex()[:8] for aid, info in rt.gcs.actors.items()
+           if info.class_name == "_TrainWorker"}
+    return [t for t in threading.enumerate() if t.is_alive()
+            and t.name.startswith("actor-") and t.name[6:14] in ids]
+
+
+def train_driver_path(dev, phase5=None, smi=None) -> dict:
+    """Phase 15: ``JaxTrainer`` on a fresh ``init()``, the flash counter at 0
+    before each run: (a) one worker, ``ScalingConfig(use_gpu=True)``, 6
+    steps of ``bench_train_loop``; a ``num_gpus=1`` task submitted at the
+    first report stays pending until the group's bundle is gone; the first
+    loss held to phase 5's; (b) the same with ``FailureConfig(max_failures=
+    1)``: a checkpoint after step 3, a failure before step 4, the group
+    re-formed from the checkpoint, steps 4-5 held to (a)'s; (c) no train
+    worker thread left and the card's bytes back within 256 MiB of the
+    base. Alone (it first runs phase 5 for its loss and step time):
+    ``python -c "import chip_smoke, torch;
+    chip_smoke.train_driver_path(torch.device('cuda'))"``."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.train.callbacks import Callback
+    from ray_tpu_torch.models import LlamaConfig
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    n_layers = LlamaConfig.bench_400m().n_layers
+    if phase5 is None:
+        phase5 = train_path(dev, n_layers)
+        free_card()
+    if rt.is_initialized():
+        raise RuntimeError("a runtime is still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    rt.init()
+    try:
+        if rt.available_resources().get("GPU") != 1.0:
+            raise RuntimeError(f"init() found {rt.cluster_resources()}")
+
+        @rt.remote(num_gpus=1)
+        def on_card():
+            return "ran"
+
+        class CardHeld(Callback):
+            """At the first report, submit a ``num_gpus=1`` task; at every
+            report, note whether it has run."""
+
+            def __init__(self):
+                self.ref, self.ran_during_fit = None, []
+
+            def on_report(self, metrics, iteration, rank=0, trial_id=""):
+                if self.ref is None:
+                    self.ref = on_card.remote()
+                ready, _ = rt.wait([self.ref], timeout=0)
+                self.ran_during_fit.append(bool(ready))
+
+        runs = {}
+        for key, extra in (("a", {}), ("b", {"ckpt_at": 3, "fail_at": 4})):
+            attn.flash_attention_kernel.launches = 0
+            held = CardHeld()
+            config = {"device": str(dev), "steps": 6,
+                      "marker": os.path.join(tmp, f"failed_{key}"),
+                      "dir": os.path.join(tmp, f"ckpt_{key}"), **extra}
+            t1 = time.perf_counter()
+            result = train.JaxTrainer(
+                bench_train_loop, train_loop_config=config,
+                scaling_config=train.ScalingConfig(use_gpu=True),
+                run_config=train.RunConfig(
+                    name=f"phase15{key}", storage_path=tmp,
+                    callbacks=[held] if key == "a" else [],
+                    failure_config=train.FailureConfig(
+                        max_failures=1 if extra else 0))).fit()
+            fit_s = time.perf_counter() - t1
+            launches = attn.flash_attention_kernel.launches
+            if result.error is not None:
+                raise RuntimeError(f"phase 15({key}): {result.error}")
+            hist = [e["metrics"] for e in result.metrics_history]
+            if [m["step"] for m in hist] != list(range(6)):
+                raise RuntimeError(f"phase 15({key}) steps: {hist}")
+            if launches != 2 * n_layers * 6:
+                raise RuntimeError(f"phase 15({key}): flash launches "
+                                   f"{launches} != 2 x {n_layers} x 6")
+            runs[key] = {"losses": [m["loss"] for m in hist],
+                         "step_s": [m["step_s"] for m in hist],
+                         "launches": launches, "fit_s": fit_s, "hist": hist}
+            if key == "a":
+                if not held.ran_during_fit or any(held.ran_during_fit):
+                    raise RuntimeError(f"a num_gpus=1 task ran while the "
+                                       f"group held the card: "
+                                       f"{held.ran_during_fit}")
+                if rt.get(held.ref, timeout=60) != "ran":
+                    raise RuntimeError("the num_gpus=1 task did not run")
+                runs[key]["pending_reports"] = len(held.ran_during_fit)
+        a, b = runs["a"], runs["b"]
+        torch.testing.assert_close(torch.tensor(a["losses"][0]),
+                                   torch.tensor(phase5["loss_first"]),
+                                   **LOSS_TOL)
+        torch.testing.assert_close(torch.tensor(b["losses"][4:]),
+                                   torch.tensor(a["losses"][4:]), **LOSS_TOL)
+        write_s = next(m["write_s"] for m in b["hist"] if "write_s" in m)
+        restore_s = next(m["restore_s"] for m in b["hist"]
+                         if "restore_s" in m)
+        ck_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                       for dp, _, fs in os.walk(
+                           os.path.join(tmp, "ckpt_b")) for f in fs)
+        step_ms = float(np.median(a["step_s"][1:])) * 1e3
+        log(f"JaxTrainer, one worker in a placement group holding the card "
+            f"(ScalingConfig(use_gpu=True)), bench_400m 8 x 2048, 6 AdamW "
+            f"steps: losses {a['losses']}; first loss against phase 5's "
+            f"{phase5['loss_first']:.6f} (rtol 1e-3 atol 1e-4); step "
+            f"median {step_ms:.2f} ms (steps 1-5, host clock around each "
+            f"step and its loss's .item()) beside phase 5's "
+            f"{phase5['step_ms']:.2f} ms; a num_gpus=1 task stayed pending "
+            f"through {a['pending_reports']} reports and ran once the "
+            f"group was gone; fit {a['fit_s']:.1f} s; flash launches "
+            f"{a['launches']} ({smi})")
+        log(f"with FailureConfig(max_failures=1): checkpoint of params and "
+            f"AdamW state after step 3, {ck_bytes / 1e9:.2f} GB, written "
+            f"in {write_s:.2f} s (device to host and np.savez); failure "
+            f"before step 4; the group re-formed and restored it in "
+            f"{restore_s:.2f} s (np.load and host to device); losses "
+            f"{b['losses']}, steps 4-5 against the uninterrupted run's "
+            f"(rtol 1e-3 atol 1e-4); fit {b['fit_s']:.1f} s; flash "
+            f"launches {b['launches']} ({smi})")
+        freed, workspaces = wait_freed(base, "after fit()",
+                                       threads=train_worker_threads)
+        log(f"after fit(): no train worker thread left, {freed} bytes "
+            f"allocated ({base} before; {workspaces} bytes of cuBLAS "
+            f"workspaces cleared) ({smi})")
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"launches": a["launches"] + b["launches"], "step_ms": step_ms,
+           "write_s": write_s, "restore_s": restore_s,
+           "ck_bytes": ck_bytes, "runs": runs}
+    log(f"phase 15 (train driver) in {time.perf_counter() - t0:.1f} s; "
+        f"flash launches {out['launches']} ({smi})")
+    return out
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2470,6 +2870,15 @@ def main() -> int:
     served = serve_path(dev, llm_config, mix, lone["token_ids"], serving,
                         runtime, smi)
     rows[0]["launches"] += served["launches"]
+
+    # 14. the open-loop serving bench, every counter at 0 before each run
+    bench = serving_bench_path(dev, smi)
+    rows[0]["launches"] += bench["launches"]
+
+    # 15. the train driver: JaxTrainer in a placement group holding the
+    # card, the flash counter at 0 before each run
+    driver = train_driver_path(dev, train, smi)
+    rows[2]["launches"] += driver["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -59,8 +59,9 @@ from ray_tpu_torch import exceptions
 from ray_tpu_torch._private import worker as _worker
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.runtime_context import get_runtime_context
-from ray_tpu_torch._private.task_spec import (NodeAffinitySchedulingStrategy,
-                                              NodeLabelSchedulingStrategy)
+from ray_tpu_torch._private.task_spec import (
+    NodeAffinitySchedulingStrategy, NodeLabelSchedulingStrategy,
+    PlacementGroupSchedulingStrategy)
 from ray_tpu_torch.actor import (ActorClass, ActorHandle, exit_actor,
                                  get_actor)
 from ray_tpu_torch.remote_function import ObjectRefGenerator, RemoteFunction
@@ -71,6 +72,7 @@ __all__ = [
     "ObjectRefGenerator", "ActorHandle", "exit_actor", "cluster_resources",
     "available_resources", "nodes", "exceptions", "method",
     "NodeAffinitySchedulingStrategy", "NodeLabelSchedulingStrategy",
+    "PlacementGroupSchedulingStrategy",
 ]
 
 

@@ -47,11 +47,44 @@ class ResourceLedger:
     def can_fit_total(self, demand: Dict[str, float]) -> bool:
         return all(self.total.get(k, 0.0) >= v for k, v in demand.items())
 
+    def try_acquire(self, demand: Dict[str, float]) -> bool:
+        with self._cond:
+            if all(self._available.get(k, 0.0) >= v - 1e-9
+                   for k, v in demand.items()):
+                for k, v in demand.items():
+                    self._available[k] = self._available.get(k, 0.0) - v
+                return True
+            return False
+
+    def add_total(self, extra: Dict[str, float]) -> None:
+        """Grow capacity in place (a placement group's bundle resources)."""
+        with self._cond:
+            for k, v in extra.items():
+                self.total[k] = self.total.get(k, 0.0) + v
+                self._available[k] = self._available.get(k, 0.0) + v
+            self._cond.notify_all()
+        _bump_cluster_epoch()   # can_fit_total's answers changed
+
+    def remove_total(self, extra: Dict[str, float]) -> None:
+        with self._cond:
+            for k, v in extra.items():
+                left = self.total.get(k, 0.0) - v
+                if left <= 1e-12:    # a bundle's own name: gone with it
+                    self.total.pop(k, None)
+                    self._available.pop(k, None)
+                    continue
+                self.total[k] = left
+                self._available[k] = max(self._available.get(k, 0.0) - v,
+                                         0.0)
+            self._cond.notify_all()
+        _bump_cluster_epoch()
+
     def release(self, demand: Dict[str, float]) -> None:
         with self._cond:
             for k, v in demand.items():
-                self._available[k] = min(
-                    self._available.get(k, 0.0) + v, self.total.get(k, 0.0))
+                if k in self.total:     # else a removed bundle's name
+                    self._available[k] = min(
+                        self._available.get(k, 0.0) + v, self.total[k])
             self._cond.notify_all()
 
     def wait_for_change(self, timeout: float) -> None:
@@ -89,9 +122,10 @@ class ResourceLedger:
         with self._cond:
             for demand, count in groups:
                 for k, v in demand.items():
-                    self._available[k] = min(
-                        self._available.get(k, 0.0) + v * count,
-                        self.total.get(k, 0.0))
+                    if k in self.total:
+                        self._available[k] = min(
+                            self._available.get(k, 0.0) + v * count,
+                            self.total[k])
             self._cond.notify_all()
 
 

@@ -19,6 +19,8 @@ class _TaskContext:
     actor_id: Any = None
     task_name: str = ""
     resources: Dict[str, float] = field(default_factory=dict)
+    placement_group_id: Any = None
+    pg_capture: bool = False  # placement_group_capture_child_tasks
 
 
 def _set_context(**kwargs):

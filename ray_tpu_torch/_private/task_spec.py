@@ -13,7 +13,8 @@ import enum
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
-from ray_tpu_torch._private.ids import ActorID, JobID, ObjectID, TaskID
+from ray_tpu_torch._private.ids import (ActorID, JobID, ObjectID,
+                                        PlacementGroupID, TaskID)
 
 
 class TaskKind(enum.Enum):
@@ -44,8 +45,6 @@ ACTOR_ONLY_OPTIONS = {
 # Options of the reference that need a part of the runtime the port does
 # not have yet: naming one raises instead of being silently dropped.
 NOT_PORTED_OPTIONS = {
-    "placement_group": "placement groups",
-    "placement_group_bundle_index": "placement groups",
     "runtime_env": "runtime environments",
 }
 
@@ -107,6 +106,13 @@ def resources_from_options(options: Dict[str, Any]) -> Dict[str, float]:
 # ---------------------------------------------------------------------------
 
 @dataclass
+class PlacementGroupSchedulingStrategy:
+    placement_group: Any
+    placement_group_bundle_index: int = -1
+    placement_group_capture_child_tasks: bool = False
+
+
+@dataclass
 class NodeAffinitySchedulingStrategy:
     node_id: str  # hex
     soft: bool = False
@@ -120,6 +126,19 @@ class NodeLabelSchedulingStrategy:
 
 # "DEFAULT" | "SPREAD" | one of the strategy classes
 SchedulingStrategyT = Any
+
+
+def strategy_from_options(options: Dict[str, Any]) -> SchedulingStrategyT:
+    """The ``scheduling_strategy`` option; without one, the reference's
+    legacy ``placement_group`` / ``placement_group_bundle_index`` options
+    name the group (JAX's package accepts them and drops them)."""
+    strategy = options.get("scheduling_strategy")
+    if strategy is None and options.get("placement_group") is not None:
+        strategy = PlacementGroupSchedulingStrategy(
+            options["placement_group"],
+            placement_group_bundle_index=options.get(
+                "placement_group_bundle_index", -1))
+    return strategy or "DEFAULT"
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +186,12 @@ class TaskSpec:
     # run in the caller's process; every task of the in-process core does
     in_process: bool = False
     label_selector: Optional[Dict[str, Any]] = None
+    # placement group capture
+    placement_group_id: Optional[PlacementGroupID] = None
+    # the demand before it was rewritten onto bundle-scoped resource
+    # names, so that a retry re-matches the bundles
+    pg_demand: Optional[Dict[str, float]] = None
+    pg_capture: bool = False  # propagate the group to child tasks
 
     def dependencies(self) -> List[ObjectID]:
         """ObjectIDs this task's args depend on (top-level refs only)."""

@@ -38,7 +38,10 @@ from ray_tpu_torch._private.refcount import LineageTable, ReferenceCounter
 from ray_tpu_torch._private.scheduler import (ClusterScheduler,
                                               SchedulingError,
                                               bump_cluster_epoch)
-from ray_tpu_torch._private.task_spec import TaskKind, TaskSpec
+from ray_tpu_torch._private.task_spec import (
+    PlacementGroupSchedulingStrategy, TaskKind, TaskSpec)
+from ray_tpu_torch.util.placement_group import (PlacementGroupManager,
+                                                scoped_resource)
 
 # Values at or below this go to the owner's in-process memory store
 # (the reference's max_direct_call_object_size, 100 KiB).
@@ -176,6 +179,7 @@ class Runtime:
 
         self._generators: Dict[TaskID, GeneratorState] = {}
         self._shutdown = False
+        self.pg_manager = PlacementGroupManager(self)
 
         if resources_per_node is None:
             resources_per_node = self._detect_resources()
@@ -419,12 +423,86 @@ class Runtime:
             if inflight.cancelled:
                 return
             inflight.state = TaskState.QUEUED
+        if isinstance(spec.scheduling_strategy,
+                      PlacementGroupSchedulingStrategy):
+            self._schedule_into_pg(spec, inflight)
+            return
         try:
             node = self.scheduler.pick_node(spec, self.nodes(),
                                             preferred=self._locality_node(spec))
         except SchedulingError as e:
             self._fail_unschedulable(spec, exc.TaskError(e, spec.name))
             return
+        inflight.node_id = node.node_id
+        node.enqueue(spec)
+
+    def _schedule_into_pg(self, spec: TaskSpec,
+                          inflight: _InFlightTask) -> None:
+        """Rewrite the demand onto bundle-scoped resources and enqueue on
+        the bundle's node."""
+        strat = spec.scheduling_strategy
+        pg = strat.placement_group
+        # the strategy may carry a copy of the group (a handle that went
+        # through the object store): bind the live one by id
+        live = self.pg_manager.get(pg.id)
+        if live is not None and live is not pg:
+            strat.placement_group = pg = live
+        if not pg._ready_event.is_set():
+            # queue behind placement: the manager sets the event once the
+            # group is placed or removed. (JAX's test is `not is_ready()`,
+            # which a removed group also meets: its task re-queues on a new
+            # thread for ever and never fails.)
+            def wait_then_schedule():
+                pg._ready_event.wait()
+                self._schedule_into_pg(spec, inflight)
+            threading.Thread(target=wait_then_schedule, daemon=True,
+                             name="pg-wait").start()
+            return
+        if pg.state != "CREATED":
+            self._fail_unschedulable(spec, exc.TaskError(
+                exc.PlacementGroupUnschedulableError(
+                    f"placement group is {pg.state}"), spec.name))
+            return
+        idx = strat.placement_group_bundle_index
+        if idx != -1 and not (0 <= idx < len(pg.bundles)):
+            self._fail_unschedulable(spec, exc.TaskError(
+                ValueError(
+                    f"placement_group_bundle_index={idx} out of range for "
+                    f"{len(pg.bundles)} bundles"), spec.name))
+            return
+        # a retry's resources are already bundle-scoped: match bundles
+        # against the original demand
+        if spec.pg_demand is None:
+            spec.pg_demand = dict(spec.resources)
+        demand = spec.pg_demand
+        candidates = pg.bundles if idx == -1 else [pg.bundles[idx]]
+        chosen = None
+        for bundle in candidates:
+            if not all(bundle.resources.get(k, 0.0) >= v - 1e-9
+                       for k, v in demand.items()):
+                continue
+            node = self.get_node(bundle.node_id)
+            if node is None or not node.alive:
+                continue
+            scoped = {scoped_resource(pg.id, bundle.index, k): v
+                      for k, v in demand.items()}
+            avail = node.ledger.available()
+            fits_now = all(avail.get(k, 0.0) >= v - 1e-9
+                           for k, v in scoped.items())
+            if chosen is None or fits_now:
+                chosen = (bundle, node, scoped)
+                if fits_now:
+                    break
+        if chosen is None:
+            self._fail_unschedulable(spec, exc.TaskError(
+                SchedulingError(
+                    f"demand {demand} does not fit any bundle of "
+                    f"the placement group"), spec.name))
+            return
+        _, node, scoped = chosen
+        spec.resources = scoped
+        spec.placement_group_id = pg.id
+        spec.pg_capture = bool(strat.placement_group_capture_child_tasks)
         inflight.node_id = node.node_id
         node.enqueue(spec)
 
@@ -483,7 +561,8 @@ class Runtime:
         token = runtime_context._set_context(
             job_id=spec.job_id or self.job_id, task_id=spec.task_id,
             node_id=node.node_id, actor_id=None, resources=spec.resources,
-            task_name=spec.name)
+            task_name=spec.name, placement_group_id=spec.placement_group_id,
+            pg_capture=spec.pg_capture)
         try:
             result = spec.func(*args, **kwargs)
         except BaseException as e:  # noqa: BLE001
@@ -707,7 +786,9 @@ class Runtime:
         token = runtime_context._set_context(
             job_id=spec.job_id or self.job_id, task_id=spec.task_id,
             node_id=node.node_id, actor_id=actor_id,
-            resources=spec.resources, task_name=spec.name)
+            resources=spec.resources, task_name=spec.name,
+            placement_group_id=spec.placement_group_id,
+            pg_capture=spec.pg_capture)
         try:
             instance = spec.func(*args, **kwargs)
         except BaseException as e:  # noqa: BLE001
@@ -843,7 +924,9 @@ class Runtime:
         token = runtime_context._set_context(
             job_id=spec.job_id or self.job_id, task_id=spec.task_id,
             node_id=node.node_id, actor_id=spec.actor_id,
-            resources=spec.resources, task_name=spec.name)
+            resources=spec.resources, task_name=spec.name,
+            placement_group_id=spec.placement_group_id,
+            pg_capture=spec.pg_capture)
         try:
             method = getattr(instance, spec.method_name)
             result = method(*args, **kwargs)
@@ -881,7 +964,9 @@ class Runtime:
         token = runtime_context._set_context(
             job_id=spec.job_id or self.job_id, task_id=spec.task_id,
             node_id=node.node_id, actor_id=spec.actor_id,
-            resources=spec.resources, task_name=spec.name)
+            resources=spec.resources, task_name=spec.name,
+            placement_group_id=spec.placement_group_id,
+            pg_capture=spec.pg_capture)
         try:
             method = getattr(instance, spec.method_name)
             result = method(*args, **kwargs)
@@ -1005,6 +1090,7 @@ class Runtime:
     # ------------------------------------------------------------------
     def shutdown(self) -> None:
         self._shutdown = True
+        self.pg_manager.stop()
         for node in self.nodes():
             node.shutdown()
             node.store.close()
@@ -1057,6 +1143,26 @@ def _find_nested_refs(value: Any, _depth: int = 0) -> List[ObjectRef]:
             out.extend(_find_nested_refs(k, _depth + 1))
             out.extend(_find_nested_refs(v, _depth + 1))
     return out
+
+
+def capture_parent_pg_strategy(strategy):
+    """Inherit the caller's placement group when it asked to capture child
+    tasks."""
+    if strategy != "DEFAULT":
+        return strategy
+    ctx = runtime_context._ctx.get()
+    if (ctx is None or not ctx.pg_capture
+            or ctx.placement_group_id is None):
+        return strategy
+    rt = global_runtime()
+    if rt is None:
+        return strategy
+    pg = rt.pg_manager.get(ctx.placement_group_id)
+    if pg is None:
+        return strategy
+    return PlacementGroupSchedulingStrategy(
+        pg, placement_group_bundle_index=-1,
+        placement_group_capture_child_tasks=True)
 
 
 def init_runtime(**kwargs) -> Runtime:

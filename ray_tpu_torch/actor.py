@@ -11,6 +11,7 @@ from ray_tpu_torch._private.ids import ActorID, ObjectID, TaskID, next_seqno
 from ray_tpu_torch._private.task_spec import (DEFAULT_ACTOR_OPTIONS, TaskKind,
                                               TaskSpec,
                                               resources_from_options,
+                                              strategy_from_options,
                                               validate_options)
 
 
@@ -165,8 +166,8 @@ class ActorClass:
             resources=resources_from_options(options),
             num_returns=1,
             return_ids=[ObjectID.from_random()],
-            scheduling_strategy=options.get("scheduling_strategy",
-                                            "DEFAULT"),
+            scheduling_strategy=worker.capture_parent_pg_strategy(
+                strategy_from_options(options)),
             job_id=rt.job_id,
             actor_id=actor_id,
             max_restarts=options.get("max_restarts", 0),

@@ -9,7 +9,9 @@ serve deployment, each replica an engine on ``device``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import threading
+import time
 from typing import Any, Dict, Optional
 
 from ray_tpu_torch import serve
@@ -62,6 +64,21 @@ class _EngineLoop:
                 req.stream.put(None)
                 req.done.set()
             raise
+
+
+def join_engine_threads(timeout: float = 30.0) -> int:
+    """Collect dropped servers (a server stops its engine when it is
+    collected) and wait up to ``timeout`` seconds for their engine threads
+    to end; returns how many are still running. A process that exits with
+    an engine thread inside a step aborts in torch's teardown."""
+    deadline = time.monotonic() + timeout
+    while True:
+        gc.collect()
+        left = [t for t in threading.enumerate()
+                if t.name == "llm-engine" and t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            return len(left)
+        left[0].join(0.05)
 
 
 def start_engine_loop(engine: ContinuousBatchingEngine):

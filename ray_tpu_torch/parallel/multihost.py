@@ -8,12 +8,13 @@ card, gloo on the CPU. The rendezvous is resolved from, in order:
    rank): a TCP store, rank 0 its server;
 2. torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
    ``WORLD_SIZE``), read by ``pod_topology_from_env`` under JAX's name for
-   the function that reads the TPU pod's variables.
+   the function that reads the TPU pod's variables;
+3. given the world size and this rank only, an election through the
+   runtime's KV store (``rendezvous_via_kv``): rank 0 publishes its
+   address, the others read it.
 
-A single process with neither does nothing and returns ``False``, as in
-JAX. JAX's second source, the cluster KV rendezvous (``rendezvous_via_kv``),
-needs the runtime's KV store and waits for the port of the runtime
-(ROADMAP A13).
+A single process with none of them does nothing and returns ``False``, as
+in JAX.
 
 ``spawn_ranks`` is the port's counterpart of
 ``ray_tpu/_private/platform.py:force_cpu_platform``: where JAX fakes eight
@@ -30,12 +31,14 @@ import pickle
 import queue
 import shutil
 import tempfile
+import time
 import traceback
 from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+COORDINATOR_PORT = 8476
 
 
 def pod_topology_from_env() -> Optional[Tuple[str, int, int]]:
@@ -47,6 +50,35 @@ def pod_topology_from_env() -> Optional[Tuple[str, int, int]]:
         return None
     return (f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
             int(env["WORLD_SIZE"]), int(env["RANK"]))
+
+
+def _coordinator_host() -> str:
+    """The name the other processes reach this host by. JAX's
+    ``_routable_ip`` connects a UDP socket towards a public address to learn
+    the outward interface; the port names the host and lets each peer
+    resolve it, so the election itself touches no network."""
+    import socket
+    return socket.gethostname()
+
+
+def rendezvous_via_kv(kv, num_processes: int, process_id: int,
+                      run_id: str = "default",
+                      timeout_s: float = 60.0) -> Tuple[str, int, int]:
+    """Elect rank 0's address through the cluster KV. ``run_id`` names the
+    key, so a re-formed cluster or a second job never reads the coordinator
+    of an earlier run."""
+    key = f"multihost::{run_id}::coordinator".encode()
+    if process_id == 0:
+        addr = f"{_coordinator_host()}:{COORDINATOR_PORT}"
+        kv.kv_put(key, addr.encode())
+        return addr, num_processes, 0
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        raw = kv.kv_get(key)
+        if raw:
+            return raw.decode(), num_processes, process_id
+        time.sleep(0.2)
+    raise TimeoutError("coordinator address never published to the KV")
 
 
 def initialize_multihost(coordinator_address: Optional[str] = None,
@@ -67,11 +99,30 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
             "and process_id")
     if coordinator_address is None:
         topo = pod_topology_from_env()
-        if topo is None:
+        if topo is not None:
+            coordinator_address, num_processes, process_id = topo
+        elif num_processes and num_processes > 1 \
+                and process_id is not None:
+            # the third source: elect through the runtime's KV
+            from ray_tpu_torch._private import worker
+
+            rt = worker.global_runtime()
+            if rt is None:
+                return False
+            coordinator_address, num_processes, process_id = \
+                rendezvous_via_kv(rt.gcs, num_processes, process_id,
+                                  run_id=rt.namespace)
+        else:
             return False
-        coordinator_address, num_processes, process_id = topo
     if num_processes is None or num_processes <= 1:
         return False
+    _join_group(coordinator_address, num_processes, process_id, backend)
+    return True
+
+
+def _join_group(coordinator_address: str, num_processes: int,
+                process_id: int, backend: Optional[str]) -> None:
+    """A TCP store at the coordinator (rank 0 its server), then the group."""
     backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
     if backend == "nccl":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
@@ -81,7 +132,6 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                           timeout=datetime.timedelta(seconds=300))
     dist.init_process_group(backend, store=store, rank=process_id,
                             world_size=num_processes)
-    return True
 
 
 def init_single_process(device: torch.device) -> None:

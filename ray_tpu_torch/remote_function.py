@@ -13,6 +13,7 @@ from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.task_spec import (DEFAULT_TASK_OPTIONS, TaskKind,
                                               TaskSpec,
                                               resources_from_options,
+                                              strategy_from_options,
                                               validate_options)
 
 
@@ -128,8 +129,8 @@ class RemoteFunction:
             return_ids=[ObjectID.from_random() for _ in range(n_ids)],
             max_retries=options.get("max_retries", 3),
             retry_exceptions=options.get("retry_exceptions", False),
-            scheduling_strategy=options.get("scheduling_strategy",
-                                            "DEFAULT"),
+            scheduling_strategy=worker.capture_parent_pg_strategy(
+                strategy_from_options(options)),
             job_id=rt.job_id,
             backpressure_num_objects=options.get(
                 "_generator_backpressure_num_objects", -1),

@@ -688,7 +688,7 @@ def test_autoscale_one_to_n_to_one_under_open_loop_load(serve_cluster):
     in-flight request."""
     import threading as _th
 
-    from ray_tpu.loadgen import SLO, HandleTarget, LoadSpec, run_load
+    from ray_tpu_torch.loadgen import SLO, HandleTarget, LoadSpec, run_load
 
     @serve.deployment(autoscaling_config={
         "min_replicas": 1, "max_replicas": 3,
