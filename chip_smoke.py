@@ -173,6 +173,30 @@
    left and the card's allocated bytes back within 256 MiB of the base.
    Alone (it runs phase 5 first): ``python -c "import chip_smoke, torch;
    chip_smoke.train_driver_path(torch.device('cuda'))"``.
+16. Tune and the utilities (``ray_tpu_torch.tune``, ``ray_tpu_torch.util``)
+   on a fresh ``init()``, the flash counter at 0 before each part: (a) a
+   ``Tuner`` over a function trainable (bench_400m at phase 5's batch, up
+   to 6 AdamW steps at the trial's lr, each reported) with
+   ``AsyncHyperBandScheduler(grace_period=2, reduction_factor=2,
+   max_t=6)`` over lr 1e-3, 0.0 and 3e-4, one trial at a time: every
+   first loss is phase 5's, the lr 0.0 trial is stopped at iteration 2
+   with the initial loss, the best lr is 1e-3, the scheduler's decisions
+   replay on a fresh one, flash 2 x 24 times a reported step, and each
+   trial starts with the card's bytes within 256 MiB of the base (a
+   stopped trial's model is freed, ROADMAP C11); (b) Train-on-Tune: a
+   ``Tuner`` over a ``JaxTrainer`` of phase 15's loop (3 steps,
+   ``ScalingConfig(use_gpu=True)``) over two lrs, both trial actors at
+   once: the second group's bundle waits until the first is gone, so the
+   step windows do not overlap, each trial's metrics are its rank 0's last
+   report, the peak bytes are one trial's; (c) ``util.collective`` between
+   two ``num_gpus=0.5`` actors on 64 MiB bf16 CUDA tensors (allreduce
+   against the sum in torch, allgather, broadcast, reducescatter,
+   send/recv; every result on the card, in bf16, the parts uncopied),
+   ``ActorPool.map`` and ``Queue`` handing a CUDA tensor over uncopied;
+   after ``shutdown()`` no trial, train-worker, queue or collective thread
+   is left and the card's bytes are back within 256 MiB of the base.
+   Alone (it runs phase 5 first): ``python -c "import chip_smoke, torch;
+   chip_smoke.tune_path(torch.device('cuda'))"``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -2498,23 +2522,39 @@ def serving_bench_path(dev, smi=None) -> dict:
 # phase 15: the train driver
 # ---------------------------------------------------------------------------
 
+def bench_step(dev, lr=None) -> tuple:
+    """bench_400m's train step on ``dev`` through ``make_train_step``
+    (AdamW at ``lr``; None: the default, 3e-4) and phase 5's batch (8 x
+    2048, seed 0)."""
+    import torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import LlamaConfig, LlamaModel
+    cfg = LlamaConfig.bench_400m()
+    optimizer = None
+    if lr is not None:
+        def optimizer(leaves):
+            return torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=0.1)
+    ts = train.make_train_step(LlamaModel(cfg, device=dev),
+                               optimizer=optimizer)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 2048)).astype(np.int64)
+    return ts, train.shard_batch((tokens, np.roll(tokens, -1, axis=1)), ts)
+
+
 def bench_train_loop(config: dict) -> None:
-    """One rank of phase 15: bench_400m at phase 5's batch (8 x 2048, seed
-    0) through ``make_train_step`` on the card, ``config["steps"]`` AdamW
-    steps, each reported with its loss and time; rank 0 checkpoints params
-    and AdamW state after step ``ckpt_at`` and raises once before step
+    """One rank of phases 15 and 16(b): ``bench_step`` at ``config["lr"]``
+    on the card, ``config["steps"]`` AdamW steps, each reported with its
+    loss, its time and its wall-clock window; rank 0 checkpoints params and
+    AdamW state after step ``ckpt_at`` and raises once before step
     ``fail_at`` (the marker file says it did); a restarted group resumes
     from the checkpoint."""
     import os
     import torch
     from ray_tpu_torch import train
-    from ray_tpu_torch.models import LlamaConfig, LlamaModel
+    loop_t0 = time.time()
     dev = torch.device(config["device"])
-    cfg = LlamaConfig.bench_400m()
-    ts = train.make_train_step(LlamaModel(cfg, device=dev))
-    tokens = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (8, 2048)).astype(np.int64)
-    batch = train.shard_batch((tokens, np.roll(tokens, -1, axis=1)), ts)
+    ts, batch = bench_step(dev, config.get("lr"))
     prev, start, restore_s = train.get_checkpoint(), 0, None
     if prev is None:
         params, opt = ts.init_fn(0)
@@ -2534,10 +2574,11 @@ def bench_train_loop(config: dict) -> None:
                 not os.path.exists(config["marker"]):
             open(config["marker"], "w").close()
             raise RuntimeError(f"injected failure before step {step}")
-        t0 = time.perf_counter()
+        t0, wall0 = time.perf_counter(), time.time()
         params, opt, m = ts.step_fn(params, opt, batch)
         metrics = {"step": step, "loss": m["loss"].item(),
-                   "step_s": time.perf_counter() - t0}
+                   "step_s": time.perf_counter() - t0, "lr": config.get("lr"),
+                   "window": (wall0, time.time()), "loop_t0": loop_t0}
         if restore_s is not None:
             metrics["restore_s"], restore_s = restore_s, None
         ck = None
@@ -2550,14 +2591,16 @@ def bench_train_loop(config: dict) -> None:
         train.report(metrics, checkpoint=ck)
 
 
-def train_worker_threads() -> list:
-    """Executor threads of the runtime's ``_TrainWorker`` actors."""
+def actor_threads(class_names):
+    """A function listing the live executor threads of the runtime's
+    actors of these classes (their ids are read now, while the runtime is
+    up)."""
     from ray_tpu_torch._private import worker
     rt = worker.global_runtime()
     ids = {aid.hex()[:8] for aid, info in rt.gcs.actors.items()
-           if info.class_name == "_TrainWorker"}
-    return [t for t in threading.enumerate() if t.is_alive()
-            and t.name.startswith("actor-") and t.name[6:14] in ids]
+           if info.class_name in class_names}
+    return lambda: [t for t in threading.enumerate() if t.is_alive()
+                    and t.name.startswith("actor-") and t.name[6:14] in ids]
 
 
 def train_driver_path(dev, phase5=None, smi=None) -> dict:
@@ -2683,8 +2726,8 @@ def train_driver_path(dev, phase5=None, smi=None) -> dict:
             f"{b['losses']}, steps 4-5 against the uninterrupted run's "
             f"(rtol 1e-3 atol 1e-4); fit {b['fit_s']:.1f} s; flash "
             f"launches {b['launches']} ({smi})")
-        freed, workspaces = wait_freed(base, "after fit()",
-                                       threads=train_worker_threads)
+        freed, workspaces = wait_freed(
+            base, "after fit()", threads=actor_threads({"_TrainWorker"}))
         log(f"after fit(): no train worker thread left, {freed} bytes "
             f"allocated ({base} before; {workspaces} bytes of cuBLAS "
             f"workspaces cleared) ({smi})")
@@ -2696,6 +2739,328 @@ def train_driver_path(dev, phase5=None, smi=None) -> dict:
            "ck_bytes": ck_bytes, "runs": runs}
     log(f"phase 15 (train driver) in {time.perf_counter() - t0:.1f} s; "
         f"flash launches {out['launches']} ({smi})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: tune and the utilities
+# ---------------------------------------------------------------------------
+
+def tune_trainable(config: dict, device: str) -> None:
+    """One trial of phase 16(a): the card's allocated bytes before the model
+    is built, then ``bench_step`` at the trial's lr for up to 6 steps, each
+    reported with its loss, its time and the card's peak bytes since the
+    trial began (one trial runs at a time)."""
+    import torch
+    from ray_tpu_torch import tune
+    dev = torch.device(device)
+    start_bytes = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ts, batch = bench_step(dev, config["lr"])
+    params, opt = ts.init_fn(0)
+    for i in range(6):
+        t0 = time.perf_counter()
+        params, opt, m = ts.step_fn(params, opt, batch)
+        metrics = {"training_iteration": i + 1, "loss": m["loss"].item(),
+                   "step_s": time.perf_counter() - t0,
+                   "peak": torch.cuda.max_memory_allocated(dev)}
+        if i == 0:
+            metrics["start_bytes"] = start_bytes
+        tune.report(metrics)
+
+
+def tune_asha(dev, phase5: dict, base: int, n_layers: int, smi: str):
+    """Phase 16(a): ASHA over three lrs of bench_400m, one trial at a
+    time."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.tune import AsyncHyperBandScheduler
+
+    class Recording(AsyncHyperBandScheduler):
+        """ASHA noting each result it was fed and its decision."""
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.fed = []
+
+        def on_result(self, trial, result):
+            decision = super().on_result(trial, result)
+            self.fed.append((trial.config["lr"], dict(result), decision))
+            return decision
+
+    asha = dict(grace_period=2, reduction_factor=2, max_t=6)
+    sched = Recording(**asha)
+    attn.flash_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        tune.with_parameters(tune_trainable, device=str(dev)),
+        param_space={"lr": tune.grid_search([1e-3, 0.0, 3e-4])},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    max_concurrent_trials=1,
+                                    scheduler=sched)).fit()
+    fit_s = time.perf_counter() - t0
+    launches = attn.flash_attention_kernel.launches
+    if grid.errors:
+        raise RuntimeError(f"phase 16(a) trials failed: {grid.errors}")
+    trials = {t.config["lr"]: t for t in grid.trials}
+    first = phase5["loss_first"]
+    for lr, t in trials.items():
+        torch_close(t.results[0]["loss"], first)
+        if t.results[0]["start_bytes"] - base > 256 << 20:
+            raise RuntimeError(f"trial lr {lr} started with "
+                               f"{t.results[0]['start_bytes']} bytes, "
+                               f"{base} at the phase's start")
+    zero, best = trials[0.0], trials[1e-3]
+    stops = [(lr, r["training_iteration"]) for lr, r, d in sched.fed
+             if d == "STOP"]
+    # stopped at the rung: the one report after it is the one that raised
+    if zero.status != "STOPPED" or \
+            min(t for lr, t in stops if lr == 0.0) != 2 or \
+            len(zero.results) > 3:
+        raise RuntimeError(f"the lr 0.0 trial was not stopped at its rung: "
+                           f"{zero.status}, stops {stops}, "
+                           f"{len(zero.results)} reports")
+    torch_close(zero.results[1]["loss"], first)
+    if not best.results[1]["loss"] < zero.results[1]["loss"]:
+        raise RuntimeError(f"rung 2: lr 0.0 {zero.results[1]['loss']}, "
+                           f"lr 1e-3 {best.results[1]['loss']}")
+    if grid.get_best_result().config["lr"] != 1e-3:
+        raise RuntimeError(f"best {grid.get_best_result().config}")
+    replay = AsyncHyperBandScheduler(**asha)
+    again = [replay.on_result(None, r) for _, r, _ in sched.fed]
+    if again != [d for _, _, d in sched.fed]:
+        raise RuntimeError(f"decisions {sched.fed} replay as {again}")
+    steps = sum(len(t.results) for t in grid.trials)
+    if launches != 2 * n_layers * steps:
+        raise RuntimeError(f"phase 16(a): flash launches {launches} != "
+                           f"2 x {n_layers} x {steps} reported steps")
+    step_s = [r["step_s"] for t in grid.trials for r in t.results[1:]]
+    out = {"part": "16a", "trials": [
+        {"lr": lr, "status": t.status,
+         "iterations": [r["training_iteration"] for r in t.results],
+         "losses": [r["loss"] for r in t.results],
+         "start_bytes": t.results[0]["start_bytes"],
+         "peak_bytes": max(r["peak"] for r in t.results)}
+        for lr, t in trials.items()],
+        "stops": stops, "best_lr": 1e-3, "phase5_loss_first": first,
+        "step_ms_median": float(np.median(step_s)) * 1e3,
+        "phase5_step_ms": phase5["step_ms"], "base_bytes": base,
+        "flash_launches": launches, "reported_steps": steps,
+        "fit_s": fit_s, "card": smi}
+    log(json.dumps(out))
+    return out
+
+
+def torch_close(a: float, b: float) -> None:
+    import torch
+    torch.testing.assert_close(torch.tensor(a), torch.tensor(b), **LOSS_TOL)
+
+
+def tune_trainer(dev, phase5: dict, asha: dict, tmp: str, n_layers: int,
+                 smi: str) -> dict:
+    """Phase 16(b): Train-on-Tune, two trials of a one-worker JaxTrainer
+    holding the card, both trial actors started at once."""
+    import torch
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.train.callbacks import Callback
+
+    class Reports(Callback):
+        """Every worker report of both trials (they share the trainer's
+        run config)."""
+
+        def __init__(self):
+            self.seen = []
+
+        def on_report(self, metrics, iteration, rank=0, trial_id=""):
+            self.seen.append(dict(metrics))
+
+    reports = Reports()
+    attn.flash_attention_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    wall0, t0 = time.time(), time.perf_counter()
+    grid = tune.Tuner(
+        train.JaxTrainer(
+            bench_train_loop,
+            train_loop_config={"device": str(dev), "steps": 3},
+            scaling_config=train.ScalingConfig(use_gpu=True),
+            run_config=train.RunConfig(name="phase16b", storage_path=tmp,
+                                       callbacks=[reports])),
+        param_space={"train_loop_config": {
+            "lr": tune.grid_search([1e-3, 3e-4])}},
+        tune_config=tune.TuneConfig(max_concurrent_trials=2)).fit()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = attn.flash_attention_kernel.launches
+    if grid.errors or [t.status for t in grid.trials] != ["TERMINATED"] * 2:
+        raise RuntimeError(f"phase 16(b): {[t.status for t in grid.trials]}"
+                           f" {grid.errors}")
+    windows, waits, losses = [], {}, {}
+    for t in grid.trials:
+        lr = t.config["lr"]
+        mine = [m for m in reports.seen if m["lr"] == lr]
+        if [m["step"] for m in mine] != [0, 1, 2] or \
+                t.last_result["step"] != 2 or \
+                t.last_result["loss"] != mine[-1]["loss"]:
+            raise RuntimeError(f"phase 16(b) lr {lr}: reports {mine}, "
+                               f"result {t.last_result}")
+        torch_close(mine[0]["loss"], phase5["loss_first"])
+        windows.append((mine[0]["window"][0], mine[-1]["window"][1]))
+        waits[lr] = mine[0]["loop_t0"] - wall0
+        losses[lr] = [m["loss"] for m in mine]
+    (a0, a1), (b0, b1) = sorted(windows)
+    if not a1 <= b0:
+        raise RuntimeError(f"phase 16(b): the trials' step windows overlap "
+                           f"({windows}): two groups held the card at once")
+    if launches != 2 * 3 * 2 * n_layers:
+        raise RuntimeError(f"phase 16(b): flash launches {launches} != "
+                           f"2 x 3 x 2 x {n_layers}")
+    one = max(tr["peak_bytes"] for tr in asha["trials"])
+    if peak > 1.25 * one:
+        raise RuntimeError(f"phase 16(b) peak {peak} bytes, one trial's "
+                           f"peak in (a) {one}")
+    out = {"part": "16b", "trials": [
+        {"lr": t.config["lr"], "status": t.status,
+         "metrics_step": t.last_result["step"],
+         "losses": losses[t.config["lr"]]} for t in grid.trials],
+        "loop_start_after_fit_start_s": waits,
+        "gap_between_step_windows_s": b0 - a1, "peak_bytes": peak,
+        "one_trial_peak_bytes_16a": one, "flash_launches": launches,
+        "fit_s": fit_s, "card": smi}
+    log(json.dumps(out))
+    return out
+
+
+def tune_utilities(dev, smi: str) -> dict:
+    """Phase 16(c): ``util.collective`` between two ``num_gpus=0.5`` actors
+    on 64 MiB bf16 CUDA tensors, ``ActorPool`` and ``Queue`` on the card."""
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import ActorPool, Queue
+    from ray_tpu_torch.util import collective as col
+
+    @rt.remote(num_gpus=0.5)
+    class Rank:
+        def __init__(self, rank: int, device: str):
+            col.init_collective_group(2, rank, group_name="g")
+            self.rank, self.dev = rank, torch.device(device)
+            g = torch.Generator(device=self.dev).manual_seed(rank)
+            self.part = torch.randn(32 << 20, generator=g, device=self.dev,
+                                    dtype=torch.bfloat16)
+
+        def get_part(self):
+            return self.part
+
+        def allreduce(self):
+            out = col.allreduce(self.part, group_name="g")
+            torch.cuda.synchronize(self.dev)
+            return out
+
+        def ops(self):
+            gathered = col.allgather(self.part, group_name="g")
+            bc = col.broadcast(self.part, src_rank=1, group_name="g")
+            chunk = col.reducescatter(self.part, group_name="g")
+            if self.rank == 0:
+                col.send(self.part, 1, group_name="g")
+                got = None
+            else:
+                got = col.recv(0, group_name="g")
+            col.barrier(group_name="g")
+            return gathered, bc, chunk, got
+
+        def echo(self, x):
+            return x
+
+        def destroy(self):
+            col.destroy_collective_group("g")
+
+    ranks = [Rank.remote(r, str(dev)) for r in range(2)]
+    parts = rt.get([r.get_part.remote() for r in ranks])
+    want = parts[0] + parts[1]
+    t0 = time.perf_counter()
+    outs = rt.get([r.allreduce.remote() for r in ranks])
+    allreduce_ms = (time.perf_counter() - t0) * 1e3
+    for o in outs:
+        if not (o.is_cuda and o.dtype == torch.bfloat16
+                and torch.equal(o, want)):
+            raise RuntimeError(f"allreduce gave {o.device} {o.dtype}, "
+                               f"equal {torch.equal(o.cpu(), want.cpu())}")
+    one_result = outs[0].data_ptr() == outs[1].data_ptr()
+    chunks = torch.tensor_split(want, 2)
+    for rank, (gathered, bc, chunk, got) in enumerate(
+            rt.get([r.ops.remote() for r in ranks])):
+        if [g.data_ptr() for g in gathered] != \
+                [p.data_ptr() for p in parts] or \
+                bc.data_ptr() != parts[1].data_ptr():
+            raise RuntimeError("allgather or broadcast copied a part")
+        if not (chunk.is_cuda and chunk.dtype == torch.bfloat16
+                and torch.equal(chunk, chunks[rank])):
+            raise RuntimeError(f"reducescatter's chunk {rank} is wrong")
+        if rank == 1 and got.data_ptr() != parts[0].data_ptr():
+            raise RuntimeError("recv did not get rank 0's tensor")
+    rt.get([r.destroy.remote() for r in ranks])
+    x = torch.arange(1 << 20, device=dev, dtype=torch.float32)
+    pool = ActorPool(ranks)
+    pooled = list(pool.map(lambda a, v: a.echo.remote(v), [x, x]))
+    q = Queue()
+    q.put(x)
+    queued = q.get()
+    q.shutdown()
+    if any(p.data_ptr() != x.data_ptr() for p in pooled) or \
+            queued.data_ptr() != x.data_ptr():
+        raise RuntimeError("ActorPool or Queue copied the tensor")
+    for r in ranks:
+        rt.kill(r)
+    out = {"part": "16c", "allreduce_bytes": want.numel() * 2,
+           "allreduce_ms_host": allreduce_ms,
+           "ranks_share_one_result": one_result,
+           "checked": ["allreduce", "allgather", "broadcast",
+                       "reducescatter", "send/recv", "ActorPool.map",
+                       "Queue"], "card": smi}
+    log(json.dumps(out))
+    return out
+
+
+def tune_path(dev, phase5=None, smi=None) -> dict:
+    """Phase 16: tune and the utilities on a fresh ``init()`` (see the
+    module's docstring). Alone (it first runs phase 5 for its loss and step
+    time): ``python -c "import chip_smoke, torch;
+    chip_smoke.tune_path(torch.device('cuda'))"``."""
+    import shutil
+    import tempfile
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import LlamaConfig
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    n_layers = LlamaConfig.bench_400m().n_layers
+    if phase5 is None:
+        phase5 = train_path(dev, n_layers)
+    if rt.is_initialized():
+        raise RuntimeError("a runtime is still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    rt.init()
+    try:
+        if rt.available_resources().get("GPU") != 1.0:
+            raise RuntimeError(f"init() found {rt.cluster_resources()}")
+        asha = tune_asha(dev, phase5, base, n_layers, smi)
+        trainer = tune_trainer(dev, phase5, asha, tmp, n_layers, smi)
+        util = tune_utilities(dev, smi)
+        threads = actor_threads({"_TrialActor", "_TrainWorker",
+                                 "_QueueActor", "_Coordinator", "Rank"})
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    freed, workspaces = wait_freed(base, "after shutdown()", threads=threads)
+    out = {"part": "16", "launches": asha["flash_launches"]
+           + trainer["flash_launches"], "bytes_after_shutdown": freed,
+           "base_bytes": base, "cublas_workspaces_cleared": workspaces,
+           "seconds": time.perf_counter() - t0, "card": smi}
+    log(json.dumps(out))
+    out.update(asha=asha, trainer=trainer, util=util)
     return out
 
 
@@ -2879,6 +3244,12 @@ def main() -> int:
     # card, the flash counter at 0 before each run
     driver = train_driver_path(dev, train, smi)
     rows[2]["launches"] += driver["launches"]
+
+    # 16. tune and the utilities: Tune trials and Train-on-Tune on the
+    # card, the flash counter at 0 before each part; util.collective,
+    # ActorPool and Queue on CUDA tensors
+    tuned = tune_path(dev, train, smi)
+    rows[2]["launches"] += tuned["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -44,7 +44,10 @@ object store's device tier, with ``rl.Algorithm`` and ``rl.tuned_examples``
 on it — and serve on that core: ``serve`` (deployments, handles with
 power-of-two-choices routing, the controller, the HTTP proxy) with
 ``util.metrics``, and the serving app (``llm.build_llm_app``,
-``llm.prefix_router``, ``llm.disagg``'s prefill/decode graph).
+``llm.prefix_router``, ``llm.disagg``'s prefill/decode graph) — and the
+libraries on that core: ``tune`` (Tuner, schedulers, searchers) and
+``util``'s ``ActorPool``, ``Queue``, ``multiprocessing.Pool`` and
+``collective``.
 
 Importing the package imports no ``torch``: the runtime checks for tensors
 only once ``torch`` is in ``sys.modules``, and detects the card at ``init``.

@@ -3,7 +3,7 @@ of ``ray_tpu/train/callbacks.py``, a copy of the JAX package's module).
 
 Hooks invoked on run start, every report, every checkpoint and run end, and
 the JSON and CSV file loggers. Attach via ``RunConfig(callbacks=[...])``,
-which ``JaxTrainer`` honours (Tune's trials come with ROADMAP A11f). JAX's
+which ``JaxTrainer`` and ``tune.Tuner`` (each trial's reports) honour. JAX's
 Weights & Biases and MLflow callbacks are left out: they import packages
 that the port may not (ROADMAP A11e).
 """

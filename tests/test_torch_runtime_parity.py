@@ -398,6 +398,22 @@ def test_train_and_util_export_jax_names():
         assert hasattr(ray_tpu_torch.train, name), name
 
 
+def test_tune_util_and_collective_export_jax_names():
+    import ray_tpu.tune
+    import ray_tpu.util
+    import ray_tpu.util.collective
+    import ray_tpu_torch.tune
+    import ray_tpu_torch.util
+    import ray_tpu_torch.util.collective
+    for jax_mod, port_mod in (
+            (ray_tpu.tune, ray_tpu_torch.tune),
+            (ray_tpu.util, ray_tpu_torch.util),
+            (ray_tpu.util.collective, ray_tpu_torch.util.collective)):
+        assert port_mod.__all__ == jax_mod.__all__
+        for name in port_mod.__all__:
+            assert hasattr(port_mod, name), (port_mod.__name__, name)
+
+
 def _pg_train_script(pkg, tmp) -> dict:
     """A placement group with a task and an actor placed into its bundles,
     the errors of a demand too big for a bundle, a bad bundle index and a

@@ -5,8 +5,8 @@ elastic and callback tests (``tests/test_train.py``,
 (``tests/test_parallel.py``'s rendezvous test).
 
 The checkpoint tests of ``tests/test_train.py`` have their copies in
-``tests/test_torch_parallel.py``. Left uncopied:
-``test_callbacks_on_tune_trials`` (Tune comes with ROADMAP A11f) and
+``tests/test_torch_parallel.py``, and ``test_callbacks_on_tune_trials`` in
+``tests/test_torch_tune.py``. Left uncopied:
 ``test_tracking_integrations_import_gated`` (the W&B and MLflow callbacks,
 ROADMAP A11e).
 """
