@@ -197,6 +197,32 @@
    is left and the card's bytes are back within 256 MiB of the base.
    Alone (it runs phase 5 first): ``python -c "import chip_smoke, torch;
    chip_smoke.tune_path(torch.device('cuda'))"``.
+17. The data layer and the device feed (``ray_tpu_torch.data``) on a fresh
+   ``init()``, the flash counter at 0: (a) ``JaxTrainer(datasets={"train":
+   ds})`` with one worker holding the card, ``ds`` 64 x 2048 tokens from
+   seed 0 (its first 8 rows phase 5's batch), targets added by
+   ``map_batches``, 8 blocks; the loop feeds
+   ``get_dataset_shard("train").to_jax(batch_size=8, prefetch=2)`` (pinned
+   staging, a side-stream copy) into bench_400m's step for 6 AdamW steps
+   (full remat): the flash kernel 2 x 24 x 6 times, the first batch phase
+   5's and the first loss phase 5's to every printed digit, the step
+   median beside phase 5's; (b) BASELINE config 4 at ImageNet's widths:
+   2,048 records of a 224 x 224 x 3 uint8 image, a label and an index
+   (seed 0, 308 MB; the count cut to the run's time) written with
+   ``write_numpy`` as 16 shards, read back with ``read_numpy``,
+   normalised to f32 by an actor pool, ``streaming_split(1)``; pass 1
+   feeds the card alone (images/s, GB/s beside a plain pinned ``copy_`` of
+   one batch, the object store's peak, the first batch held to its
+   records' values), pass 2 feeds ViT-L/16's train step at 32 images
+   (images/s beside the bare step on a resident batch, the device-busy
+   share of one profiled window; head_dim 64 runs the reference
+   attention, so no kernel of the port); (c) TFRecord and Avro round
+   trips, ``iter_torch_batches`` onto the card, the feed's pinned staging
+   and side stream checked directly; after ``shutdown()`` no prefetch,
+   map-pool, shuffle or train-worker thread is left and the card's bytes
+   are back within 256 MiB of the base. Alone (it runs phase 5 first):
+   ``python -c "import chip_smoke, torch;
+   chip_smoke.data_path(torch.device('cuda'))"``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -3064,6 +3090,456 @@ def tune_path(dev, phase5=None, smi=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the data layer and the device feed
+# ---------------------------------------------------------------------------
+
+# ImageNet's per-channel mean and std, on the 0-255 scale
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32) * 255
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32) * 255
+
+
+def token_dataset(rdata, vocab: int, rows: int = 64, blocks: int = 8):
+    """Phase 17(a)'s dataset: ``rows`` x 2048 tokens from seed 0 (its first
+    8 rows are ``bench_batch``'s), targets added by ``map_batches``, then
+    ``blocks`` blocks in row order."""
+    tokens = np.random.default_rng(0).integers(0, vocab, (rows, 2048))
+    return rdata.from_numpy(tokens, "tokens").map_batches(
+        lambda b: {"tokens": b["tokens"],
+                   "targets": np.roll(b["tokens"], -1, axis=1)}
+    ).repartition(blocks)
+
+
+def data_train_loop(config: dict) -> None:
+    """One rank of phase 17(a): the train step of ``config["cfg"]``
+    (bench_400m on the card) on ``config["device"]``, fed by
+    ``get_dataset_shard("train").to_jax(batch_size=8, prefetch=2)``, for
+    ``config["steps"]`` AdamW steps, each reported with its loss and time;
+    the first batch is held to ``bench_batch``'s rows."""
+    import torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import LlamaModel
+    dev = torch.device(config["device"])
+    cfg = config["cfg"]
+    ts = train.make_train_step(LlamaModel(cfg, device=dev))
+    params, opt = ts.init_fn(0)
+    want = bench_batch(cfg)
+    it = train.get_dataset_shard("train").to_jax(batch_size=8, prefetch=2,
+                                                 device=dev)
+    try:
+        for step, b in enumerate(it):
+            if step == config["steps"]:
+                break
+            batch = (b["tokens"], b["targets"])
+            metrics = {"step": step, "device": b["tokens"].device.type}
+            if step == 0:
+                metrics["first_batch_is_bench_batch"] = all(
+                    torch.equal(t.cpu(), torch.from_numpy(w))
+                    for t, w in zip(batch, want))
+            t0 = time.perf_counter()
+            params, opt, m = ts.step_fn(params, opt, batch)
+            metrics.update(loss=m["loss"].item(),
+                           step_s=time.perf_counter() - t0)
+            train.report(metrics)
+    finally:
+        it.close()
+
+
+def data_llama(dev, phase5: dict, cfg, tmp: str, smi: str) -> dict:
+    """Phase 17(a): ``JaxTrainer(datasets={"train": token_dataset})``, one
+    worker holding the card, 6 steps of ``data_train_loop``: the flash
+    kernel 2 x layers x 6 times, the first batch phase 5's, its loss phase
+    5's to every printed digit, the step median beside phase 5's."""
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import attention as attn
+    steps = 6
+    attn.flash_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    result = train.JaxTrainer(
+        data_train_loop,
+        train_loop_config={"device": str(dev), "steps": steps, "cfg": cfg},
+        scaling_config=train.ScalingConfig(use_gpu=dev.type == "cuda"),
+        run_config=train.RunConfig(name="phase17a", storage_path=tmp),
+        datasets={"train": token_dataset(rdata, cfg.vocab_size)}).fit()
+    fit_s = time.perf_counter() - t0
+    launches = attn.flash_attention_kernel.launches
+    if result.error is not None:
+        raise RuntimeError(f"phase 17(a): {result.error}")
+    hist = [e["metrics"] for e in result.metrics_history]
+    if [m["step"] for m in hist] != list(range(steps)):
+        raise RuntimeError(f"phase 17(a) steps: {hist}")
+    if not hist[0]["first_batch_is_bench_batch"]:
+        raise RuntimeError("phase 17(a): the first batch is not phase 5's")
+    if {m["device"] for m in hist} != {dev.type}:
+        raise RuntimeError(f"phase 17(a): batches on {hist}")
+    want = 2 * cfg.n_layers * steps if dev.type == "cuda" else 0
+    if launches != want:
+        raise RuntimeError(f"phase 17(a): flash launches {launches} != "
+                           f"{want}")
+    losses = [m["loss"] for m in hist]
+    if f"{losses[0]:.6f}" != f"{phase5['loss_first']:.6f}":
+        raise RuntimeError(f"phase 17(a): first loss {losses[0]!r} is not "
+                           f"phase 5's {phase5['loss_first']!r}")
+    step_ms = float(np.median([m["step_s"] for m in hist[1:]])) * 1e3
+    log(f"phase 17(a): JaxTrainer(datasets=...) over 64 x 2048 tokens in 8 "
+        f"blocks (seed 0, targets by map_batches), to_jax(batch_size=8, "
+        f"prefetch=2) into bench_400m's step, one worker holding the card, "
+        f"{steps} AdamW steps: losses {losses}; first loss "
+        f"{losses[0]:.6f} against phase 5's {phase5['loss_first']:.6f}; "
+        f"step median {step_ms:.2f} ms (steps 1-5, host clock around each "
+        f"step and its loss's .item()) beside phase 5's "
+        f"{phase5['step_ms']:.2f} ms; fit {fit_s:.1f} s; flash launches "
+        f"{launches} ({smi})")
+    return {"losses": losses, "step_ms": step_ms, "fit_s": fit_s,
+            "launches": launches}
+
+
+def image_records(n: int, size: int, seed: int = 0) -> np.ndarray:
+    """``n`` records of an HWC uint8 image, a label of 1,000 classes and
+    the record's index, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    rec = np.empty(n, dtype=[("image", np.uint8, (size, size, 3)),
+                             ("label", np.int64), ("index", np.int64)])
+    rec["image"] = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+    rec["label"] = rng.integers(0, 1000, n)
+    rec["index"] = np.arange(n)
+    return rec
+
+
+class Normalize:
+    """The actor pool's preprocessing: records to f32 images normalised by
+    ImageNet's mean and std, labels and indices."""
+
+    def __call__(self, batch):
+        rec = batch["record"]
+        images = rec["image"].astype(np.float32)
+        images -= IMAGENET_MEAN
+        images /= IMAGENET_STD
+        return {"image": images,
+                "label": np.ascontiguousarray(rec["label"]),
+                "index": np.ascontiguousarray(rec["index"])}
+
+
+def store_used() -> int:
+    from ray_tpu_torch._private import worker
+    return sum(node.store.used_bytes()
+               for node in worker.global_runtime().alive_nodes())
+
+
+def pinned_copy_ms(dev, nbytes: int, iters: int = 20) -> float:
+    """Device time of one plain ``copy_`` of ``nbytes`` from pinned host
+    memory to the card (CUDA events around ``iters`` copies)."""
+    import torch
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    for _ in range(3):
+        dst.copy_(src, non_blocking=True)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        dst.copy_(src, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def busy_share(prof, wall_ms: float) -> tuple:
+    """The union of the device's kernel and copy intervals in a profiled
+    window over its wall time, and the window's host-to-device copies by
+    kind."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    copies = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                "HtoD" in e.name:
+            copies[e.name] = copies.get(e.name, 0) + 1
+    return busy / 1e3 / wall_ms, copies
+
+
+def vit_pass(ts, params, opt, batches, dev, profile_at=None) -> dict:
+    """Train steps over ``batches`` (dicts of ``image`` and ``label`` on
+    the card): images/s from the second step to the end (one sync at each
+    end), the losses, the last batch, and with ``profile_at`` the
+    device-busy share and host-to-device copies of 3 steps from there under
+    the CUDA profiler."""
+    import torch
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    losses, out = [], {"busy": float("nan"), "copies": {},
+                       "window_ms": float("nan")}
+    for i, b in enumerate(batches):
+        if i == 1:
+            sync()
+            t0 = time.perf_counter()
+        if i == profile_at and dev.type == "cuda":
+            sync()
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+            w0 = time.perf_counter()
+        last = (b["image"], b["label"])
+        params, opt, m = ts.step_fn(params, opt, last)
+        losses.append(m["loss"])
+        if profile_at is not None and i == profile_at + 2 and \
+                dev.type == "cuda":
+            sync()
+            out["window_ms"] = (time.perf_counter() - w0) * 1e3
+            prof.stop()
+            out["busy"], out["copies"] = busy_share(prof, out["window_ms"])
+    sync()
+    steps = len(losses)
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"phase 17(b): losses {losses}")
+    out.update(steps=steps, losses=losses, last=last,
+               images_s=(steps - 1) * last[1].shape[0]
+               / (time.perf_counter() - t0))
+    return out
+
+
+def data_stream(dev, tmp: str, smi: str, n: int = 2048, size: int = 224,
+                batch: int = 32, vit_cfg=None) -> dict:
+    """Phase 17(b): ``n`` records of ``size`` x ``size`` x 3 uint8 images
+    written as 16 ``.npy`` shards, read back with ``read_numpy``,
+    normalised by an actor pool (``Normalize``) and ``streaming_split(1)``;
+    pass 1 streams them to the card alone (images/s, GB/s beside a plain
+    pinned copy, the object store's peak), pass 2 into ViT-L/16's train
+    step (images/s beside the bare step on a resident batch and beside the
+    same steps fed from the normalised blocks held in the store, the
+    device-busy share of one profiled window)."""
+    import os
+    import torch
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch.models import ViTConfig, ViTModel
+    from ray_tpu_torch.train import make_train_step
+    vit_cfg = vit_cfg or ViTConfig.vit_l16()
+    t0 = time.perf_counter()
+    rec = image_records(n, size)
+    path = os.path.join(tmp, "images")
+    rdata.from_numpy(rec, "record").repartition(16).write_numpy(path,
+                                                                 "record")
+    write_s = time.perf_counter() - t0
+    shards = sorted(os.listdir(path))
+    if len(shards) != 16:
+        raise RuntimeError(f"phase 17(b): {len(shards)} shards written")
+    mib = rec.nbytes / 2**20
+    del rec
+    ds = rdata.read_numpy(path, column="record").map_batches(
+        Normalize, concurrency=(2, 4))
+    shard = ds.streaming_split(1)[0]
+    want = image_records(n, size)    # the expected values, by index
+
+    def expect(index):
+        images = want["image"][index].astype(np.float32)
+        images -= IMAGENET_MEAN
+        images /= IMAGENET_STD
+        return images, want["label"][index]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # pass 1: the data alone
+    seen, peak, labels = 0, 0, 0
+    t0 = time.perf_counter()
+    for i, b in enumerate(shard.to_jax(batch_size=batch, prefetch=2,
+                                       device=dev)):
+        if i == 0:
+            images, lab = expect(b["index"].cpu().numpy())
+            if not (torch.equal(b["image"].cpu(), torch.from_numpy(images))
+                    and torch.equal(b["label"].cpu(),
+                                    torch.from_numpy(lab))):
+                raise RuntimeError("phase 17(b): a batch on the card is "
+                                   "not its records' normalised values")
+        seen += b["label"].shape[0]
+        labels += int(b["label"].sum())
+        peak = max(peak, store_used())
+    sync()
+    pass1_s = time.perf_counter() - t0
+    if seen != n or labels != int(want["label"].sum()):
+        raise RuntimeError(f"phase 17(b): {seen} images, label sum "
+                           f"{labels} (want {n}, {want['label'].sum()})")
+    batch_bytes = batch * (size * size * 3 * 4 + 8 + 8)
+    fed_gbs = n / batch * batch_bytes / pass1_s / 1e9
+    copy_ms = pinned_copy_ms(dev, batch_bytes) if dev.type == "cuda" \
+        else float("nan")
+    link_gbs = batch_bytes / copy_ms / 1e6
+    log(f"phase 17(b) pass 1: {n} images ({mib:.1f} MiB of uint8 records "
+        f"in 16 .npy shards, written in {write_s:.1f} s) read, normalised "
+        f"by an actor pool and fed to {dev} in batches of {batch}: "
+        f"{n / pass1_s:.1f} images/s, {fed_gbs:.2f} GB/s onto the card "
+        f"beside {link_gbs:.2f} GB/s of a plain pinned copy_ of one batch's "
+        f"{batch_bytes / 1e6:.2f} MB ({copy_ms:.3f} ms); the object store's "
+        f"peak {peak / 2**20:.1f} MiB of its "
+        f"{store_capacity() / 2**20:.0f} MiB ({smi})")
+
+    # pass 2: into ViT-L/16's train step; then the same steps on one
+    # resident batch, and fed from the normalised blocks held in the store
+    model = ViTModel(vit_cfg, device=dev)
+    ts = make_train_step(model)
+    params, opt = ts.init_fn(0)
+    streamed = vit_pass(ts, params, opt, shard.to_jax(
+        batch_size=batch, prefetch=2, device=dev), dev,
+        profile_at=min(30, n // batch - 4))
+    if streamed["steps"] != n // batch:
+        raise RuntimeError(f"phase 17(b): {streamed['steps']} steps")
+    resident = streamed.pop("last")
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        ts.step_fn(params, opt, resident)
+    sync()
+    bare_ms = (time.perf_counter() - t1) / 20 * 1e3
+    held = ds.materialize()
+    from_store = vit_pass(ts, params, opt, held.streaming_split(1)[0].to_jax(
+        batch_size=batch, prefetch=2, device=dev), dev)
+    from_store.pop("last")
+    del held
+    losses = streamed["losses"]
+    log(f"phase 17(b) pass 2: the same stream into ViT-L/16's train step "
+        f"({streamed['steps']} steps of {batch} images, AdamW, bf16 with "
+        f"remat): {streamed['images_s']:.1f} images/s from step 1 (one "
+        f"sync at each end), beside {batch / bare_ms * 1e3:.1f} images/s "
+        f"of the bare step on one resident batch ({bare_ms:.2f} ms, 20 "
+        f"steps back to back) and {from_store['images_s']:.1f} images/s fed "
+        f"from the normalised blocks held in the store (no reading or "
+        f"normalising beside the steps); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; device busy {streamed['busy'] * 100:.1f} % of a "
+        f"window of 3 streamed steps under the CUDA profiler "
+        f"({streamed['window_ms']:.1f} ms); its host-to-device copies "
+        f"{streamed['copies']} ({smi})")
+    del model, ts, params, opt, resident
+    free_card()
+    return {"pass1_images_s": n / pass1_s, "fed_gbs": fed_gbs,
+            "link_gbs": link_gbs, "store_peak": peak,
+            "streamed_images_s": streamed["images_s"],
+            "from_store_images_s": from_store["images_s"],
+            "bare_step_ms": bare_ms, "busy": streamed["busy"],
+            "copies": streamed["copies"]}
+
+
+def store_capacity() -> int:
+    from ray_tpu_torch._private import worker
+    return sum(node.store.capacity_bytes
+               for node in worker.global_runtime().alive_nodes())
+
+
+def data_formats(dev, tmp: str) -> dict:
+    """Phase 17(c): a TFRecord and an Avro round trip of a small table (the
+    stdlib codecs, on the card's machine), ``iter_torch_batches`` onto the
+    card, and the feed's own contract: pinned staging, the copy on a side
+    stream, the consumer's stream waiting for it."""
+    import os
+    import torch
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch.data.iterator import _CudaFeed
+    rows = [{"name": f"r{i}", "score": i * 0.5, "labels": [i, i * 2]}
+            for i in range(12)]
+    tfr = os.path.join(tmp, "tfr")
+    rdata.from_items(rows).write_tfrecords(tfr)
+    back = {r["name"][0]: r for r in rdata.read_tfrecords(tfr).take_all()}
+    if set(back) != {f"r{i}".encode() for i in range(12)} or \
+            back[b"r3"] != {"name": [b"r3"], "score": [1.5],
+                            "labels": [3, 6]}:
+        raise RuntimeError(f"phase 17(c): TFRecord round trip gave {back}")
+    avro = os.path.join(tmp, "avro")
+    flat = [{"name": r["name"], "score": r["score"], "raw": bytes([i])}
+            for i, r in enumerate(rows)]
+    rdata.from_items(flat).write_avro(avro)
+    got = sorted(rdata.read_avro(avro).take_all(), key=lambda r: r["name"])
+    if got != sorted(flat, key=lambda r: r["name"]):
+        raise RuntimeError(f"phase 17(c): Avro round trip gave {got}")
+    batches = list(rdata.range(64, parallelism=4).iter_torch_batches(
+        batch_size=16, device=str(dev)))
+    if {b["id"].device.type for b in batches} != {dev.type} or \
+            sorted(int(x) for b in batches for x in b["id"]) != \
+            list(range(64)):
+        raise RuntimeError("phase 17(c): iter_torch_batches off the card")
+    checked = {}
+    if dev.type == "cuda":
+        feed = _CudaFeed(dev, 2)
+        batch = {"x": np.arange(4096, dtype=np.float32).reshape(64, 64)}
+        slot, staged = feed.stage(batch, {})
+        out, done = feed.launch(slot, staged, {"x": torch.bfloat16}, None)
+        out = feed.hand_over(out, done)
+        checked = {"pinned": staged["x"].is_pinned(),
+                   "side_stream": feed.stream != torch.cuda.current_stream(),
+                   "equal": torch.equal(out["x"], torch.from_numpy(
+                       batch["x"]).to(dev, torch.bfloat16))}
+        if not all(checked.values()):
+            raise RuntimeError(f"phase 17(c): the feed {checked}")
+    log(f"phase 17(c): TFRecord and Avro round trips of 12 rows, "
+        f"iter_torch_batches onto {dev} ({len(batches)} batches), the "
+        f"feed's staging and side-stream copy: {checked}")
+    return checked
+
+
+def data_threads():
+    """The data layer's threads still alive: prefetch threads, shuffle
+    reapers, and the executors of its map-pool, shuffle and train-worker
+    actors."""
+    actors = actor_threads({"_MapWorker", "ShuffleAggregator",
+                            "_TrainWorker"})
+    return lambda: actors() + [
+        t for t in threading.enumerate() if t.is_alive() and t.name in (
+            "data-prefetch", "shuffle-aggregator-reaper")]
+
+
+def data_path(dev, phase5=None, smi=None) -> dict:
+    """Phase 17: the data layer and the device feed on a fresh ``init()``
+    (see the module's docstring). Alone (it first runs phase 5 for its
+    loss and step time): ``python -c "import chip_smoke, torch;
+    chip_smoke.data_path(torch.device('cuda'))"``."""
+    import shutil
+    import tempfile
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import LlamaConfig
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    cfg = LlamaConfig.bench_400m()
+    if phase5 is None:
+        phase5 = train_path(dev, cfg.n_layers)
+    if rt.is_initialized():
+        raise RuntimeError("a runtime is still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    rt.init()
+    try:
+        if rt.available_resources().get("GPU") != 1.0:
+            raise RuntimeError(f"init() found {rt.cluster_resources()}")
+        llama = data_llama(dev, phase5, cfg, tmp, smi)
+        free_card()
+        stream = data_stream(dev, tmp, smi)
+        formats = data_formats(dev, tmp)
+        threads = data_threads()
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    freed, workspaces = wait_freed(base, "after shutdown()", threads=threads)
+    out = {"part": "17", "launches": llama["launches"],
+           "bytes_after_shutdown": freed, "base_bytes": base,
+           "cublas_workspaces_cleared": workspaces,
+           "seconds": time.perf_counter() - t0, "card": smi}
+    log(json.dumps(out))
+    out.update(llama=llama, stream=stream, formats=formats)
+    return out
+
+
 def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3250,6 +3726,12 @@ def main() -> int:
     # ActorPool and Queue on CUDA tensors
     tuned = tune_path(dev, train, smi)
     rows[2]["launches"] += tuned["launches"]
+
+    # 17. the data layer and the device feed: datasets on the runtime,
+    # streamed through the pinned-memory prefetcher into bench_400m's step
+    # (the flash counter at 0) and ViT-L/16
+    fed = data_path(dev, train, smi)
+    rows[2]["launches"] += fed["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -47,7 +47,10 @@ power-of-two-choices routing, the controller, the HTTP proxy) with
 ``llm.prefix_router``, ``llm.disagg``'s prefill/decode graph) — and the
 libraries on that core: ``tune`` (Tuner, schedulers, searchers) and
 ``util``'s ``ActorPool``, ``Queue``, ``multiprocessing.Pool`` and
-``collective``.
+``collective`` — and ``data`` on that core (blocks of numpy columns, the
+streaming executor with its actor pools and hash shuffle,
+``streaming_split``, the readers and writers), whose ``to_jax`` feeds the
+card through pinned memory and a side stream.
 
 Importing the package imports no ``torch``: the runtime checks for tensors
 only once ``torch`` is in ``sys.modules``, and detects the card at ``init``.

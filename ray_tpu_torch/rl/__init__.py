@@ -9,8 +9,9 @@ data-parallel over the mesh's ``dp`` axis. ``rl.convert`` carries a JAX
 learner's state across; ``rl.optim`` holds optax's Adam and RMSprop.
 
 ``Algorithm``/``AlgorithmConfig`` drive EnvRunner actors of the port's
-runtime, and ``rl.tuned_examples`` holds JAX's tuned configs; the parquet IO
-of ``offline.py`` waits for the data layer.
+runtime, and ``rl.tuned_examples`` holds JAX's tuned configs;
+``offline.py``'s ``write_experiences``/``read_experiences`` keep logged
+batches on parquet through ``ray_tpu_torch.data``.
 """
 
 from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig

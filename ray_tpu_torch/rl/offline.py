@@ -10,9 +10,9 @@ Reference: ``rllib/offline/`` — offline training without an environment:
   Q) so values of out-of-distribution actions stay bounded; plain SGD.
 - :func:`train_offline` drives either over any object with
   ``iter_batches(batch_size=...)`` yielding dicts of numpy arrays.
-
-JAX's dataset IO (``write_experiences``/``read_experiences``, parquet
-through ``ray_tpu.data``) waits for the port of the data layer.
+- :func:`write_experiences` / :func:`read_experiences` — dataset IO for
+  EnvRunner sample batches on parquet (JAX's, through the port's
+  ``ray_tpu_torch.data``; pyarrow is imported when they are called).
 
 These learners keep JAX's own init (``offline.py:77``): N(0,1)·d_in^-½
 weights, not PPO's √(2/d_in).
@@ -20,7 +20,7 @@ weights, not PPO's √(2/d_in).
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Any, Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -28,6 +28,41 @@ import torch
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.rl.convert import assign_tree, clone_tree
 from ray_tpu_torch.rl.ppo import _gradient_step, _mlp_apply, _trainable
+
+
+def write_experiences(batches: List[Dict[str, np.ndarray]],
+                      path: str) -> int:
+    """Persist EnvRunner sample batches as parquet; returns row count.
+    Transitions are flattened to (obs, action, reward, done, next_obs)."""
+    import pyarrow.parquet as pq
+
+    from ray_tpu_torch.data.block import block_from_batch, concat_blocks
+
+    rows = 0
+    blocks = []
+    for batch in batches:
+        obs = np.asarray(batch["obs"], np.float32)
+        nxt = np.concatenate(
+            [obs[1:], np.asarray(batch["next_obs_last"],
+                                 np.float32)[None]], axis=0)
+        blocks.append(block_from_batch({
+            "obs": obs,
+            "next_obs": nxt,
+            "actions": np.asarray(batch["actions"], np.int64),
+            "rewards": np.asarray(batch["rewards"], np.float32),
+            "dones": np.asarray(batch["dones"], np.bool_),
+        }))
+        rows += len(batch["rewards"])
+    pq.write_table(concat_blocks(blocks).to_arrow(), path)
+    return rows
+
+
+def read_experiences(paths) -> "Any":
+    """Experience dataset (``ray_tpu_torch.data.Dataset`` over parquet
+    shards)."""
+    from ray_tpu_torch.data import read_parquet
+
+    return read_parquet(paths)
 
 
 def iter_transition_batches(ds, batch_size: int = 256,
@@ -47,7 +82,9 @@ def _mlp_init(gen: torch.Generator, sizes, device: torch.device):
 
 
 def _tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+    """A copy of ``x``: a dataset's batch is a read-only view of a stored
+    block, which a tensor must not alias."""
+    return torch.tensor(np.asarray(x), device=device).to(dtype)
 
 
 class BCLearner:

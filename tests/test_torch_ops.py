@@ -537,24 +537,39 @@ def _imports_with_scope(path):
 def test_port_imports_only_the_stdlib_torch_and_numpy():
     """The card's machine has torch and numpy, not optax, pyarrow, yaml or
     JAX: the port and chip_smoke.py import nothing else outside the stdlib
-    and the port itself. Two exceptions copy JAX's lazy imports, each
+    and the port itself. The exceptions copy JAX's lazy imports, each
     inside a function: ``transformers`` in ``llm/tokenizer.py`` (a named
-    tokenizer) and ``yaml`` in ``serve/schema.py`` (a ``.yaml`` app config,
+    tokenizer), ``yaml`` in ``serve/schema.py`` (a ``.yaml`` app config,
     which fails on the card's machine as it would in JAX without
-    ``yaml``)."""
+    ``yaml``), and the data layer's file formats and table types: ``pyarrow``
+    in ``data/{block,dataset,read_api}.py`` and ``rl/offline.py``
+    (parquet, csv, json, orc, Delta and ``"pyarrow"`` batches), ``pandas``
+    in ``data/block.py`` (``"pandas"`` batches, ``from_pandas``) and
+    ``PIL`` in ``data/read_api.py`` (``read_images``). The port's blocks
+    are numpy, so the rest of the data layer runs without them."""
     import sys
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy",
                                               "ray_tpu_torch"}
-    lazy_only = {("transformers", "tokenizer.py"), ("yaml", "schema.py")}
+    lazy_only = {("transformers", "tokenizer.py"), ("yaml", "schema.py"),
+                 ("pyarrow", "block.py"), ("pandas", "block.py"),
+                 ("pyarrow", "dataset.py"), ("pyarrow", "read_api.py"),
+                 ("PIL", "read_api.py"), ("pyarrow", "offline.py")}
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    lazy = []
+    lazy = set()
     for path in files:
         for root, in_function in _imports_with_scope(path):
             if (root, path.name) in lazy_only:
                 assert in_function, path
-                lazy.append(path)
+                lazy.add((root, path.relative_to(REPO).as_posix()))
                 continue
             assert root in allowed, (path, root)
-    assert lazy == [REPO / "ray_tpu_torch" / "llm" / "tokenizer.py",
-                    REPO / "ray_tpu_torch" / "serve" / "schema.py"]
+    assert lazy == {
+        ("transformers", "ray_tpu_torch/llm/tokenizer.py"),
+        ("yaml", "ray_tpu_torch/serve/schema.py"),
+        ("pyarrow", "ray_tpu_torch/data/block.py"),
+        ("pandas", "ray_tpu_torch/data/block.py"),
+        ("pyarrow", "ray_tpu_torch/data/dataset.py"),
+        ("pyarrow", "ray_tpu_torch/data/read_api.py"),
+        ("PIL", "ray_tpu_torch/data/read_api.py"),
+        ("pyarrow", "ray_tpu_torch/rl/offline.py")}
