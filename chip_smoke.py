@@ -224,6 +224,29 @@
    ``python -c "import chip_smoke, torch;
    chip_smoke.data_path(torch.device('cuda'))"``.
 
+18. Process workers, the runtime's default (every phase but 17 runs on
+   it; phase 17 runs every task and actor on the driver's threads,
+   ``IN_THREADS``, as the in-thread reference), on a fresh ``init()``:
+   (a) 1,000 no-op tasks in worker processes, none in the driver,
+   ``CUDA_VISIBLE_DEVICES=''`` and ``torch.cuda.is_available()`` False in
+   each, their rate beside the same tasks on the driver's threads; a
+   module on the card as an argument, a closure over a CUDA tensor and an
+   actor given a factory closing over the card's device run in the driver
+   and give CUDA tensors, and a process actor refuses a CUDA argument; a
+   SIGKILLed process actor restarts; a task whose worker is SIGKILLed
+   gives its retry's result; (b) phase 17(b) with the reads and the
+   normalising actor pool in worker processes: images/s alone and into
+   ViT-L/16's step beside phase 17's in-thread figures and the bare step;
+   (c) phase 17(a) with the dataset's tasks in worker processes, the flash
+   counter at 0: 2 x 24 x 6 launches, the first loss phase 5's exactly;
+   (d) a 256 MiB bf16 CUDA tensor and a one-rank DTensor through
+   ``wire_dumps``/``wire_loads``: back on the card bit-equal, and CPU
+   tensors bit-equal in a worker; (e) after ``shutdown()`` and
+   ``stop_worker_plane()`` no worker process, no forkserver and no bytes
+   above the base on the card. Alone (it runs phase 5 first):
+   ``python -c "import chip_smoke, torch;
+   chip_smoke.process_path(torch.device('cuda'))"``.
+
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
 script then exits non-zero; without a CUDA device it exits 2 and prints no
@@ -253,6 +276,13 @@ STEP_TOL = dict(atol=0.15, rtol=0.05)   # tests/test_llm_paged.py bf16 bar
 F32_FLASH_TOL = dict(atol=2e-5, rtol=2e-4)   # tests/test_ops.py:324
 GRAD_TOL = dict(atol=5e-4, rtol=5e-3)        # tests/test_ops.py:359
 LOSS_TOL = dict(atol=1e-4, rtol=1e-3)        # tests/test_ops.py:378
+
+
+# Phase 17 runs every task and actor on the driver's threads (JAX's
+# RAY_TPU_PROCESS_WORKERS=0): its figures are the in-thread reference that
+# phase 18(b, c) repeats with the data's tasks in worker processes. Every
+# other phase runs on the runtime's default, process workers.
+IN_THREADS = {"process_workers": False}
 
 
 def log(msg: str) -> None:
@@ -1588,8 +1618,12 @@ def iteration_split(algo, iterations: int = 3) -> dict:
                     spent[key] += time.perf_counter() - t0
         return wrapper
 
+    from ray_tpu_torch._private.worker_process import _ProcessActorInstance
     instances = [worker.global_worker()._actor_executors[
         h._ray_actor_id].instance for h in algo.runners]
+    if any(isinstance(i, _ProcessActorInstance) for i in instances):
+        raise RuntimeError("a runner of a learner on the card was built in a "
+                           "worker process, not in the driver")
     saved_api = {k: getattr(rt, k) for k in ("wait", "get", "put")}
     saved_remote = actor_mod.ActorMethod.remote
     try:
@@ -1974,7 +2008,8 @@ def runtime_rates(smi: str) -> dict:
     out["put_get_per_s"] = 100 / (time.perf_counter() - t0)
     if not np.array_equal(got, arr):
         raise RuntimeError("put/get changed the array")
-    log(f"runtime cost on this host ({smi}): {out['tasks_per_s']:.0f} "
+    log(f"runtime cost on this host ({smi}), tasks and the actor in worker "
+        f"processes (the default): {out['tasks_per_s']:.0f} "
         f"no-op tasks/s, {out['actor_calls_per_s']:.0f} actor calls/s, "
         f"{out['put_get_per_s']:.0f} put/get round trips/s of 1 MiB")
     return out
@@ -2772,7 +2807,7 @@ def train_driver_path(dev, phase5=None, smi=None) -> dict:
 # phase 16: tune and the utilities
 # ---------------------------------------------------------------------------
 
-def tune_trainable(config: dict, device: str) -> None:
+def tune_trainable(config: dict, device) -> None:
     """One trial of phase 16(a): the card's allocated bytes before the model
     is built, then ``bench_step`` at the trial's lr for up to 6 steps, each
     reported with its loss, its time and the card's peak bytes since the
@@ -2819,7 +2854,7 @@ def tune_asha(dev, phase5: dict, base: int, n_layers: int, smi: str):
     attn.flash_attention_kernel.launches = 0
     t0 = time.perf_counter()
     grid = tune.Tuner(
-        tune.with_parameters(tune_trainable, device=str(dev)),
+        tune.with_parameters(tune_trainable, device=dev),
         param_space={"lr": tune.grid_search([1e-3, 0.0, 3e-4])},
         tune_config=tune.TuneConfig(metric="loss", mode="min",
                                     max_concurrent_trials=1,
@@ -3145,11 +3180,13 @@ def data_train_loop(config: dict) -> None:
         it.close()
 
 
-def data_llama(dev, phase5: dict, cfg, tmp: str, smi: str) -> dict:
-    """Phase 17(a): ``JaxTrainer(datasets={"train": token_dataset})``, one
-    worker holding the card, 6 steps of ``data_train_loop``: the flash
-    kernel 2 x layers x 6 times, the first batch phase 5's, its loss phase
-    5's to every printed digit, the step median beside phase 5's."""
+def data_llama(dev, phase5: dict, cfg, tmp: str, smi: str,
+               part: str = "17(a)") -> dict:
+    """Phase 17(a) (and 18(c)): ``JaxTrainer(datasets={"train":
+    token_dataset})``, one worker holding the card, 6 steps of
+    ``data_train_loop``: the flash kernel 2 x layers x 6 times, the first
+    batch phase 5's, its loss phase 5's to every printed digit, the step
+    median beside phase 5's."""
     from ray_tpu_torch import data as rdata
     from ray_tpu_torch import train
     from ray_tpu_torch.ops import attention as attn
@@ -3160,29 +3197,32 @@ def data_llama(dev, phase5: dict, cfg, tmp: str, smi: str) -> dict:
         data_train_loop,
         train_loop_config={"device": str(dev), "steps": steps, "cfg": cfg},
         scaling_config=train.ScalingConfig(use_gpu=dev.type == "cuda"),
-        run_config=train.RunConfig(name="phase17a", storage_path=tmp),
+        run_config=train.RunConfig(name="phase" + part.strip("()")
+                                   .replace("(", ""), storage_path=tmp),
         datasets={"train": token_dataset(rdata, cfg.vocab_size)}).fit()
     fit_s = time.perf_counter() - t0
     launches = attn.flash_attention_kernel.launches
     if result.error is not None:
-        raise RuntimeError(f"phase 17(a): {result.error}")
+        raise RuntimeError(f"phase {part}: {result.error}")
     hist = [e["metrics"] for e in result.metrics_history]
     if [m["step"] for m in hist] != list(range(steps)):
-        raise RuntimeError(f"phase 17(a) steps: {hist}")
+        raise RuntimeError(f"phase {part} steps: {hist}")
     if not hist[0]["first_batch_is_bench_batch"]:
-        raise RuntimeError("phase 17(a): the first batch is not phase 5's")
+        raise RuntimeError(f"phase {part}: the first batch is not "
+                           f"phase 5's")
     if {m["device"] for m in hist} != {dev.type}:
-        raise RuntimeError(f"phase 17(a): batches on {hist}")
+        raise RuntimeError(f"phase {part}: batches on {hist}")
     want = 2 * cfg.n_layers * steps if dev.type == "cuda" else 0
     if launches != want:
-        raise RuntimeError(f"phase 17(a): flash launches {launches} != "
+        raise RuntimeError(f"phase {part}: flash launches {launches} != "
                            f"{want}")
     losses = [m["loss"] for m in hist]
     if f"{losses[0]:.6f}" != f"{phase5['loss_first']:.6f}":
-        raise RuntimeError(f"phase 17(a): first loss {losses[0]!r} is not "
-                           f"phase 5's {phase5['loss_first']!r}")
+        raise RuntimeError(f"phase {part}: first loss {losses[0]!r} is "
+                           f"not phase 5's {phase5['loss_first']!r}")
     step_ms = float(np.median([m["step_s"] for m in hist[1:]])) * 1e3
-    log(f"phase 17(a): JaxTrainer(datasets=...) over 64 x 2048 tokens in 8 "
+    log(f"phase {part}: JaxTrainer(datasets=...) over 64 x 2048 tokens in "
+        f"8 "
         f"blocks (seed 0, targets by map_batches), to_jax(batch_size=8, "
         f"prefetch=2) into bench_400m's step, one worker holding the card, "
         f"{steps} AdamW steps: losses {losses}; first loss "
@@ -3265,7 +3305,8 @@ def busy_share(prof, wall_ms: float) -> tuple:
     return busy / 1e3 / wall_ms, copies
 
 
-def vit_pass(ts, params, opt, batches, dev, profile_at=None) -> dict:
+def vit_pass(ts, params, opt, batches, dev, profile_at=None,
+             part: str = "17(b)") -> dict:
     """Train steps over ``batches`` (dicts of ``image`` and ``label`` on
     the card): images/s from the second step to the end (one sync at each
     end), the losses, the last batch, and with ``profile_at`` the
@@ -3302,7 +3343,7 @@ def vit_pass(ts, params, opt, batches, dev, profile_at=None) -> dict:
     steps = len(losses)
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)):
-        raise RuntimeError(f"phase 17(b): losses {losses}")
+        raise RuntimeError(f"phase {part}: losses {losses}")
     out.update(steps=steps, losses=losses, last=last,
                images_s=(steps - 1) * last[1].shape[0]
                / (time.perf_counter() - t0))
@@ -3310,7 +3351,7 @@ def vit_pass(ts, params, opt, batches, dev, profile_at=None) -> dict:
 
 
 def data_stream(dev, tmp: str, smi: str, n: int = 2048, size: int = 224,
-                batch: int = 32, vit_cfg=None) -> dict:
+                batch: int = 32, vit_cfg=None, part: str = "17(b)") -> dict:
     """Phase 17(b): ``n`` records of ``size`` x ``size`` x 3 uint8 images
     written as 16 ``.npy`` shards, read back with ``read_numpy``,
     normalised by an actor pool (``Normalize``) and ``streaming_split(1)``;
@@ -3333,7 +3374,7 @@ def data_stream(dev, tmp: str, smi: str, n: int = 2048, size: int = 224,
     write_s = time.perf_counter() - t0
     shards = sorted(os.listdir(path))
     if len(shards) != 16:
-        raise RuntimeError(f"phase 17(b): {len(shards)} shards written")
+        raise RuntimeError(f"phase {part}: {len(shards)} shards written")
     mib = rec.nbytes / 2**20
     del rec
     ds = rdata.read_numpy(path, column="record").map_batches(
@@ -3361,22 +3402,23 @@ def data_stream(dev, tmp: str, smi: str, n: int = 2048, size: int = 224,
             if not (torch.equal(b["image"].cpu(), torch.from_numpy(images))
                     and torch.equal(b["label"].cpu(),
                                     torch.from_numpy(lab))):
-                raise RuntimeError("phase 17(b): a batch on the card is "
-                                   "not its records' normalised values")
+                raise RuntimeError(f"phase {part}: a batch on the card "
+                                   f"is not its records' normalised "
+                                   f"values")
         seen += b["label"].shape[0]
         labels += int(b["label"].sum())
         peak = max(peak, store_used())
     sync()
     pass1_s = time.perf_counter() - t0
     if seen != n or labels != int(want["label"].sum()):
-        raise RuntimeError(f"phase 17(b): {seen} images, label sum "
+        raise RuntimeError(f"phase {part}: {seen} images, label sum "
                            f"{labels} (want {n}, {want['label'].sum()})")
     batch_bytes = batch * (size * size * 3 * 4 + 8 + 8)
     fed_gbs = n / batch * batch_bytes / pass1_s / 1e9
     copy_ms = pinned_copy_ms(dev, batch_bytes) if dev.type == "cuda" \
         else float("nan")
     link_gbs = batch_bytes / copy_ms / 1e6
-    log(f"phase 17(b) pass 1: {n} images ({mib:.1f} MiB of uint8 records "
+    log(f"phase {part} pass 1: {n} images ({mib:.1f} MiB of uint8 records "
         f"in 16 .npy shards, written in {write_s:.1f} s) read, normalised "
         f"by an actor pool and fed to {dev} in batches of {batch}: "
         f"{n / pass1_s:.1f} images/s, {fed_gbs:.2f} GB/s onto the card "
@@ -3392,9 +3434,9 @@ def data_stream(dev, tmp: str, smi: str, n: int = 2048, size: int = 224,
     params, opt = ts.init_fn(0)
     streamed = vit_pass(ts, params, opt, shard.to_jax(
         batch_size=batch, prefetch=2, device=dev), dev,
-        profile_at=min(30, n // batch - 4))
+        profile_at=min(30, n // batch - 4), part=part)
     if streamed["steps"] != n // batch:
-        raise RuntimeError(f"phase 17(b): {streamed['steps']} steps")
+        raise RuntimeError(f"phase {part}: {streamed['steps']} steps")
     resident = streamed.pop("last")
     sync()
     t1 = time.perf_counter()
@@ -3404,11 +3446,11 @@ def data_stream(dev, tmp: str, smi: str, n: int = 2048, size: int = 224,
     bare_ms = (time.perf_counter() - t1) / 20 * 1e3
     held = ds.materialize()
     from_store = vit_pass(ts, params, opt, held.streaming_split(1)[0].to_jax(
-        batch_size=batch, prefetch=2, device=dev), dev)
+        batch_size=batch, prefetch=2, device=dev), dev, part=part)
     from_store.pop("last")
     del held
     losses = streamed["losses"]
-    log(f"phase 17(b) pass 2: the same stream into ViT-L/16's train step "
+    log(f"phase {part} pass 2: the same stream into ViT-L/16's train step "
         f"({streamed['steps']} steps of {batch} images, AdamW, bf16 with "
         f"remat): {streamed['images_s']:.1f} images/s from step 1 (one "
         f"sync at each end), beside {batch / bare_ms * 1e3:.1f} images/s "
@@ -3518,7 +3560,7 @@ def data_path(dev, phase5=None, smi=None) -> dict:
     torch._C._cuda_clearCublasWorkspaces()
     base = torch.cuda.memory_allocated()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
-    rt.init()
+    rt.init(_system_config=IN_THREADS)
     try:
         if rt.available_resources().get("GPU") != 1.0:
             raise RuntimeError(f"init() found {rt.cluster_resources()}")
@@ -3538,6 +3580,366 @@ def data_path(dev, phase5=None, smi=None) -> dict:
     log(json.dumps(out))
     out.update(llama=llama, stream=stream, formats=formats)
     return out
+
+
+
+def process_checks(smi: str, tmp: str) -> dict:
+    """Phase 18(a): 1,000 no-op tasks in worker processes (none in the
+    driver, the card hidden in every one), their rate beside the same tasks
+    on the driver's threads; a SIGKILLed process actor restarts; a task
+    whose worker is SIGKILLed gives its retried result."""
+    import os
+    import signal
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker_process as wp
+
+    @rt.remote
+    def noop():
+        return os.getpid()
+
+    @rt.remote
+    def probe():
+        import torch
+        return (os.getpid(), os.environ.get("CUDA_VISIBLE_DEVICES"),
+                torch.cuda.is_available())
+
+    driver = os.getpid()
+    rt.get([noop.remote() for _ in range(100)])           # warm-up
+    t0 = time.perf_counter()
+    pids = set(rt.get([noop.remote() for _ in range(1000)]))
+    proc_rate = 1000 / (time.perf_counter() - t0)
+    in_threads = noop.options(_in_process=True)
+    rt.get([in_threads.remote() for _ in range(100)])
+    t0 = time.perf_counter()
+    thread_pids = set(rt.get([in_threads.remote() for _ in range(1000)]))
+    thread_rate = 1000 / (time.perf_counter() - t0)
+    if driver in pids or thread_pids != {driver}:
+        raise RuntimeError(f"phase 18(a): no-op tasks ran in {pids} (the "
+                           f"driver is {driver}); in-thread ones in "
+                           f"{thread_pids}")
+    probed = {}
+    deadline = time.monotonic() + 120
+    while not pids <= set(probed) and time.monotonic() < deadline:
+        for pid, visible, cuda in rt.get([probe.remote()
+                                          for _ in range(4 * len(pids))]):
+            probed[pid] = (visible, cuda)
+    if not pids <= set(probed) or any(v != ("", False)
+                                      for v in probed.values()):
+        raise RuntimeError(f"phase 18(a): workers {sorted(pids)} probed "
+                           f"as {probed}")
+    card = card_plane_checks(driver)
+
+    @rt.remote(max_restarts=1)
+    class Holder:
+        def pid(self):
+            return os.getpid()
+
+    actor = Holder.remote()
+    pid1 = rt.get(actor.pid.remote())
+    os.kill(pid1, signal.SIGKILL)
+    pid2, t0 = None, time.monotonic()
+    while pid2 is None and time.monotonic() - t0 < 60:
+        try:
+            pid2 = rt.get(actor.pid.remote(), timeout=20)
+        except Exception:
+            time.sleep(0.1)
+    restart_s = time.monotonic() - t0
+    if pid2 is None or pid2 in (pid1, driver):
+        raise RuntimeError(f"phase 18(a): the actor's process {pid1} was "
+                           f"killed and it answered from {pid2}")
+    rt.kill(actor)
+
+    marker = os.path.join(tmp, "attempt")
+
+    @rt.remote(max_retries=2)
+    def slow():
+        n = len([f for f in os.listdir(tmp) if f.startswith("attempt")])
+        with open(f"{marker}.{n}", "w") as f:
+            f.write(str(os.getpid()))
+        if n == 0:
+            time.sleep(60)      # the first attempt is killed
+        return os.getpid(), n
+
+    ref = slow.remote()
+    first = None
+    deadline = time.monotonic() + 30
+    while first is None and time.monotonic() < deadline:
+        try:
+            with open(f"{marker}.0") as f:
+                first = int(f.read().strip() or 0) or None
+        except FileNotFoundError:
+            time.sleep(0.02)
+    if first is None:
+        rt.get(ref, timeout=1)          # raises the task's own error
+        raise RuntimeError("phase 18(a): the slow task never started")
+    os.kill(first, signal.SIGKILL)
+    retried_pid, attempt = rt.get(ref, timeout=60)
+    if retried_pid in (first, driver) or attempt != 1:
+        raise RuntimeError(f"phase 18(a): the killed task gave "
+                           f"{(retried_pid, attempt)}")
+    log(f"phase 18(a): 1,000 no-op tasks in {len(pids)} worker processes "
+        f"(none in the driver; CUDA_VISIBLE_DEVICES='' and "
+        f"torch.cuda.is_available() False in each): {proc_rate:.0f} "
+        f"tasks/s, beside {thread_rate:.0f} tasks/s on the driver's threads "
+        f"in the same runtime; a SIGKILLed process actor answered again "
+        f"from pid {pid2} after {restart_s:.2f} s; a task whose worker was "
+        f"SIGKILLed gave its retry's result (attempt {attempt}, pid "
+        f"{retried_pid}); {card}; {len(wp.live_workers())} workers live "
+        f"({smi})")
+    return {"tasks_per_s": proc_rate, "thread_tasks_per_s": thread_rate,
+            "workers": len(pids), "actor_restart_s": restart_s}
+
+
+def card_plane_checks(driver: int) -> str:
+    """Phase 18(a), the accelerator plane as the wire reads it: a module on
+    the card as an argument, a closure over a CUDA tensor and an actor
+    given a factory closing over the card's device run in the driver and
+    give CUDA tensors equal to the caller's; a process actor's method
+    refuses a CUDA tensor rather than copy it."""
+    import os
+    import torch
+    import ray_tpu_torch as rt
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    lin = torch.nn.Linear(256, 256, device="cuda")
+    x = torch.randn(8, 256, generator=gen, device="cuda")
+
+    @rt.remote
+    def apply(m, v):
+        return os.getpid(), m(v)
+
+    def scaled_by(t):
+        def scaled():
+            return os.getpid(), t * 2
+        return scaled
+
+    @rt.remote
+    class Runner:
+        def __init__(self, factory):
+            self.device = factory()
+
+        def zeros(self):
+            return os.getpid(), torch.zeros(1, device=self.device)
+
+        def device_of(self, t):
+            return str(t.device)
+
+    card, host = torch.device("cuda"), torch.device("cpu")
+    on_card = Runner.remote(lambda: card)   # RL's policy-factory shape
+    on_host = Runner.remote(lambda: host)
+    got = [rt.get(apply.remote(lin, x)),
+           rt.get(rt.remote(scaled_by(x)).remote()),
+           rt.get(on_card.zeros.remote())]
+    with torch.no_grad():
+        want = [lin(x), x * 2, torch.zeros(1, device="cuda")]
+    host_pid = rt.get(on_host.zeros.remote())[0]
+    try:
+        rt.get(on_host.device_of.remote(x))
+        refused = ""
+    except Exception as e:   # noqa: BLE001 - the refusal is the check
+        refused = str(e)
+    for h in (on_card, on_host):
+        rt.kill(h)
+    bad = [(i, pid, out.device) for i, ((pid, out), w) in
+           enumerate(zip(got, want))
+           if pid != driver or not out.is_cuda or not torch.equal(out, w)]
+    if bad or host_pid == driver or \
+            "num_gpus or _in_process" not in refused:
+        raise RuntimeError(f"phase 18(a): card-plane work {bad} (driver "
+                           f"{driver}); the host actor in {host_pid}; its "
+                           f"refusal {refused!r}")
+    return ("a module on the card, a closure over a CUDA tensor and an "
+            "actor given the card's device ran in the driver and gave "
+            "CUDA tensors equal to the caller's; a process actor refused "
+            "a CUDA argument")
+
+
+def wire_checks(dev, tmp: str, smi: str, mib: int = 256) -> dict:
+    """Phase 18(d): a ``mib`` MiB bf16 tensor on ``dev`` (the card) and a
+    one-rank DTensor through ``wire_dumps``/``wire_loads``: back on
+    ``dev``, bit-equal, in the driver; CPU tensors (the DTensor a plain
+    one), bit-equal, in a worker process."""
+    import hashlib
+    import os
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.device_objects import wire_dumps, wire_loads
+
+    def digest(t):
+        return hashlib.sha256(t.detach().cpu().contiguous().view(
+            torch.uint8).numpy().tobytes()).hexdigest()
+
+    @rt.remote
+    def in_worker(blob):
+        import hashlib as _hl
+        import torch as _torch
+        from ray_tpu_torch._private.device_objects import wire_loads as _wl
+        out = []
+        for t in _wl(blob):
+            out.append((type(t).__name__, t.device.type, str(t.dtype),
+                        tuple(t.shape), _hl.sha256(
+                            t.contiguous().view(_torch.uint8).numpy()
+                            .tobytes()).hexdigest()))
+        return out, os.getpid()
+
+    own_group = not dist.is_initialized()
+    if own_group:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method="file://" + os.path.join(tmp, "pg"),
+            world_size=1, rank=0)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(18)
+        big = torch.randn(mib << 19, generator=gen, device=dev,
+                          dtype=torch.float32).to(torch.bfloat16)
+        mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("dp",))
+        dt = distribute_tensor(torch.randn(64, 32, generator=gen,
+                                           device=dev), mesh, [Shard(0)],
+                               src_data_rank=None)
+        t0 = time.perf_counter()
+        blob = wire_dumps([big, dt])
+        dump_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back_big, back_dt = wire_loads(blob)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ok_driver = (back_big.device.type == dev.type
+                     and back_big.dtype == torch.bfloat16
+                     and torch.equal(back_big.view(torch.int16),
+                                     big.view(torch.int16))
+                     and isinstance(back_dt, DTensor)
+                     and back_dt.device_mesh.mesh_dim_names == ("dp",)
+                     and list(back_dt.placements) == [Shard(0)]
+                     and back_dt.to_local().device.type == dev.type
+                     and torch.equal(back_dt.full_tensor(),
+                                     dt.full_tensor()))
+        want = [("Tensor", "cpu", "torch.bfloat16", tuple(big.shape),
+                 digest(big)),
+                ("Tensor", "cpu", "torch.float32", tuple(dt.shape),
+                 digest(dt.full_tensor()))]
+        t0 = time.perf_counter()
+        got, pid = rt.get(in_worker.remote(blob), timeout=300)
+        worker_s = time.perf_counter() - t0
+        if not ok_driver or got != want or pid == os.getpid():
+            raise RuntimeError(f"phase 18(d): driver round trip "
+                               f"{ok_driver}; in worker {pid}: {got} "
+                               f"(want {want})")
+        blob_mib = len(blob) / 2**20
+        del big, dt, back_big, back_dt, blob
+    finally:
+        from ray_tpu_torch._private import device_objects
+        device_objects._MESHES.clear()
+        if own_group:
+            dist.destroy_process_group()
+    log(f"phase 18(d): a {mib} MiB bf16 tensor on {dev} and a one-rank "
+        f"DTensor (Shard(0) on a ('dp',) mesh) through wire_dumps "
+        f"({blob_mib:.1f} MiB, {dump_s:.2f} s) and wire_loads "
+        f"({load_s:.2f} s): back on {dev} bit-equal, the DTensor on an "
+        f"equivalent mesh; in a worker "
+        f"process CPU tensors (the DTensor a plain one), bit-equal by "
+        f"sha256 ({worker_s:.2f} s with the pipe) ({smi})")
+    return {"blob_mib": blob_mib, "dump_s": dump_s, "load_s": load_s,
+            "worker_s": worker_s}
+
+
+def process_path(dev, phase5=None, phase12=None, phase17=None,
+                 smi=None) -> dict:
+    """Phase 18: the runtime's default path, process workers, on a fresh
+    ``init()`` (see the module's docstring). Alone (it runs phase 5 first):
+    ``python -c "import chip_smoke, torch;
+    chip_smoke.process_path(torch.device('cuda'))"``."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch._private import worker_process as wp
+    from ray_tpu_torch.models import LlamaConfig
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    cfg = LlamaConfig.bench_400m()
+    if phase5 is None:
+        phase5 = train_path(dev, cfg.n_layers)
+    if rt.is_initialized():
+        raise RuntimeError("a runtime is still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_process_")
+    for part in "abcd":
+        os.makedirs(os.path.join(tmp, part))
+    rt.init()
+    pids = set()
+    try:
+        if not worker.global_runtime().process_router.enabled:
+            raise RuntimeError("phase 18: process workers are off")
+        checks = process_checks(smi, os.path.join(tmp, "a"))
+        before = wp.calls_sent()
+        stream = data_stream(dev, os.path.join(tmp, "b"), smi, part="18(b)")
+        llama = data_llama(dev, phase5, cfg, os.path.join(tmp, "c"), smi,
+                           part="18(c)")
+        worker_calls = wp.calls_sent() - before
+        if llama["losses"][0] != phase5["loss_first"]:
+            raise RuntimeError(f"phase 18(c): first loss "
+                               f"{llama['losses'][0]!r} is not phase 5's "
+                               f"{phase5['loss_first']!r} exactly")
+        if worker_calls <= 0:
+            raise RuntimeError("phase 18(b, c): no data task ran in a "
+                               "worker process")
+        free_card()
+        wire = wire_checks(dev, os.path.join(tmp, "d"), smi)
+        threads = data_threads()
+        pids = {w.pid for w in wp.live_workers()}
+        template = wp.forkserver_pid()
+    finally:
+        rt.shutdown()
+        wp.stop_worker_plane()
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = [p for p in pids | {template} if _alive(p)]
+    if wp.live_workers() or wp.forkserver_pid() is not None or left:
+        raise RuntimeError(f"phase 18(e): processes {left} and "
+                           f"{len(wp.live_workers())} workers left")
+    freed, workspaces = wait_freed(base, "phase 18 after shutdown()",
+                                   threads=threads)
+    if freed > base:
+        raise RuntimeError(f"phase 18(e): {freed - base} bytes above the "
+                           f"base after shutdown()")
+    p12 = (phase12 or {}).get("rates", {})
+    p17 = (phase17 or {}).get("stream", {})
+    log(f"phase 18: through processes {checks['tasks_per_s']:.0f} no-op "
+        f"tasks/s (phase 12's {p12.get('tasks_per_s', float('nan')):.0f}, "
+        f"on threads {checks['thread_tasks_per_s']:.0f}); images/s alone "
+        f"{stream['pass1_images_s']:.1f} (phase 17's in-thread "
+        f"{p17.get('pass1_images_s', float('nan')):.1f}), into ViT-L/16's "
+        f"step {stream['streamed_images_s']:.1f} (phase 17's "
+        f"{p17.get('streamed_images_s', float('nan')):.1f}; the bare step "
+        f"{32 / stream['bare_step_ms'] * 1e3:.1f}); {worker_calls} calls "
+        f"of the data's tasks and actors in worker processes; after "
+        f"shutdown() and stop_worker_plane() no worker ({len(pids)} were "
+        f"live) and no forkserver left, {freed - base} bytes above the "
+        f"base ({smi})")
+    out = {"part": "18", "launches": llama["launches"],
+           "bytes_after_shutdown": freed, "base_bytes": base,
+           "cublas_workspaces_cleared": workspaces,
+           "seconds": time.perf_counter() - t0, "card": smi}
+    log(json.dumps(out))
+    out.update(checks=checks, stream=stream, llama=llama, wire=wire)
+    return out
+
+
+def _alive(pid) -> bool:
+    """Whether ``pid`` is a live process (a zombie is not)."""
+    if pid is None:
+        return False
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (FileNotFoundError, ProcessLookupError):
+        return False
 
 
 def card_name() -> str:
@@ -3732,6 +4134,13 @@ def main() -> int:
     # (the flash counter at 0) and ViT-L/16
     fed = data_path(dev, train, smi)
     rows[2]["launches"] += fed["launches"]
+
+    # 18. process workers, the runtime's default path: tasks and actors in
+    # processes that cannot see the card, phase 17's stream and trainer
+    # with the data's tasks in them (the flash counter at 0), the tensor
+    # wire, nothing left after shutdown
+    procs = process_path(dev, train, runtime, fed, smi)
+    rows[2]["launches"] += procs["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -38,10 +38,12 @@ learner state carried across by ``rl.convert``, and the data-parallel
 ``LearnerGroup`` over the mesh's ``dp`` axis) — and the runtime's in-process
 core: tasks, actors, objects, named and detached actors (``init``,
 ``remote``, ``get``, ``put``, ``wait``, ``get_actor`` and the rest of
-``ray_tpu``'s core API below), every task and actor running in the calling
-process with the card as the ``GPU`` resource and CUDA tensors kept in the
-object store's device tier, with ``rl.Algorithm`` and ``rl.tuned_examples``
-on it — and serve on that core: ``serve`` (deployments, handles with
+``ray_tpu``'s core API below), tasks and actors running in worker
+processes that cannot see the card (JAX's default path; the port's own
+by-value pickler and tensor wire, ``_private/{worker_process,serialization,
+device_objects}.py``) while the card, as the ``GPU`` resource, and CUDA
+tensors, kept in the object store's device tier, stay in the calling
+process, with ``rl.Algorithm`` and ``rl.tuned_examples`` on it — and serve on that core: ``serve`` (deployments, handles with
 power-of-two-choices routing, the controller, the HTTP proxy) with
 ``util.metrics``, and the serving app (``llm.build_llm_app``,
 ``llm.prefix_router``, ``llm.disagg``'s prefill/decode graph) — and the
@@ -50,7 +52,8 @@ libraries on that core: ``tune`` (Tuner, schedulers, searchers) and
 ``collective`` — and ``data`` on that core (blocks of numpy columns, the
 streaming executor with its actor pools and hash shuffle,
 ``streaming_split``, the readers and writers), whose ``to_jax`` feeds the
-card through pinned memory and a side stream.
+card through pinned memory and a side stream — and the example scripts of
+``examples`` (the MNIST MLP, ViT streaming and the full-stack pipeline).
 
 Importing the package imports no ``torch``: the runtime checks for tensors
 only once ``torch`` is in ``sys.modules``, and detects the card at ``init``.

@@ -8,8 +8,9 @@ Resolution order per flag (highest wins):
 3. the declared default
 
 An unknown ``_system_config`` key raises, as in the reference. The table
-holds only the flags the in-process core reads; the reference's others
-belong to parts of its runtime the port does not have yet.
+holds only the flags the port's runtime reads (the core and its process
+workers); the reference's others belong to parts of its runtime the port
+does not have yet.
 """
 
 from __future__ import annotations
@@ -43,6 +44,13 @@ FLAG_DEFS = [
          "execution pool (the dispatch loop feeds admitted tasks to "
          "this sized pool instead of spawning per task); 0 = the "
          "node's max_worker_threads (256)"),
+    Flag("process_workers", bool, True, "run tasks and actors that do not "
+         "want the card in worker processes (0 = every task and actor "
+         "runs on the driver's threads)"),
+    Flag("process_pool_size", int, 0, "idle worker processes kept ready "
+         "(0 = auto: min(4, max(2, cpus//2)))"),
+    Flag("process_pool_max", int, 32, "most idle worker processes a "
+         "finished task leaves for reuse"),
 ]
 
 FLAGS: Dict[str, Flag] = {f.name: f for f in FLAG_DEFS}

@@ -6,13 +6,19 @@ storage (an inline memory store for small values, node object stores for
 large ones), reference-counting hooks, task retries, streaming generators
 and the actor lifecycle driven through GCS state.
 
-Topology: one Runtime per process hosts N virtual nodes. Every task
-and actor runs in this process, on the nodes' pooled threads — the
-reference's runtime with process workers off (``RAY_TPU_PROCESS_WORKERS=0``,
-no cluster), where its routing collapses to ``_execute_inline``. That is
-also the path the reference gives accelerator work in any case: a
-``num_gpus`` actor owns the card in that process, and CUDA tensors stay in the
-object store's device tier with no copy.
+Topology: one Runtime per process hosts N virtual nodes, and a
+``ProcessRouter`` (``_private/worker_process.py``) sends host work to
+worker processes, as the reference's runtime does by default: a normal task
+or a synchronous actor runs in a pooled worker process that cannot see the
+card. The accelerator plane stays in this process, on the nodes' pooled
+threads (``_execute_inline``): a task or actor with a ``GPU`` demand, an
+``_in_process`` actor (serve's replicas, the train worker group), a task
+or actor whose payload names the card (a CUDA tensor or ``torch.device``
+in its arguments or its function's closure), an asyncio actor, and
+anything the wire cannot pickle. The card is owned by this one process, and CUDA tensors
+stay in the object store's device tier with no copy. The switch is the
+reference's ``RAY_TPU_PROCESS_WORKERS`` (``_system_config``'s
+``process_workers``); ``0`` runs every task and actor here.
 """
 
 from __future__ import annotations
@@ -180,6 +186,12 @@ class Runtime:
         self._generators: Dict[TaskID, GeneratorState] = {}
         self._shutdown = False
         self.pg_manager = PlacementGroupManager(self)
+
+        # Process workers: the default path for host-plane tasks and
+        # actors. Accelerator-plane work stays in this process, which owns
+        # the card.
+        from ray_tpu_torch._private.worker_process import ProcessRouter
+        self.process_router = ProcessRouter(self)
 
         if resources_per_node is None:
             resources_per_node = self._detect_resources()
@@ -553,7 +565,62 @@ class Runtime:
         except exc.TaskError as te:
             self._finish_task(spec, node, error=te)
             return
+        if self._try_process_execute(spec, node, args, kwargs):
+            return
         self._execute_inline(spec, node, args, kwargs)
+
+    def _try_process_execute(self, spec: TaskSpec, node: Node,
+                             args: tuple, kwargs: dict) -> bool:
+        """Route an eligible normal task to a worker process. Returns False
+        if the task must run in this process (accelerator-plane work, or a
+        payload the wire cannot pickle)."""
+        from ray_tpu_torch._private.worker_process import WorkerCrashed
+        router = self.process_router
+        payload = router.eligible_task(spec, args, kwargs)
+        if payload is None:
+            return False
+        try:
+            kind, value = router.execute_task(spec, node, payload)
+        except WorkerCrashed as crash:
+            self._on_process_task_crash(spec, node, crash)
+            return True
+        if kind == "err":
+            with self._tasks_lock:
+                inflight = self._tasks.get(spec.task_id)
+            if (inflight is not None and inflight.cancelled
+                    and isinstance(value, KeyboardInterrupt)):
+                # a non-force cancel's injected KeyboardInterrupt is the
+                # cancellation surfacing, not an application error
+                self._release_task_resources(spec, node)
+                self._fail_task(spec, exc.TaskError(
+                    exc.TaskCancelledError(spec.task_id), spec.name))
+                return True
+            self._finish_task(spec, node,
+                              error=exc.TaskError(value, spec.name))
+        elif spec.num_returns in ("streaming", "dynamic") or kind == "gen":
+            self._drain_generator(spec, node, value)
+        else:
+            self._finish_task(spec, node, result=value)
+        return True
+
+    def _on_process_task_crash(self, spec: TaskSpec, node: Node,
+                               crash: Exception) -> None:
+        """A worker process died under a task: a cancelled task fails as
+        cancelled; otherwise a system failure, retried up to
+        max_retries."""
+        with self._tasks_lock:
+            inflight = self._tasks.get(spec.task_id)
+        cancelled = inflight is not None and inflight.cancelled
+        self._release_task_resources(spec, node)
+        if cancelled:
+            self._fail_task(spec, exc.TaskError(
+                exc.TaskCancelledError(spec.task_id), spec.name))
+            return
+        if _retries_left(spec):
+            self._retry(spec)
+            return
+        self._fail_task(spec, exc.TaskError(
+            exc.WorkerCrashedError(str(crash)), spec.name))
 
     def _execute_inline(self, spec: TaskSpec, node: Node, args: tuple,
                         kwargs: dict) -> None:
@@ -734,6 +801,12 @@ class Runtime:
                                 task_name=spec.name)
                 state.report_item(ref)
         except BaseException as e:  # noqa: BLE001
+            from ray_tpu_torch._private.worker_process import WorkerCrashed
+            if isinstance(e, WorkerCrashed):
+                # a system failure mid-stream: retried like any worker
+                # crash; the replay skips the items already reported
+                self._on_process_task_crash(spec, node, e)
+                return
             te = exc.TaskError(e, spec.name)
             state.finish(te.as_instanceof_cause())
             self._fail_task(spec, te)
@@ -775,33 +848,50 @@ class Runtime:
         return actor_id
 
     def _execute_actor_creation(self, spec: TaskSpec, node: Node) -> None:
-        """The actor's instance is built in this process, on the node's
-        pooled thread, holding its resources for its lifetime."""
+        """The actor's instance is built in a worker process when the
+        router takes it, else in this process on the node's pooled thread;
+        either way it holds its resources for its lifetime."""
         actor_id = spec.actor_id
         try:
             args, kwargs = self._resolve_args(spec)
         except exc.TaskError as te:
             self._actor_creation_failed(spec, te, node)
             return
-        token = runtime_context._set_context(
-            job_id=spec.job_id or self.job_id, task_id=spec.task_id,
-            node_id=node.node_id, actor_id=actor_id,
-            resources=spec.resources, task_name=spec.name,
-            placement_group_id=spec.placement_group_id,
-            pg_capture=spec.pg_capture)
-        try:
-            instance = spec.func(*args, **kwargs)
-        except BaseException as e:  # noqa: BLE001
-            self._actor_creation_failed(spec, exc.TaskError(e, spec.name),
-                                        node)
-            return
-        finally:
-            runtime_context._reset_context(token)
+        from ray_tpu_torch._private.worker_process import WorkerCrashed
+        instance = None
+        payload = self.process_router.eligible_actor(spec, args, kwargs)
+        if payload is not None:
+            try:
+                instance = self.process_router.create_actor(spec, node,
+                                                            payload)
+            except WorkerCrashed as e:
+                self._retry_or_fail_creation(spec, node, e)
+                return
+            except BaseException as e:  # noqa: BLE001
+                self._actor_creation_failed(
+                    spec, exc.TaskError(e, spec.name), node)
+                return
+        if instance is None:
+            token = runtime_context._set_context(
+                job_id=spec.job_id or self.job_id, task_id=spec.task_id,
+                node_id=node.node_id, actor_id=actor_id,
+                resources=spec.resources, task_name=spec.name,
+                placement_group_id=spec.placement_group_id,
+                pg_capture=spec.pg_capture)
+            try:
+                instance = spec.func(*args, **kwargs)
+            except BaseException as e:  # noqa: BLE001
+                self._actor_creation_failed(
+                    spec, exc.TaskError(e, spec.name), node)
+                return
+            finally:
+                runtime_context._reset_context(token)
 
         # The actor may have been killed while __init__ was running; do not
         # resurrect it (install nothing, free the lifetime resources).
         info = self.gcs.get_actor_info(actor_id)
         if info is not None and info.state == ActorState.DEAD:
+            self.process_router.discard_actor(actor_id)
             if node.alive:
                 node.ledger.release(spec.resources)
             for oid in spec.return_ids:
@@ -832,6 +922,28 @@ class Runtime:
         self._on_task_done(spec, TaskState.FINISHED)
         for pspec in pending:
             executor.submit(pspec)
+
+    def _retry_or_fail_creation(self, spec: TaskSpec, node: Node,
+                                e: BaseException) -> None:
+        """A worker process died during __init__: a system failure with
+        restart semantics, as after creation."""
+        actor_id = spec.actor_id
+        info = self.gcs.get_actor_info(actor_id)
+        if (info is None or not (info.max_restarts == -1
+                                 or info.num_restarts < info.max_restarts)):
+            self._actor_creation_failed(spec, exc.TaskError(e, spec.name),
+                                        node)
+            return
+        if node.alive:
+            node.ledger.release(spec.resources)
+        info.num_restarts += 1
+        self.gcs.update_actor_state(actor_id, ActorState.RESTARTING)
+        respec = _clone_spec_for_retry(spec)
+        respec.actor_id = actor_id
+        with self._tasks_lock:
+            inflight = _InFlightTask(respec)
+            self._tasks[respec.task_id] = inflight
+        self._submit_with_deps(respec, inflight, respec.dependencies())
 
     def _actor_creation_failed(self, spec: TaskSpec, error: exc.TaskError,
                                node: Optional[Node] = None) -> None:
@@ -927,9 +1039,17 @@ class Runtime:
             resources=spec.resources, task_name=spec.name,
             placement_group_id=spec.placement_group_id,
             pg_capture=spec.pg_capture)
+        from ray_tpu_torch._private.worker_process import (
+            _ProcessActorInstance)
         try:
-            method = getattr(instance, spec.method_name)
-            result = method(*args, **kwargs)
+            if isinstance(instance, _ProcessActorInstance):
+                kind, result = self.process_router.call_actor_method(
+                    instance, spec, node, args, kwargs)
+                if kind == "err":
+                    raise result
+            else:
+                method = getattr(instance, spec.method_name)
+                result = method(*args, **kwargs)
         except _ExitActor:
             self._finish_task(spec, node, result=None)
             self.kill_actor(spec.actor_id, no_restart=True,
@@ -992,6 +1112,7 @@ class Runtime:
         with self._actor_lock:
             executor = self._actor_executors.pop(actor_id, None)
         pending = executor.kill(cause) if executor is not None else []
+        self.process_router.discard_actor(actor_id)
         info = self.gcs.get_actor_info(actor_id)
         if info is not None and info.node_id is not None:
             node = self.get_node(info.node_id)
@@ -1000,9 +1121,24 @@ class Runtime:
         self._handle_actor_death(actor_id, cause, pending_tasks=pending,
                                  may_restart=not no_restart)
 
+    def on_actor_worker_died(self, actor_id: ActorID, cause: str) -> None:
+        """An actor's worker process died unexpectedly (a crash, a
+        SIGKILL): actor death, with restarts."""
+        with self._actor_lock:
+            executor = self._actor_executors.pop(actor_id, None)
+        pending = executor.kill(cause) if executor is not None else []
+        info = self.gcs.get_actor_info(actor_id)
+        if info is not None and info.node_id is not None:
+            node = self.get_node(info.node_id)
+            if node is not None:
+                node.evict_actor(actor_id)
+        self._handle_actor_death(actor_id, cause, pending_tasks=pending,
+                                 may_restart=True)
+
     def _handle_actor_death(self, actor_id: ActorID, cause: str,
                             pending_tasks: List[TaskSpec],
                             may_restart: bool) -> None:
+        self.process_router.discard_actor(actor_id)
         info = self.gcs.get_actor_info(actor_id)
         if info is None:
             return
@@ -1057,8 +1193,10 @@ class Runtime:
     def cancel(self, ref: ObjectRef, force: bool = False,
                recursive: bool = True) -> None:
         """Cancel the task producing ``ref``. A task not yet running fails
-        with TaskCancelledError; a running one is failed only with
-        ``force`` — its thread runs on, and its result is dropped."""
+        with TaskCancelledError. One running in a worker process gets a
+        KeyboardInterrupt in its thread, or with ``force`` loses its
+        process. One running on the driver's threads is failed only with
+        ``force``: its thread runs on, and its result is dropped."""
         while True:
             with self._tasks_lock:
                 target = None
@@ -1080,6 +1218,12 @@ class Runtime:
             with self._tasks_lock:
                 if self._tasks.get(target.spec.task_id) is target:
                     break
+        if was_running and self.process_router.cancel_task(
+                target.spec.task_id, force):
+            # running in a worker process: force terminates the process
+            # (the crash handler reports TaskCancelledError); non-force
+            # raises KeyboardInterrupt in the task's thread
+            return
         if not was_running or force:
             self._fail_task(target.spec, exc.TaskError(
                 exc.TaskCancelledError(target.spec.task_id),
@@ -1090,6 +1234,7 @@ class Runtime:
     # ------------------------------------------------------------------
     def shutdown(self) -> None:
         self._shutdown = True
+        self.process_router.shutdown()
         self.pg_manager.stop()
         for node in self.nodes():
             node.shutdown()

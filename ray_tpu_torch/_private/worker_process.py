@@ -1,0 +1,1494 @@
+"""Process workers: the default execution path for tasks and actors
+(counterpart of ``ray_tpu/_private/worker_process.py``).
+
+Workers are real OS processes, every task payload crosses a serialization
+boundary, functions ship once through a function table, and workers reach
+back into the driver's runtime for nested operations.
+
+Placement rule (the accelerator plane): work that touches the card (a
+``GPU`` demand, an ``_in_process`` actor, a payload that names a device off
+the CPU: a tensor or ``torch.device`` anywhere the wire's pickler meets it,
+closures included) runs in the driver, the one process that owns the card.
+Everything else runs in worker processes that cannot see it
+(``CUDA_VISIBLE_DEVICES=""``, ``_private/platform.py``).
+
+Architecture (one host; the pipe is the wire):
+
+  driver Runtime -- WorkerClient --(a socket pair, framed pickles)-- worker
+    - ProcessRouter: eligibility, routing, the pool, crash handling
+    - WorkerClient: one live worker process; a reader thread routes task
+      results and yields and serves the worker's core ops (get, put,
+      submit, wait, actor calls) against the driver's Runtime
+    - worker process: a reader loop and one thread a task; a
+      WorkerProxyRuntime is installed as the global runtime, so the public
+      API (``get``/``put``/``remote``/actors/generators) works inside a
+      task through the pipe.
+
+A message is a header, a stdlib pickle of a plain dict, and the parts of
+one payload: what it carries of user values (functions, arguments, results,
+exceptions) is pickled by the port's by-value pickler
+(``_private/serialization.py``), tensors by the wire format of
+``_private/device_objects.py``, with protocol 5's out-of-band buffers as
+parts of their own. Large arrays cross without a copy into the pickle
+stream, and the receiver reads each part with one blocking ``recv``
+(``MSG_WAITALL``): the driver's reader thread takes the GIL once a part,
+not once a socket buffer, which matters beside a launch-bound step.
+
+Process actors: the instance lives in a dedicated worker process; in the
+driver the ActorExecutor machinery (ordering, concurrency, restarts) drives
+a proxy instance whose calls go over the pipe. A dead worker is a retryable
+system failure for a task and actor death for an actor; the normal restart
+path then replays the creation spec.
+
+Workers fork from a forkserver template that preloads this module, numpy
+and pyarrow (where it is installed) with the card hidden and never initialises CUDA: the driver has usually
+initialised CUDA already, so a plain ``fork`` of the driver would be unsafe.
+A worker imports torch only when a task needs it. Idle workers outlive a
+runtime and serve the next one in the same process; the template lives
+until the interpreter exits (or ``stop_worker_plane``).
+
+Left out, each with the ROADMAP item that brings it: the native fast lane
+and the shared-memory object tier (A11c), the compiled-DAG stages, runtime
+environments, profiling bursts and metrics flushes (A11e).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import inspect
+import itertools
+import os
+import pickle
+import queue
+import socket
+import struct
+import sys
+import threading
+import time
+import traceback
+import weakref
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ray_tpu_torch._private import serialization
+from ray_tpu_torch._private.device_objects import DeviceValue, wire_dumps
+from ray_tpu_torch._private.ids import ActorID, TaskID
+from ray_tpu_torch._private.task_spec import TaskKind, TaskSpec
+
+
+class WorkerCrashed(Exception):
+    """The worker process died while something was running on it."""
+
+
+_CALLS = [0]                    # calls sent to worker processes, in all
+_CALLS_LOCK = threading.Lock()
+
+
+def calls_sent() -> int:
+    """How many task, actor-creation and method calls this process has sent
+    to worker processes."""
+    return _CALLS[0]
+
+
+_HEAD = struct.Struct("!QI")     # header bytes, payload parts
+_LEN = struct.Struct("!Q")
+_SOCK_BUF = 4 << 20             # asked for; the kernel caps it
+
+
+def _pack(value: Any, host_only: bool = False) -> List[Any]:
+    """A value as payload parts: the in-band pickle stream, then each
+    out-of-band buffer. ``host_only``: raise DeviceValue on a tensor or
+    device off the CPU (the accelerator-plane rule) instead of copying it
+    to host bytes."""
+    buffers: List[pickle.PickleBuffer] = []
+    inband = wire_dumps(value, buffer_callback=buffers.append,
+                        host_only=host_only)
+    return [inband] + [b.raw() for b in buffers]
+
+
+def _unpack(parts: Sequence[Any]) -> Any:
+    return pickle.loads(parts[0], buffers=parts[1:])
+
+
+class _Channel:
+    """One end of a worker's socket pair: messages of a header dict and the
+    parts of one payload, sent whole under a lock."""
+
+    def __init__(self, sock: socket.socket):
+        self.sock = sock
+        self._lock = threading.Lock()
+        for opt in (socket.SO_SNDBUF, socket.SO_RCVBUF):
+            try:
+                sock.setsockopt(socket.SOL_SOCKET, opt, _SOCK_BUF)
+            except OSError:
+                pass
+
+    def send(self, msg: Dict[str, Any], parts: Sequence[Any] = ()) -> None:
+        header = pickle.dumps(msg, protocol=5)
+        views = [memoryview(p).cast("B") for p in parts]
+        prefix = _HEAD.pack(len(header), len(views)) + b"".join(
+            _LEN.pack(v.nbytes) for v in views)
+        with self._lock:
+            self.sock.sendall(prefix + header)
+            for v in views:
+                self.sock.sendall(v)
+
+    def recv(self) -> Tuple[Dict[str, Any], List[memoryview]]:
+        n_header, n_parts = _HEAD.unpack(self._exact(_HEAD.size))
+        lens = self._exact(_LEN.size * n_parts)
+        sizes = [_LEN.unpack_from(lens, i * _LEN.size)[0]
+                 for i in range(n_parts)]
+        msg = pickle.loads(self._exact(n_header))
+        return msg, [self._exact(n) for n in sizes]
+
+    def _exact(self, n: int) -> memoryview:
+        # np.empty: a large part needs no zero-fill before it is read over
+        buf = memoryview(np.empty(n, np.uint8) if n >= 1 << 16
+                         else bytearray(n)).cast("B")
+        pos = 0
+        while pos < n:
+            got = self.sock.recv_into(buf[pos:], n - pos, socket.MSG_WAITALL)
+            if not got:
+                raise EOFError("worker channel closed")
+            pos += got
+        return buf
+
+    def close(self) -> None:
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self.sock.close()
+
+
+# ---------------------------------------------------------------------------
+# function table (code shipping)
+# ---------------------------------------------------------------------------
+
+_FN_TABLE: Dict[str, bytes] = {}
+_FN_REFS: Dict[str, int] = {}
+_FN_TABLE_LOCK = threading.Lock()
+_FN_MEMO: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _release_fn_blob(fid: str) -> None:
+    """weakref.finalize callback: the last live callable for this blob was
+    collected, so nothing can submit it again."""
+    with _FN_TABLE_LOCK:
+        n = _FN_REFS.get(fid, 0) - 1
+        if n <= 0:
+            _FN_REFS.pop(fid, None)
+            _FN_TABLE.pop(fid, None)
+        else:
+            _FN_REFS[fid] = n
+
+
+def export_function(fn) -> Tuple[str, bytes]:
+    """Pickle ``fn`` once and register it in the function table; returns
+    (function_id, blob). Workers fetch the blob by id on first use and
+    cache it. Raises DeviceValue, every time, for a function whose closure
+    or globals name a device off the CPU."""
+    try:
+        cached = _FN_MEMO.get(fn)
+    except TypeError:
+        cached = None
+    if isinstance(cached, str):
+        raise DeviceValue(cached)
+    if cached is not None:
+        return cached
+    try:
+        blob = wire_dumps(fn, host_only=True)
+    except DeviceValue as e:
+        # the message only: the exception's frames hold ``fn``, which
+        # would then never leave this weak-keyed memo
+        try:
+            _FN_MEMO[fn] = str(e)
+        except TypeError:
+            pass
+        raise
+    fid = hashlib.sha1(blob).hexdigest()
+    entry = (fid, blob)
+    with _FN_TABLE_LOCK:
+        _FN_TABLE[fid] = blob
+    try:
+        _FN_MEMO[fn] = entry
+        with _FN_TABLE_LOCK:
+            _FN_REFS[fid] = _FN_REFS.get(fid, 0) + 1
+        weakref.finalize(fn, _release_fn_blob, fid)
+    except TypeError:
+        pass    # unweakrefable callables just pickle again
+    return entry
+
+
+def fetch_function_blob(fid: str) -> bytes:
+    with _FN_TABLE_LOCK:
+        blob = _FN_TABLE.get(fid)
+    if blob is None:
+        raise KeyError(f"function {fid} not in function table")
+    return blob
+
+
+# ---------------------------------------------------------------------------
+# worker-process side
+# ---------------------------------------------------------------------------
+
+_current_rid = threading.local()
+
+
+def _dump_exc(e: BaseException) -> bytes:
+    tb = traceback.format_exc()
+    try:
+        return serialization.dumps((e, tb))
+    except Exception:
+        return serialization.dumps(
+            (RuntimeError(f"{type(e).__name__}: {e}"), tb))
+
+
+class _GeneratorStateProxy:
+    """Worker-side view of a driver GeneratorState (ObjectRefGenerator)."""
+
+    def __init__(self, state: "_WorkerState", task_id: TaskID):
+        self._state = state
+        self._task_id = task_id
+
+    def next_ref(self, index: int, timeout: Optional[float] = None):
+        out = self._state.call_host("gen_next", task_id=self._task_id,
+                                    index=index, timeout=timeout)
+        if out is None:
+            raise StopIteration
+        return out
+
+    @property
+    def finished(self) -> bool:
+        return self._state.call_host("gen_finished", task_id=self._task_id)
+
+
+class _GcsProxy:
+    def __init__(self, state: "_WorkerState"):
+        self._state = state
+
+    def get_actor_info(self, actor_id):
+        return self._state.call_host("gcs_get_actor_info",
+                                     actor_id=actor_id)
+
+    def get_named_actor(self, name, namespace):
+        return self._state.call_host("gcs_get_named_actor", name=name,
+                                     namespace=namespace)
+
+    @property
+    def nodes(self):
+        return self._state.call_host("gcs_nodes")
+
+    def kv_put(self, key, value, overwrite=True, namespace=b""):
+        return self._state.call_host("gcs_kv_put", key=key, value=value,
+                                     overwrite=overwrite,
+                                     namespace=namespace)
+
+    def kv_get(self, key, namespace=b""):
+        return self._state.call_host("gcs_kv_get", key=key,
+                                     namespace=namespace)
+
+    def kv_del(self, key, namespace=b""):
+        return self._state.call_host("gcs_kv_del", key=key,
+                                     namespace=namespace)
+
+    def kv_keys(self, prefix=b"", namespace=b""):
+        return self._state.call_host("gcs_kv_keys", prefix=prefix,
+                                     namespace=namespace)
+
+
+class _PgManagerProxy:
+    """Worker-side pg_manager: returns picklable copies of the driver's
+    PlacementGroups (handle semantics: id, bundles, state)."""
+
+    def __init__(self, state: "_WorkerState"):
+        self._state = state
+
+    def get(self, pg_id):
+        return self._state.call_host("pg_get", pg_id=pg_id)
+
+    def create(self, bundles, strategy, name=""):
+        return self._state.call_host("pg_create", bundles=bundles,
+                                     strategy=strategy, name=name)
+
+    def remove(self, pg):
+        return self._state.call_host("pg_remove", pg_id=pg.id)
+
+    def table(self):
+        return self._state.call_host("pg_table")
+
+    def ready_ref(self, pg_id):
+        return self._state.call_host("pg_ready_ref", pg_id=pg_id)
+
+    def wait(self, pg_id, timeout):
+        return self._state.call_host("pg_wait", pg_id=pg_id,
+                                     timeout=timeout)
+
+
+class _NoopRefcounter:
+    """The driver pins every ref a worker creates until the task (or the
+    actor) ends, so counting in the worker is a no-op."""
+
+    def add_local_ref(self, oid):
+        pass
+
+    def remove_local_ref(self, oid):
+        pass
+
+
+class WorkerProxyRuntime:
+    """Installed as the global runtime inside a worker process: forwards the
+    core API to the driver over the pipe. Duck-types the Runtime surface
+    that ObjectRef, RemoteFunction, ActorHandle and the module-level API
+    touch."""
+
+    def __init__(self, state: "_WorkerState"):
+        self._state = state
+        self.refcounter = _NoopRefcounter()
+        self.gcs = _GcsProxy(state)
+        self.pg_manager = _PgManagerProxy(state)
+        self._actor_lock = threading.RLock()
+        self._actor_executors: Dict[ActorID, Any] = {}
+
+    # Pooled workers serve different runtimes over their lifetime, so job
+    # and namespace come from the runtime bound now.
+    @property
+    def namespace(self):
+        return self._state.call_host("host_info")["namespace"]
+
+    @property
+    def job_id(self):
+        return self._state.call_host("host_info")["job_id"]
+
+    def get(self, refs, timeout: Optional[float] = None):
+        return self._state.call_host("get", refs=list(refs),
+                                     timeout=timeout)
+
+    def put(self, value):
+        return self._state.call_host("put", value=value)
+
+    def wait(self, refs, num_returns: int = 1,
+             timeout: Optional[float] = None, fetch_local: bool = True):
+        return self._state.call_host("wait", refs=list(refs),
+                                     num_returns=num_returns,
+                                     timeout=timeout,
+                                     fetch_local=fetch_local)
+
+    def submit_task(self, spec: TaskSpec, record_lineage: bool = True):
+        return self._state.call_host("submit_task", spec=spec)
+
+    def create_actor(self, spec: TaskSpec, get_if_exists: bool = False):
+        return self._state.call_host("create_actor", spec=spec,
+                                     get_if_exists=get_if_exists)
+
+    def kill_actor(self, actor_id, no_restart: bool = True,
+                   cause: str = "ray_tpu_torch.kill() called"):
+        return self._state.call_host("kill_actor", actor_id=actor_id,
+                                     no_restart=no_restart, cause=cause)
+
+    def cancel(self, ref, force: bool = False, recursive: bool = True):
+        return self._state.call_host("cancel", ref=ref, force=force,
+                                     recursive=recursive)
+
+    def generator_state(self, task_id: TaskID) -> _GeneratorStateProxy:
+        return _GeneratorStateProxy(self._state, task_id)
+
+    def cluster_resources(self):
+        return self._state.call_host("cluster_resources")
+
+    def available_resources(self):
+        return self._state.call_host("available_resources")
+
+
+class _WorkerState:
+    def __init__(self, chan: _Channel, boot: Dict[str, Any]):
+        self.chan = chan
+        self.boot = boot
+        self._ids = itertools.count()
+        self._pending: Dict[str, list] = {}  #: guarded by self._pending_lock
+        self._pending_lock = threading.Lock()
+        self._task_threads: Dict[str, threading.Thread] = {}
+        self.actor_instance: Any = None
+        self._fn_cache: Dict[str, Any] = {}
+        self._gen_sems: Dict[str, threading.Semaphore] = {}
+        self.proxy = WorkerProxyRuntime(self)
+
+    def send(self, msg: Dict[str, Any], parts: Sequence[Any] = ()) -> None:
+        self.chan.send(msg, parts)
+
+    def call_host(self, call: str, **kw) -> Any:
+        rid = f"w{next(self._ids)}"
+        ev = threading.Event()
+        slot = [ev, True, None]
+        with self._pending_lock:
+            self._pending[rid] = slot
+        self.send({"op": "core", "id": rid, "call": call,
+                   "task": getattr(_current_rid, "rid", None)}, _pack(kw))
+        ev.wait()
+        if slot[1]:
+            return slot[2]
+        raise slot[2]
+
+    # -- main loop -------------------------------------------------------
+    def serve_forever(self) -> None:
+        while True:
+            try:
+                msg, parts = self.chan.recv()
+            except (EOFError, OSError):
+                os._exit(0)
+            msg["parts"] = parts
+            op = msg.get("op")
+            if op == "shutdown":
+                os._exit(0)
+            elif op == "reply":
+                with self._pending_lock:
+                    slot = self._pending.pop(msg["for"], None)
+                if slot is not None:
+                    slot[1] = msg["ok"]
+                    slot[2] = _unpack(parts)
+                    slot[0].set()
+            elif op in ("execute_task", "create_actor", "call_method",
+                        "reset_actor"):
+                t = threading.Thread(target=self._handle, args=(msg,),
+                                     daemon=True,
+                                     name=f"task-{msg['id']}")
+                self._task_threads[msg["id"]] = t
+                t.start()
+            elif op == "gen_ack":
+                sem = self._gen_sems.get(msg["target"])
+                if sem is not None:
+                    sem.release()
+            elif op == "cancel":
+                self._async_raise(msg["target"])
+
+    def _async_raise(self, rid: str) -> None:
+        """Best-effort KeyboardInterrupt into the thread running ``rid``
+        (a non-force cancel interrupts the worker)."""
+        import ctypes
+        t = self._task_threads.get(rid)
+        if t is None or not t.is_alive():
+            return
+        ctypes.pythonapi.PyThreadState_SetAsyncExc(
+            ctypes.c_ulong(t.ident), ctypes.py_object(KeyboardInterrupt))
+
+    def _fn(self, msg: Dict[str, Any]):
+        fid = msg["fn_id"]
+        fn = self._fn_cache.get(fid)
+        if fn is None:
+            fn = pickle.loads(self.call_host("fetch_function", fid=fid))
+            self._fn_cache[fid] = fn
+        return fn
+
+    def _handle(self, msg: Dict[str, Any]) -> None:
+        from ray_tpu_torch._private import runtime_context
+
+        rid = msg["id"]
+        _current_rid.rid = rid
+        try:
+            token = runtime_context._set_context(**(msg.get("ctx") or {}))
+            try:
+                op = msg["op"]
+                if op == "create_actor":
+                    cls = self._fn(msg)
+                    args, kwargs = _unpack(msg["parts"])
+                    self.actor_instance = cls(*args, **kwargs)
+                    result = None
+                elif op == "call_method":
+                    method = getattr(self.actor_instance, msg["method"])
+                    args, kwargs = _unpack(msg["parts"])
+                    result = method(*args, **kwargs)
+                elif op == "reset_actor":
+                    # Clean actor teardown: drop the instance so the
+                    # process can go back to the idle pool. If anything
+                    # still holds the instance after gc (a thread the actor
+                    # started, a module global) the worker is dirty and
+                    # must be killed, not recycled.
+                    inst, self.actor_instance = self.actor_instance, None
+                    wr = weakref.ref(inst) if inst is not None else None
+                    del inst
+                    import gc
+                    gc.collect()
+                    if wr is not None and wr() is not None:
+                        raise RuntimeError("actor instance still "
+                                           "referenced; worker dirty")
+                    result = None
+                else:
+                    fn = self._fn(msg)
+                    args, kwargs = _unpack(msg["parts"])
+                    result = fn(*args, **kwargs)
+                if inspect.isgenerator(result):
+                    # producer-side flow control: at most `backpressure`
+                    # unacked items cross the pipe; the driver acks as the
+                    # consumer pulls them
+                    bp = msg.get("backpressure") or -1
+                    sem = None
+                    if bp > 0:
+                        sem = threading.Semaphore(bp)
+                        self._gen_sems[rid] = sem
+                    try:
+                        self.send({"id": rid, "op": "gen_start"})
+                        for item in result:
+                            if sem is not None:
+                                sem.acquire()
+                            self.send({"id": rid, "op": "yield"},
+                                      _pack(item))
+                        self.send({"id": rid, "op": "result", "ok": True},
+                                  _pack(None))
+                    finally:
+                        self._gen_sems.pop(rid, None)
+                    return
+            finally:
+                runtime_context._reset_context(token)
+            self.send({"id": rid, "op": "result", "ok": True},
+                      _pack(result))
+        except BaseException as e:  # noqa: BLE001 - shipped to the driver
+            try:
+                self.send({"id": rid, "op": "result", "ok": False},
+                          [_dump_exc(e)])
+            except (BrokenPipeError, OSError):
+                os._exit(1)
+        finally:
+            self._task_threads.pop(rid, None)
+
+
+def _child_main(sock: socket.socket) -> None:
+    """Worker bootstrap, forked from the forkserver template (not a
+    ``spawn``, which would re-run the driver's ``__main__``, and not a fresh
+    interpreter, which pays its start and the port's imports per worker).
+    The first message on the socket is the boot config."""
+    import signal
+
+    # Ctrl+C goes to the whole foreground process group; workers must not
+    # die with it (the driver decides shutdown).
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    chan = _Channel(sock)
+    boot, _ = chan.recv()
+    os.environ.update(boot.get("env", {}))
+    for p in boot.get("extra_sys_path", []):
+        if p not in sys.path:
+            sys.path.append(p)
+    if boot.get("force_cpu_platform"):
+        from ray_tpu_torch._private.platform import force_cpu_platform
+        force_cpu_platform()
+    from ray_tpu_torch._private import worker as worker_mod
+
+    state = _WorkerState(chan, boot)
+    worker_mod._global_runtime = state.proxy  # type: ignore[assignment]
+    state.serve_forever()
+
+
+# ---------------------------------------------------------------------------
+# driver side
+# ---------------------------------------------------------------------------
+
+class _Pending:
+    __slots__ = ("q",)
+
+    def __init__(self):
+        self.q: "queue.Queue" = queue.Queue()
+
+
+_DEAD = object()  # pushed into pending queues on worker death
+
+_MP_CTX = None
+_MP_CTX_LOCK = threading.Lock()
+_START_LOCK = threading.Lock()
+_OUR_FORKSERVER = None
+
+
+def _mp_context():
+    """The forkserver context every worker forks from. The forkserver is the
+    template process: it preloads this module, numpy and pyarrow once (a
+    preload that is not installed is skipped), with the card
+    hidden (``CUDA_VISIBLE_DEVICES=""`` in its environment), and never
+    initialises CUDA."""
+    global _MP_CTX, _OUR_FORKSERVER
+    with _MP_CTX_LOCK:
+        if _MP_CTX is not None:
+            return _MP_CTX
+        import multiprocessing as mp
+        from multiprocessing import forkserver as _fs
+
+        ctx = mp.get_context("forkserver")
+        repo_root = os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))))
+        # The template inherits this process's environment when it starts:
+        # set its two variables for the moment of the start only. CUDA
+        # reads CUDA_VISIBLE_DEVICES at its first initialisation, so pin
+        # this process's own view of the card first (a no-op once torch
+        # has touched CUDA).
+        torch = sys.modules.get("torch")
+        if torch is not None:
+            torch.cuda.device_count()
+        saved = {k: os.environ.get(k)
+                 for k in ("CUDA_VISIBLE_DEVICES", "PYTHONPATH")}
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+        os.environ["PYTHONPATH"] = repo_root + (
+            os.pathsep + saved["PYTHONPATH"] if saved["PYTHONPATH"] else "")
+        try:
+            # a PRIVATE ForkServer: multiprocessing's module-level one may
+            # already run for user code, with the card visible and no
+            # preloads, and ours must never serve user forks
+            _OUR_FORKSERVER = _fs.ForkServer()
+            # pyarrow as JAX's template does: its first import in a task's
+            # thread, then its use from another thread after that one
+            # exits, segfaults (a plain-process repro, no fork needed)
+            _OUR_FORKSERVER.set_forkserver_preload(
+                ["ray_tpu_torch._private.worker_process",
+                 "ray_tpu_torch._private.worker", "numpy", "pyarrow"])
+            _OUR_FORKSERVER.ensure_running()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        import atexit
+
+        atexit.register(stop_worker_plane)
+        _MP_CTX = ctx
+        return ctx
+
+
+def forkserver_pid() -> Optional[int]:
+    """The template's pid while it runs (tests and the chip check read
+    it)."""
+    fs = _OUR_FORKSERVER
+    return getattr(fs, "_forkserver_pid", None) if fs is not None else None
+
+
+def _stop_forkserver() -> None:
+    """Stop the template process (closing its alive pipe ends its loop) and
+    wait for it; a later worker start makes a new one."""
+    global _MP_CTX, _OUR_FORKSERVER
+    with _MP_CTX_LOCK:
+        fs, _OUR_FORKSERVER = _OUR_FORKSERVER, None
+        _MP_CTX = None
+    if fs is None:
+        return
+    fd = getattr(fs, "_forkserver_alive_fd", None)
+    pid = getattr(fs, "_forkserver_pid", None)
+    if fd is not None:
+        try:
+            os.close(fd)
+        except OSError:
+            pass
+        fs._forkserver_alive_fd = None
+    if pid is not None:
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline:
+            try:
+                done, _ = os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                break
+            if done:
+                break
+            time.sleep(0.02)
+        else:
+            try:
+                os.kill(pid, 9)
+                os.waitpid(pid, 0)
+            except (ProcessLookupError, ChildProcessError):
+                pass
+
+
+def _start_sans_main(p) -> None:
+    """Start a worker Process on OUR forkserver, without multiprocessing's
+    main-module fixup: a worker must never re-run the driver's
+    ``__main__`` (a user script, ``chip_smoke.py``); driver-side functions
+    reach workers through the function table instead. Both patches are
+    scoped: the lock serialises our starts, the spawn patch checks the
+    starting thread, and the forkserver alias is restored before
+    release."""
+    from multiprocessing import forkserver as _fs
+    from multiprocessing import spawn as _spawn
+
+    with _START_LOCK:
+        orig = _spawn.get_preparation_data
+        me = threading.get_ident()
+
+        def sans_main(name):
+            d = orig(name)
+            if threading.get_ident() == me:
+                d.pop("init_main_from_path", None)
+                d.pop("init_main_from_name", None)
+            return d
+
+        # popen_forkserver calls the module-level alias (a bound method of
+        # the import-time singleton), so that alias is what we swap
+        saved_connect = _fs.connect_to_new_process
+        _spawn.get_preparation_data = sans_main
+        if _OUR_FORKSERVER is not None:
+            _fs.connect_to_new_process = _OUR_FORKSERVER.connect_to_new_process
+        try:
+            p.start()
+        finally:
+            _fs.connect_to_new_process = saved_connect
+            _spawn.get_preparation_data = orig
+
+
+def rebind_pg(rt, spec):
+    """Specs built inside a worker carry a pickled copy of their
+    PlacementGroup; bind the strategy to the driver's live group by id."""
+    strat = getattr(spec, "scheduling_strategy", None)
+    pg = getattr(strat, "placement_group", None)
+    if pg is not None:
+        live = rt.pg_manager.get(pg.id)
+        if live is not None:
+            strat.placement_group = live
+    return spec
+
+
+def _actor_info_for_worker(info):
+    """The actor's GCS record without its creation spec: the spec holds the
+    actor's constructor arguments, which need not cross the pipe (and may
+    be state of the driver's)."""
+    if info is None:
+        return None
+    import copy
+    out = copy.copy(info)
+    out.creation_spec = None
+    return out
+
+
+def dispatch_core_op(rt, holder, call: str, kw: Dict[str, Any],
+                     task_rid: Optional[str]) -> Any:
+    """Driver-side dispatch of a worker-initiated core operation.
+    ``holder`` pins refs created on behalf of the worker via
+    ``_hold(task_rid, obj)``."""
+    if call == "get":
+        return rt.get(kw["refs"], timeout=kw.get("timeout"))
+    if call == "put":
+        ref = rt.put(kw["value"])
+        holder._hold(task_rid, ref)
+        return ref
+    if call == "wait":
+        return rt.wait(kw["refs"], num_returns=kw["num_returns"],
+                       timeout=kw["timeout"], fetch_local=kw["fetch_local"])
+    if call == "submit_task":
+        refs = rt.submit_task(rebind_pg(rt, kw["spec"]))
+        holder._hold(task_rid, refs)
+        return refs
+    if call == "create_actor":
+        return rt.create_actor(rebind_pg(rt, kw["spec"]),
+                               get_if_exists=kw["get_if_exists"])
+    if call == "kill_actor":
+        return rt.kill_actor(kw["actor_id"], no_restart=kw["no_restart"],
+                             cause=kw["cause"])
+    if call == "cancel":
+        return rt.cancel(kw["ref"], force=kw["force"],
+                         recursive=kw["recursive"])
+    if call == "gen_next":
+        state = rt.generator_state(kw["task_id"])
+        try:
+            ref = state.next_ref(kw["index"], timeout=kw.get("timeout"))
+        except StopIteration:
+            return None
+        holder._hold(task_rid, ref)
+        return ref
+    if call == "gen_finished":
+        return rt.generator_state(kw["task_id"]).finished
+    if call == "gcs_get_actor_info":
+        return _actor_info_for_worker(rt.gcs.get_actor_info(kw["actor_id"]))
+    if call == "gcs_get_named_actor":
+        return rt.gcs.get_named_actor(kw["name"], kw["namespace"])
+    if call == "gcs_nodes":
+        return dict(rt.gcs.nodes)
+    if call.startswith("gcs_kv_"):
+        ns = kw.get("namespace", b"")
+        if call == "gcs_kv_put":
+            return rt.gcs.kv_put(kw["key"], kw["value"],
+                                 overwrite=kw.get("overwrite", True),
+                                 namespace=ns)
+        if call == "gcs_kv_get":
+            return rt.gcs.kv_get(kw["key"], namespace=ns)
+        if call == "gcs_kv_del":
+            return rt.gcs.kv_del(kw["key"], namespace=ns)
+        if call == "gcs_kv_keys":
+            return rt.gcs.kv_keys(kw["prefix"], namespace=ns)
+    if call == "fetch_function":
+        return fetch_function_blob(kw["fid"])
+    if call == "pg_get":
+        return rt.pg_manager.get(kw["pg_id"])
+    if call == "pg_create":
+        return rt.pg_manager.create(kw["bundles"], kw["strategy"],
+                                    kw["name"])
+    if call == "pg_remove":
+        pg = rt.pg_manager.get(kw["pg_id"])
+        if pg is not None:
+            rt.pg_manager.remove(pg)
+        return None
+    if call == "pg_table":
+        return rt.pg_manager.table()
+    if call == "pg_ready_ref":
+        ref = rt.pg_manager.ready_ref(kw["pg_id"])
+        holder._hold(task_rid, ref)
+        return ref
+    if call == "pg_wait":
+        return rt.pg_manager.wait(kw["pg_id"], kw["timeout"])
+    if call == "host_info":
+        return {"namespace": rt.namespace, "job_id": rt.job_id}
+    if call == "cluster_resources":
+        return rt.cluster_resources()
+    if call == "available_resources":
+        return rt.available_resources()
+    raise ValueError(f"unknown core op {call!r}")
+
+
+class WorkerClient:
+    """Driver handle to one worker process."""
+
+    def __init__(self, boot: Dict[str, Any]):
+        ctx = _mp_context()
+        parent, child = socket.socketpair()
+        self.proc = ctx.Process(target=_child_main, args=(child,),
+                                daemon=True, name="ray-tpu-torch-worker")
+        _start_sans_main(self.proc)
+        child.close()
+        self.pid = self.proc.pid
+        self.chan = _Channel(parent)
+        # first message: the boot config (platform pinning etc.)
+        self.chan.send(boot)
+        self._ids = itertools.count()
+        #: guarded by self._pending_lock
+        self._pending: Dict[str, _Pending] = {}
+        self._pending_lock = threading.Lock()
+        # Objects created on the worker's behalf (refs from put/submit),
+        # pinned until the creating task -- or the whole actor -- ends.
+        self._holds: Dict[str, List[Any]] = {}
+        self.runtime = None          # bound by the router on assignment
+        self.node = None
+        self.actor_id: Optional[ActorID] = None
+        self.expected_death = False
+        self.dead = False
+        self.calls = 0
+        self._on_death: List[Any] = []
+        self._reader = threading.Thread(target=self._read_loop, daemon=True,
+                                        name=f"wkr-read-{self.pid}")
+        self._reader.start()
+
+    # -- plumbing --------------------------------------------------------
+    def _send(self, msg: Dict[str, Any], parts: Sequence[Any] = ()) -> None:
+        try:
+            self.chan.send(msg, parts)
+        except OSError:
+            raise WorkerCrashed(
+                f"worker {self.pid} pipe closed "
+                f"(exitcode={self.proc.exitcode})")
+
+    def _read_loop(self) -> None:
+        while True:
+            try:
+                msg, parts = self.chan.recv()
+            except Exception:
+                self._on_dead()
+                return
+            msg["parts"] = parts
+            op = msg.get("op")
+            if op in ("result", "gen_start", "yield"):
+                with self._pending_lock:
+                    pend = self._pending.get(msg["id"])
+                if pend is not None:
+                    pend.q.put(msg)
+            elif op == "core":
+                threading.Thread(target=self._serve_core, args=(msg,),
+                                 daemon=True, name="wkr-core").start()
+
+    def _on_dead(self) -> None:
+        if self.dead:
+            return
+        self.dead = True
+        # reap the child so it leaves no zombie behind
+        try:
+            self.proc.join(timeout=1.0)
+        except Exception:
+            pass
+        with self._pending_lock:
+            pending = list(self._pending.values())
+        for p in pending:
+            p.q.put(_DEAD)
+        self._holds.clear()
+        callbacks, self._on_death = self._on_death, []
+        for cb in callbacks:
+            try:
+                cb(self)
+            except Exception:
+                pass
+
+    def add_death_callback(self, cb) -> None:
+        if self.dead:
+            cb(self)
+        else:
+            self._on_death.append(cb)
+
+    def alive(self) -> bool:
+        return not self.dead and self.proc.is_alive()
+
+    def kill(self, expected: bool = True) -> None:
+        self.expected_death = self.expected_death or expected
+        try:
+            self._send({"op": "shutdown"})
+        except WorkerCrashed:
+            pass
+        self.proc.join(timeout=0.5)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(timeout=1.0)
+        try:
+            self.chan.close()
+        except OSError:
+            pass
+
+    # -- worker-initiated core ops ---------------------------------------
+    def _serve_core(self, msg: Dict[str, Any]) -> None:
+        try:
+            rt = self.runtime
+            if rt is None:
+                raise RuntimeError("worker not bound to a runtime")
+            kw = _unpack(msg["parts"])
+            value = dispatch_core_op(rt, self, msg["call"], kw,
+                                     msg.get("task"))
+            reply = {"op": "reply", "for": msg["id"], "ok": True}
+            parts = _pack(value)
+        except BaseException as e:  # noqa: BLE001 - shipped back
+            try:
+                parts = [serialization.dumps(e)]
+            except Exception:
+                parts = [serialization.dumps(RuntimeError(repr(e)))]
+            reply = {"op": "reply", "for": msg["id"], "ok": False}
+        try:
+            self._send(reply, parts)
+        except WorkerCrashed:
+            pass
+
+    def _hold(self, task_rid: Optional[str], obj: Any) -> None:
+        key = task_rid or "__actor__"
+        if self.actor_id is not None:
+            key = "__actor__"   # actor-held refs live as long as the actor
+        self._holds.setdefault(key, []).append(obj)
+
+    def _request(self, msg: Dict[str, Any],
+                 parts: Sequence[Any] = ()) -> Tuple[str, _Pending]:
+        rid = f"h{next(self._ids)}"
+        msg["id"] = rid
+        pend = _Pending()
+        with self._pending_lock:
+            self._pending[rid] = pend
+        if self.dead:
+            pend.q.put(_DEAD)
+            return rid, pend
+        self._send(msg, parts)
+        return rid, pend
+
+    def _finish(self, rid: str) -> None:
+        with self._pending_lock:
+            self._pending.pop(rid, None)
+        self._holds.pop(rid, None)
+
+    def _crashed(self, what: str) -> WorkerCrashed:
+        if self.proc.is_alive():
+            self.proc.join(timeout=1.0)
+        return WorkerCrashed(f"worker process {self.pid} died {what}"
+                             f"(exitcode={self.proc.exitcode})")
+
+    def _wait_outcome(self, rid: str, pend: _Pending):
+        """The first message decides: value, error, or generator."""
+        msg = pend.q.get()
+        if msg is _DEAD:
+            self._finish(rid)
+            raise self._crashed("")
+        if msg["op"] == "gen_start":
+            return ("gen", self._gen_iter(rid, pend))
+        payload = _unpack(msg["parts"])
+        self._finish(rid)
+        if msg["ok"]:
+            return ("ok", payload)
+        e, tb = payload
+        setattr(e, "_remote_traceback", tb)
+        return ("err", e)
+
+    def _gen_iter(self, rid: str, pend: _Pending):
+        try:
+            while True:
+                msg = pend.q.get()
+                if msg is _DEAD:
+                    raise self._crashed("mid-stream ")
+                if msg["op"] == "yield":
+                    yield _unpack(msg["parts"])
+                    try:
+                        # the consumer pulled the item: grant the producer
+                        # another flow-control token
+                        self._send({"op": "gen_ack", "target": rid})
+                    except WorkerCrashed:
+                        pass
+                    continue
+                if not msg["ok"]:
+                    e, tb = _unpack(msg["parts"])
+                    setattr(e, "_remote_traceback", tb)
+                    raise e
+                return
+        finally:
+            self._finish(rid)
+
+    @staticmethod
+    def _ctx_fields(spec: TaskSpec, node, runtime) -> Dict[str, Any]:
+        return {
+            "job_id": spec.job_id or runtime.job_id,
+            "task_id": spec.task_id,
+            "node_id": node.node_id if node is not None else None,
+            "actor_id": spec.actor_id,
+            "resources": dict(spec.resources),
+            "task_name": spec.name,
+            "placement_group_id": spec.placement_group_id,
+            "pg_capture": spec.pg_capture,
+        }
+
+    def execute_task(self, spec: TaskSpec, node, fid: str,
+                     args_parts: Sequence[Any]):
+        self._count_call()
+        rid, pend = self._request({
+            "op": "execute_task", "fn_id": fid,
+            "ctx": self._ctx_fields(spec, node, self.runtime),
+            "backpressure": spec.backpressure_num_objects,
+        }, args_parts)
+        router = self.runtime.process_router
+        router.track_task(spec.task_id, self, rid)
+        try:
+            outcome = self._wait_outcome(rid, pend)
+        except BaseException:
+            router.untrack_task(spec.task_id)
+            raise
+        if outcome[0] == "gen":
+            # stay tracked while the worker streams: cancel and crash
+            # handling must reach a producing generator task
+            return ("gen", _untrack_after(router, spec.task_id, outcome[1]))
+        router.untrack_task(spec.task_id)
+        return outcome
+
+    def create_actor_instance(self, spec: TaskSpec, node, fid: str,
+                              args_parts: Sequence[Any]):
+        self._count_call()
+        rid, pend = self._request({
+            "op": "create_actor", "fn_id": fid,
+            "ctx": self._ctx_fields(spec, node, self.runtime),
+        }, args_parts)
+        return self._wait_outcome(rid, pend)
+
+    def call_method(self, spec: TaskSpec, node,
+                    args_parts: Sequence[Any]):
+        self._count_call()
+        rid, pend = self._request({
+            "op": "call_method", "method": spec.method_name,
+            "ctx": self._ctx_fields(spec, node, self.runtime),
+        }, args_parts)
+        return self._wait_outcome(rid, pend)
+
+    def _count_call(self) -> None:
+        self.calls += 1
+        with _CALLS_LOCK:
+            _CALLS[0] += 1
+
+    def reset_actor(self):
+        """Tear down the actor instance in the worker (the clean death path)
+        so the worker can be recycled."""
+        rid, pend = self._request({"op": "reset_actor", "ctx": {}})
+        return self._wait_outcome(rid, pend)
+
+    def cancel_request(self, rid: str) -> None:
+        try:
+            self._send({"op": "cancel", "target": rid})
+        except WorkerCrashed:
+            pass
+
+
+def _untrack_after(router, task_id, it):
+    """Yield through a worker stream, untracking the task at its end."""
+    try:
+        yield from it
+    finally:
+        router.untrack_task(task_id)
+
+
+# ---------------------------------------------------------------------------
+# the pool (module-level: idle workers outlive a runtime and serve the next
+# one in this process)
+# ---------------------------------------------------------------------------
+
+_POOL_LOCK = threading.Lock()
+_IDLE: List[WorkerClient] = []
+_ALL_WORKERS: "weakref.WeakSet" = weakref.WeakSet()
+_PRESTARTING = [0]
+_FILL_RUNNING = [False]
+_POOL_CLOSED = threading.Event()   # interpreter exiting: no new spawns
+
+
+def live_workers() -> List[WorkerClient]:
+    return [w for w in list(_ALL_WORKERS) if w.alive()]
+
+
+def _pool_floor() -> int:
+    """How many idle workers the prestarter keeps ready."""
+    from ray_tpu_torch._private.config import cfg
+    n = cfg().process_pool_size
+    return n if n > 0 else min(4, max(2, (os.cpu_count() or 4) // 2))
+
+
+def _pool_max() -> int:
+    """How many idle workers a release keeps for reuse."""
+    from ray_tpu_torch._private.config import cfg
+    return max(_pool_floor(), cfg().process_pool_max)
+
+
+def _async_kill(w: WorkerClient) -> None:
+    """Kill off the caller's thread: kill() blocks up to 1.5 s on join."""
+    threading.Thread(target=w.kill, daemon=True,
+                     name="worker-reaper").start()
+
+
+def _make_boot() -> Dict[str, Any]:
+    # workers never own the card: hide it before anything touches CUDA
+    return {"env": {}, "force_cpu_platform": True}
+
+
+def _spawn_worker() -> WorkerClient:
+    w = WorkerClient(_make_boot())
+    _ALL_WORKERS.add(w)
+    return w
+
+
+def acquire_worker() -> WorkerClient:
+    got: Optional[WorkerClient] = None
+    stale: List[WorkerClient] = []
+    with _POOL_LOCK:
+        while _IDLE:
+            w = _IDLE.pop()
+            if w.alive():
+                got = w
+                break
+            stale.append(w)
+    for w in stale:
+        _async_kill(w)
+    if got is None:
+        got = _spawn_worker()
+    _maybe_prestart_async()
+    return got
+
+
+def release_worker(w: WorkerClient) -> None:
+    """Back to the idle pool, up to ``process_pool_max`` idle workers; an
+    actor's worker or a dead one is killed, never recycled."""
+    keep = False
+    if w.actor_id is None and w.alive():
+        w.runtime = None
+        w.node = None
+        with _POOL_LOCK:
+            keep = len(_IDLE) < _pool_max() and not _POOL_CLOSED.is_set()
+            if keep:
+                _IDLE.append(w)
+    if not keep:
+        _async_kill(w)
+
+
+def _maybe_prestart_async() -> None:
+    """Keep ``process_pool_size`` idle workers ready, in the background."""
+    if _POOL_CLOSED.is_set():
+        return
+    with _POOL_LOCK:
+        if (_FILL_RUNNING[0]
+                or len(_IDLE) + _PRESTARTING[0] >= _pool_floor()):
+            return
+        _FILL_RUNNING[0] = True
+
+    def fill():
+        try:
+            while not _POOL_CLOSED.is_set():
+                with _POOL_LOCK:
+                    if len(_IDLE) + _PRESTARTING[0] >= _pool_floor():
+                        return
+                    _PRESTARTING[0] += 1
+                try:
+                    w = _spawn_worker()
+                finally:
+                    with _POOL_LOCK:
+                        _PRESTARTING[0] -= 1
+                with _POOL_LOCK:
+                    keep = not _POOL_CLOSED.is_set()
+                    if keep:
+                        _IDLE.append(w)
+                if not keep:
+                    _async_kill(w)
+                    return
+        except Exception:
+            pass
+        finally:
+            with _POOL_LOCK:
+                _FILL_RUNNING[0] = False
+    threading.Thread(target=fill, daemon=True,
+                     name="worker-prestart").start()
+
+
+def drain_pool() -> None:
+    """Kill every idle pooled worker."""
+    with _POOL_LOCK:
+        idle, _IDLE[:] = list(_IDLE), []
+    for w in idle:
+        w.kill()
+
+
+def stop_worker_plane(timeout: float = 10.0) -> None:
+    """Kill every worker this process started and stop the template: after
+    it returns no worker process and no forkserver of this process is
+    left. The next worker start makes a new template. It also runs at
+    interpreter exit."""
+    _POOL_CLOSED.set()
+    try:
+        deadline = time.monotonic() + timeout
+        while _PRESTARTING[0] > 0 and time.monotonic() < deadline:
+            time.sleep(0.02)   # let racing spawns land so the kill sees them
+        drain_pool()
+        for w in list(_ALL_WORKERS):
+            if w.proc.is_alive() or not w.dead:
+                w.kill(expected=True)
+        _stop_forkserver()
+    finally:
+        _POOL_CLOSED.clear()
+
+
+# ---------------------------------------------------------------------------
+# the router (owned by the Runtime)
+# ---------------------------------------------------------------------------
+
+def _wants_accelerator(resources: Dict[str, float]) -> bool:
+    return any(k == "GPU" for k, v in (resources or {}).items() if v)
+
+
+def needs_driver(value: Any) -> bool:
+    """True when ``value`` cannot go to a worker process: it names a device
+    off the CPU (a tensor, a module's parameters, a ``torch.device``) or
+    the wire cannot pickle it. A library that hands such a value to an
+    actor's methods creates that actor with ``_in_process`` on this
+    answer."""
+    try:
+        wire_dumps(value, host_only=True)
+    except Exception:
+        return True
+    return False
+
+
+class _ProcessActorInstance:
+    """Driver-side proxy for an actor living in a worker process. The
+    Runtime's actor-task executor detects this type and routes calls
+    through ProcessRouter.call_actor_method; the ActorExecutor machinery
+    (ordering, concurrency, restarts) drives it like a live instance."""
+
+    __slots__ = ("_client", "_class_name")
+
+    def __init__(self, client: WorkerClient, class_name: str):
+        self._client = client
+        self._class_name = class_name
+
+
+class ProcessRouter:
+    def __init__(self, runtime):
+        from ray_tpu_torch._private.config import cfg
+
+        self.runtime = runtime
+        self.enabled = bool(cfg().process_workers)
+        self._actor_workers: Dict[ActorID, WorkerClient] = {}
+        self._lock = threading.Lock()
+        # task_id -> (client, rid) while a normal task runs in a process
+        self._running: Dict[TaskID, Tuple[WorkerClient, str]] = {}
+        if self.enabled:
+            # start the template now (in init, not under a task's thread),
+            # then warm the pool in the background so the first task does
+            # not pay the spawn
+            _mp_context()
+            _maybe_prestart_async()
+
+    # -- eligibility -----------------------------------------------------
+    def _serialize_payload(self, spec: TaskSpec, args, kwargs
+                           ) -> Optional[Tuple[str, bytes]]:
+        """The function's id and the arguments' parts, or None where the
+        work stays in the driver: the payload names a device off the CPU
+        (DeviceValue, the accelerator plane) or the wire cannot pickle it
+        (JAX's path for what cloudpickle refuses)."""
+        try:
+            fid, _ = export_function(spec.func)
+            args_parts = _pack((args, kwargs), host_only=True)
+        except Exception:
+            return None
+        return fid, args_parts
+
+    def eligible_task(self, spec: TaskSpec, args, kwargs):
+        # pg_demand is the demand before a placement group renamed it to
+        # bundle-scoped keys, which a plain name check would miss
+        demand = spec.pg_demand or spec.resources
+        if (not self.enabled or spec.kind != TaskKind.NORMAL
+                or spec.in_process or _wants_accelerator(demand)):
+            return None
+        return self._serialize_payload(spec, args, kwargs)
+
+    def eligible_actor(self, spec: TaskSpec, args, kwargs):
+        demand = spec.pg_demand or spec.resources
+        if (not self.enabled or spec.kind != TaskKind.ACTOR_CREATION
+                or spec.in_process or _wants_accelerator(demand)):
+            return None
+        cls = spec.func
+        if not inspect.isclass(cls):
+            return None
+        from ray_tpu_torch._private.worker import _class_is_async
+        if _class_is_async(cls):
+            return None     # asyncio actors run on the driver's loop
+        return self._serialize_payload(spec, args, kwargs)
+
+    # -- normal tasks ----------------------------------------------------
+    def track_task(self, task_id: TaskID, client: WorkerClient,
+                   rid: str) -> None:
+        with self._lock:
+            self._running[task_id] = (client, rid)
+
+    def untrack_task(self, task_id: TaskID) -> None:
+        with self._lock:
+            self._running.pop(task_id, None)
+
+    def execute_task(self, spec: TaskSpec, node, payload):
+        fid, args_parts = payload
+        client = acquire_worker()
+        client.runtime = self.runtime
+        client.node = node
+        try:
+            outcome = client.execute_task(spec, node, fid, args_parts)
+        except WorkerCrashed:
+            client.kill(expected=False)
+            raise
+        if outcome[0] == "gen":
+            # the worker keeps producing after this returns: release it
+            # only once the stream is drained
+            return ("gen", self._release_after(client, outcome[1]))
+        release_worker(client)
+        return outcome
+
+    @staticmethod
+    def _release_after(client: WorkerClient, it):
+        try:
+            yield from it
+        finally:
+            release_worker(client)
+
+    def cancel_task(self, task_id: TaskID, force: bool) -> bool:
+        with self._lock:
+            entry = self._running.get(task_id)
+        if entry is None:
+            return False
+        client, rid = entry
+        if force:
+            client.expected_death = False
+            client.proc.terminate()   # surfaces as WorkerCrashed
+        else:
+            client.cancel_request(rid)
+        return True
+
+    # -- actors ----------------------------------------------------------
+    def create_actor(self, spec: TaskSpec, node, payload):
+        """Returns a _ProcessActorInstance, or raises the user's __init__
+        exception or WorkerCrashed."""
+        fid, args_parts = payload
+        client = acquire_worker()
+        client.runtime = self.runtime
+        client.node = node
+        client.actor_id = spec.actor_id
+        try:
+            kind, value = client.create_actor_instance(spec, node, fid,
+                                                       args_parts)
+        except WorkerCrashed:
+            client.kill(expected=False)
+            raise
+        if kind == "err":
+            client.actor_id = None
+            release_worker(client)  # __init__ failed cleanly: reusable
+            raise value
+        with self._lock:
+            self._actor_workers[spec.actor_id] = client
+        actor_id = spec.actor_id
+        client.add_death_callback(
+            lambda c, aid=actor_id: self._actor_worker_died(aid, c))
+        return _ProcessActorInstance(client,
+                                     getattr(spec.func, "__name__", "Actor"))
+
+    def call_actor_method(self, instance: _ProcessActorInstance,
+                          spec: TaskSpec, node, args, kwargs):
+        from ray_tpu_torch import exceptions as exc
+
+        client: WorkerClient = instance._client
+        if client.dead:
+            raise exc.ActorDiedError(spec.actor_id,
+                                     "actor worker process died")
+        try:
+            args_parts = _pack((args, kwargs), host_only=True)
+        except DeviceValue as e:
+            refused = str(e)
+        else:
+            refused = None
+        if refused is not None:
+            # raised outside the handler: the DeviceValue's frames hold
+            # the arguments, which must not live on in the error
+            raise ValueError(
+                f"an argument holds a {refused}: an actor in a worker "
+                f"process sees only the CPU, so one that takes the card's "
+                f"values is created with num_gpus or _in_process=True")
+        try:
+            return client.call_method(spec, node, args_parts)
+        except WorkerCrashed as e:
+            raise exc.ActorDiedError(spec.actor_id, str(e))
+
+    def _actor_worker_died(self, actor_id: ActorID,
+                           client: WorkerClient) -> None:
+        with self._lock:
+            if self._actor_workers.get(actor_id) is client:
+                self._actor_workers.pop(actor_id, None)
+        if client.expected_death:
+            return
+        rt = self.runtime
+        if rt is None or rt._shutdown:
+            return
+        # an unexpected process death is actor death, with restarts
+        try:
+            rt.on_actor_worker_died(
+                actor_id, f"actor worker process died (pid {client.pid})")
+        except Exception:
+            pass
+
+    def discard_actor(self, actor_id: ActorID,
+                      expected: bool = True) -> None:
+        with self._lock:
+            client = self._actor_workers.pop(actor_id, None)
+        if client is None:
+            return
+        with client._pending_lock:
+            busy = bool(client._pending)
+        if not expected or busy or not client.alive():
+            # a killed actor's process dies with its running calls
+            client.kill(expected=expected)
+            return
+        # clean death: reset the instance and recycle the worker
+        try:
+            kind, _ = client.reset_actor()
+        except Exception:
+            kind = "err"
+        if kind != "ok":
+            client.kill(expected=True)
+            return
+        client._on_death.clear()    # stale actor-death callbacks
+        client._holds.pop("__actor__", None)
+        client.actor_id = None
+        release_worker(client)
+
+    # -- lifecycle -------------------------------------------------------
+    def shutdown(self) -> None:
+        with self._lock:
+            actors = dict(self._actor_workers)
+        for actor_id in actors:
+            # recycle cleanly shut-down actor workers into the pool (the
+            # pool outlives runtimes; respawns cost)
+            self.discard_actor(actor_id, expected=True)

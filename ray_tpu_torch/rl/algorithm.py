@@ -78,7 +78,10 @@ class AlgorithmConfig:
 def _build_learner(algo: str, obs_dim: int, n_actions: int, seed: int,
                    learner_kwargs: Dict[str, Any]):
     """(learner, policy_factory) for one policy of ``algo``; the runners'
-    policies live on the learner's device."""
+    policies live on the learner's device. The factory closes over that
+    device, so the runners of a learner on the card stay in the driver
+    (the process router's accelerator-plane rule), and those of a learner
+    on the CPU run in worker processes."""
     algo = algo.upper()
     if algo == "PPO":
         from ray_tpu_torch.rl.ppo import ActorCriticPolicy, PPOLearner

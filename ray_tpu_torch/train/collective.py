@@ -89,9 +89,12 @@ def _rendezvous(name: str = RENDEZVOUS_NAME):
         except Exception:
             cls = ray_tpu_torch.remote(_Rendezvous)
             try:
+                # beside the ranks, which are the driver's threads: a
+                # contribution may be a tensor on the card
                 handle = cls.options(name=full_name,
                                      get_if_exists=True,
-                                     max_concurrency=64).remote(
+                                     max_concurrency=64,
+                                     _in_process=True).remote(
                     ctx.get_world_size())
             except Exception:
                 handle = ray_tpu_torch.get_actor(full_name)

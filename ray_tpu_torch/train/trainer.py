@@ -24,7 +24,7 @@ from ray_tpu_torch.train.collective import kill_rendezvous
 from ray_tpu_torch.train.config import RunConfig, ScalingConfig
 from ray_tpu_torch.train.scaling_policy import (ElasticScalingPolicy,
                                                 resolve_policy)
-from ray_tpu_torch.train.worker_group import WorkerGroup
+from ray_tpu_torch.train.worker_group import WorkerGroup, report_cutoff
 
 
 @dataclasses.dataclass
@@ -153,28 +153,45 @@ class JaxTrainer:
                     shards[i][name] = ds[i::n]
         return shards
 
-    def _drain(self, group, manager, history, notify: bool) -> None:
-        """Take every rank's buffered reports; keep rank 0's checkpoints."""
+    def _drain(self, group, manager, history, notify: bool,
+               held: List, flush: bool = False) -> None:
+        """Take every rank's buffered reports into ``history`` in the order
+        they were made; keep rank 0's checkpoints. A report made after this
+        drain's cutoff waits in ``held`` for the next drain (a report of
+        another rank made before it may not have been polled yet), unless
+        ``flush``, once no rank reports any more."""
         callbacks = self.run_config.callbacks
+        cutoff = report_cutoff()
+        batch = list(held)
+        held.clear()
         for status in group.poll():
-            for entry in status["reports"]:
-                history.append(entry)
+            batch.extend(zip(status["seqs"], status["reports"]))
+        batch.sort(key=lambda item: item[0])
+        for seq, entry in batch:
+            if seq > cutoff and not flush:
+                held.append((seq, entry))
+                continue
+            history.append(entry)
+            if notify:
+                _cb(callbacks, "on_report", entry["metrics"],
+                    len(history), rank=entry["rank"])
+            if entry["rank"] == 0 and entry["checkpoint"] is not None:
+                manager.register(entry["checkpoint"], entry["metrics"])
                 if notify:
-                    _cb(callbacks, "on_report", entry["metrics"],
-                        len(history), rank=entry["rank"])
-                if entry["rank"] == 0 and entry["checkpoint"] is not None:
-                    manager.register(entry["checkpoint"], entry["metrics"])
-                    if notify:
-                        _cb(callbacks, "on_checkpoint", entry["checkpoint"],
-                            len(history))
+                    _cb(callbacks, "on_checkpoint", entry["checkpoint"],
+                        len(history))
 
     def _poll_until_done(self, group, run_refs, manager, history):
         """Drain reports until every rank finishes or one fails.
 
         Returns ("finished" | "failed", error)."""
         pending = list(run_refs)
+        held: List = []
         while True:
-            self._drain(group, manager, history, notify=True)
+            # every rank has returned once pending is empty: nothing more
+            # can be reported, so this drain takes all
+            self._drain(group, manager, history, notify=True, held=held,
+                        flush=not pending)
             if not pending:
                 return "finished", None
             done, pending = ray_tpu_torch.wait(
@@ -184,5 +201,6 @@ class JaxTrainer:
                     ray_tpu_torch.get(ref)
                 except Exception as e:
                     # one dead rank fails the gang
-                    self._drain(group, manager, history, notify=False)
+                    self._drain(group, manager, history, notify=False,
+                                held=held, flush=True)
                     return "failed", repr(e)

@@ -11,13 +11,21 @@ next ``report`` raises ``StopIteration`` (train/session.py), and the group
 waits a bounded time for the train functions to return, so a rank that ran
 on after another rank failed does not still hold its model when the group
 re-forms.
+
+Every rank's reports are numbered in one order, under one lock, as they are
+made (the ranks are threads of the driver). The driver's drain takes a
+cutoff in that order before it polls the ranks and keeps back what a rank
+reported after the cutoff, so ``Result.metrics_history`` is in the order
+the reports were made, not the order the polls reached them (ROADMAP C14).
 """
 
 from __future__ import annotations
 
 import inspect
+import itertools
+import threading
 import traceback
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import ray_tpu_torch
 from ray_tpu_torch._private.task_spec import PlacementGroupSchedulingStrategy
@@ -28,6 +36,16 @@ from ray_tpu_torch.util.placement_group import (placement_group,
 # how long shutdown waits for stopped ranks to return from the train function
 STOP_JOIN_S = 60.0
 
+_REPORT_LOCK = threading.Lock()
+_REPORT_SEQ = itertools.count()
+
+
+def report_cutoff() -> int:
+    """A number in the reports' order: every report numbered below it is
+    already in its rank's buffer."""
+    with _REPORT_LOCK:
+        return next(_REPORT_SEQ)
+
 
 class _TrainWorker:
     """Actor hosting one rank of the train function."""
@@ -36,7 +54,7 @@ class _TrainWorker:
         self.rank = rank
         self.world_size = world_size
         self.experiment_name = experiment_name
-        self._buffer: List[Dict] = []
+        self._buffer: List[Tuple[int, Dict]] = []  #: guarded by _REPORT_LOCK
         self._status = "idle"
         self._error: Optional[str] = None
         self._ctx: Optional[TrainContext] = None
@@ -49,9 +67,7 @@ class _TrainWorker:
             experiment_name=self.experiment_name,
             latest_checkpoint=latest_checkpoint,
             dataset_shards=dataset_shards)
-        # late-bound: poll() swaps self._buffer out, so the callback must
-        # resolve the attribute at call time
-        ctx._report_cb = lambda entry: self._buffer.append(entry)
+        ctx._report_cb = self._append_report
         if self._stopped:
             ctx._stop_event.set()
         self._ctx = ctx
@@ -75,10 +91,16 @@ class _TrainWorker:
             _set_context(None)
             self._ctx = None
 
+    def _append_report(self, entry: Dict) -> None:
+        with _REPORT_LOCK:
+            self._buffer.append((next(_REPORT_SEQ), entry))
+
     def poll(self) -> Dict[str, Any]:
-        drained, self._buffer = self._buffer, []
+        with _REPORT_LOCK:
+            drained, self._buffer = self._buffer, []
         return {"rank": self.rank, "status": self._status,
-                "reports": drained, "error": self._error}
+                "reports": [e for _, e in drained],
+                "seqs": [n for n, _ in drained], "error": self._error}
 
     def stop(self) -> None:
         """End this rank at its next ``report``."""
@@ -141,7 +163,7 @@ class WorkerGroup:
                 out.append(ray_tpu_torch.get(w.poll.remote(), timeout=30))
             except Exception as e:
                 out.append({"rank": None, "status": "dead",
-                            "reports": [], "error": repr(e)})
+                            "reports": [], "seqs": [], "error": repr(e)})
         return out
 
     def shutdown(self) -> None:

@@ -5,8 +5,11 @@ Reference: Ray Tune (`python/ray/tune`, SURVEY.md §2.2): Tuner → trials →
 searchers + schedulers (ASHA/PBT) → trainable actors, with intermediate
 reporting and checkpoint plumbing shared with Train. Tune itself places
 nothing on a device: a trainable that trains on the card takes its device
-from its config (``with_parameters(fn, device=...)``), and trials that share
-one card run one at a time (``TuneConfig(max_concurrent_trials=1)``).
+from its config (``with_parameters(fn, device=torch.device("cuda"))``),
+and trials that share one card run one at a time
+(``TuneConfig(max_concurrent_trials=1)``). A trainable that names the card
+(a CUDA device or tensor in it or its parameters) or is a trainer runs its
+trials in the driver, which owns the card; others run in worker processes.
 """
 
 from ray_tpu_torch.tune.schedulers import (AsyncHyperBandScheduler,

@@ -190,12 +190,20 @@ class Tuner:
         # Train-on-Tune (reference: base_trainer.py:692 wraps a Trainer as
         # a one-trial Tune trainable): a JaxTrainer becomes a trainable
         # whose config overrides train_loop_config per trial.
+        from ray_tpu_torch._private.worker_process import needs_driver
         from ray_tpu_torch.train.trainer import JaxTrainer
-        if isinstance(trainable, JaxTrainer):
+        is_trainer = isinstance(trainable, JaxTrainer)
+        if is_trainer:
             trainable = _trainer_as_trainable(trainable)
             if param_space and "train_loop_config" in param_space:
                 param_space = dict(param_space["train_loop_config"])
         self.trainable = trainable
+        # The trial actors run in the driver when the trainable cannot go
+        # to a worker process (it holds the card's tensors, names a CUDA
+        # device or does not pickle), or is a trainer: its ranks are the
+        # driver's threads, and fit() orders their reports and runs its
+        # callbacks in the process that calls it.
+        self._trials_in_driver = is_trainer or needs_driver(trainable)
         self.param_space = param_space or {}
         self.cfg = tune_config or TuneConfig()
         self.run_config = run_config
@@ -314,7 +322,9 @@ class Tuner:
                 to_create -= 1
             while pending and len(running) < limit:
                 trial = pending.pop(0)
-                trial.actor = actor_cls.options(max_concurrency=2).remote()
+                trial.actor = actor_cls.options(
+                    max_concurrency=2,
+                    _in_process=self._trials_in_driver).remote()
                 trial.run_ref = trial.actor.run.remote(
                     self.trainable, trial.config, trial.checkpoint)
                 trial.status = "RUNNING"

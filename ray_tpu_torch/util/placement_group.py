@@ -85,30 +85,18 @@ class PlacementGroup:
     def ready(self):
         """ObjectRef that resolves to this group once it is placed."""
         from ray_tpu_torch._private import worker
-        from ray_tpu_torch._private.object_ref import ObjectRef
-
-        rt = worker.global_worker()
-        if self._ready_ref is None:
-            self._ready_ref = ObjectID.from_random()
-            rt.futures.register(self._ready_ref)
-
-            def on_ready():
-                self._ready_event.wait()
-                if self.state == "CREATED":
-                    rt._store_value(self._ready_ref, self)
-                else:
-                    rt._store_value(self._ready_ref, exc.TaskError(
-                        exc.PlacementGroupUnschedulableError(
-                            "placement group removed"),
-                        "placement_group.ready"))
-                rt.futures.complete(self._ready_ref)
-
-            threading.Thread(target=on_ready, daemon=True,
-                             name="pg-ready").start()
-        return ObjectRef(self._ready_ref, task_name="pg.ready")
+        return worker.global_worker().pg_manager.ready_ref(self.id)
 
     def wait(self, timeout_seconds: float = 30) -> bool:
-        self._ready_event.wait(timeout_seconds)
+        """Wait until the group is placed (or removed, or the timeout);
+        True once it is placed. A handle that came through the object
+        store takes the placed group's node assignments."""
+        from ray_tpu_torch._private import worker
+        rt = worker.global_runtime()
+        placed = (rt.pg_manager.wait(self.id, timeout_seconds)
+                  if rt is not None else None)
+        if placed is not None:
+            self.state, self.bundles = placed
         return self.is_ready()
 
     def __repr__(self):
@@ -177,6 +165,45 @@ class PlacementGroupManager:
     def get(self, pg_id: PlacementGroupID) -> Optional[PlacementGroup]:
         with self._lock:
             return self._groups.get(pg_id)
+
+    def ready_ref(self, pg_id: PlacementGroupID):
+        """The ObjectRef that resolves to the group once it is placed (an
+        error once it is removed); one per group."""
+        from ray_tpu_torch._private.object_ref import ObjectRef
+
+        pg = self.get(pg_id)
+        if pg is None:
+            raise ValueError("unknown placement group")
+        rt = self._rt
+        with self._lock:
+            fresh = pg._ready_ref is None
+            if fresh:
+                pg._ready_ref = ObjectID.from_random()
+                rt.futures.register(pg._ready_ref)
+        if fresh:
+            def on_ready():
+                pg._ready_event.wait()
+                if pg.state == "CREATED":
+                    rt._store_value(pg._ready_ref, pg)
+                else:
+                    rt._store_value(pg._ready_ref, exc.TaskError(
+                        exc.PlacementGroupUnschedulableError(
+                            "placement group removed"),
+                        "placement_group.ready"))
+                rt.futures.complete(pg._ready_ref)
+
+            threading.Thread(target=on_ready, daemon=True,
+                             name="pg-ready").start()
+        return ObjectRef(pg._ready_ref, task_name="pg.ready")
+
+    def wait(self, pg_id: PlacementGroupID, timeout: float):
+        """(state, bundles) of the group once it is placed or removed, or
+        at the timeout; None for a group this runtime does not hold."""
+        pg = self.get(pg_id)
+        if pg is None:
+            return None
+        pg._ready_event.wait(timeout)
+        return pg.state, pg.bundles
 
     def table(self) -> Dict[str, Dict]:
         with self._lock:

@@ -36,6 +36,22 @@ def runtime():
         torch.set_num_threads(threads)
 
 
+@pytest.fixture
+def in_process_runtime(monkeypatch):
+    """``runtime`` with process workers off (JAX's
+    RAY_TPU_PROCESS_WORKERS=0): the runners are actors on the driver's
+    threads, whose instances a test can read."""
+    monkeypatch.setenv("RAY_TPU_PROCESS_WORKERS", "0")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    r = rt.init(num_nodes=1, resources={"CPU": 8})
+    try:
+        yield r
+    finally:
+        rt.shutdown()
+        torch.set_num_threads(threads)
+
+
 # -- tests/test_rl.py ---------------------------------------------------------
 
 def test_ppo_improves_on_cartpole(runtime):
@@ -287,7 +303,7 @@ def test_algorithm_defaults_to_the_card(runtime):
         run("ppo-cartpole", max_iterations=1)
 
 
-def test_runners_share_the_learners_device_and_weights(runtime):
+def test_runners_share_the_learners_device_and_weights(in_process_runtime):
     """The runners' policies live on the learner's device and hold its
     weights after a sync; the weights they get are the learner's copy from
     the object store, not its live parameters."""
@@ -298,7 +314,8 @@ def test_runners_share_the_learners_device_and_weights(runtime):
         algo.train()
         want = algo.learner.get_weights()
         for handle in algo.runners:
-            executor = runtime._actor_executors[handle._ray_actor_id]
+            executor = in_process_runtime._actor_executors[
+                handle._ray_actor_id]
             policy = executor.instance.policy
             assert policy.device == algo.learner.device
             for part in ("pi", "vf"):

@@ -51,6 +51,16 @@ def ray_start_regular():
 
 
 @pytest.fixture
+def in_process_runtime(monkeypatch):
+    """A runtime with process workers off (JAX's RAY_TPU_PROCESS_WORKERS=0):
+    trials run on the driver's threads."""
+    monkeypatch.setenv("RAY_TPU_PROCESS_WORKERS", "0")
+    rt = ray_tpu_torch.init(num_nodes=1, resources={"CPU": 8})
+    yield rt
+    ray_tpu_torch.shutdown()
+
+
+@pytest.fixture
 def one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -663,7 +673,7 @@ def test_one_tuner_over_a_debug_llama_in_both_packages(jax_in_process,
 # ROADMAP C11: a stopped trial's model is freed while its results live
 # ---------------------------------------------------------------------------
 
-def test_stopped_trials_free_their_models(ray_start_regular):
+def test_stopped_trials_free_their_models(in_process_runtime):
     """Each trial holds a tensor in its frame and is stopped by ASHA (the
     last at max_t). A stopped trial's error holds the trainable's frames;
     JAX's ``Trial.run_ref`` keeps that error for the experiment's life.

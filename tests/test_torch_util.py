@@ -266,10 +266,21 @@ def test_collective_numpy_parts_stay_numpy(ray_start_regular):
         impl.init_collective_group(2, 0, backend="nccl")
 
 
-def test_actor_pool_and_queue_hand_tensors_over_uncopied(ray_start_regular):
+@pytest.fixture
+def in_process_runtime(monkeypatch):
+    """A runtime with process workers off (JAX's RAY_TPU_PROCESS_WORKERS=0):
+    every actor runs on the driver's threads."""
+    monkeypatch.setenv("RAY_TPU_PROCESS_WORKERS", "0")
+    rt = ray_tpu_torch.init(num_nodes=1, resources={"CPU": 8})
+    yield rt
+    ray_tpu_torch.shutdown()
+
+
+def test_actor_pool_and_queue_hand_tensors_over_uncopied(in_process_runtime):
     """On the in-process runtime a tensor through ``ActorPool.map`` and
     through ``Queue`` is the same tensor (chip_smoke.py phase 16 holds a
-    CUDA tensor to the same)."""
+    CUDA tensor to the same). With process workers on, the actors run in
+    worker processes and a tensor is copied (JAX's path)."""
 
     @ray_tpu_torch.remote
     class Echo:

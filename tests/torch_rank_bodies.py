@@ -555,3 +555,45 @@ def rl_group(cases: dict):
             num_learners=2 * world)),
     }
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_device_objects.py
+# ---------------------------------------------------------------------------
+
+def device_objects_roundtrip(x: np.ndarray, spec: tuple):
+    """``x`` distributed over a (2, 2) ("dp", "tp") mesh with ``spec`` (one
+    entry a tensor dim: a mesh dim name or None), through the serialization
+    context on every rank at once: the rebuilt DTensor's mesh names and
+    placements, its whole value, the bf16 and plain-tensor cases, and the
+    wire blob, which the test loads where no process group is."""
+    from ray_tpu_torch._private.device_objects import wire_dumps
+    from ray_tpu_torch._private.serialization import SerializationContext
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("dp", "tp"))
+    placements = [Replicate(), Replicate()]
+    for tensor_dim, name in enumerate(spec):
+        if name is not None:
+            placements[mesh.mesh_dim_names.index(name)] = Shard(tensor_dim)
+    dx = distribute_tensor_local(torch.from_numpy(x), mesh, placements)
+    ctx = SerializationContext()
+    back = ctx.deserialize(ctx.serialize(dx))
+    bf = ctx.deserialize(ctx.serialize(
+        torch.ones(8, dtype=torch.bfloat16)))
+    plain = ctx.deserialize(ctx.serialize(torch.arange(6)))
+    return {"is_dtensor": isinstance(back, DTensor),
+            "names": tuple(back.device_mesh.mesh_dim_names),
+            "placements": [repr(p) for p in back.placements],
+            "local_equal": bool(torch.equal(back.to_local(),
+                                            dx.to_local())),
+            "full": back.full_tensor().numpy(),
+            "bf16": str(bf.dtype), "plain": plain.numpy(),
+            "blob": wire_dumps(dx)}
+
+
+def distribute_tensor_local(t, mesh, placements):
+    """Every rank holds the whole ``t``: shard it locally (no scatter)."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
