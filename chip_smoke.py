@@ -227,9 +227,11 @@
 18. Process workers, the runtime's default (every phase but 17 runs on
    it; phase 17 runs every task and actor on the driver's threads,
    ``IN_THREADS``, as the in-thread reference), on a fresh ``init()``:
-   (a) 1,000 no-op tasks in worker processes, none in the driver,
-   ``CUDA_VISIBLE_DEVICES=''`` and ``torch.cuda.is_available()`` False in
-   each, their rate beside the same tasks on the driver's threads; a
+   (a) 1,000 no-op tasks in worker processes (plain tasks take the fast
+   lane, the default), none in the driver, ``CUDA_VISIBLE_DEVICES=''`` and
+   ``torch.cuda.is_available()`` False in each, their rate beside the same
+   tasks on a fresh ``init()`` with the lane off (the classic pipe) and on
+   the driver's threads; a
    module on the card as an argument, a closure over a CUDA tensor and an
    actor given a factory closing over the card's device run in the driver
    and give CUDA tensors, and a process actor refuses a CUDA argument; a
@@ -246,6 +248,29 @@
    above the base on the card. Alone (it runs phase 5 first):
    ``python -c "import chip_smoke, torch;
    chip_smoke.process_path(torch.device('cuda'))"``.
+19. The runtime's native host tier on a fresh ``init()``: the fast lane
+   (``_private/fast_lane.py``, the C++ core ``csrc/daemon_core.cc`` on a
+   thread of this process) and the shared-memory store
+   (``native_store.py``, ``csrc/shm_store.cc``), both built with g++ from
+   the checkout: (a) 1,000 no-op tasks counted by the lane's core, none in
+   the driver, every lane worker without the card, their rate beside 18(a)'s
+   classic pipe and the driver's threads; a running lane task cancelled
+   soft and forced; a lane worker SIGKILLed mid-task and its task's retry
+   giving the result; (b) three lane tasks return q, k and v as f32 numpy
+   arrays at bench_400m's attention shapes (8 x 2048 x 8 x 128 and 8 x 2048
+   x 4 x 128, 128 MiB): the node's store takes each into its arena
+   (``native_puts`` +3), ``get`` hands out read-only views inside the
+   arena, equal to their seeds' values; the store's put and get times;
+   the views go to the card as bf16 through ``flash_fwd_wgmma`` (one launch,
+   counted) and are held to the plain version at the bf16 bar; the
+   ``/dev/shm`` mount's size and the arena's; (c) phase 17(a) with the
+   data's plain tasks on the lane (the core counts them), the flash
+   counter at 0: 2 x 24 x 6 launches, the first loss phase 5's exactly;
+   (d) after ``shutdown()`` and ``stop_worker_plane()`` no lane worker, the
+   core's port closed, no ``/dev/shm`` segment of this process and no bytes
+   above the base on the card. Alone (it runs phase 5 first):
+   ``python -c "import chip_smoke, torch;
+   chip_smoke.native_path(torch.device('cuda'))"``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -3262,8 +3287,9 @@ class Normalize:
 
 
 def store_used() -> int:
+    """Bytes the nodes' stores hold: the Python tier and the arena."""
     from ray_tpu_torch._private import worker
-    return sum(node.store.used_bytes()
+    return sum(node.store.used_bytes() + node.store.native_used_bytes()
                for node in worker.global_runtime().alive_nodes())
 
 
@@ -3583,19 +3609,32 @@ def data_path(dev, phase5=None, smi=None) -> dict:
 
 
 
-def process_checks(smi: str, tmp: str) -> dict:
-    """Phase 18(a): 1,000 no-op tasks in worker processes (none in the
-    driver, the card hidden in every one), their rate beside the same tasks
-    on the driver's threads; a SIGKILLed process actor restarts; a task
-    whose worker is SIGKILLed gives its retried result."""
+def noop(in_threads: bool = False):
+    """A remote function that returns the pid it ran in."""
     import os
-    import signal
     import ray_tpu_torch as rt
-    from ray_tpu_torch._private import worker_process as wp
 
-    @rt.remote
-    def noop():
+    def pid():
         return os.getpid()
+    return rt.remote(_in_process=True)(pid) if in_threads \
+        else rt.remote(pid)
+
+
+def noop_rate(fn, n: int = 1000) -> tuple:
+    """``n`` calls of the no-op ``fn`` in flight at once, after 100 to warm
+    up: (tasks/s, the pids that ran them)."""
+    import ray_tpu_torch as rt
+    rt.get([fn.remote() for _ in range(100)])
+    t0 = time.perf_counter()
+    pids = set(rt.get([fn.remote() for _ in range(n)]))
+    return n / (time.perf_counter() - t0), pids
+
+
+def probe_workers(pids: set, part: str) -> None:
+    """Every worker process of ``pids`` sees no card: probe tasks until each
+    has answered."""
+    import os
+    import ray_tpu_torch as rt
 
     @rt.remote
     def probe():
@@ -3603,20 +3642,6 @@ def process_checks(smi: str, tmp: str) -> dict:
         return (os.getpid(), os.environ.get("CUDA_VISIBLE_DEVICES"),
                 torch.cuda.is_available())
 
-    driver = os.getpid()
-    rt.get([noop.remote() for _ in range(100)])           # warm-up
-    t0 = time.perf_counter()
-    pids = set(rt.get([noop.remote() for _ in range(1000)]))
-    proc_rate = 1000 / (time.perf_counter() - t0)
-    in_threads = noop.options(_in_process=True)
-    rt.get([in_threads.remote() for _ in range(100)])
-    t0 = time.perf_counter()
-    thread_pids = set(rt.get([in_threads.remote() for _ in range(1000)]))
-    thread_rate = 1000 / (time.perf_counter() - t0)
-    if driver in pids or thread_pids != {driver}:
-        raise RuntimeError(f"phase 18(a): no-op tasks ran in {pids} (the "
-                           f"driver is {driver}); in-thread ones in "
-                           f"{thread_pids}")
     probed = {}
     deadline = time.monotonic() + 120
     while not pids <= set(probed) and time.monotonic() < deadline:
@@ -3625,8 +3650,49 @@ def process_checks(smi: str, tmp: str) -> dict:
             probed[pid] = (visible, cuda)
     if not pids <= set(probed) or any(v != ("", False)
                                       for v in probed.values()):
-        raise RuntimeError(f"phase 18(a): workers {sorted(pids)} probed "
+        raise RuntimeError(f"phase {part}: workers {sorted(pids)} probed "
                            f"as {probed}")
+
+
+def classic_rate() -> tuple:
+    """Phase 18(a)'s classic-pipe reference: 1,000 no-op tasks on a fresh
+    ``init()`` with the fast lane off, none in the driver; (tasks/s, worker
+    processes)."""
+    import os
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    rt.init(_system_config={"fast_lane": False})
+    try:
+        rate, pids = noop_rate(noop())
+        lane = worker.global_runtime().process_router.fast_stats()
+    finally:
+        rt.shutdown()
+    if os.getpid() in pids or lane:
+        raise RuntimeError(f"phase 18(a): with the lane off no-op tasks ran "
+                           f"in {pids} (the driver is {os.getpid()}), the "
+                           f"lane's stats {lane}")
+    return rate, len(pids)
+
+
+def process_checks(smi: str, tmp: str, classic: tuple) -> dict:
+    """Phase 18(a): 1,000 no-op tasks in worker processes (none in the
+    driver, the card hidden in every one), their rate beside the same tasks
+    through the pipe with the lane off (``classic``) and on the driver's
+    threads; a SIGKILLed process actor restarts; a task whose worker is
+    SIGKILLed gives its retried result."""
+    import os
+    import signal
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker_process as wp
+
+    driver = os.getpid()
+    proc_rate, pids = noop_rate(noop())
+    thread_rate, thread_pids = noop_rate(noop(in_threads=True))
+    if driver in pids or thread_pids != {driver}:
+        raise RuntimeError(f"phase 18(a): no-op tasks ran in {pids} (the "
+                           f"driver is {driver}); in-thread ones in "
+                           f"{thread_pids}")
+    probe_workers(pids, "18(a)")
     card = card_plane_checks(driver)
 
     @rt.remote(max_restarts=1)
@@ -3680,14 +3746,18 @@ def process_checks(smi: str, tmp: str) -> dict:
     log(f"phase 18(a): 1,000 no-op tasks in {len(pids)} worker processes "
         f"(none in the driver; CUDA_VISIBLE_DEVICES='' and "
         f"torch.cuda.is_available() False in each): {proc_rate:.0f} "
-        f"tasks/s, beside {thread_rate:.0f} tasks/s on the driver's threads "
-        f"in the same runtime; a SIGKILLed process actor answered again "
+        f"tasks/s (the default: plain tasks on the fast lane), beside "
+        f"{classic[0]:.0f} tasks/s through the pipe with the lane off "
+        f"({classic[1]} workers) and {thread_rate:.0f} tasks/s on the "
+        f"driver's threads in the same runtime; a SIGKILLed process actor "
+        f"answered again "
         f"from pid {pid2} after {restart_s:.2f} s; a task whose worker was "
         f"SIGKILLed gave its retry's result (attempt {attempt}, pid "
         f"{retried_pid}); {card}; {len(wp.live_workers())} workers live "
         f"({smi})")
     return {"tasks_per_s": proc_rate, "thread_tasks_per_s": thread_rate,
-            "workers": len(pids), "actor_restart_s": restart_s}
+            "classic_tasks_per_s": classic[0], "workers": len(pids),
+            "actor_restart_s": restart_s}
 
 
 def card_plane_checks(driver: int) -> str:
@@ -3872,12 +3942,13 @@ def process_path(dev, phase5=None, phase12=None, phase17=None,
     tmp = tempfile.mkdtemp(prefix="chip_smoke_process_")
     for part in "abcd":
         os.makedirs(os.path.join(tmp, part))
+    classic = classic_rate()
     rt.init()
     pids = set()
     try:
         if not worker.global_runtime().process_router.enabled:
             raise RuntimeError("phase 18: process workers are off")
-        checks = process_checks(smi, os.path.join(tmp, "a"))
+        checks = process_checks(smi, os.path.join(tmp, "a"), classic)
         before = wp.calls_sent()
         stream = data_stream(dev, os.path.join(tmp, "b"), smi, part="18(b)")
         llama = data_llama(dev, phase5, cfg, os.path.join(tmp, "c"), smi,
@@ -3928,6 +3999,329 @@ def process_path(dev, phase5=None, phase12=None, phase17=None,
            "seconds": time.perf_counter() - t0, "card": smi}
     log(json.dumps(out))
     out.update(checks=checks, stream=stream, llama=llama, wire=wire)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the native host tier (the fast lane and the shared-memory store)
+# ---------------------------------------------------------------------------
+
+ATTN_SHAPES = {"q": (8, 2048, 8, 128), "k": (8, 2048, 4, 128),
+               "v": (8, 2048, 4, 128)}     # bench_400m's attention, f32
+
+
+def lane_checks(tmp: str, smi: str, classic: float) -> dict:
+    """Phase 19(a): 1,000 no-op tasks counted by the lane's core, none in
+    the driver, every lane worker without the card; tasks/s beside the pipe
+    with the lane off (``classic``, phase 18(a)) and the driver's threads;
+    a running lane task cancelled soft and forced; a lane worker SIGKILLed
+    mid-task, its task's retry giving the result."""
+    import os
+    import signal
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions as exc
+    from ray_tpu_torch._private import worker
+    router = worker.global_runtime().process_router
+    driver = os.getpid()
+    fn = noop()
+    rt.get([fn.remote() for _ in range(100)])           # starts the lane
+    before = router.fast_stats().get("submitted", 0)
+    rate, pids = noop_rate(fn)
+    through = router.fast_stats().get("submitted", 0) - before
+    lane_pids = {w.pid for w in router._fast_workers}
+    if through < 1000 or driver in pids or not pids <= lane_pids:
+        raise RuntimeError(f"phase 19(a): the core counted {through} of "
+                           f"1,100 no-op tasks; they ran in {pids}, the "
+                           f"lane's workers are {lane_pids} (the driver "
+                           f"{driver})")
+    probe_workers(lane_pids, "19(a)")
+    thread_rate, _ = noop_rate(noop(in_threads=True))
+
+    @rt.remote(max_retries=0)
+    def spin(path):
+        with open(path, "w") as f:
+            f.write(str(os.getpid()))
+        while True:
+            time.sleep(0.01)
+
+    def started(path):
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            try:
+                with open(path) as f:
+                    text = f.read().strip()
+                if text:
+                    return int(text)
+            except FileNotFoundError:
+                pass
+            time.sleep(0.01)
+        raise RuntimeError(f"phase 19(a): {path} never started")
+
+    cancels = {}
+    before = router.fast_stats()["submitted"]
+    for force in (False, True):
+        path = os.path.join(tmp, f"spin{int(force)}")
+        ref = spin.remote(path)
+        pid = started(path)
+        t0 = time.perf_counter()
+        rt.cancel(ref, force=force)
+        try:
+            rt.get(ref, timeout=30)
+            got = "a result"
+        except exc.TaskCancelledError:
+            got = "cancelled"
+        except Exception as e:  # noqa: BLE001 - the error is the report
+            got = repr(e)
+        cancels[force] = (got, time.perf_counter() - t0, pid)
+        if got != "cancelled":
+            raise RuntimeError(f"phase 19(a): a cancel (force={force}) of "
+                               f"a running lane task gave {got}")
+    if not _alive(cancels[False][2]) or \
+            router.fast_stats()["submitted"] - before != 2:
+        raise RuntimeError(f"phase 19(a): cancels {cancels}, lane stats "
+                           f"{router.fast_stats()}")
+    marker = os.path.join(tmp, "attempt")
+
+    @rt.remote(max_retries=2)
+    def slow():
+        n = len([f for f in os.listdir(tmp) if f.startswith("attempt")])
+        with open(f"{marker}.{n}", "w") as f:
+            f.write(str(os.getpid()))
+        if n == 0:
+            time.sleep(60)      # the first attempt is killed
+        return os.getpid(), n
+
+    before = router.fast_stats()["submitted"]
+    ref = slow.remote()
+    first = started(f"{marker}.0")
+    t0 = time.perf_counter()
+    os.kill(first, signal.SIGKILL)
+    retried_pid, attempt = rt.get(ref, timeout=60)
+    retry_s = time.perf_counter() - t0
+    if retried_pid in (first, driver) or attempt != 1 or \
+            router.fast_stats()["submitted"] - before != 2:
+        raise RuntimeError(f"phase 19(a): the killed lane task gave "
+                           f"{(retried_pid, attempt)}, lane stats "
+                           f"{router.fast_stats()}")
+    log(f"phase 19(a): the lane's core counted {through} tasks for 1,000 "
+        f"no-op tasks and their 100 to warm up, run in {len(pids)} lane "
+        f"workers (none in the driver; "
+        f"CUDA_VISIBLE_DEVICES='' and torch.cuda.is_available() False in "
+        f"each of {len(lane_pids)}): {rate:.0f} tasks/s, beside {classic:.0f}"
+        f" through the pipe with the lane off (18(a)) and {thread_rate:.0f} "
+        f"on the driver's threads; a running lane task cancelled soft in "
+        f"{cancels[False][1] * 1e3:.1f} ms (its worker lives on), forced in "
+        f"{cancels[True][1] * 1e3:.1f} ms (its worker exits); a lane worker "
+        f"SIGKILLed mid-task: the retry (attempt {attempt}, pid "
+        f"{retried_pid}) answered in {retry_s:.2f} s ({smi})")
+    return {"tasks_per_s": rate, "classic_tasks_per_s": classic,
+            "thread_tasks_per_s": thread_rate, "lane_workers": len(lane_pids),
+            "cancel_soft_ms": cancels[False][1] * 1e3,
+            "cancel_forced_ms": cancels[True][1] * 1e3,
+            "kill_retry_s": retry_s, "lane_pids": lane_pids}
+
+
+def shm_mount() -> tuple:
+    """(size, free) bytes of the /dev/shm mount."""
+    import os
+    st = os.statvfs("/dev/shm")
+    return st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+
+
+def store_flash(dev, smi: str) -> dict:
+    """Phase 19(b): lane tasks return q, k and v as f32 numpy arrays at
+    bench_400m's attention shapes; the node's store takes each into its
+    arena and ``get`` hands out read-only views over it; the views go to
+    the card as bf16 through ``flash_fwd_wgmma``, held to the plain version
+    at ``BF16_TOL``. Its one launch is counted."""
+    import ctypes
+    import os
+    import warnings
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch._private.ids import ObjectID
+    from ray_tpu_torch.ops import attention as attn
+    runtime = worker.global_runtime()
+    router = runtime.process_router
+    (node,) = runtime.alive_nodes()
+    store = node.store
+
+    @rt.remote
+    def make(shape, seed):
+        return np.random.default_rng(seed).standard_normal(
+            shape, dtype=np.float32)
+
+    before = (store.stats["native_puts"],
+              router.fast_stats().get("submitted", 0))
+    t0 = time.perf_counter()
+    refs = {n: make.remote(shape, i)
+            for i, (n, shape) in enumerate(ATTN_SHAPES.items())}
+    views = dict(zip(refs, rt.get(list(refs.values()))))
+    lane_s = time.perf_counter() - t0
+    puts = store.stats["native_puts"] - before[0]
+    through = router.fast_stats()["submitted"] - before[1]
+    arena = store._native
+    lo = ctypes.addressof(arena._buf)
+    hi = lo + arena.capacity()
+    in_arena = {n: lo <= v.__array_interface__["data"][0] < hi
+                for n, v in views.items()}
+    if puts != 3 or through != 3 or not all(in_arena.values()) or any(
+            v.flags.writeable for v in views.values()):
+        raise RuntimeError(f"phase 19(b): native puts {puts}, lane tasks "
+                           f"{through}, views in the arena {in_arena}")
+    for i, (n, shape) in enumerate(ATTN_SHAPES.items()):
+        if not np.array_equal(views[n], np.random.default_rng(i)
+                              .standard_normal(shape, dtype=np.float32)):
+            raise RuntimeError(f"phase 19(b): {n} is not its seed's values")
+    nbytes = sum(v.nbytes for v in views.values())
+    nbytes_q = views["q"].nbytes
+    # the store's own cost on q's array: put (one copy into the arena) and
+    # get (a counted view); then a put into the range just freed, whose
+    # pages the mount has backed and this process has mapped already
+    put_ms = []
+    for _ in range(2):
+        probe_id = ObjectID.from_random()
+        t0 = time.perf_counter()
+        store.put(probe_id, views["q"])
+        put_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        again = store.get(probe_id)
+        get_ms = (time.perf_counter() - t0) * 1e3
+        del again
+        gc.collect()
+        store.delete(probe_id)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # from_numpy of a read-only view
+        t0 = time.perf_counter()
+        q, k, v = (torch.from_numpy(views[n]).to(dev).to(torch.bfloat16)
+                   for n in ATTN_SHAPES)
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+    attn.flash_attention_kernel.launches = 0
+    out = attn.flash_attention_kernel(q, k, v, True)
+    launches = attn.flash_attention_kernel.launches
+    plain = attn._flash_forward_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), plain.float(), **BF16_TOL)
+    err = (out.float() - plain.float()).abs().max().item()
+    ratio = tol_ratio(out, plain)
+    if launches != 1 or not torch.isfinite(out).all():
+        raise RuntimeError(f"phase 19(b): flash launches {launches}")
+    del q, k, v, out, plain, views
+    gc.collect()
+    size, free = shm_mount()
+    log(f"phase 19(b): 3 lane tasks returned q {ATTN_SHAPES['q']}, k and v "
+        f"{ATTN_SHAPES['k']} as f32 ({nbytes / 2**20:.0f} MiB) in "
+        f"{lane_s:.2f} s; the node's store took all three into its arena "
+        f"(native_puts +{puts}) and get gave read-only views over it, equal "
+        f"to their seeds' values; the store's put of the "
+        f"{nbytes_q / 2**20:.0f} MiB q {put_ms[0]:.2f} ms into fresh "
+        f"pages, {put_ms[1]:.2f} ms into pages it had backed, its get "
+        f"{get_ms:.3f} ms; to the card as bf16 "
+        f"{copy_ms:.1f} ms; flash_fwd_wgmma on them, 1 launch, against the "
+        f"plain version max_abs_err {err:.3e} ({ratio:.2f}x the tolerance "
+        f"{BF16_TOL}); /dev/shm {size / 2**30:.1f} GiB ({free / 2**30:.1f} "
+        f"GiB free), the arena {arena.capacity() / 2**30:.2f} GiB ({smi})")
+    return {"launches": launches, "max_abs_err": err, "put_ms": put_ms[0],
+            "warm_put_ms": put_ms[1], "get_ms": get_ms, "copy_ms": copy_ms, "lane_s": lane_s,
+            "shm_bytes": size, "arena_bytes": arena.capacity()}
+
+
+def native_path(dev, phase5=None, phase18=None, smi=None) -> dict:
+    """Phase 19: the native host tier of the runtime on a fresh ``init()``
+    (see the module's docstring). Alone (it runs phase 5 first):
+    ``python -c "import chip_smoke, torch;
+    chip_smoke.native_path(torch.device('cuda'))"``."""
+    import glob
+    import os
+    import shutil
+    import socket
+    import tempfile
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch._private import worker_process as wp
+    from ray_tpu_torch.models import LlamaConfig
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    cfg = LlamaConfig.bench_400m()
+    if phase5 is None:
+        phase5 = train_path(dev, cfg.n_layers)
+    classic = (phase18 or {}).get("checks", {}).get("classic_tasks_per_s")
+    if classic is None:
+        classic = classic_rate()[0]
+    if rt.is_initialized():
+        raise RuntimeError("a runtime is still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    for part in "ac":
+        os.makedirs(os.path.join(tmp, part))
+    def segments():
+        return glob.glob(f"/dev/shm/rtpt_{os.getpid()}_*")
+
+    rt.init()
+    pids, port = set(), None
+    try:
+        router = worker.global_runtime().process_router
+        if not segments():
+            raise RuntimeError("phase 19: the node's store has no arena")
+        lane = lane_checks(os.path.join(tmp, "a"), smi, classic)
+        port = router._fast_core.port
+        flash = store_flash(dev, smi)
+        before = router.fast_stats()["submitted"]
+        free_card()
+        llama = data_llama(dev, phase5, cfg, os.path.join(tmp, "c"), smi,
+                           part="19(c)")
+        data_tasks = router.fast_stats()["submitted"] - before
+        if llama["losses"][0] != phase5["loss_first"] or data_tasks <= 0:
+            raise RuntimeError(f"phase 19(c): first loss "
+                               f"{llama['losses'][0]!r} (phase 5's "
+                               f"{phase5['loss_first']!r}); {data_tasks} "
+                               f"data tasks on the lane")
+        threads = data_threads()
+        pids = {w.pid for w in wp.live_workers()} | lane["lane_pids"]
+    finally:
+        rt.shutdown()
+        wp.stop_worker_plane()
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = [p for p in pids if _alive(p)]
+    listening = False
+    if port is not None:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            listening = True
+        except OSError:
+            pass
+    if left or listening or segments() or wp.live_workers():
+        raise RuntimeError(f"phase 19(d): processes {left} left, the core's "
+                           f"port {port} listening {listening}, segments "
+                           f"{segments()}")
+    freed, _ = wait_freed(base, "phase 19 after shutdown()",
+                          threads=threads)
+    if freed > base:
+        raise RuntimeError(f"phase 19(d): {freed - base} bytes above the "
+                           f"base after shutdown()")
+    seconds = time.perf_counter() - t0
+    log(f"phase 19(c): {data_tasks} of the data's plain tasks went through "
+        f"the lane; first loss phase 5's exactly, {llama['launches']} flash "
+        f"launches")
+    log(f"phase 19(d): after shutdown() and stop_worker_plane() no lane "
+        f"worker ({len(lane['lane_pids'])} were live) and no other worker "
+        f"left, the core's port {port} closed, no /dev/shm segment of pid "
+        f"{os.getpid()}, {freed - base} bytes above the base ({smi})")
+    out = {"part": "19", "launches": flash["launches"] + llama["launches"],
+           "lane_tasks_per_s": lane["tasks_per_s"],
+           "classic_tasks_per_s": classic,
+           "thread_tasks_per_s": lane["thread_tasks_per_s"],
+           "data_lane_tasks": data_tasks, "put_ms": flash["put_ms"],
+           "warm_put_ms": flash["warm_put_ms"],
+           "get_ms": flash["get_ms"], "shm_bytes": flash["shm_bytes"],
+           "arena_bytes": flash["arena_bytes"],
+           "bytes_after_shutdown": freed, "base_bytes": base,
+           "seconds": seconds, "card": smi}
+    log(json.dumps(out))
     return out
 
 
@@ -4141,6 +4535,12 @@ def main() -> int:
     # wire, nothing left after shutdown
     procs = process_path(dev, train, runtime, fed, smi)
     rows[2]["launches"] += procs["launches"]
+
+    # 19. the native host tier: plain tasks through the fast lane's C++
+    # core, arrays through the shared-memory store into the flash kernel,
+    # phase 17(a)'s feed on the lane (the flash counter at 0), nothing left
+    native = native_path(dev, train, procs, smi)
+    rows[2]["launches"] += native["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 On first use each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface under
 ``build/ray_tpu_torch/`` at the root of the checkout, keyed by a hash of the
-source and the flags, and loaded with ``ctypes``. Nothing is built when a
-module is imported: the CPU tests import every module on hosts without nvcc.
+source and the flags, and loaded with ``ctypes``. The runtime's host
+libraries, ``csrc/<name>.cc`` (the shared-memory object store and the fast
+lane's core; counterpart of ``ray_tpu/_private/native_build.py``), are
+compiled the same way by ``g++``. Nothing is built when a module is
+imported: the CPU tests import every module on hosts without nvcc.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -40,8 +43,14 @@ _SIGNATURES = {
     },
 }
 
+# host C++ libraries: JAX's g++ line, and the libraries each source needs
+HOST_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17", "-Wall")
+HOST_LIBS = {"shm_store": ("-lpthread", "-lrt"),
+             "daemon_core": ("-lpthread",)}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -55,10 +64,29 @@ def find_nvcc() -> str:
                        "toolkit's bin/ on PATH or set CUDA_HOME)")
 
 
+def _keyed_path(src: Path, flags) -> Path:
+    """The library of ``src`` built with ``flags``, keyed by both."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def _compile(cmd, src: Path, out: Path,
+             libs=()) -> subprocess.CompletedProcess:
+    """Run ``cmd`` (a compiler and its flags) on ``src`` into ``out``, the
+    ``libs`` after the source, where the linker looks for them; raises with
+    the compiler's errors."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([*cmd, "-o", str(tmp), str(src), *libs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cmd[0]} failed for {src.name}:\n{proc.stderr}")
+    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+    return proc
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return _keyed_path(CSRC / f"{name}.cu", NVCC_FLAGS)
 
 
 def build(name: str) -> Path:
@@ -66,17 +94,38 @@ def build(name: str) -> Path:
     The compiler's report (registers, shared memory, spills) is kept beside
     the library as ``<lib>.log``."""
     out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+    if not out.exists():
+        proc = _compile([find_nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu", out)
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     return out
+
+
+def host_library_path(name: str) -> Path:
+    return _keyed_path(CSRC / f"{name}.cc", HOST_FLAGS + HOST_LIBS[name])
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cc`` with g++ unless a build of this exact
+    source exists; raises on a compiler error."""
+    out = host_library_path(name)
+    if not out.exists():
+        _compile(["g++", *HOST_FLAGS], CSRC / f"{name}.cc", out,
+                 HOST_LIBS[name])
+    return out
+
+
+def load_host_library(name: str) -> Optional[ctypes.CDLL]:
+    """Build (once per source hash) and load ``csrc/<name>.cc``; None where
+    this host has no g++ (callers keep their pure-Python path, as JAX's
+    do)."""
+    with _lock:
+        lib = _host_libs.get(name)
+        if lib is None:
+            if shutil.which("g++") is None:
+                return None
+            lib = ctypes.CDLL(str(build_host(name)))
+            _host_libs[name] = lib
+        return lib
 
 
 def load_library(name: str = "decode_attention") -> ctypes.CDLL:

@@ -51,6 +51,12 @@ FLAG_DEFS = [
          "(0 = auto: min(4, max(2, cpus//2)))"),
     Flag("process_pool_max", int, 32, "most idle worker processes a "
          "finished task leaves for reuse"),
+    Flag("fast_lane", bool, True, "plain tasks go through the native core's "
+         "lane (csrc/daemon_core.cc, hosted in the driver) to dedicated "
+         "worker processes (0 = every process task takes the pipe)"),
+    Flag("native_store", bool, True, "each node's object store parks "
+         "contiguous numpy arrays of 64 KiB or more in a shared-memory "
+         "arena (csrc/shm_store.cc) and hands out zero-copy views"),
 ]
 
 FLAGS: Dict[str, Flag] = {f.name: f for f in FLAG_DEFS}

@@ -11,9 +11,17 @@ transparent restore, per-object pinning while referenced.
   spilled. (JAX's package keeps ``jax.Array`` values there the same way.)
 - Host-tier numpy payloads are stored as read-only views so consumers cannot
   mutate shared state.
+- A **native tier** (``native_store`` flag, on by default, as in JAX's):
+  each node's store opens a shared-memory arena (``native_store.py`` over
+  ``csrc/shm_store.cc``, the plasma equivalent), parks contiguous numpy
+  arrays of 64 KiB or more there, pinned, and hands out zero-copy read-only
+  views whose finalizer releases the arena's ref. Where the arena is full,
+  or the mount cannot back the object, the put takes the Python tier
+  instead, as JAX's does on ``RTPU_ERR_FULL``.
 
-The reference's native shared-memory tier comes with the daemon topology;
-here every host value lives in this process's dict.
+In the one-process topology the arena holds the driver's arrays: no worker
+attaches it (JAX's workers do so only under its daemons, through
+``objectplane/``, which comes with them).
 """
 
 from __future__ import annotations
@@ -22,9 +30,10 @@ import os
 import pickle
 import sys
 import threading
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 from ray_tpu_torch._private.ids import NodeID, ObjectID
 from ray_tpu_torch.exceptions import OutOfMemoryError
@@ -109,6 +118,24 @@ class ObjectEntry:
     device_tier: bool = False
     spilled_path: Optional[str] = None
     pinned: int = 0  # pin count: >0 means not spillable
+    # native shm tier: (dtype, shape) of the array parked in the C++ store
+    native_meta: Optional[tuple] = None
+
+
+# numpy arrays at least this large go to the native shm arena when built
+NATIVE_TIER_MIN_BYTES = 64 * 1024
+
+
+def _native_key(object_id: ObjectID) -> bytes:
+    """The arena's key for an object: its hex id. The C store takes a
+    NUL-terminated key, and a zero byte cuts a raw binary id short (JAX
+    passes ``binary()``; ~1 random 20-byte id in 13 has one)."""
+    return object_id.hex().encode()
+
+
+def arena_name(node_id: NodeID) -> str:
+    """The /dev/shm name of a node's arena: per process and node."""
+    return f"rtpt_{os.getpid()}_{node_id.hex()[:8]}"
 
 
 class LocalObjectStore:
@@ -124,7 +151,26 @@ class LocalObjectStore:
         #: guarded by self._lock
         self._entries: "OrderedDict[ObjectID, ObjectEntry]" = OrderedDict()
         self._used = 0                  #: guarded by self._lock
-        self.stats = {"puts": 0, "gets": 0, "spills": 0, "restores": 0}
+        self.stats = {"puts": 0, "gets": 0, "spills": 0, "restores": 0,
+                      "native_puts": 0}
+        # Outstanding zero-copy views into the native arena, per object.
+        # The C++ store defers deallocation while refs are held; this
+        # count decides whether close() may munmap (see close()).
+        self._native_views: Dict[bytes, int] = {}
+        # Native C++ shm tier: holds large numpy payloads as zero-copy mmap
+        # views. Optional — absent without g++, or where the arena cannot
+        # be mapped (the owner memory store's 2**62 bytes, as in JAX).
+        self._native = None
+        from ray_tpu_torch._private.config import cfg
+        if cfg().native_store:
+            try:
+                from ray_tpu_torch.native_store import (ShmObjectStore,
+                                                        available)
+                if available():
+                    self._native = ShmObjectStore(arena_name(node_id),
+                                                  capacity_bytes)
+            except Exception:
+                self._native = None
 
     # -- basic ops ---------------------------------------------------------
     def put(self, object_id: ObjectID, value: Any,
@@ -142,11 +188,37 @@ class LocalObjectStore:
                     f"{self.capacity_bytes}")
             entry = ObjectEntry(value=value, nbytes=size, device_tier=device)
             if not device:
-                self._ensure_space(size)
-                self._used += size
+                native_meta = self._try_native_put(object_id, value, size)
+                if native_meta is not None:
+                    entry.value = None
+                    entry.native_meta = native_meta
+                    self.stats["native_puts"] += 1
+                else:
+                    self._ensure_space(size)
+                    self._used += size
             self._entries[object_id] = entry
             self.stats["puts"] += 1
             return size
+
+    def _try_native_put(self, object_id: ObjectID, value: Any,
+                        size: int) -> Optional[tuple]:
+        """Park a large contiguous numpy array in the C++ shm arena."""
+        import numpy as np
+
+        if (self._native is None or not isinstance(value, np.ndarray)
+                or size < NATIVE_TIER_MIN_BYTES
+                or value.dtype == object
+                or not value.flags.c_contiguous):
+            return None
+        from ray_tpu_torch.native_store import ShmStoreFull
+        try:
+            # pin: this layer's refcounting owns lifetime; native LRU must
+            # not evict behind our back (falls back to the Python tier and
+            # disk spill when the arena is full)
+            self._native.put(_native_key(object_id), value, pin=True)
+            return (value.dtype, value.shape)
+        except (ShmStoreFull, KeyError):
+            return None
 
     def get(self, object_id: ObjectID) -> Any:
         with self._lock:
@@ -157,7 +229,33 @@ class LocalObjectStore:
             if entry.spilled_path is not None:
                 self._restore(object_id, entry)
             self.stats["gets"] += 1
+            if entry.native_meta is not None:
+                import numpy as np
+                dtype, shape = entry.native_meta
+                key = _native_key(object_id)
+                # Zero-copy view; the native ref is held for the lifetime
+                # of the returned array (released by a finalizer), so a
+                # later delete() defers deallocation instead of freeing
+                # memory user code still reads (plasma client semantics).
+                view = self._native.get_view(key)  # increfs
+                arr = np.frombuffer(view, dtype=dtype).reshape(shape)
+                arr.flags.writeable = False
+                self._native_views[key] = self._native_views.get(key, 0) + 1
+                weakref.finalize(arr, self._release_native_view,
+                                 self._native, key)
+                return arr
             return entry.value
+
+    def _release_native_view(self, native, key: bytes) -> None:
+        """Finalizer for zero-copy native-tier arrays."""
+        with self._lock:
+            n = self._native_views.get(key, 0) - 1
+            if n <= 0:
+                self._native_views.pop(key, None)
+            else:
+                self._native_views[key] = n
+            if native is self._native:
+                native.release(key)
 
     def contains(self, object_id: ObjectID) -> bool:
         with self._lock:
@@ -173,6 +271,8 @@ class LocalObjectStore:
                     os.unlink(entry.spilled_path)
                 except OSError:
                     pass    # already gone with the session's spill dir
+            elif entry.native_meta is not None:
+                self._native.delete(_native_key(object_id))
             elif not entry.device_tier:
                 self._used -= entry.nbytes
 
@@ -208,8 +308,30 @@ class LocalObjectStore:
             for oid in list(self._entries):
                 self.delete(oid)
 
+    def native_capacity(self) -> int:
+        """The arena's bytes (0 without one)."""
+        return self._native.capacity() if self._native is not None else 0
+
+    def native_used_bytes(self) -> int:
+        """Bytes the arena holds (outside ``used_bytes``, which counts the
+        Python tier)."""
+        native = self._native
+        return native.used_bytes() if native is not None else 0
+
     def close(self) -> None:
+        """Release the native shm arena (unlinks its /dev/shm segment).
+
+        If zero-copy views are still held by user code, only the segment
+        name is removed — the mapping is left alive so those arrays stay
+        valid (munmap would SIGSEGV them)."""
         self.clear()
+        with self._lock:
+            native, self._native = self._native, None
+            if native is not None:
+                if self._native_views:
+                    native.unlink_only()
+                else:
+                    native.close(unlink=True)
 
     # -- pressure handling -------------------------------------------------
     def _ensure_space(self, size: int) -> None:
@@ -220,11 +342,13 @@ class LocalObjectStore:
             if self._used + size <= self.capacity_bytes:
                 return
             # spill least-recently-used spillable entries to disk; device
-            # entries do not count toward _used and pinned ones are in use
+            # and native entries do not count toward _used (the C++ arena
+            # accounts for the latter) and pinned ones are in use
             for oid, entry in list(self._entries.items()):
                 if self._used + size <= self.capacity_bytes:
                     break
                 if (entry.device_tier or entry.spilled_path is not None
+                        or entry.native_meta is not None
                         or entry.pinned > 0):
                     continue
                 if self._spill_dir is not None:

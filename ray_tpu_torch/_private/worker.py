@@ -710,6 +710,10 @@ class Runtime:
         self._on_task_done(spec, TaskState.FAILED)
 
     def _on_task_done(self, spec: TaskSpec, state: str) -> None:
+        # per-task borrow release: refs created on this task's behalf by a
+        # lane worker (nested put/submit) un-pin now; results are already
+        # stored, so containment keeps anything the task returned alive
+        self.process_router.release_borrows("t:" + spec.task_id.hex())
         deps = spec.dependencies()
         if deps:
             self.refcounter.remove_submitted_task_refs(deps)

@@ -34,6 +34,15 @@ stream, and the receiver reads each part with one blocking ``recv``
 (``MSG_WAITALL``): the driver's reader thread takes the GIL once a part,
 not once a socket buffer, which matters beside a launch-bound step.
 
+The fast lane (``_private/fast_lane.py``), on by default (``fast_lane``
+flag, JAX's ``RAY_TPU_FAST_LANE``): the router hosts the native core
+(``csrc/daemon_core.cc``) on a thread of the driver and sends every plain
+task (one return, not a generator function) to it first; the core leases a
+free lane worker (dedicated workers from the same template, never in the
+idle pool) and routes the result back with no Python per task. The lane
+falls back to the pipe only where JAX's does: no native build, or nothing
+submitted.
+
 Process actors: the instance lives in a dedicated worker process; in the
 driver the ActorExecutor machinery (ordering, concurrency, restarts) drives
 a proxy instance whose calls go over the pipe. A dead worker is a retryable
@@ -47,9 +56,10 @@ A worker imports torch only when a task needs it. Idle workers outlive a
 runtime and serve the next one in the same process; the template lives
 until the interpreter exits (or ``stop_worker_plane``).
 
-Left out, each with the ROADMAP item that brings it: the native fast lane
-and the shared-memory object tier (A11c), the compiled-DAG stages, runtime
-environments, profiling bursts and metrics flushes (A11e).
+Left out, each with the ROADMAP item that brings it: the workers' attach
+of the shared-memory arena and the targeted actor lane (A11c, with the
+daemons), the compiled-DAG stages, runtime environments, profiling bursts
+and metrics flushes (A11e).
 """
 
 from __future__ import annotations
@@ -87,8 +97,13 @@ _CALLS_LOCK = threading.Lock()
 
 def calls_sent() -> int:
     """How many task, actor-creation and method calls this process has sent
-    to worker processes."""
+    to worker processes, through the pipe or the fast lane."""
     return _CALLS[0]
+
+
+def _count_sent() -> None:
+    with _CALLS_LOCK:
+        _CALLS[0] += 1
 
 
 _HEAD = struct.Struct("!QI")     # header bytes, payload parts
@@ -234,6 +249,17 @@ def fetch_function_blob(fid: str) -> bytes:
 # ---------------------------------------------------------------------------
 
 _current_rid = threading.local()
+
+
+def _borrower_key() -> Optional[str]:
+    """The global borrower id of the running task ('t:<task hex>'): a lane
+    worker's holds key by it and are released when the task ends
+    (``ProcessRouter.release_borrows``)."""
+    from ray_tpu_torch._private import runtime_context
+    ctx = runtime_context._ctx.get()
+    if ctx is None or ctx.task_id is None:
+        return None
+    return "t:" + ctx.task_id.hex()
 
 
 def _dump_exc(e: BaseException) -> bytes:
@@ -424,7 +450,8 @@ class _WorkerState:
         with self._pending_lock:
             self._pending[rid] = slot
         self.send({"op": "core", "id": rid, "call": call,
-                   "task": getattr(_current_rid, "rid", None)}, _pack(kw))
+                   "task": getattr(_current_rid, "rid", None),
+                   "task_key": _borrower_key()}, _pack(kw))
         ev.wait()
         if slot[1]:
             return slot[2]
@@ -461,6 +488,19 @@ class _WorkerState:
                     sem.release()
             elif op == "cancel":
                 self._async_raise(msg["target"])
+            elif op == "join_fast_lane":
+                # dedicate this worker to the native core's task lane
+                # (fast_lane.py); the channel stays open for host ops
+                # (fetch_function, nested core ops)
+                try:
+                    from ray_tpu_torch._private.fast_lane import (
+                        worker_fast_lane_start)
+                    worker_fast_lane_start(tuple(msg["addr"]), self)
+                    self.send({"id": msg["id"], "op": "result", "ok": True},
+                              _pack(None))
+                except BaseException as e:  # noqa: BLE001 - shipped back
+                    self.send({"id": msg["id"], "op": "result",
+                               "ok": False}, [_dump_exc(e)])
 
     def _async_raise(self, rid: str) -> None:
         """Best-effort KeyboardInterrupt into the thread running ``rid``
@@ -860,6 +900,7 @@ class WorkerClient:
         self.runtime = None          # bound by the router on assignment
         self.node = None
         self.actor_id: Optional[ActorID] = None
+        self.fast_lane = False       # dedicated to the native core's lane
         self.expected_death = False
         self.dead = False
         self.calls = 0
@@ -948,7 +989,7 @@ class WorkerClient:
                 raise RuntimeError("worker not bound to a runtime")
             kw = _unpack(msg["parts"])
             value = dispatch_core_op(rt, self, msg["call"], kw,
-                                     msg.get("task"))
+                                     self._hold_key_for(msg))
             reply = {"op": "reply", "for": msg["id"], "ok": True}
             parts = _pack(value)
         except BaseException as e:  # noqa: BLE001 - shipped back
@@ -967,6 +1008,15 @@ class WorkerClient:
         if self.actor_id is not None:
             key = "__actor__"   # actor-held refs live as long as the actor
         self._holds.setdefault(key, []).append(obj)
+
+    def _hold_key_for(self, msg: Dict[str, Any]) -> Optional[str]:
+        """Classic workers key holds by worker rid (released in _finish);
+        dedicated lane workers have no per-call _finish, so their holds key
+        by the global borrower id ('t:<task>') and are released by
+        ProcessRouter.release_borrows when the task ends."""
+        if self.fast_lane and msg.get("task_key"):
+            return msg["task_key"]
+        return msg.get("task")
 
     def _request(self, msg: Dict[str, Any],
                  parts: Sequence[Any] = ()) -> Tuple[str, _Pending]:
@@ -1086,8 +1136,7 @@ class WorkerClient:
 
     def _count_call(self) -> None:
         self.calls += 1
-        with _CALLS_LOCK:
-            _CALLS[0] += 1
+        _count_sent()
 
     def reset_actor(self):
         """Tear down the actor instance in the worker (the clean death path)
@@ -1299,6 +1348,18 @@ class ProcessRouter:
         self._lock = threading.Lock()
         # task_id -> (client, rid) while a normal task runs in a process
         self._running: Dict[TaskID, Tuple[WorkerClient, str]] = {}
+        # driver-local fast lane (the native core, csrc/daemon_core.cc,
+        # hosted in this process): plain tasks skip the per-task pipe round
+        # trip and checkout. Started lazily on the first eligible task.
+        self._fast = None                 # FastLaneClient
+        self._fast_core = None            # CoreHandle
+        self._fast_lock = threading.Lock()
+        self._fast_workers: List[WorkerClient] = []
+        # task hex -> (lane client, rid): the client pins the rid to its
+        # generation (see cancel_task)
+        self._fast_rids: Dict[str, Tuple[Any, int]] = {}
+        self._fast_disabled = not cfg().fast_lane
+        self._fast_max = max(2, min(8, (os.cpu_count() or 4)))
         if self.enabled:
             # start the template now (in init, not under a task's thread),
             # then warm the pool in the background so the first task does
@@ -1354,6 +1415,11 @@ class ProcessRouter:
 
     def execute_task(self, spec: TaskSpec, node, payload):
         fid, args_parts = payload
+        if self._fast_eligible(spec):
+            out = self._execute_fast(spec, node, fid, args_parts)
+            if out is not None:
+                return out
+            # the lane declined (no build, or nothing submitted): the pipe
         client = acquire_worker()
         client.runtime = self.runtime
         client.node = node
@@ -1369,6 +1435,155 @@ class ProcessRouter:
         release_worker(client)
         return outcome
 
+    # -- driver-local fast lane ------------------------------------------
+    def _fast_eligible(self, spec: TaskSpec) -> bool:
+        return (not self._fast_disabled
+                and spec.num_returns == 1
+                and not (spec.func is not None
+                         and inspect.isgeneratorfunction(spec.func)))
+
+    def _fast_client(self):
+        if self._fast is not None and not self._fast.dead:
+            return self._fast
+        from ray_tpu_torch._private.fast_lane import (CoreHandle,
+                                                      connect_with_retries)
+        try:
+            with self._fast_lock:
+                if self._fast is not None and not self._fast.dead:
+                    return self._fast
+                if self._fast_core is None:
+                    core = CoreHandle()
+                    if core.start("127.0.0.1", 0) is None:
+                        self._fast_disabled = True   # no native build
+                        return None
+                    self._fast_core = core
+                    threading.Thread(target=self._fast_pool_loop,
+                                     daemon=True,
+                                     name="router-fastlane").start()
+                port = self._fast_core.port
+            # connect outside the lock: the retries' sleeps must not stall
+            # cancel_task's bookkeeping
+            fl = connect_with_retries(("127.0.0.1", port))
+            with self._fast_lock:
+                if self._fast is None or self._fast.dead:
+                    self._fast = fl
+                else:
+                    fl.close()      # lost the reconnect race
+                return self._fast
+        except Exception:
+            self._fast_disabled = True
+            return None
+
+    def _fast_dedicate(self) -> WorkerClient:
+        core = self._fast_core
+        if core is None:
+            raise RuntimeError("fast lane stopped")
+        # from the template, the card hidden, never in the idle pool
+        w = _spawn_worker()
+        w.fast_lane = True
+        w.runtime = self.runtime
+        try:
+            rid, pend = w._request({"op": "join_fast_lane",
+                                    "addr": ["127.0.0.1", core.port]})
+            out = w._wait_outcome(rid, pend)
+            if out[0] != "ok":
+                raise RuntimeError(f"fast-lane join failed: {out!r}")
+        except BaseException:
+            w.kill(expected=True)
+            raise
+        return w
+
+    def _fast_pool_loop(self) -> None:
+        """Queue-depth-driven sizing, like the daemon's lane pool. The
+        whole maintenance step holds _fast_lock so shutdown()'s swap can
+        never interleave with a dedicate (which would leak the just-spawned
+        worker process)."""
+        while not self.runtime._shutdown:
+            try:
+                with self._fast_lock:
+                    if self._fast_core is None:
+                        return        # shut down
+                    alive = [w for w in self._fast_workers if w.alive()]
+                    self._fast_workers = alive
+                    stats = self._fast_core.stats()
+                    if (not alive
+                            or (stats.get("queued", 0) > 0
+                                and len(alive) < self._fast_max)):
+                        self._fast_workers.append(self._fast_dedicate())
+                        continue
+            except Exception:
+                time.sleep(1.0)
+            time.sleep(0.25)
+
+    def fast_stats(self) -> Dict[str, int]:
+        """The lane core's counters (queued, inflight, free_workers,
+        submitted); empty while no core runs."""
+        core = self._fast_core
+        return core.stats() if core is not None else {}
+
+    def _execute_fast(self, spec: TaskSpec, node, fid: str,
+                      args_parts: Sequence[Any]):
+        from ray_tpu_torch._private import fast_lane as _fle
+        fl = self._fast_client()
+        if fl is None:
+            return None
+        payload = _fle.build_payload(
+            spec, fid, _fle.join_parts(args_parts),
+            spec.job_id or self.runtime.job_id,
+            node.node_id if node is not None else None)
+        try:
+            rid, slot = fl.submit(payload)
+        except _fle.FastLaneError:
+            return None                  # nothing submitted: the pipe
+        _count_sent()
+        task_hex = spec.task_id.hex()
+        with self._fast_lock:
+            # store the CLIENT with the rid: after a lane death + reconnect
+            # the new client's rid counter restarts at 1, so a bare rid
+            # could cancel an unrelated task on the new lane
+            self._fast_rids[task_hex] = (fl, rid)
+        try:
+            kind, blob = fl.wait(slot)
+        except _fle.FastLaneUnsubmitted:
+            # the frame never reached the wire (another submitter's flush
+            # failed first): nothing ran — the pipe, retry-free
+            return None
+        except _fle.FastLaneError as e:
+            # submitted but the lane died: a worker crash, so retry
+            # accounting applies (never a silent re-run)
+            crash = WorkerCrashed(f"fast lane died mid-task: {e}")
+            crash.fast_lane = True
+            raise crash
+        finally:
+            with self._fast_lock:
+                self._fast_rids.pop(task_hex, None)
+        if kind == _fle.KIND_OK:
+            return ("ok", _fle.loads_joined(blob))
+        if kind == _fle.KIND_ERR:
+            e, tb = serialization.loads(blob)
+            setattr(e, "_remote_traceback", tb)
+            return ("err", e)
+        if kind == _fle.KIND_GEN_LIST:
+            # the function body already ran and the worker drained its
+            # returned generator: replay it as a real generator, so the
+            # streaming machinery engages without re-running the body
+            return ("gen", _fle.replay_gen_list(blob))
+        if kind == _fle.KIND_CANCELLED:
+            return ("err", KeyboardInterrupt())
+        if kind == _fle.KIND_CRASHED:
+            crash = WorkerCrashed(bytes(blob).decode(errors="replace"))
+            crash.fast_lane = True
+            raise crash
+        raise RuntimeError(f"unknown fast-lane outcome kind {kind}")
+
+    def release_borrows(self, key: str) -> None:
+        """Drop lane workers' holds for a finished borrower ('t:<task>'):
+        per-task borrow release for the driver-local lane."""
+        if not self._fast_workers:
+            return
+        for w in list(self._fast_workers):
+            w._holds.pop(key, None)
+
     @staticmethod
     def _release_after(client: WorkerClient, it):
         try:
@@ -1377,6 +1592,17 @@ class ProcessRouter:
             release_worker(client)
 
     def cancel_task(self, task_id: TaskID, force: bool) -> bool:
+        task_hex = task_id.hex()
+        with self._fast_lock:
+            entry = self._fast_rids.get(task_hex)
+        if entry is not None:
+            # cancel on the client GENERATION the task was submitted on —
+            # a reconnected lane restarts its rid counter, and a stale rid
+            # sent there would kill an unrelated task
+            lane_client, rid = entry
+            if not lane_client.dead:
+                lane_client.cancel(rid, force=force)
+            return True
         with self._lock:
             entry = self._running.get(task_id)
         if entry is None:
@@ -1486,6 +1712,18 @@ class ProcessRouter:
 
     # -- lifecycle -------------------------------------------------------
     def shutdown(self) -> None:
+        # the lane first: the core is process-global (one a process), so
+        # the next runtime in this process needs it freed
+        with self._fast_lock:
+            fl, self._fast = self._fast, None
+            core, self._fast_core = self._fast_core, None
+            lane_workers, self._fast_workers = self._fast_workers, []
+        if fl is not None:
+            fl.close()
+        for w in lane_workers:
+            w.kill(expected=True)
+        if core is not None:
+            core.stop()
         with self._lock:
             actors = dict(self._actor_workers)
         for actor_id in actors:

@@ -1,9 +1,10 @@
 """The port's runtime against the JAX package's runtime on the CPU.
 
 One script runs on both packages' public API and must give equal results
-and equal exception class names. JAX's runtime runs with process workers off
-(``RAY_TPU_PROCESS_WORKERS=0``), the mode in which every task runs in the
-calling process, as every task of the port's in-process core does.
+and equal exception class names: once with JAX's process workers off
+(``RAY_TPU_PROCESS_WORKERS=0``, every task in the calling process), and
+once with both packages at their defaults (process workers, and plain tasks
+through each one's native fast lane).
 """
 
 import numpy as np
@@ -131,6 +132,38 @@ def test_one_script_gives_equal_results(jax_in_process):
     assert port_out["failing_task"] == "TaskError(KeyError)"
     assert port_out["ordering"] == list(range(1, 31))
     assert port_out["streaming"] == [0, 10, 20, 30, 40]
+
+
+def test_one_script_at_both_defaults_through_both_lanes(monkeypatch):
+    """Process workers and the fast lane on in both packages (their
+    defaults): equal results and exception names, and each package's lane
+    core counted the script's plain tasks, the same number in both."""
+    import shutil
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: neither package builds its lane")
+    for var in ("RAY_TPU_PROCESS_WORKERS", "RAY_TPU_FAST_LANE",
+                "RAY_TPU_NATIVE_STORE"):
+        monkeypatch.delenv(var, raising=False)
+    from ray_tpu._private import worker as jax_worker
+    ray_tpu.init(num_nodes=1, resources={"CPU": 8})
+    try:
+        jax_out = _script(ray_tpu)
+        jax_lane = jax_worker.global_runtime().process_router \
+            ._fast_core.stats()["submitted"]
+    finally:
+        ray_tpu.shutdown()
+    rt = ray_tpu_torch.init(num_nodes=1, resources={"CPU": 8})
+    try:
+        port_out = _script(ray_tpu_torch)
+        port_lane = rt.process_router.fast_stats()["submitted"]
+    finally:
+        ray_tpu_torch.shutdown()
+    assert port_out == jax_out
+    assert port_out["ordering"] == list(range(1, 31))
+    assert port_out["failing_task"] == "TaskError(KeyError)"
+    # ref_args' 2 adds, nested's outer and inner add, the 2 boom tasks and
+    # wait's 6 adds; the consumers of a failed dependency never run
+    assert port_lane == jax_lane == 12
 
 
 def test_all_names_but_the_later_items():
