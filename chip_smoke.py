@@ -271,6 +271,31 @@
    above the base on the card. Alone (it runs phase 5 first):
    ``python -c "import chip_smoke, torch;
    chip_smoke.native_path(torch.device('cuda'))"``.
+20. The daemon cluster, ``init(cluster="daemons", num_nodes=2,
+   resources={"CPU": 4})``: a head and two node-daemon processes
+   (``_private/{head,daemon,cluster}.py`` on the port's RPC wire, each
+   daemon with PR 15's core and a 2 GiB arena): (a) the head and both
+   daemons alive, ``daemon_ping`` gives each one's pid; 1,000 no-op tasks
+   in the daemons' workers (their cores count them), none in the driver,
+   their rate beside 19(a)'s lane and the driver's threads; a nested get
+   reaches the owner; a STRICT_SPREAD group of two bundles committed on
+   both daemons by the two-phase commit; (b) three daemon tasks (q and v
+   on one daemon, k on the other) make q, k and v at bench_400m's
+   attention shapes, each left in its daemon's arena; one chunked pull
+   copies q (64 MiB) to the other daemon, where a task reads it as a view
+   of its arena; the driver gets the three as read-only views inside the
+   arenas, equal to their seeds' values; to the card as bf16 and
+   ``flash_fwd_wgmma`` once (counted), held to the plain version; (c) the
+   views released, the daemon holding k SIGKILLed: the head marks it dead,
+   an actor on it (``max_restarts=1``) restarts on the other daemon, the
+   driver's get of k rebuilds it through lineage there, and the kernel on
+   it gives (b)'s output bit for bit (one more launch); (d) at init, after
+   (b) and after (c) nvidia-smi lists one context on the card, no process
+   of the cluster maps the CUDA driver and the driver does; (e) after
+   ``shutdown()`` no head, daemon or worker process, no ``/dev/shm``
+   segment of the arenas, no session dir and no bytes above the base on
+   the card. Alone (it runs phase 5 first): ``python -c "import
+   chip_smoke, torch; chip_smoke.daemon_path(torch.device('cuda'))"``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -4325,6 +4350,440 @@ def native_path(dev, phase5=None, phase18=None, smi=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the daemon cluster (head and node-daemon processes)
+# ---------------------------------------------------------------------------
+
+def card_pids() -> list:
+    """The pids nvidia-smi lists with a context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return sorted(int(x) for x in out.split() if x.strip().isdigit())
+
+
+def maps_cuda(pid: int) -> bool:
+    """Whether process ``pid`` has the CUDA driver library mapped."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "libcuda" in f.read()
+    except (FileNotFoundError, ProcessLookupError, PermissionError):
+        return False
+
+
+def only_driver_on_card(pids: set, part: str, seen: list) -> None:
+    """Phase 20(d), one sample: nvidia-smi lists one context on the card
+    and no process of the cluster (head, daemons, their workers); none of
+    them maps the CUDA driver, while the driver does. (The sandbox's pid
+    namespace is not nvidia-smi's: the pid it lists is not this process's
+    number here, so the maps name the one holder.) The listed pids are
+    kept in ``seen``."""
+    import os
+    listed = card_pids()
+    seen.append(listed)
+    ours = {p for p in pids if _alive(p)}
+    mapped = sorted(p for p in ours if maps_cuda(p))
+    if (len(listed) != 1 or set(listed) & ours or mapped
+            or not maps_cuda(os.getpid())):
+        raise RuntimeError(f"phase 20(d) at {part}: nvidia-smi lists "
+                           f"{listed}, the cluster's processes mapping "
+                           f"libcuda {mapped} (the driver {os.getpid()})")
+
+
+def cluster_pids(rt_obj, worker_pids: set) -> set:
+    """The pids of the head, the daemons, their forkservers and the workers
+    that answered."""
+    backend = rt_obj.cluster_backend
+    pids = {backend.head_proc.pid} | set(worker_pids)
+    for h in backend.daemons.values():
+        pids.add(h.proc.pid)
+        try:
+            with open(f"/proc/{h.proc.pid}/task/{h.proc.pid}/children") as f:
+                pids.update(int(x) for x in f.read().split())
+        except OSError:
+            pass
+    return pids
+
+
+def daemon_cluster_checks(smi: str, phase19) -> dict:
+    """Phase 20(a): the head and both daemons alive, ``daemon_ping`` gives
+    each one's pid; 1,000 no-op tasks in the daemons' workers, none in the
+    driver; a nested get of a task inside a task reaches the owner; a
+    STRICT_SPREAD group of two bundles committed on both daemons by the
+    two-phase commit."""
+    import os
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch.util.placement_group import (placement_group,
+                                                    remove_placement_group)
+    runtime = worker.global_runtime()
+    backend = runtime.cluster_backend
+    handles = list(backend.daemons.values())
+    driver = os.getpid()
+    pings = {h.node_id.hex()[:8]: h.client.call("daemon_ping")["pid"]
+             for h in handles}
+    if (backend.head_proc.poll() is not None or len(handles) != 2
+            or any(h.proc.poll() is not None for h in handles)
+            or sorted(pings.values()) != sorted(h.proc.pid
+                                                for h in handles)):
+        raise RuntimeError(f"phase 20(a): head {backend.head_proc.poll()}, "
+                           f"daemons {[h.proc.poll() for h in handles]}, "
+                           f"pings {pings}")
+    def lane_submitted():
+        return sum(h.client.call("daemon_stats")["fast_lane"].get(
+            "submitted", 0) for h in handles)
+
+    fn = noop()
+    before = lane_submitted()
+    rate, pids = noop_rate(fn)
+    through = lane_submitted() - before
+    daemon_pids = {h.proc.pid for h in handles}
+    if driver in pids or pids & daemon_pids or through < 1000:
+        raise RuntimeError(f"phase 20(a): no-op tasks ran in {pids} (the "
+                           f"driver {driver}, the daemons {daemon_pids}); "
+                           f"the daemons' cores counted {through}")
+
+    @rt.remote
+    def inner(x):
+        return x + 1
+
+    @rt.remote
+    def outer():
+        return sum(rt.get([inner.remote(i) for i in range(4)]))
+
+    nested = rt.get(outer.remote())
+    if nested != 10:
+        raise RuntimeError(f"phase 20(a): the nested get gave {nested}")
+    pg = placement_group([{"CPU": 1}, {"CPU": 1}], strategy="STRICT_SPREAD")
+    if not pg.wait(30):
+        raise RuntimeError("phase 20(a): the group was never placed")
+    states = {}
+    for h in handles:
+        bundles = h.client.call("daemon_stats")["bundles"]
+        states[h.node_id.hex()[:8]] = sorted(
+            v for k, v in bundles.items() if k.startswith(pg.id.hex()))
+    remove_placement_group(pg)
+    if sorted(states.values()) != [["COMMITTED"], ["COMMITTED"]]:
+        raise RuntimeError(f"phase 20(a): bundle records {states}")
+    lane = (phase19 or {}).get("lane_tasks_per_s")
+    threads = (phase19 or {}).get("thread_tasks_per_s")
+    beside = (f"beside 19(a)'s {lane:.0f} through the driver's lane and "
+              f"{threads:.0f} on the driver's threads" if lane else
+              "(19(a) not run in this call)")
+    log(f"phase 20(a): the head (pid {backend.head_proc.pid}) and 2 daemons "
+        f"up, daemon_ping {pings}; 1,000 no-op tasks in {len(pids)} of the "
+        f"daemons' workers (none in the driver {driver} or a daemon; the "
+        f"daemons' cores counted {through} with the 100 to warm up): "
+        f"{rate:.0f} tasks/s {beside}; a nested get reached the owner "
+        f"({nested}); a STRICT_SPREAD group of 2 bundles committed on both "
+        f"daemons {states} ({smi})")
+    return {"tasks_per_s": rate, "worker_pids": pids, "pings": pings}
+
+
+def daemon_flash(dev, smi: str) -> dict:
+    """Phase 20(b): daemon tasks make q, k and v (q and v on one daemon, k
+    on the other), each left in its daemon's arena; one chunked pull copies
+    q (64 MiB) to the other daemon, where a task consumes it zero-copy;
+    the driver gets the three as read-only views inside the arenas, equal
+    to their seeds' values; to the card as bf16 and ``flash_fwd_wgmma``
+    once, held to the plain version at ``BF16_TOL``."""
+    import ctypes
+    import warnings
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch.ops import attention as attn
+    runtime = worker.global_runtime()
+    backend = runtime.cluster_backend
+    handles = list(backend.daemons.values())
+    home = {"q": handles[0], "k": handles[1], "v": handles[0]}
+
+    @rt.remote(max_retries=3)
+    def make(shape, seed):
+        return np.random.default_rng(seed).standard_normal(
+            shape, dtype=np.float32)
+
+    @rt.remote
+    def consume(refs):
+        from ray_tpu_torch.objectplane.arena import arena_stats
+        x = rt.get(refs)[0]
+        return (float(x[0, 0, 0, :4].sum()), x.shape,
+                bool(x.flags.writeable), arena_stats())
+
+    t0 = time.perf_counter()
+    refs = {}
+    for i, (n, shape) in enumerate(ATTN_SHAPES.items()):
+        strat = rt.NodeAffinitySchedulingStrategy(
+            node_id=home[n].node_id.hex(), soft=True)
+        refs[n] = make.options(scheduling_strategy=strat).remote(shape, i)
+    rt.wait(list(refs.values()), num_returns=3, timeout=120)
+    make_s = time.perf_counter() - t0
+    where = {}
+    for n, ref in refs.items():
+        where[n] = [h.node_id.hex()[:8] for h in handles
+                    if runtime.get_node(h.node_id).store.contains(ref.id)]
+        if where[n] != [home[n].node_id.hex()[:8]]:
+            raise RuntimeError(f"phase 20(b): {n} is held by {where}")
+    used = {h.node_id.hex()[:8]: h.client.call("daemon_stats")["store_used"]
+            for h in handles}
+    # one chunked pull of q to the other daemon, then a task there reads it
+    other = runtime.get_node(handles[1].node_id)
+    before = handles[1].client.call("daemon_stats")["pull_stats"]
+    t0 = time.perf_counter()
+    if not runtime.pull_to_node(refs["q"].id, other, priority=0):
+        raise RuntimeError("phase 20(b): the pull of q failed")
+    pull_s = time.perf_counter() - t0
+    after = handles[1].client.call("daemon_stats")["pull_stats"]
+    pulled = after["bytes_pulled"] - before["bytes_pulled"]
+    chunks = after["chunks_transferred"] - before["chunks_transferred"]
+    strat = rt.NodeAffinitySchedulingStrategy(
+        node_id=handles[1].node_id.hex(), soft=False)
+    head4, shape, writeable, stats = rt.get(
+        consume.options(scheduling_strategy=strat).remote([refs["q"]]))
+    q_seed = np.random.default_rng(0).standard_normal(ATTN_SHAPES["q"],
+                                                      dtype=np.float32)
+    if (pulled < q_seed.nbytes or chunks < 16 or writeable
+            or stats.get("zero_copy_gets", 0) < 1 or tuple(shape)
+            != ATTN_SHAPES["q"]
+            or head4 != float(q_seed[0, 0, 0, :4].sum())):
+        raise RuntimeError(f"phase 20(b): the pull moved {pulled} bytes in "
+                           f"{chunks} chunks; the consumer saw {shape} "
+                           f"writeable {writeable} stats {stats}")
+    # the driver's gets: views inside the arenas
+    t0 = time.perf_counter()
+    views = dict(zip(refs, rt.get(list(refs.values()))))
+    get_ms = (time.perf_counter() - t0) * 1e3
+    spans = {}
+    for h in handles:
+        arena = backend.arenas.handle(h.arena_name)
+        lo = ctypes.addressof(arena._buf)
+        spans[h.node_id.hex()[:8]] = (lo, lo + arena.capacity())
+    inside = {}
+    for n, view in views.items():
+        addr = view.__array_interface__["data"][0]
+        # q has a copy in both arenas after the pull: either may serve it
+        inside[n] = [d for d, (lo, hi) in spans.items() if lo <= addr < hi]
+    if not all(inside.values()) or any(v.flags.writeable
+                                       for v in views.values()):
+        raise RuntimeError(f"phase 20(b): views inside the arenas {inside}")
+    for i, (n, shape) in enumerate(ATTN_SHAPES.items()):
+        if not np.array_equal(views[n], np.random.default_rng(i)
+                              .standard_normal(shape, dtype=np.float32)):
+            raise RuntimeError(f"phase 20(b): {n} is not its seed's values")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # from_numpy of a read-only view
+        t0 = time.perf_counter()
+        q, k, v = (torch.from_numpy(views[n]).to(dev).to(torch.bfloat16)
+                   for n in ATTN_SHAPES)
+        torch.cuda.synchronize()   # the copies are done: views may go
+        copy_ms = (time.perf_counter() - t0) * 1e3
+    attn.flash_attention_kernel.launches = 0
+    out = attn.flash_attention_kernel(q, k, v, True)
+    launches = attn.flash_attention_kernel.launches
+    plain = attn._flash_forward_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), plain.float(), **BF16_TOL)
+    err = (out.float() - plain.float()).abs().max().item()
+    if launches != 1 or not torch.isfinite(out).all():
+        raise RuntimeError(f"phase 20(b): flash launches {launches}")
+    del plain, views
+    nbytes = sum(int(np.prod(s)) * 4 for s in ATTN_SHAPES.values())
+    log(f"phase 20(b): 3 daemon tasks made q {ATTN_SHAPES['q']}, k and v "
+        f"{ATTN_SHAPES['k']} as f32 ({nbytes / 2**20:.0f} MiB) in "
+        f"{make_s:.2f} s, q and v left in daemon {where['q'][0]}'s arena, "
+        f"k in {where['k'][0]}'s (store_used {used}); one chunked pull of "
+        f"q to daemon {handles[1].node_id.hex()[:8]}: {pulled} bytes in "
+        f"{chunks} chunks, {pull_s * 1e3:.1f} ms "
+        f"({pulled / pull_s / 1e9:.2f} GB/s), and a task there read it as "
+        f"a read-only view of its arena (zero_copy_gets "
+        f"{stats['zero_copy_gets']}); the driver's get of the three "
+        f"{get_ms:.2f} ms, read-only views inside the arenas {inside}, "
+        f"equal to their seeds' values; to the card as bf16 {copy_ms:.1f} "
+        f"ms; flash_fwd_wgmma, 1 launch, against the plain version "
+        f"max_abs_err {err:.3e} ({smi})")
+    return {"refs": refs, "qkv": (q, k, v), "out": out, "launches": launches,
+            "max_abs_err": err, "get_ms": get_ms, "pull_ms": pull_s * 1e3,
+            "pull_bytes": pulled, "pull_chunks": chunks, "copy_ms": copy_ms,
+            "make_s": make_s, "home": home}
+
+
+def daemon_death(dev, flash: dict, smi: str) -> dict:
+    """Phase 20(c): the driver's views released, the daemon holding k is
+    SIGKILLed; the head marks it dead; an actor on it (max_restarts=1)
+    restarts on the other daemon; the driver's get of k reconstructs it
+    through lineage there, and the kernel on the rebuilt k gives (b)'s
+    output bit for bit (one more launch, counted)."""
+    import os
+    import signal
+    import warnings
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch.ops import attention as attn
+    runtime = worker.global_runtime()
+    backend = runtime.cluster_backend
+    victim = flash["home"]["k"]
+    survivor = flash["home"]["q"]
+
+    @rt.remote(max_restarts=1, max_task_retries=2)
+    class Where:
+        def node(self):
+            return rt.get_runtime_context().get_node_id()
+
+    strat = rt.NodeAffinitySchedulingStrategy(
+        node_id=victim.node_id.hex(), soft=True)
+    actor = Where.options(scheduling_strategy=strat).remote()
+    first = rt.get(actor.node.remote())
+    gc.collect()
+    held = {h.node_id.hex()[:8]:
+            h.client.call("daemon_stats")["slot_refs"]["refs"]
+            for h in (victim, survivor)}
+    if first != victim.node_id.hex() or any(held.values()):
+        raise RuntimeError(f"phase 20(c): the actor is on {first}; slot "
+                           f"refs still held {held}")
+    rebuilt0 = runtime.stats["objects_reconstructed"]
+    t0 = time.perf_counter()
+    os.kill(victim.proc.pid, signal.SIGKILL)
+    victim.proc.wait()
+    dead_s = None
+    while time.perf_counter() - t0 < 30:
+        if not any(n["node_id"] == victim.node_id.hex() and n["alive"]
+                   for n in backend.head.list_nodes()):
+            dead_s = time.perf_counter() - t0
+            break
+        time.sleep(0.01)
+    if dead_s is None:
+        raise RuntimeError("phase 20(c): the head never marked the daemon "
+                           "dead")
+    restart_s = None
+    while time.perf_counter() - t0 < 60:
+        try:
+            node = rt.get(actor.node.remote(), timeout=10)
+        except Exception:   # noqa: BLE001 - restarting
+            time.sleep(0.05)
+            continue
+        if node == survivor.node_id.hex():
+            restart_s = time.perf_counter() - t0
+            break
+    if restart_s is None:
+        raise RuntimeError("phase 20(c): the actor never restarted on the "
+                           "surviving daemon")
+    t1 = time.perf_counter()
+    k_view = rt.get(flash["refs"]["k"], timeout=120)
+    rebuild_s = time.perf_counter() - t1
+    holder = [n.node_id.hex()[:8] for n in runtime.alive_nodes()
+              if n.store.contains(flash["refs"]["k"].id)]
+    rebuilt = runtime.stats["objects_reconstructed"] - rebuilt0
+    if rebuilt != 1 or holder != [survivor.node_id.hex()[:8]]:
+        raise RuntimeError(f"phase 20(c): {rebuilt} reconstructions, k "
+                           f"held by {holder}")
+    q, _, v = flash["qkv"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        k = torch.from_numpy(k_view).to(dev).to(torch.bfloat16)
+        torch.cuda.synchronize()
+    del k_view
+    attn.flash_attention_kernel.launches = 0
+    out = attn.flash_attention_kernel(q, k, v, True)
+    launches = attn.flash_attention_kernel.launches
+    if launches != 1 or not torch.equal(out, flash["out"]):
+        raise RuntimeError(f"phase 20(c): launches {launches}; the output "
+                           f"on the rebuilt k differs by "
+                           f"{(out.float() - flash['out'].float()).abs().max().item()}")
+    del q, k, v, out
+    rt.kill(actor)
+    log(f"phase 20(c): the driver's views released (slot refs held {held}),"
+        f" daemon {victim.node_id.hex()[:8]} (pid {victim.proc.pid}) "
+        f"SIGKILLed: the head marked it dead after {dead_s * 1e3:.0f} ms; "
+        f"the actor on it (max_restarts=1) answered from daemon "
+        f"{survivor.node_id.hex()[:8]} {restart_s:.2f} s after the kill; "
+        f"the get of k rebuilt it through lineage there in {rebuild_s:.2f} "
+        f"s; flash_fwd_wgmma on the rebuilt k, 1 launch, equal to (b)'s "
+        f"output bit for bit ({smi})")
+    return {"launches": launches, "dead_ms": dead_s * 1e3,
+            "restart_s": restart_s, "rebuild_s": rebuild_s}
+
+
+def daemon_path(dev, phase5=None, phase19=None, smi=None) -> dict:
+    """Phase 20: the daemon cluster, ``init(cluster="daemons",
+    num_nodes=2, resources={"CPU": 4})`` (see the module's docstring).
+    Alone (it runs phase 5 first): ``python -c "import chip_smoke, torch;
+    chip_smoke.daemon_path(torch.device('cuda'))"``."""
+    import glob
+    import os
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import LlamaConfig
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    if phase5 is None:
+        phase5 = train_path(dev, LlamaConfig.bench_400m().n_layers)
+    if rt.is_initialized():
+        raise RuntimeError("a runtime is still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    t_init = time.perf_counter()
+    runtime = rt.init(cluster="daemons", num_nodes=2,
+                      resources={"CPU": 4})
+    init_s = time.perf_counter() - t_init
+    backend = runtime.cluster_backend
+    node_ids = [h.node_id.hex() for h in backend.daemons.values()]
+    session = backend.session_dir
+    seen: list = []
+    pids: set = set()
+    try:
+        pids = cluster_pids(runtime, set())
+        only_driver_on_card(pids, "init", seen)
+        cluster = daemon_cluster_checks(smi, phase19)
+        pids = cluster_pids(runtime, cluster["worker_pids"])
+        flash = daemon_flash(dev, smi)
+        pids |= cluster_pids(runtime, set())
+        only_driver_on_card(pids, "(b)", seen)
+        death = daemon_death(dev, flash, smi)
+        pids |= cluster_pids(runtime, set())
+        only_driver_on_card(pids, "(c)", seen)
+        figures = {k: flash[k] for k in ("get_ms", "pull_ms", "pull_bytes",
+                                         "pull_chunks", "copy_ms",
+                                         "max_abs_err", "make_s")}
+        launches = flash["launches"] + death["launches"]
+        del flash
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 10
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = sorted(p for p in pids if _alive(p))
+    segments = [s for n in node_ids
+                for s in glob.glob(f"/dev/shm/rtpt_{n[:12]}*")]
+    if left or segments or os.path.exists(session):
+        raise RuntimeError(f"phase 20(e): processes {left} left, segments "
+                           f"{segments}, the session dir "
+                           f"{os.path.exists(session)}")
+    freed, _ = wait_freed(base, "phase 20 after shutdown()")
+    if freed > base:
+        raise RuntimeError(f"phase 20(e): {freed - base} bytes above the "
+                           f"base after shutdown()")
+    seconds = time.perf_counter() - t0
+    log(f"phase 20(d): nvidia-smi listed one context on the card, pids "
+        f"{seen} in its namespace, at init, after (b) and after (c) (this "
+        f"process is pid {os.getpid()} in the sandbox's); none of the "
+        f"cluster's {len(pids)} processes (the head, the daemons, their "
+        f"forkservers and workers) listed or mapping libcuda, the driver "
+        f"mapping it")
+    log(f"phase 20(e): after shutdown() no head, daemon or worker process "
+        f"of the {len(pids)} left, no /dev/shm segment of the 2 arenas, no "
+        f"session dir, {freed - base} bytes above the base; the cluster up "
+        f"in {init_s:.2f} s, phase 20 in {seconds:.1f} s ({smi})")
+    out = {"part": "20", "launches": launches, "init_s": init_s,
+           "tasks_per_s": cluster["tasks_per_s"], **figures,
+           "dead_ms": death["dead_ms"], "restart_s": death["restart_s"],
+           "rebuild_s": death["rebuild_s"], "processes": len(pids),
+           "bytes_after_shutdown": freed, "base_bytes": base,
+           "seconds": seconds, "card": smi}
+    log(json.dumps(out))
+    return out
+
+
 def _alive(pid) -> bool:
     """Whether ``pid`` is a live process (a zombie is not)."""
     if pid is None:
@@ -4541,6 +5000,14 @@ def main() -> int:
     # phase 17(a)'s feed on the lane (the flash counter at 0), nothing left
     native = native_path(dev, train, procs, smi)
     rows[2]["launches"] += native["launches"]
+
+    # 20. the daemon cluster: a head and two node daemons on the port's
+    # wire, q, k and v made by daemon tasks and read from their arenas
+    # into the flash kernel (the counter at 0 before each launch), a
+    # daemon SIGKILLed and k rebuilt through lineage, only this process on
+    # the card, nothing left after shutdown
+    daemons = daemon_path(dev, train, native, smi)
+    rows[2]["launches"] += daemons["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

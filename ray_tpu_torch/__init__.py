@@ -90,9 +90,12 @@ def init(num_nodes: int = 1,
          object_store_memory: int = 2 * 1024 ** 3,
          namespace: Optional[str] = None,
          ignore_reinit_error: bool = False,
-         _system_config: Optional[Dict[str, Any]] = None
-         ) -> "_worker.Runtime":
-    """Start the runtime with ``num_nodes`` virtual nodes in this process.
+         _system_config: Optional[Dict[str, Any]] = None,
+         cluster: Optional[str] = None) -> "_worker.Runtime":
+    """Start the runtime with ``num_nodes`` virtual nodes in this process,
+    or, with ``cluster="daemons"`` (JAX's ``RAY_TPU_CLUSTER=daemons``), a
+    head and ``num_nodes`` node-daemon processes on this host, each with
+    ``resources`` and an arena of ``object_store_memory`` bytes.
 
     ``resources=None`` detects this host's: its CPUs, and its CUDA cards as
     ``GPU`` when it has any. ``_system_config`` overrides flags of the table
@@ -106,7 +109,8 @@ def init(num_nodes: int = 1,
     apply_system_config(_system_config)
     return _worker.init_runtime(
         num_nodes=num_nodes, resources_per_node=resources,
-        object_store_memory=object_store_memory, namespace=namespace)
+        object_store_memory=object_store_memory, namespace=namespace,
+        cluster=cluster)
 
 
 def shutdown() -> None:

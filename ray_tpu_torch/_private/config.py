@@ -8,9 +8,11 @@ Resolution order per flag (highest wins):
 3. the declared default
 
 An unknown ``_system_config`` key raises, as in the reference. The table
-holds only the flags the port's runtime reads (the core and its process
-workers); the reference's others belong to parts of its runtime the port
-does not have yet.
+holds only the flags the port's runtime reads (the core, its process
+workers and the daemon cluster), with JAX's defaults but one:
+``async_core`` is False, and True raises, until the asyncio core is
+ported. The reference's other flags belong to parts of its runtime the
+port does not have yet.
 """
 
 from __future__ import annotations
@@ -57,6 +59,59 @@ FLAG_DEFS = [
     Flag("native_store", bool, True, "each node's object store parks "
          "contiguous numpy arrays of 64 KiB or more in a shared-memory "
          "arena (csrc/shm_store.cc) and hands out zero-copy views"),
+    # -- the daemon cluster (_private/head.py, daemon.py, cluster.py) --
+    Flag("cluster", str, "", "execution topology: '' = in-process virtual "
+         "nodes, 'daemons' = head + node-daemon OS processes"),
+    Flag("head_grace_s", float, 20.0, "how long daemons and drivers "
+         "re-dial a crashed head before giving up"),
+    Flag("heartbeat_interval_s", float, 0.2, "daemon->head heartbeat "
+         "period"),
+    Flag("node_dead_after_s", float, 1.5, "missed-heartbeat window before "
+         "the head declares a node dead"),
+    Flag("pull_chunk", int, 4 << 20, "inter-daemon object transfer chunk "
+         "size in bytes (push and pull share it)"),
+    Flag("objectplane_attach", bool, True, "workers (and the same-host "
+         "driver) map the node daemon's shm arena and resolve host-tier "
+         "objects zero-copy with shared-slot ref/release; False = the "
+         "per-RPC object path"),
+    Flag("direct_put_min_bytes", int, 256 * 1024, "puts at or above this "
+         "size reserve, write and seal arena space directly (the payload "
+         "never rides an RPC or pipe frame); smaller puts stay classic"),
+    Flag("raw_tier_min_bytes", int, 64 * 1024, "contiguous numpy arrays "
+         "at or above this size store as raw arena bytes that same-node "
+         "consumers read as read-only views; the raw path rides direct "
+         "puts, so the gate is max(raw_tier_min_bytes, "
+         "direct_put_min_bytes)"),
+    Flag("push_prefetch", bool, True, "push a task's dependencies to the "
+         "consumer's daemon when the task is queued there (PushManager); "
+         "False = pull-only transfer"),
+    Flag("memory_pressure", bool, False, "arm arena spilling in each "
+         "daemon's object table (the pressure controller itself is not "
+         "ported); off keeps every put/get path a None-check"),
+    Flag("arena_spill_dir", str, "", "directory for spilled arena entries; "
+         "empty = spill_<node> in the driver's session dir, removed with "
+         "the daemon"),
+    Flag("arena_spill_budget_bytes", int, 0, "cap on total bytes parked "
+         "in the spill dir (0 = unbounded)"),
+    Flag("submit_batch_max", int, 64, "most tasks a push_task_batch "
+         "frame"),
+    Flag("submit_linger_us", int, 200, "how long (microseconds) the submit "
+         "coalescer waits for more tasks before flushing a non-full "
+         "batch"),
+    Flag("free_batch_max", int, 256, "most object ids a free_objects RPC"),
+    Flag("free_flush_ms", float, 5.0, "most milliseconds a queued zero-ref "
+         "free waits before its buffer is flushed to the daemon"),
+    Flag("result_batch_max", int, 256, "most task completions a "
+         "task_batch_done push frame"),
+    Flag("result_linger_us", int, 500, "how long (microseconds) the "
+         "daemon's reply pump lingers for more completions before "
+         "flushing a non-full frame"),
+    Flag("control_call_timeout_s", float, 60.0, "deadline of control-plane "
+         "round trips whose reply is an ack (batch-submit and free "
+         "flushes): a silent partition surfaces as an RpcError"),
+    Flag("async_core", bool, False, "the asyncio control plane (JAX's "
+         "default); not ported yet: the threaded core is the port's, and "
+         "True raises"),
 ]
 
 FLAGS: Dict[str, Flag] = {f.name: f for f in FLAG_DEFS}
@@ -90,6 +145,15 @@ class Config:
                 value = flag.type(raw)
             self._values[flag.name] = value
             self._provenance[flag.name] = source
+        if self._values["async_core"]:
+            raise ValueError(
+                "async_core=True: the asyncio control-plane core "
+                "(_private/aio.py, _private/eventloop.py) is the next part "
+                "of ROADMAP A11c and not ported yet; the port runs the "
+                "threaded core (async_core=False)")
+        if self._values["cluster"] not in ("", "daemons"):
+            raise ValueError(f"cluster={self._values['cluster']!r}: "
+                             f"expected '' or 'daemons'")
 
     def __getattr__(self, name: str) -> Any:
         try:

@@ -83,9 +83,9 @@ def join_parts(parts: Sequence[Any]) -> bytearray:
     return bytearray().join([head, *views])
 
 
-def loads_joined(blob) -> Any:
-    """Inverse of :func:`join_parts` + ``worker_process._pack``: every
-    out-of-band buffer is a view into ``blob``."""
+def split_joined(blob) -> List[memoryview]:
+    """Inverse of :func:`join_parts`: the parts, as views into ``blob``
+    (a daemon relays a payload to its worker without loading it)."""
     view = memoryview(blob).cast("B")
     (n,) = _NPARTS.unpack_from(view, 0)
     pos = _NPARTS.size + n * _PART.size
@@ -94,6 +94,13 @@ def loads_joined(blob) -> Any:
         (size,) = _PART.unpack_from(view, _NPARTS.size + i * _PART.size)
         parts.append(view[pos:pos + size])
         pos += size
+    return parts
+
+
+def loads_joined(blob) -> Any:
+    """Inverse of :func:`join_parts` + ``worker_process._pack``: every
+    out-of-band buffer is a view into ``blob``."""
+    parts = split_joined(blob)
     return pickle.loads(parts[0], buffers=parts[1:])
 
 

@@ -1,0 +1,641 @@
+"""Head control-plane process, the GCS-server equivalent (counterpart of
+``ray_tpu/_private/head.py``).
+
+Spawned as its own OS process (``python -m ray_tpu_torch._private.head``);
+every interaction is a typed RPC of the port's wire
+(``_private/rpc.py``). The head holds cluster state only: the node
+directory, health, the KV and pubsub. Object ownership, scheduling
+authority and lineage stay with the single controller (the driver), and
+the card's data never crosses this process.
+
+Services:
+- NodeInfo: register_node / heartbeat / list_nodes / mark_node_dead; a
+  monitor thread marks nodes dead after ``node_dead_after_s`` without a
+  heartbeat and publishes a ``death`` event on the ``node`` channel
+  (active health checking). A node declared dead may NOT re-register
+  under the same id (zombie fencing, the heartbeat ``{"dead": True}``
+  contract); each registration mints a higher fencing epoch.
+- InternalKV: kv_put / kv_get / kv_del / kv_keys (bytes in, bytes out).
+- Pubsub: subscribe(channel, cursor) parks the request (long-poll HOLD);
+  publish completes every parked subscriber with the event batch.
+- Resource views: report_resources (the driver's availability) and
+  report_loads_gossip (the daemons' converged peer view).
+
+Fault tolerance: with ``--state-path`` the KV table, the pubsub logs and
+the nodes' epochs are written through to sqlite (rows in the wire's
+encoding), so a head respawned after a SIGKILL resumes with the same KV,
+valid pubsub cursors and monotonic epochs. Membership is not persisted:
+live daemons re-register on their next heartbeat.
+
+Left out, each with the ROADMAP item that brings it: drain_node (A11c),
+the task-event store, metrics and profile federation and tenancy records
+(A11e). Their methods are not declared here, so a call fails as any
+undeclared method does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sqlite3
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+from ray_tpu_torch._private import rpc
+from ray_tpu_torch._private.rpc import HOLD, Client, Connection, declare
+
+
+def _hb_interval() -> float:
+    from ray_tpu_torch._private.config import cfg
+    return cfg().heartbeat_interval_s
+
+
+def _dead_after() -> float:
+    from ray_tpu_torch._private.config import cfg
+    return cfg().node_dead_after_s
+
+
+declare("register_node", "node_id", "resources", "labels", "addr")
+declare("heartbeat", "node_id", "available", "epoch")
+declare("list_nodes")
+declare("mark_node_dead", "node_id", "reason")
+declare("kv_put", "key", "value", "overwrite", "ns")
+declare("kv_get", "key", "ns")
+declare("kv_del", "key", "ns")
+declare("kv_keys", "prefix", "ns")
+declare("subscribe", "channel", "cursor")
+declare("publish", "channel", "event")
+declare("report_resources", "loads")
+declare("report_loads_gossip", "view")
+declare("head_stop")
+
+# High-frequency gossip channels: never persisted, log trimmed to a window
+# (the stream carries the latest views, not history).
+TRANSIENT_CHANNELS = {"resources"}
+TRANSIENT_WINDOW = 200
+
+
+class _NodeEntry:
+    __slots__ = ("node_id", "resources", "labels", "addr", "alive",
+                 "last_beat", "available", "reason", "avail_gossip_ts",
+                 "epoch")
+
+    def __init__(self, node_id: str, resources: Dict[str, float],
+                 labels: Dict[str, str], addr: Tuple[str, int]):
+        self.node_id = node_id
+        self.resources = resources
+        self.labels = labels
+        self.addr = addr
+        self.alive = True
+        self.last_beat = time.monotonic()
+        self.available = dict(resources)
+        self.reason = ""
+        self.avail_gossip_ts = 0.0   # last driver report for this node
+        # fencing epoch minted at register_node; a frame stamped with a
+        # LOWER epoch comes from a pre-death incarnation
+        self.epoch = 0
+
+    def view(self) -> Dict[str, Any]:
+        return {"node_id": self.node_id, "resources": self.resources,
+                "labels": self.labels, "addr": list(self.addr),
+                "alive": self.alive, "available": self.available,
+                "epoch": self.epoch, "reason": self.reason}
+
+
+class _HeadStore:
+    """Write-through sqlite persistence for head state (rows hold the
+    wire's encoding of each value)."""
+
+    def __init__(self, path: str):
+        self._db = sqlite3.connect(path, check_same_thread=False)
+        self._db.execute("PRAGMA journal_mode=WAL")
+        # Writes happen under the HeadService lock: per-op fsync there
+        # would stall every head RPC (heartbeats too) behind disk. WAL +
+        # synchronous=NORMAL keeps commits memory-speed, and the WAL still
+        # survives a crash of the head process (the case replayed here).
+        self._db.execute("PRAGMA synchronous=NORMAL")
+        self._db.execute(
+            "CREATE TABLE IF NOT EXISTS kv (key BLOB PRIMARY KEY, "
+            "value BLOB)")
+        self._db.execute(
+            "CREATE TABLE IF NOT EXISTS events (channel TEXT, idx INTEGER, "
+            "event BLOB, PRIMARY KEY(channel, idx))")
+        self._db.commit()
+
+    def load(self) -> Tuple[Dict[bytes, bytes], Dict[str, List[Any]]]:
+        kv = {bytes(k): bytes(v) for k, v in
+              self._db.execute("SELECT key, value FROM kv")}
+        events: Dict[str, List[Any]] = {}
+        for chan, _idx, blob in self._db.execute(
+                "SELECT channel, idx, event FROM events "
+                "ORDER BY channel, idx"):
+            events.setdefault(chan, []).append(rpc.loads_frame(blob))
+        return kv, events
+
+    def put(self, key: bytes, value: bytes) -> None:
+        self._db.execute("INSERT OR REPLACE INTO kv VALUES (?, ?)",
+                         (key, value))
+        self._db.commit()
+
+    def delete(self, key: bytes) -> None:
+        self._db.execute("DELETE FROM kv WHERE key = ?", (key,))
+        self._db.commit()
+
+    def append_event(self, channel: str, idx: int, event: Any) -> None:
+        self._db.execute(
+            "INSERT OR REPLACE INTO events VALUES (?, ?, ?)",
+            (channel, idx, rpc.dumps_frame(event)))
+        self._db.commit()
+
+    def close(self) -> None:
+        try:
+            self._db.close()
+        except sqlite3.Error:
+            pass
+
+
+# Per-node fencing epochs persist in the kv table under this raw prefix.
+# Client-visible keys are stored as ``ns + b":" + key`` and so always hold
+# a colon: a colon-free prefix never collides with (or leaks into) any
+# namespace's kv_get/kv_keys view. Epochs must stay monotonic across head
+# restarts, or a healed pre-restart zombie could stamp frames the fence
+# accepts.
+_EPOCH_KEY = b"\x00epoch\x00"
+
+
+class HeadService:
+    def __init__(self, state_path: Optional[str] = None,
+                 parent_pid: Optional[int] = None):
+        self._lock = threading.Lock()
+        self._nodes: Dict[str, _NodeEntry] = {}  #: guarded by self._lock
+        self._kv: Dict[bytes, bytes] = {}        #: guarded by self._lock
+        # pubsub: channel -> event log, and the parked subscriber conns
+        self._events: Dict[str, List[Any]] = {}  #: guarded by self._lock
+        #: guarded by self._lock
+        self._bases: Dict[str, int] = {}   # trimmed-channel log offsets
+        #: guarded by self._lock
+        self._parked: Dict[str, List[Tuple[Connection, int, int]]] = {}
+        self._store: Optional[_HeadStore] = None
+        self._state_path = state_path
+        # the driver that spawned this head: once it is gone (reparented),
+        # the session is over and the head exits, as its daemons do
+        self._parent_pid = parent_pid
+        # per-node load entries converged via daemon peer gossip
+        # (report_loads_gossip); versioned like the daemons' own views
+        self._gossip_loads: Dict[str, Dict[str, Any]] = {}  #: guarded by self._lock
+        # node_id -> last minted fencing epoch (persisted)
+        self._node_epochs: Dict[str, int] = {}  #: guarded by self._lock
+        if state_path:
+            self._store = _HeadStore(state_path)
+            self._kv, self._events = self._store.load()
+            for key in [k for k in self._kv if k.startswith(_EPOCH_KEY)]:
+                blob = self._kv.pop(key)
+                try:
+                    self._node_epochs[key[len(_EPOCH_KEY):].decode()] = (
+                        int(blob))
+                except ValueError:
+                    self._store.delete(key)
+        self._stop = threading.Event()
+        self._monitor = threading.Thread(target=self._health_loop,
+                                         daemon=True, name="head-health")
+        self._monitor.start()
+
+    # -- node membership / health ---------------------------------------
+    def handle_register_node(self, conn, rid, msg):
+        node_id = msg["node_id"]
+        entry = _NodeEntry(node_id, msg["resources"],
+                           msg["labels"], tuple(msg["addr"]))
+        with self._lock:
+            cur = self._nodes.get(node_id)
+            if cur is not None and not cur.alive:
+                # Zombie fencing: this node was declared dead (the death is
+                # published, owners already recovered its work); a
+                # re-registration would resurrect it with stale state.
+                return {"ok": False, "dead": True, "reason": cur.reason}
+            # a monotonic fencing epoch for this incarnation: bumped on
+            # every register, persisted so it survives a head respawn
+            epoch = self._node_epochs.get(node_id, 0) + 1
+            self._node_epochs[node_id] = epoch
+            entry.epoch = epoch
+            if self._store is not None:
+                self._store.put(_EPOCH_KEY + node_id.encode(),
+                                str(epoch).encode())
+            self._nodes[node_id] = entry
+        conn.meta["node_id"] = node_id
+        self._publish("node", {"kind": "added", "node": entry.view()})
+        return {"ok": True, "epoch": entry.epoch}
+
+    def handle_heartbeat(self, conn, rid, msg):
+        node_id = msg["node_id"]
+        with self._lock:
+            entry = self._nodes.get(node_id)
+            if entry is None:
+                return {"ok": False, "unknown": True}
+            ep = msg.get("epoch")
+            if ep and entry.epoch and ep < entry.epoch:
+                # stale-epoch beat: a newer incarnation of this node_id has
+                # registered since; the zombie must exit, and its beat
+                # must not refresh the live incarnation's liveness
+                return {"ok": False, "dead": True, "stale_epoch": True}
+            entry.last_beat = time.monotonic()
+            # The daemon's heartbeat carries its STATIC resources; the
+            # driver's report carries the true availability. The report
+            # wins while fresh; heartbeats repopulate once the reporting
+            # driver goes quiet (left or crashed).
+            if time.monotonic() - entry.avail_gossip_ts > 2.0:
+                entry.available = msg["available"]
+            was_dead = not entry.alive
+        if was_dead:
+            # a heartbeat from a node declared dead: tell it to exit
+            return {"ok": False, "dead": True}
+        return {"ok": True}
+
+    def handle_list_nodes(self, conn, rid, msg):
+        with self._lock:
+            nodes = [e.view() for e in self._nodes.values()]
+            for n in nodes:
+                g = self._gossip_loads.get(n["node_id"])
+                if g is not None:
+                    n["gossip_load"] = g["load"]
+                    n["gossip_version"] = g["v"]
+            return {"nodes": nodes}
+
+    def handle_mark_node_dead(self, conn, rid, msg):
+        # the driver observed a daemon failure first-hand (an RPC error)
+        # and reports it before the health window elapses
+        self._mark_dead(msg["node_id"], msg["reason"])
+        return {"ok": True}
+
+    def _mark_dead(self, node_id: str, reason: str) -> None:
+        with self._lock:
+            entry = self._nodes.get(node_id)
+            if entry is None or not entry.alive:
+                return
+            entry.alive = False
+            entry.reason = reason
+        self._publish("node", {"kind": "death", "node_id": node_id,
+                               "reason": reason})
+
+    def _health_loop(self) -> None:
+        while not self._stop.wait(_hb_interval()):
+            if (self._parent_pid is not None
+                    and os.getppid() != self._parent_pid):
+                self._exit_orphaned()
+            now = time.monotonic()
+            window = _dead_after()
+            with self._lock:
+                dead = [e.node_id for e in self._nodes.values()
+                        if e.alive and now - e.last_beat > window]
+            for node_id in dead:
+                self._mark_dead(node_id, "missed heartbeats")
+
+    def _exit_orphaned(self) -> None:
+        """The driver died without head_stop: drop the state file (no
+        driver is left to respawn a head on it) and exit."""
+        self._stop.set()
+        with self._lock:
+            if self._store is not None:
+                self._store.close()
+            if self._state_path:
+                for suffix in ("", "-wal", "-shm", "-journal"):
+                    try:
+                        os.unlink(self._state_path + suffix)
+                    except OSError:
+                        pass
+                try:
+                    os.rmdir(os.path.dirname(self._state_path))
+                except OSError:
+                    pass        # not empty: a daemon's files remain
+        os._exit(0)
+
+    def on_disconnect(self, conn: Connection) -> None:
+        node_id = conn.meta.get("node_id")
+        if node_id:
+            self._mark_dead(node_id, "connection lost")
+        # drop parked long-polls from this conn
+        with self._lock:
+            for parked in self._parked.values():
+                parked[:] = [p for p in parked if p[0] is not conn]
+
+    # -- internal KV -----------------------------------------------------
+    def handle_kv_put(self, conn, rid, msg):
+        key = msg["ns"] + b":" + msg["key"]
+        with self._lock:
+            if not msg["overwrite"] and key in self._kv:
+                return {"added": False}
+            self._kv[key] = msg["value"]
+            if self._store is not None:
+                self._store.put(key, msg["value"])
+        return {"added": True}
+
+    def handle_kv_get(self, conn, rid, msg):
+        with self._lock:
+            value = self._kv.get(msg["ns"] + b":" + msg["key"])
+        return {"value": value}
+
+    def handle_kv_del(self, conn, rid, msg):
+        key = msg["ns"] + b":" + msg["key"]
+        with self._lock:
+            self._kv.pop(key, None)
+            if self._store is not None:
+                self._store.delete(key)
+        return {"ok": True}
+
+    def handle_kv_keys(self, conn, rid, msg):
+        pre = msg["ns"] + b":" + msg["prefix"]
+        nslen = len(msg["ns"]) + 1
+        with self._lock:
+            keys = [k[nslen:] for k in self._kv if k.startswith(pre)]
+        return {"keys": keys}
+
+    # -- long-poll pubsub -------------------------------------------------
+    def handle_subscribe(self, conn, rid, msg):
+        """Long-poll: reply at once if the cursor is behind, else park
+        until the next publish."""
+        channel, cursor = msg["channel"], msg["cursor"]
+        with self._lock:
+            log = self._events.setdefault(channel, [])
+            base = self._bases.get(channel, 0)
+            total = base + len(log)
+            if cursor < total:
+                start = max(0, cursor - base)  # trimmed past: skip ahead
+                return {"events": log[start:], "cursor": total}
+            self._parked.setdefault(channel, []).append(
+                (conn, rid, cursor))
+        return HOLD
+
+    def _publish(self, channel: str, event: Any) -> None:
+        with self._lock:
+            log = self._events.setdefault(channel, [])
+            log.append(event)
+            if channel in TRANSIENT_CHANNELS:
+                if len(log) > TRANSIENT_WINDOW:  # keep only the window
+                    drop = len(log) - TRANSIENT_WINDOW
+                    del log[:drop]
+                    self._bases[channel] = \
+                        self._bases.get(channel, 0) + drop
+            elif self._store is not None:
+                self._store.append_event(channel, len(log) - 1, event)
+            parked = self._parked.pop(channel, [])
+            base = self._bases.get(channel, 0)
+            cursor = base + len(log)
+            batches = [(conn, rid, log[max(0, start - base):])
+                       for conn, rid, start in parked]
+        for conn, rid, events in batches:
+            conn.reply(rid, events=events, cursor=cursor)
+
+    def handle_publish(self, conn, rid, msg):
+        self._publish(msg["channel"], msg["event"])
+        return {"ok": True}
+
+    # -- resource views ---------------------------------------------------
+    def handle_report_resources(self, conn, rid, msg):
+        """The scheduling authority (the driver) pushes per-node
+        availability; the head updates its membership view and
+        re-broadcasts on the transient 'resources' channel."""
+        updated = {}
+        with self._lock:
+            for node_hex, avail in msg["loads"].items():
+                entry = self._nodes.get(node_hex)
+                if entry is not None and entry.alive:
+                    entry.available = dict(avail)
+                    entry.avail_gossip_ts = time.monotonic()
+                    updated[node_hex] = dict(avail)
+        if updated:
+            self._publish("resources", {"available": updated})
+        return {"ok": True}
+
+    def handle_report_loads_gossip(self, conn, rid, msg):
+        """Peer-gossip ingestion: one node per gossip interval pushes the
+        cluster-wide view it converged on, so the head's inbound report
+        rate is O(1) in cluster size."""
+        with self._lock:
+            for node_hex, entry in msg["view"].items():
+                cur = self._gossip_loads.get(node_hex)
+                if cur is None or entry["v"] > cur["v"]:
+                    self._gossip_loads[node_hex] = dict(entry)
+        return {"ok": True}
+
+    def handle_head_stop(self, conn, rid, msg):
+        self._stop.set()
+        threading.Thread(target=lambda: (time.sleep(0.1), os._exit(0)),
+                         daemon=True).start()
+        return {"ok": True}
+
+
+def _retry(fn, window_s: float, retry_on, abort=None, sleep=time.sleep):
+    """Call ``fn`` until it returns, retrying on ``retry_on`` with a
+    backoff of 50 ms doubling to 2 s, for at most ``window_s`` seconds
+    (the last failure is raised). ``abort()`` true stops early."""
+    deadline = time.monotonic() + window_s
+    delay = 0.05
+    while True:
+        try:
+            return fn()
+        except retry_on:
+            left = deadline - time.monotonic()
+            if left <= 0 or (abort is not None and abort()):
+                raise
+        sleep(min(delay, max(0.0, left)))
+        delay = min(delay * 2, 2.0)
+
+
+class HeadClient:
+    """Typed client for the head's services, with background subscribers.
+
+    ``reconnect_window`` > 0 makes every call re-dial the head for up to
+    that many seconds on transport failure: the driver's and the daemons'
+    path across a head restart."""
+
+    def __init__(self, addr: Tuple[str, int], reconnect_window: float = 0.0):
+        self._client = rpc.connect(addr)
+        self.addr = tuple(addr)
+        self._reconnect_window = reconnect_window
+        self._dial_lock = threading.Lock()
+        self._sub_stop = threading.Event()
+        self._sub_threads: List[threading.Thread] = []
+        # live per-channel subscriber connections, tracked so close() can
+        # close them (a parked long-poll otherwise holds its socket open)
+        self._sub_clients: List[Client] = []  #: guarded by self._sub_lock
+        self._sub_lock = threading.Lock()
+
+    def _redial(self) -> None:
+        with self._dial_lock:
+            if not self._client.dead:
+                return
+            # raises OSError while the head is down; the lock makes
+            # concurrent callers wait for ONE reconnect
+            client = rpc.connect(self.addr)
+            old, self._client = self._client, client
+            old.close()
+
+    def _call(self, method: str, timeout: Optional[float] = None, **kw):
+        if self._reconnect_window <= 0:
+            return self._client.call(method, timeout=timeout, **kw)
+
+        def attempt():
+            try:
+                # the client may have been swapped by a redial
+                return self._client.call(method, timeout=timeout, **kw)
+            except rpc.RpcError:
+                try:
+                    self._redial()
+                except OSError:
+                    pass        # head still down: the next attempt retries
+                raise
+
+        return _retry(attempt, self._reconnect_window, rpc.RpcError)
+
+    # node info
+    def register_node(self, node_id: str, resources: Dict[str, float],
+                      labels: Dict[str, str], addr: Tuple[str, int]):
+        return self._call("register_node", node_id=node_id,
+                          resources=resources, labels=labels,
+                          addr=list(addr))
+
+    def heartbeat(self, node_id: str, available: Dict[str, float],
+                  epoch: int = 0):
+        return self._call("heartbeat", node_id=node_id,
+                          available=available, epoch=epoch, timeout=5.0)
+
+    def list_nodes(self) -> List[Dict[str, Any]]:
+        return self._call("list_nodes")["nodes"]
+
+    def mark_node_dead(self, node_id: str, reason: str) -> None:
+        self._call("mark_node_dead", node_id=node_id, reason=reason)
+
+    def report_resources(self, loads: Dict[str, Dict[str, float]]) -> None:
+        """Push per-node availability views."""
+        self._call("report_resources", loads=loads, timeout=5.0)
+
+    # kv
+    def kv_put(self, key: bytes, value: bytes, overwrite: bool = True,
+               namespace: bytes = b"") -> bool:
+        return self._call("kv_put", key=key, value=value,
+                          overwrite=overwrite, ns=namespace)["added"]
+
+    def kv_get(self, key: bytes, namespace: bytes = b"") -> Optional[bytes]:
+        return self._call("kv_get", key=key, ns=namespace)["value"]
+
+    def kv_del(self, key: bytes, namespace: bytes = b"") -> None:
+        self._call("kv_del", key=key, ns=namespace)
+
+    def kv_keys(self, prefix: bytes = b"",
+                namespace: bytes = b"") -> List[bytes]:
+        return self._call("kv_keys", prefix=prefix, ns=namespace)["keys"]
+
+    # pubsub
+    def _sub_swap(self, old: Optional[Client],
+                  new: Optional[Client]) -> None:
+        """Track the live subscriber connection for close(). If close()
+        already ran, the fresh client is closed on the spot (the dial won
+        the race with stop)."""
+        with self._sub_lock:
+            if old is not None:
+                try:
+                    self._sub_clients.remove(old)
+                except ValueError:
+                    pass
+            if new is not None:
+                self._sub_clients.append(new)
+                if self._sub_stop.is_set():
+                    new.close()
+
+    def subscribe(self, channel: str, callback) -> None:
+        """Long-poll subscription on a connection of its own per channel (a
+        parked poll must not block other requests' replies)."""
+        def loop():
+            cursor = 0
+            try:
+                sub = rpc.connect(self.addr, timeout=None)
+            except OSError:
+                return
+            self._sub_swap(None, sub)
+            try:
+                while not self._sub_stop.is_set():
+                    try:
+                        out = sub.call("subscribe", channel=channel,
+                                       cursor=cursor, timeout=None)
+                    except rpc.RpcError:
+                        if (self._sub_stop.is_set()
+                                or self._reconnect_window <= 0):
+                            return
+                        # head restart: re-dial and resume from our cursor
+                        # (the persisted event log keeps it valid)
+                        try:
+                            new = _retry(
+                                lambda: rpc.connect(self.addr,
+                                                    timeout=None),
+                                self._reconnect_window, OSError,
+                                abort=self._sub_stop.is_set,
+                                sleep=self._sub_stop.wait)
+                        except OSError:
+                            return
+                        self._sub_swap(sub, new)
+                        sub = new
+                        continue
+                    cursor = out["cursor"]
+                    for event in out["events"]:
+                        try:
+                            callback(event)
+                        except Exception:
+                            pass
+            finally:
+                self._sub_swap(sub, None)
+                sub.close()
+
+        t = threading.Thread(target=loop, daemon=True,
+                             name=f"head-sub-{channel}")
+        t.start()
+        self._sub_threads.append(t)
+
+    def publish(self, channel: str, event: Any) -> None:
+        # rides _call: with reconnect_window > 0 a publish survives a head
+        # restart like every other head RPC
+        self._call("publish", channel=channel, event=event)
+
+    def stop_head(self) -> None:
+        try:
+            self._client.call("head_stop", timeout=2.0)
+        except rpc.RpcError:
+            pass
+
+    def close(self) -> None:
+        self._sub_stop.set()
+        # closing the per-channel sub clients unblocks their parked
+        # long-polls, so the threads exit instead of leaking sockets
+        with self._sub_lock:
+            subs = list(self._sub_clients)
+        for sub in subs:
+            sub.close()
+        cur = threading.current_thread()
+        for t in self._sub_threads:
+            if t is not cur:        # close() from a callback thread
+                t.join(timeout=2.0)
+        self._client.close()
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=0)
+    parser.add_argument("--state-path", default="",
+                        help="sqlite file for KV/pubsub persistence")
+    parser.add_argument("--announce-fd", type=int, default=-1,
+                        help="write the bound port here once listening")
+    parser.add_argument("--parent-pid", type=int, default=0,
+                        help="exit once this process (the driver that "
+                             "spawned the head) is gone; 0 = never")
+    args = parser.parse_args()
+    service = HeadService(state_path=args.state_path or None,
+                          parent_pid=args.parent_pid or None)
+    server = rpc.serve(service, host=args.host, port=args.port).start()
+    if args.announce_fd >= 0:
+        os.write(args.announce_fd, f"{server.addr[1]}\n".encode())
+        os.close(args.announce_fd)
+    threading.Event().wait()  # serve for ever
+
+
+if __name__ == "__main__":
+    main()

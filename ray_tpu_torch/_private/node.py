@@ -363,6 +363,10 @@ class Node:
         self.store = store
         self._execute_task = execute_task
         self.alive = True
+        # a daemon-backed node (cluster="daemons"): its DaemonHandle, and
+        # the dependency-staging hook called at enqueue
+        self.daemon = None
+        self.prefetch: Optional[Callable[[TaskSpec], None]] = None
         self.actors: Dict[ActorID, ActorExecutor] = {}  #: guarded by self._actors_lock
         self._actors_lock = threading.Lock()
         self._queue: "queue.Queue[Optional[TaskSpec]]" = queue.Queue()
@@ -397,6 +401,13 @@ class Node:
 
     # -- normal task path --------------------------------------------------
     def enqueue(self, spec: TaskSpec) -> None:
+        if self.prefetch is not None and spec.dependencies():
+            # stage remote deps toward this node while the task waits for
+            # admission (a cheap no-op when every dep is local)
+            try:
+                self.prefetch(spec)
+            except Exception:
+                pass    # staging is best-effort
         with self._pending_lock:
             for k, v in spec.resources.items():
                 self._pending_demand[k] = self._pending_demand.get(k, 0.0) + v
@@ -545,7 +556,9 @@ class Node:
 
     # -- lifecycle ---------------------------------------------------------
     def shutdown(self) -> Dict[ActorID, List[TaskSpec]]:
-        """Stop the node; returns per-actor pending tasks."""
+        """Stop the node; returns per-actor pending tasks. Tasks still
+        queued here (not yet admitted) go back to the runtime as lost to
+        the node's death: retried elsewhere, or failed."""
         self.alive = False
         _bump_cluster_epoch()
         self._queue.put(None)
@@ -555,6 +568,32 @@ class Node:
             self.actors.clear()
         for aid, ex in actors.items():
             pending_by_actor[aid] = ex.kill("node died")
+        if threading.current_thread() is not self._dispatcher:
+            # the backlog is the dispatch thread's: take it once that
+            # thread has stopped
+            self._dispatcher.join(timeout=5.0)
+            self._fail_backlog()
         # let in-flight pool work unwind, then retire the idle threads
         self._exec_pool.stop()
         return pending_by_actor
+
+    def _fail_backlog(self) -> None:
+        backlog = [spec for bucket in self._backlog.values()
+                   for spec in bucket]
+        self._backlog = OrderedDict()
+        self._backlog_n = 0
+        while True:
+            try:
+                spec = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if spec is not None:
+                backlog.append(spec)
+        if not backlog:
+            return
+        self._drop_pending_many(backlog)
+        from ray_tpu_torch._private import worker
+        rt = worker.global_runtime()
+        if rt is not None:
+            for spec in backlog:
+                rt.on_node_task_lost(spec, self)

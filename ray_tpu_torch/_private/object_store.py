@@ -120,6 +120,9 @@ class ObjectEntry:
     pinned: int = 0  # pin count: >0 means not spillable
     # native shm tier: (dtype, shape) of the array parked in the C++ store
     native_meta: Optional[tuple] = None
+    # the explicit tier (host-shm | device-hbm | spilled): drives the
+    # ray_tpu_object_store_bytes{tier} occupancy accounting
+    tier: str = "host-shm"
 
 
 # numpy arrays at least this large go to the native shm arena when built
@@ -153,6 +156,10 @@ class LocalObjectStore:
         self._used = 0                  #: guarded by self._lock
         self.stats = {"puts": 0, "gets": 0, "spills": 0, "restores": 0,
                       "native_puts": 0}
+        # (tier -> bytes) ledger chained into the process aggregate, which
+        # feeds the ray_tpu_object_store_bytes{tier} gauge
+        from ray_tpu_torch.objectplane.tiers import store_accounting
+        self.tiers = store_accounting()
         # Outstanding zero-copy views into the native arena, per object.
         # The C++ store defers deallocation while refs are held; this
         # count decides whether close() may munmap (see close()).
@@ -187,6 +194,8 @@ class LocalObjectStore:
                     f"object of {size} bytes exceeds store capacity "
                     f"{self.capacity_bytes}")
             entry = ObjectEntry(value=value, nbytes=size, device_tier=device)
+            if device:
+                entry.tier = "device-hbm"
             if not device:
                 native_meta = self._try_native_put(object_id, value, size)
                 if native_meta is not None:
@@ -197,6 +206,7 @@ class LocalObjectStore:
                     self._ensure_space(size)
                     self._used += size
             self._entries[object_id] = entry
+            self.tiers.add(entry.tier, size)
             self.stats["puts"] += 1
             return size
 
@@ -275,6 +285,11 @@ class LocalObjectStore:
                 self._native.delete(_native_key(object_id))
             elif not entry.device_tier:
                 self._used -= entry.nbytes
+            self.tiers.add(entry.tier, -entry.nbytes)
+
+    def tier_bytes(self) -> Dict[str, int]:
+        """Occupancy by (host-shm | device-hbm | spilled) tier."""
+        return self.tiers.snapshot()
 
     def pin(self, object_id: ObjectID) -> None:
         with self._lock:
@@ -369,6 +384,8 @@ class LocalObjectStore:
             entry.spilled_path = path
             entry.value = None
             self._used -= entry.nbytes
+            self.tiers.move(entry.tier, "spilled", entry.nbytes)
+            entry.tier = "spilled"
             self.stats["spills"] += 1
 
     def _restore(self, object_id: ObjectID, entry: ObjectEntry) -> None:
@@ -387,4 +404,6 @@ class LocalObjectStore:
                 pass    # the value is back in memory either way
             entry.spilled_path = None
             self._used += entry.nbytes
+            self.tiers.move("spilled", "host-shm", entry.nbytes)
+            entry.tier = "host-shm"
             self.stats["restores"] += 1

@@ -19,6 +19,16 @@ anything the wire cannot pickle. The card is owned by this one process, and CUDA
 stay in the object store's device tier with no copy. The switch is the
 reference's ``RAY_TPU_PROCESS_WORKERS`` (``_system_config``'s
 ``process_workers``); ``0`` runs every task and actor here.
+
+The daemon cluster (``init(cluster="daemons")``, JAX's ``RAY_TPU_CLUSTER``):
+a head and node-daemon OS processes (``_private/cluster.py``); each daemon
+is a schedulable node whose store is a ``RemoteStore`` and whose host work
+runs in the daemon's workers (``_execute_on_remote_node``). The driver
+stays the single controller, the owner of every object and the one process
+on the card. A node that dies (a SIGKILLed daemon, or ``remove_node``)
+loses its objects, which lineage reconstructs on the next get, wait or
+dependent task (``_lost``, ``_ensure_available``); its tasks retry and its
+actors restart elsewhere.
 """
 
 from __future__ import annotations
@@ -150,7 +160,8 @@ class Runtime:
                  resources_per_node: Optional[Dict[str, float]] = None,
                  object_store_memory: int = 2 * 1024 ** 3,
                  namespace: Optional[str] = None,
-                 session_dir: Optional[str] = None):
+                 session_dir: Optional[str] = None,
+                 cluster: Optional[str] = None):
         self.job_id = JobID.from_random()
         self.worker_id = WorkerID.from_random()
         self.namespace = namespace or self.job_id.hex()
@@ -177,6 +188,19 @@ class Runtime:
 
         self._tasks: Dict[TaskID, _InFlightTask] = {}  #: guarded by self._tasks_lock
         self._tasks_lock = threading.Lock()
+        # objects whose every copy died with a node: reconstructed from
+        # lineage on the next get, wait or dependent submit
+        self._lost: Set[ObjectID] = set()  #: guarded by self._loc_lock
+        # actor_id -> DaemonHandle of actors hosted in node daemons
+        self._remote_actors: Dict[ActorID, Any] = {}
+        # (dep, dest node) pushes in flight (driver-side prefetch dedupe)
+        self._prefetch_inflight: Set[Tuple[ObjectID, NodeID]] = set()
+        self._prefetch_lock = threading.Lock()
+        self._prefetch_pool = None
+        self.stats: Dict[str, int] = {"objects_reconstructed": 0,
+                                      "objects_push_prefetched": 0,
+                                      "tasks_retried": 0,
+                                      "actor_restarts": 0}
 
         #: guarded by self._actor_lock
         self._actor_pending_tasks: Dict[ActorID, List[TaskSpec]] = {}
@@ -195,9 +219,28 @@ class Runtime:
 
         if resources_per_node is None:
             resources_per_node = self._detect_resources()
-        for _ in range(num_nodes):
-            self.add_node(dict(resources_per_node),
-                          object_store_memory=object_store_memory)
+        from ray_tpu_torch._private.config import cfg
+        self.cluster_backend = None
+        if cluster is None:
+            cluster = cfg().cluster or None
+        if cluster == "daemons":
+            # a head and node-daemon OS processes behind the wire; every
+            # schedulable node is a daemon. Accelerator-plane work still
+            # runs here, on the node's dispatch thread (_execute_inline).
+            from ray_tpu_torch._private.cluster import ClusterBackend
+            backend = ClusterBackend(self, num_nodes,
+                                     dict(resources_per_node),
+                                     object_store_bytes=object_store_memory)
+            self.cluster_backend = backend
+            for handle in list(backend.daemons.values()):
+                self.add_remote_node(handle, dict(resources_per_node))
+        elif cluster:
+            raise ValueError(f"cluster={cluster!r}: expected None, '' or "
+                             f"'daemons'")
+        else:
+            for _ in range(num_nodes):
+                self.add_node(dict(resources_per_node),
+                              object_store_memory=object_store_memory)
 
     # ------------------------------------------------------------------
     # cluster topology
@@ -228,6 +271,164 @@ class Runtime:
         self.gcs.register_node(node.info())
         bump_cluster_epoch()
         return node
+
+    def add_remote_node(self, handle, resources: Dict[str, float]) -> Node:
+        """Register a node daemon process as a schedulable node. The Node
+        machinery (ledger, dispatch queue) runs here, as the single
+        controller's placement; execution, workers and the object payloads
+        live in the daemon."""
+        from ray_tpu_torch._private.cluster import RemoteStore
+        store = RemoteStore(handle)
+        node = Node(handle.node_id, resources, {}, store,
+                    execute_task=self._execute_on_remote_node)
+        node.daemon = handle
+        handle.runtime = self
+        # dependency staging: enqueue-time pushes overlap the transfer
+        # with the task's queue wait (the PushManager dedupes)
+        node.prefetch = (lambda spec, _node=node:
+                         self._push_prefetch_deps(spec, _node))
+        with self._nodes_lock:
+            self._nodes[handle.node_id] = node
+        self.gcs.register_node(node.info())
+        bump_cluster_epoch()
+        return node
+
+    def _push_prefetch_deps(self, spec: TaskSpec, node: Node) -> None:
+        """Push task deps that live only on OTHER daemon nodes to ``node``:
+        by the time the task (or a same-node consumer) needs them, a local
+        copy exists. Failures are harmless (the on-demand path still
+        serves the object)."""
+        deps = spec.dependencies()
+        if not deps or getattr(node, "daemon", None) is None:
+            return
+        from ray_tpu_torch._private.config import cfg
+        if not cfg().push_prefetch:
+            return
+        with self._loc_lock:
+            locs = {dep: list(self._locations.get(dep, ()))
+                    for dep in deps}
+        work = []
+        for dep, node_ids in locs.items():
+            if not node_ids or node.node_id in node_ids:
+                continue
+            src = self.get_node(node_ids[0])
+            src_daemon = getattr(src, "daemon", None)
+            meta_of = getattr(getattr(src, "store", None), "meta_of",
+                              None)
+            if (src is None or not src.alive or src_daemon is None
+                    or meta_of is None or node.store.contains(dep)):
+                continue
+            # driver-side (dep, dest) dedupe: a fan-out of tasks sharing
+            # one dep stages it once
+            fly = (dep, node.node_id)
+            with self._prefetch_lock:
+                if fly in self._prefetch_inflight:
+                    continue
+                self._prefetch_inflight.add(fly)
+            try:
+                key, nbytes, raw = meta_of(dep)
+            except KeyError:
+                with self._prefetch_lock:
+                    self._prefetch_inflight.discard(fly)
+                continue
+            work.append((dep, fly, src_daemon, key, nbytes, raw))
+
+        def run_one(dep, fly, src_daemon, key, nbytes, raw) -> None:
+            try:
+                out = src_daemon.push_object(
+                    key, node.daemon.addr, ref=dep.binary())
+                if out.get("ok"):
+                    node.store.register_remote(dep, key, nbytes, raw=raw)
+                    with self._loc_lock:
+                        self._locations.setdefault(dep, set()).add(
+                            node.node_id)
+                    self.stats["objects_push_prefetched"] += 1
+            except Exception:
+                pass            # the on-demand path covers it
+            finally:
+                with self._prefetch_lock:
+                    self._prefetch_inflight.discard(fly)
+
+        if work and self._prefetch_pool is None:
+            from ray_tpu_torch._private.thread_pool import DaemonThreadPool
+            self._prefetch_pool = DaemonThreadPool(4, name="push-prefetch")
+        for item in work:
+            # a small shared pool, never a thread a task: a fan-out of
+            # tasks with remote deps must not park a thread each in a push
+            self._prefetch_pool.submit(lambda it=item: run_one(*it))
+
+    def pull_to_node(self, oid: ObjectID, node: Node,
+                     priority: int = 2) -> bool:
+        """Copy an object that lives on another daemon to ``node``'s daemon
+        by one chunked daemon-to-daemon pull (the pull twin of the push
+        prefetch), indexed there for the node's workers and recorded as a
+        location. False when no daemon holds it or the pull failed."""
+        if getattr(node, "daemon", None) is None:
+            return False
+        if node.store.contains(oid):
+            return True
+        with self._loc_lock:
+            node_ids = list(self._locations.get(oid, ()))
+        for node_id in node_ids:
+            src = self.get_node(node_id)
+            if src is None or not src.alive or src.daemon is None:
+                continue
+            key, nbytes, raw = src.store.meta_of(oid)
+            if node.daemon.pull_object(key, src.daemon.addr, priority,
+                                       ref=oid.binary(), raw=raw):
+                node.store.register_remote(oid, key, nbytes, raw=raw)
+                with self._loc_lock:
+                    self._locations.setdefault(oid, set()).add(node.node_id)
+                return True
+        return False
+
+    def remove_node(self, node: Node, _from_cluster: bool = False) -> None:
+        """Node failure: its objects are lost, its tasks retry and its
+        actors die (and may restart). A daemon-backed node's process is
+        killed (``_from_cluster``: the cluster already saw it die)."""
+        bump_cluster_epoch()    # before the pop: no stale cache window
+        with self._nodes_lock:
+            present = self._nodes.pop(node.node_id, None) is not None
+        if not present:
+            return      # already removed: the death flow runs once
+        handle = getattr(node, "daemon", None)
+        if handle is not None and not _from_cluster:
+            handle.sigkill()
+            if self.cluster_backend is not None:
+                try:
+                    self.cluster_backend.head.mark_node_dead(
+                        node.node_id.hex(), "removed")
+                except Exception:
+                    pass
+        pending_by_actor = node.shutdown()
+        self.gcs.mark_node_dead(node.node_id)
+        # the node's objects are lost: a copy elsewhere serves them, else
+        # lineage reconstructs them on demand
+        lost = node.store.object_ids()
+        with self._loc_lock:
+            for oid in lost:
+                locs = self._locations.get(oid)
+                if locs is not None:
+                    locs.discard(node.node_id)
+                    if not locs:
+                        del self._locations[oid]
+                        self.futures.reset(oid)
+                        self._lost.add(oid)
+        node.store.close()
+        self.pg_manager.on_node_death(node.node_id)
+        # actors on this node die (and may restart)
+        for actor_id, pending in pending_by_actor.items():
+            self._handle_actor_death(actor_id, "node died",
+                                     pending_tasks=pending,
+                                     may_restart=True)
+
+    def _ensure_available(self, oid: ObjectID) -> None:
+        """Start lineage reconstruction if every copy of ``oid`` was lost."""
+        with self._loc_lock:
+            was_lost = oid in self._lost
+            self._lost.discard(oid)
+        if was_lost:
+            self._recover_object(ObjectRef(oid, _register=False))
 
     def nodes(self) -> List[Node]:
         with self._nodes_lock:
@@ -273,6 +474,41 @@ class Runtime:
         self.futures.complete(oid)
         return ref
 
+    def put_stored(self, oid_bin: bytes, key: bytes, nbytes: int,
+                   raw, node_hex: str) -> ObjectRef:
+        """Owner-side registration of a daemon worker's DIRECT put: the
+        payload is already written and sealed in ``node``'s arena under
+        ``key``; record ownership, location and the raw tier's
+        dtype/shape. No value reaches the driver."""
+        oid = ObjectID(bytes(oid_bin))
+        node = self.get_node(NodeID.from_hex(node_hex))
+        store = getattr(node, "store", None) if node is not None else None
+        register = getattr(store, "register_remote", None)
+        if node is None or not node.alive or register is None:
+            # an unknown, dead or in-process node: the worker falls back
+            # to the classic put (its arena entry is aborted)
+            raise RuntimeError(f"no daemon store on node {node_hex!r}")
+        register(oid, bytes(key), int(nbytes),
+                 raw=tuple(raw) if raw else None)
+        with self._loc_lock:
+            self._locations.setdefault(oid, set()).add(node.node_id)
+        ref = ObjectRef(oid, owner_hex=self.worker_id.hex(),
+                        task_name="put")
+        self.futures.complete(oid)
+        return ref
+
+    def locate_object(self, key: bytes) -> List[List[Any]]:
+        """The owner's object directory: the addresses of the live daemons
+        that hold a copy under the store key ``key``."""
+        addrs = []
+        for node in self.nodes():
+            handle = getattr(node, "daemon", None)
+            has = getattr(node.store, "has_daemon_key", None)
+            if (handle is not None and not handle.dead
+                    and has is not None and has(key)):
+                addrs.append(list(handle.addr))
+        return addrs
+
     def _store_value(self, oid: ObjectID, value: Any,
                      prefer_node: Optional[Node] = None) -> None:
         nested = _find_nested_refs(value)
@@ -314,6 +550,7 @@ class Runtime:
         deadline = None if timeout is None else time.monotonic() + timeout
         out: List[Any] = []
         for ref in refs:
+            self._ensure_available(ref.id)
             remaining = None
             if deadline is not None:
                 remaining = max(deadline - time.monotonic(), 0.0)
@@ -330,6 +567,7 @@ class Runtime:
 
     def _get_one(self, ref: ObjectRef, deadline: Optional[float],
                  _depth: int = 0) -> Any:
+        self._ensure_available(ref.id)
         found, value = self._fetch_value(ref.id)
         if found:
             return value
@@ -362,6 +600,7 @@ class Runtime:
                     TaskState.PENDING_DEPS, TaskState.QUEUED,
                     TaskState.RUNNING):
                 return  # already being recomputed
+        self.stats["objects_reconstructed"] += 1
         respec = _clone_spec_for_retry(spec)
         for oid in respec.return_ids:
             self.futures.reset(oid)
@@ -373,6 +612,8 @@ class Runtime:
                                                 List[ObjectRef]]:
         if num_returns > len(refs):
             raise ValueError("num_returns exceeds the number of refs")
+        for r in refs:
+            self._ensure_available(r.id)
         ids = [r.id for r in refs]
         # cap at num_returns even if more completed (API contract)
         done_list = self.futures.wait_any(ids, num_returns, timeout)
@@ -413,6 +654,8 @@ class Runtime:
 
     def _submit_with_deps(self, spec: TaskSpec, inflight: _InFlightTask,
                           deps: List[ObjectID]) -> None:
+        for d in deps:
+            self._ensure_available(d)
         pending = [d for d in deps if not self.futures.is_done(d)]
         inflight.deps_remaining = len(pending)
         if not pending:
@@ -569,6 +812,100 @@ class Runtime:
             return
         self._execute_inline(spec, node, args, kwargs)
 
+    def _execute_on_remote_node(self, spec: TaskSpec, node: Node) -> None:
+        """Task execution on a node-daemon process (the wire's fused lease
+        and push). Work that must stay in the driver (a GPU demand, an
+        ``_in_process`` task, a payload naming the card or one the wire
+        cannot pickle) runs here on the node's dispatch thread, its
+        resources accounted on this node."""
+        from ray_tpu_torch._private.cluster import (DaemonCrashed,
+                                                    RemoteWorkerCrashed)
+        from ray_tpu_torch._private.fast_lane import join_parts
+        if spec.kind == TaskKind.ACTOR_CREATION:
+            self._execute_actor_creation(spec, node)
+            return
+        with self._tasks_lock:
+            inflight = self._tasks.get(spec.task_id)
+        if inflight is not None:
+            with inflight.lock:
+                if inflight.cancelled:
+                    return
+                inflight.state = TaskState.RUNNING
+        try:
+            args, kwargs = self._resolve_args(spec)
+        except exc.TaskError as te:
+            self._finish_task(spec, node, error=te)
+            return
+        payload = self.process_router.eligible_task(spec, args, kwargs)
+        if payload is None:
+            self._execute_inline(spec, node, args, kwargs)
+            return
+        fid, args_parts = payload
+        try:
+            kind, value = node.daemon.execute_task(
+                spec, fid, bytes(join_parts(args_parts)))
+        except RemoteWorkerCrashed as crash:
+            # one worker died; the daemon (the node) is fine: plain retry
+            self._on_process_task_crash(spec, node, crash)
+            return
+        except DaemonCrashed as crash:
+            self._on_daemon_crash(node)
+            self._on_process_task_crash(spec, node, crash)
+            return
+        self._finish_remote_outcome(spec, node, kind, value)
+
+    def _finish_remote_outcome(self, spec: TaskSpec, node: Node,
+                               kind: str, value) -> None:
+        if kind == "err":
+            with self._tasks_lock:
+                inflight = self._tasks.get(spec.task_id)
+            if (inflight is not None and inflight.cancelled
+                    and isinstance(value, KeyboardInterrupt)):
+                self._release_task_resources(spec, node)
+                self._fail_task(spec, exc.TaskError(
+                    exc.TaskCancelledError(spec.task_id), spec.name))
+                return
+            self._finish_task(spec, node, error=exc.TaskError(
+                value, spec.name))
+            return
+        if kind == "gen" or spec.num_returns in ("streaming", "dynamic"):
+            self._drain_generator(spec, node, value)
+            return
+        if kind == "stored":
+            daemon_key, nbytes = value
+            n = spec.num_returns
+            if n == 1 or not isinstance(n, int):
+                if not node.alive:
+                    self.on_node_task_lost(spec, node)
+                    return
+                oid = spec.return_ids[0]
+                node.store.register_remote(oid, daemon_key, nbytes)
+                with self._loc_lock:
+                    self._locations.setdefault(oid, set()).add(
+                        node.node_id)
+                self._release_task_resources(spec, node)
+                self.futures.complete(oid)
+                self._on_task_done(spec, TaskState.FINISHED)
+                return
+            # a multi-return tuple stored in the daemon: fetch once, split
+            from ray_tpu_torch._private.cluster import _load_blob
+            value = _load_blob(node.daemon.get_object_blob(daemon_key))
+        self._finish_task(spec, node, result=value)
+
+    def _on_daemon_crash(self, node: Node) -> None:
+        """A daemon's RPC failure seen first-hand: report it to the head and
+        run the node-death flow (objects lost, actors restart)."""
+        backend = self.cluster_backend
+        handle = getattr(node, "daemon", None)
+        if backend is None or handle is None:
+            return
+        backend.report_daemon_dead(handle, "rpc failure")
+        if self.get_node(node.node_id) is not None:
+            try:
+                self.remove_node(node, _from_cluster=True)
+            except Exception:
+                pass
+
     def _try_process_execute(self, spec: TaskSpec, node: Node,
                              args: tuple, kwargs: dict) -> bool:
         """Route an eligible normal task to a worker process. Returns False
@@ -714,6 +1051,11 @@ class Runtime:
         # lane worker (nested put/submit) un-pin now; results are already
         # stored, so containment keeps anything the task returned alive
         self.process_router.release_borrows("t:" + spec.task_id.hex())
+        # the same per-task release for the daemons' workers, whose holds
+        # the owner service keeps
+        svc = getattr(self.cluster_backend, "owner_service", None)
+        if svc is not None:
+            svc.holder.release("t:" + spec.task_id.hex())
         deps = spec.dependencies()
         if deps:
             self.refcounter.remove_submitted_task_refs(deps)
@@ -741,6 +1083,17 @@ class Runtime:
 
     def on_node_task_lost(self, spec: TaskSpec, node: Node) -> None:
         """A node went away holding this queued/running task."""
+        if spec.kind == TaskKind.ACTOR_CREATION:
+            # the actor's creation: restart semantics, not task retries
+            err = exc.NodeDiedError(
+                f"actor creation lost to death of node "
+                f"{node.node_id.hex()[:8]}")
+            if self._shutdown:
+                self._actor_creation_failed(spec, exc.TaskError(
+                    err, spec.name))
+            else:
+                self._retry_or_fail_creation(spec, node, err)
+            return
         if _retries_left(spec) and not self._shutdown:
             self._retry(spec)
         else:
@@ -754,6 +1107,7 @@ class Runtime:
         """Resubmit the task under its own task id, one attempt later."""
         if self._shutdown:
             return
+        self.stats["tasks_retried"] += 1
         respec = _clone_spec_for_retry(spec)
         # one critical section for check + replace: a gap between the pop
         # and the reinsert would hide the task from a concurrent cancel()
@@ -805,8 +1159,13 @@ class Runtime:
                                 task_name=spec.name)
                 state.report_item(ref)
         except BaseException as e:  # noqa: BLE001
+            from ray_tpu_torch._private.cluster import (DaemonCrashed,
+                                                        RemoteWorkerCrashed)
             from ray_tpu_torch._private.worker_process import WorkerCrashed
-            if isinstance(e, WorkerCrashed):
+            if isinstance(e, DaemonCrashed):
+                self._on_daemon_crash(node)
+            if isinstance(e, (WorkerCrashed, DaemonCrashed,
+                              RemoteWorkerCrashed)):
                 # a system failure mid-stream: retried like any worker
                 # crash; the replay skips the items already reported
                 self._on_process_task_crash(spec, node, e)
@@ -864,7 +1223,27 @@ class Runtime:
         from ray_tpu_torch._private.worker_process import WorkerCrashed
         instance = None
         payload = self.process_router.eligible_actor(spec, args, kwargs)
-        if payload is not None:
+        if payload is not None and node.daemon is not None:
+            from ray_tpu_torch._private.cluster import (DaemonCrashed,
+                                                        RemoteWorkerCrashed)
+            from ray_tpu_torch._private.fast_lane import join_parts
+            fid, args_parts = payload
+            try:
+                instance = node.daemon.create_actor(
+                    spec, fid, bytes(join_parts(args_parts)))
+                self._remote_actors[spec.actor_id] = node.daemon
+            except RemoteWorkerCrashed as e:
+                self._retry_or_fail_creation(spec, node, e)
+                return
+            except DaemonCrashed as e:
+                self._on_daemon_crash(node)
+                self._retry_or_fail_creation(spec, node, e)
+                return
+            except BaseException as e:  # noqa: BLE001
+                self._actor_creation_failed(
+                    spec, exc.TaskError(e, spec.name), node)
+                return
+        elif payload is not None:
             try:
                 instance = self.process_router.create_actor(spec, node,
                                                             payload)
@@ -896,6 +1275,9 @@ class Runtime:
         info = self.gcs.get_actor_info(actor_id)
         if info is not None and info.state == ActorState.DEAD:
             self.process_router.discard_actor(actor_id)
+            remote = self._remote_actors.pop(actor_id, None)
+            if remote is not None:
+                remote.kill_actor(actor_id, expected=True)
             if node.alive:
                 node.ledger.release(spec.resources)
             for oid in spec.return_ids:
@@ -941,6 +1323,7 @@ class Runtime:
         if node.alive:
             node.ledger.release(spec.resources)
         info.num_restarts += 1
+        self.stats["actor_restarts"] += 1
         self.gcs.update_actor_state(actor_id, ActorState.RESTARTING)
         respec = _clone_spec_for_retry(spec)
         respec.actor_id = actor_id
@@ -1045,8 +1428,41 @@ class Runtime:
             pg_capture=spec.pg_capture)
         from ray_tpu_torch._private.worker_process import (
             _ProcessActorInstance)
+        from ray_tpu_torch._private.cluster import (DaemonCrashed,
+                                                    RemoteActorInstance,
+                                                    RemoteWorkerCrashed)
         try:
-            if isinstance(instance, _ProcessActorInstance):
+            if isinstance(instance, RemoteActorInstance):
+                from ray_tpu_torch._private.fast_lane import join_parts
+                from ray_tpu_torch._private.worker_process import _pack
+                try:
+                    args_blob = bytes(join_parts(_pack((args, kwargs),
+                                                       host_only=True)))
+                except Exception as e:  # noqa: BLE001
+                    raise ValueError(
+                        f"an argument cannot go to the actor's worker "
+                        f"process ({e}): an actor that takes the card's "
+                        f"values is created with num_gpus or "
+                        f"_in_process=True") from None
+                try:
+                    kind, result = instance.call_actor_method(spec,
+                                                              args_blob)
+                except (DaemonCrashed, RemoteWorkerCrashed) as e:
+                    raise exc.ActorDiedError(spec.actor_id, str(e))
+                if kind == "err":
+                    raise result
+                if kind == "stored":
+                    daemon_key, nbytes = result
+                    oid = spec.return_ids[0]
+                    node.store.register_remote(oid, daemon_key, nbytes)
+                    with self._loc_lock:
+                        self._locations.setdefault(oid, set()).add(
+                            node.node_id)
+                    self._release_task_resources(spec, node)
+                    self.futures.complete(oid)
+                    self._on_task_done(spec, TaskState.FINISHED)
+                    return
+            elif isinstance(instance, _ProcessActorInstance):
                 kind, result = self.process_router.call_actor_method(
                     instance, spec, node, args, kwargs)
                 if kind == "err":
@@ -1117,6 +1533,9 @@ class Runtime:
             executor = self._actor_executors.pop(actor_id, None)
         pending = executor.kill(cause) if executor is not None else []
         self.process_router.discard_actor(actor_id)
+        remote = self._remote_actors.pop(actor_id, None)
+        if remote is not None and not remote.dead:
+            remote.kill_actor(actor_id, expected=True)
         info = self.gcs.get_actor_info(actor_id)
         if info is not None and info.node_id is not None:
             node = self.get_node(info.node_id)
@@ -1143,6 +1562,13 @@ class Runtime:
                             pending_tasks: List[TaskSpec],
                             may_restart: bool) -> None:
         self.process_router.discard_actor(actor_id)
+        # actor-lifetime borrows die with the incarnation
+        svc = getattr(self.cluster_backend, "owner_service", None)
+        if svc is not None:
+            svc.holder.release("a:" + actor_id.hex())
+        remote = self._remote_actors.pop(actor_id, None)
+        if remote is not None and not remote.dead:
+            remote.kill_actor(actor_id, expected=True)
         info = self.gcs.get_actor_info(actor_id)
         if info is None:
             return
@@ -1159,6 +1585,7 @@ class Runtime:
                             or info.num_restarts < info.max_restarts))
         if can_restart:
             info.num_restarts += 1
+            self.stats["actor_restarts"] += 1
             self.gcs.update_actor_state(actor_id, ActorState.RESTARTING)
             if info.max_task_retries != 0:
                 # pending tasks survive the restart and replay on the new
@@ -1228,6 +1655,14 @@ class Runtime:
             # (the crash handler reports TaskCancelledError); non-force
             # raises KeyboardInterrupt in the task's thread
             return
+        if was_running:
+            # a daemon-executed task: forward over the wire
+            node = (self.get_node(target.node_id)
+                    if target.node_id else None)
+            daemon = getattr(node, "daemon", None) if node else None
+            if daemon is not None and daemon.cancel_task(
+                    target.spec.task_id, force):
+                return
         if not was_running or force:
             self._fail_task(target.spec, exc.TaskError(
                 exc.TaskCancelledError(target.spec.task_id),
@@ -1246,6 +1681,9 @@ class Runtime:
         with self._nodes_lock:
             self._nodes.clear()
         self.memory_store.clear()
+        if self.cluster_backend is not None:
+            self.cluster_backend.owner_service.holder.clear()
+            self.cluster_backend.shutdown()
         shutil.rmtree(self.session_dir, ignore_errors=True)
 
 

@@ -56,10 +56,16 @@ A worker imports torch only when a task needs it. Idle workers outlive a
 runtime and serve the next one in the same process; the template lives
 until the interpreter exits (or ``stop_worker_plane``).
 
-Left out, each with the ROADMAP item that brings it: the workers' attach
-of the shared-memory arena and the targeted actor lane (A11c, with the
-daemons), the compiled-DAG stages, runtime environments, profiling bursts
-and metrics flushes (A11e).
+In a daemon (``_private/daemon.py``) the same pool serves the daemon's
+tasks: its WorkerClients run with ``raw_outcomes`` (results stay blobs the
+daemon relays without loading), core ops forward to the owner as blobs,
+and the workers attach the daemon's shared-memory arena
+(``objectplane/arena.py``, handed over in the boot frame) for zero-copy
+gets and direct puts (``WorkerProxyRuntime._shm_get``/``_shm_put``).
+
+Left out, each with the ROADMAP item that brings it: the targeted actor
+lane (A11c), the compiled-DAG stages, runtime environments, profiling
+bursts and metrics flushes (A11e).
 """
 
 from __future__ import annotations
@@ -83,7 +89,7 @@ import numpy as np
 
 from ray_tpu_torch._private import serialization
 from ray_tpu_torch._private.device_objects import DeviceValue, wire_dumps
-from ray_tpu_torch._private.ids import ActorID, TaskID
+from ray_tpu_torch._private.ids import ActorID, ObjectID, TaskID
 from ray_tpu_torch._private.task_spec import TaskKind, TaskSpec
 
 
@@ -236,6 +242,16 @@ def export_function(fn) -> Tuple[str, bytes]:
     return entry
 
 
+def register_function_blob(blob: bytes) -> str:
+    """Register an already-pickled callable (a daemon receives the blobs a
+    driver ships in push_task_batch), so pool workers fetch it by id here
+    with no owner round trip."""
+    fid = hashlib.sha1(blob).hexdigest()
+    with _FN_TABLE_LOCK:
+        _FN_TABLE[fid] = bytes(blob)
+    return fid
+
+
 def fetch_function_blob(fid: str) -> bytes:
     with _FN_TABLE_LOCK:
         blob = _FN_TABLE.get(fid)
@@ -252,12 +268,18 @@ _current_rid = threading.local()
 
 
 def _borrower_key() -> Optional[str]:
-    """The global borrower id of the running task ('t:<task hex>'): a lane
-    worker's holds key by it and are released when the task ends
-    (``ProcessRouter.release_borrows``)."""
+    """The owner-side borrow key of refs created on this caller's behalf:
+    in an actor, 'a:<actor hex>' (held for the actor's lifetime), else
+    't:<task hex>' (held until the owner finishes that task). A lane
+    worker's holds key by it, and so do the owner's holds for a daemon's
+    workers (``cluster._OwnerHolder``)."""
     from ray_tpu_torch._private import runtime_context
     ctx = runtime_context._ctx.get()
-    if ctx is None or ctx.task_id is None:
+    if ctx is None:
+        return None
+    if ctx.actor_id is not None:
+        return "a:" + ctx.actor_id.hex()
+    if ctx.task_id is None:
         return None
     return "t:" + ctx.task_id.hex()
 
@@ -388,11 +410,141 @@ class WorkerProxyRuntime:
         return self._state.call_host("host_info")["job_id"]
 
     def get(self, refs, timeout: Optional[float] = None):
-        return self._state.call_host("get", refs=list(refs),
-                                     timeout=timeout)
+        refs = list(refs)
+        out = self._shm_get(refs, timeout)
+        if out is not None:
+            return out
+        return self._state.call_host("get", refs=refs, timeout=timeout)
+
+    def _shm_get(self, refs, timeout: Optional[float]):
+        """Zero-copy resolve through the attached node arena: (offset,
+        nbytes) metadata from the daemon, ``np.frombuffer`` on the mapping;
+        no payload crosses the pipe and raw-tier arrays skip serialization.
+        Per-object slot refs (taken daemon-side on our behalf) keep every
+        view safe from eviction until released. Returns None to take the
+        classic owner path (no arena: not in a daemon, or attach failed)."""
+        from ray_tpu_torch.objectplane import arena as _oparena
+        ar = _oparena.get_arena()
+        if ar is None or not refs or ar.store() is None:
+            return None
+        try:
+            metas = self._state.call_host(
+                "shm_get_meta", oids=[r.id.binary() for r in refs])
+        except Exception:
+            return None
+        if not isinstance(metas, list) or len(metas) != len(refs):
+            return None
+        from ray_tpu_torch._private.fast_lane import loads_joined
+        values: List[Any] = [None] * len(refs)
+        missing: List[int] = []
+        pending = {i: m for i, m in enumerate(metas)
+                   if isinstance(m, dict)}
+        try:
+            for i, meta in enumerate(metas):
+                if not isinstance(meta, dict):
+                    missing.append(i)
+                    continue
+                # ownership hand-off BEFORE resolving: from here this
+                # slot's one release belongs to the code below (the view's
+                # finalizer, or the finally), never to the sweep
+                del pending[i]
+                raw = meta.get("raw")
+                if raw:
+                    values[i] = ar.view(meta["off"], meta["size"],
+                                        meta["slot"], dtype=raw[0],
+                                        shape=raw[1])
+                else:
+                    view = ar.store().view_range(meta["off"], meta["size"])
+                    try:
+                        values[i] = loads_joined(view)
+                    finally:
+                        ar.release_slot(meta["slot"])
+        except Exception:
+            # mid-resolve failure: drop every granted-but-unconsumed slot
+            # ref and fall back wholesale
+            for meta in pending.values():
+                ar.release_slot(meta["slot"])
+            return None
+        if missing:
+            fetched = self._state.call_host(
+                "get", refs=[refs[i] for i in missing], timeout=timeout)
+            for i, v in zip(missing, fetched):
+                values[i] = v
+        return values
 
     def put(self, value):
+        ref = self._shm_put(value)
+        if ref is not None:
+            return ref
         return self._state.call_host("put", value=value)
+
+    def _shm_put(self, value):
+        """Direct put: reserve arena space through the daemon, write the
+        payload IN PLACE through our own mapping, and send only the seal;
+        the payload never rides the pipe or an RPC frame. Returns the
+        owner-registered ObjectRef, or None to take the classic path (a
+        small value, no arena, any failure)."""
+        from ray_tpu_torch.objectplane import arena as _oparena
+        ar = _oparena.get_arena()
+        if ar is None or ar.store() is None:
+            return None
+        try:
+            from ray_tpu_torch._private.object_store import _is_device_value
+            if _is_device_value(value):
+                return None
+            from ray_tpu_torch._private.config import cfg
+            from ray_tpu_torch.objectplane.tiers import raw_put_eligible
+            raw = raw_put_eligible(value)
+            if raw is not None:
+                payload = memoryview(value).cast("B")
+                nbytes = payload.nbytes
+            else:
+                from ray_tpu_torch._private.worker import _find_nested_refs
+                if _find_nested_refs(value):
+                    # nested ObjectRefs need the owner's borrowed-ref
+                    # registration (the classic put)
+                    return None
+                from ray_tpu_torch._private.fast_lane import join_parts
+                payload = join_parts(_pack(value))
+                nbytes = len(payload)
+                if nbytes < int(cfg().direct_put_min_bytes):
+                    return None
+            node_hex = self._node_hex()
+            if node_hex is None:
+                return None     # no task context: the owner path
+            oid = ObjectID.from_random()
+            key = b"wput:" + oid.binary()
+            out = self._state.call_host("shm_put_reserve", key=key,
+                                        size=nbytes)
+            if not isinstance(out, dict) or "off" not in out:
+                return None     # arena full: the classic path
+        except Exception:
+            return None
+        try:
+            ar.write(out["off"], payload)
+            sealed = self._state.call_host(
+                "shm_put_seal", key=key, ref=oid.binary(), raw=raw)
+            if not (isinstance(sealed, dict) and sealed.get("ok")):
+                raise RuntimeError("seal refused")
+            return self._state.call_host(
+                "put_stored", oid=oid.binary(), key=key, nbytes=nbytes,
+                raw=raw, node=node_hex)
+        except Exception:
+            self._shm_put_abort(key)
+            return None
+
+    def _shm_put_abort(self, key: bytes) -> None:
+        try:
+            self._state.call_host("shm_put_abort", key=key)
+        except Exception:
+            pass
+
+    @staticmethod
+    def _node_hex() -> Optional[str]:
+        from ray_tpu_torch._private import runtime_context
+        ctx = runtime_context._ctx.get()
+        nid = getattr(ctx, "node_id", None) if ctx else None
+        return nid.hex() if nid is not None else None
 
     def wait(self, refs, num_returns: int = 1,
              timeout: Optional[float] = None, fetch_local: bool = True):
@@ -488,6 +640,10 @@ class _WorkerState:
                     sem.release()
             elif op == "cancel":
                 self._async_raise(msg["target"])
+            elif op == "extend_sys_path":
+                for p in msg.get("paths", ()):
+                    if p not in sys.path:
+                        sys.path.append(p)
             elif op == "join_fast_lane":
                 # dedicate this worker to the native core's task lane
                 # (fast_lane.py); the channel stays open for host ops
@@ -611,6 +767,10 @@ def _child_main(sock: socket.socket) -> None:
     if boot.get("force_cpu_platform"):
         from ray_tpu_torch._private.platform import force_cpu_platform
         force_cpu_platform()
+    if boot.get("arena"):
+        # the hosting daemon's arena: attached lazily on first use
+        from ray_tpu_torch.objectplane import arena as _oparena
+        _oparena.configure(*boot["arena"])
     from ray_tpu_torch._private import worker as worker_mod
 
     state = _WorkerState(chan, boot)
@@ -849,6 +1009,18 @@ def dispatch_core_op(rt, holder, call: str, kw: Dict[str, Any],
             return rt.gcs.kv_keys(kw["prefix"], namespace=ns)
     if call == "fetch_function":
         return fetch_function_blob(kw["fid"])
+    if call == "put_stored":
+        # a daemon worker's direct put: the payload is already written and
+        # sealed in its node's arena; the owner records ownership,
+        # location and the raw tier's dtype/shape
+        ref = rt.put_stored(kw["oid"], kw["key"], kw["nbytes"],
+                            kw.get("raw"), kw["node"])
+        holder._hold(task_rid, ref)
+        return ref
+    if call == "locate_object":
+        # the owner's object directory: which daemons hold a copy (by
+        # their store key)
+        return rt.locate_object(kw["oid"])
     if call == "pg_get":
         return rt.pg_manager.get(kw["pg_id"])
     if call == "pg_create":
@@ -901,6 +1073,8 @@ class WorkerClient:
         self.node = None
         self.actor_id: Optional[ActorID] = None
         self.fast_lane = False       # dedicated to the native core's lane
+        # in a daemon: results stay blobs, relayed without loading
+        self.raw_outcomes = False
         self.expected_death = False
         self.dead = False
         self.calls = 0
@@ -966,6 +1140,11 @@ class WorkerClient:
     def alive(self) -> bool:
         return not self.dead and self.proc.is_alive()
 
+    def notify_extend_sys_path(self, paths: List[str]) -> None:
+        """Fire-and-forget: a live worker learns new import roots of the
+        driver (a daemon's hello reaches the prestarted pool too)."""
+        self._send({"op": "extend_sys_path", "paths": list(paths)})
+
     def kill(self, expected: bool = True) -> None:
         self.expected_death = self.expected_death or expected
         try:
@@ -987,11 +1166,35 @@ class WorkerClient:
             rt = self.runtime
             if rt is None:
                 raise RuntimeError("worker not bound to a runtime")
-            kw = _unpack(msg["parts"])
-            value = dispatch_core_op(rt, self, msg["call"], kw,
-                                     self._hold_key_for(msg))
-            reply = {"op": "reply", "for": msg["id"], "ok": True}
-            parts = _pack(value)
+            call = msg["call"]
+            forward = getattr(rt, "forward_core_op", None)
+            local_fn = None
+            if forward is not None and call == "fetch_function":
+                # content-addressed blobs the daemon already holds
+                local_fn = _FN_TABLE.get(_unpack(msg["parts"])["fid"])
+            if forward is not None and call in _SHM_LOCAL_OPS:
+                # object-plane metadata ops are daemon-LOCAL: neither the
+                # metadata nor the payload round-trips through the owner.
+                # This client rides along so grants are charged to it.
+                value = rt.shm_ops(call, _unpack(msg["parts"]), self)
+                parts = _pack(value)
+                ok = True
+            elif local_fn is not None:
+                parts, ok = _pack(local_fn), True
+            elif forward is not None:
+                # in a daemon: a blob round trip to the owner (the driver),
+                # loaded only at its edge
+                from ray_tpu_torch._private.fast_lane import (join_parts,
+                                                              split_joined)
+                ok, blob = forward(call, join_parts(msg["parts"]),
+                                   msg.get("task_key") or msg.get("task"))
+                parts = split_joined(blob)
+            else:
+                kw = _unpack(msg["parts"])
+                value = dispatch_core_op(rt, self, call, kw,
+                                         self._hold_key_for(msg))
+                parts, ok = _pack(value), True
+            reply = {"op": "reply", "for": msg["id"], "ok": ok}
         except BaseException as e:  # noqa: BLE001 - shipped back
             try:
                 parts = [serialization.dumps(e)]
@@ -1050,6 +1253,11 @@ class WorkerClient:
             raise self._crashed("")
         if msg["op"] == "gen_start":
             return ("gen", self._gen_iter(rid, pend))
+        if self.raw_outcomes:
+            from ray_tpu_torch._private.fast_lane import join_parts
+            self._finish(rid)
+            return ("ok_raw" if msg["ok"] else "err_raw",
+                    join_parts(msg["parts"]))
         payload = _unpack(msg["parts"])
         self._finish(rid)
         if msg["ok"]:
@@ -1065,6 +1273,14 @@ class WorkerClient:
                 if msg is _DEAD:
                     raise self._crashed("mid-stream ")
                 if msg["op"] == "yield":
+                    if self.raw_outcomes:
+                        # no ack here: in a daemon the ack comes from the
+                        # driver's consumer (the gen_ack RPC), so flow
+                        # control tracks consumption, not the relay
+                        from ray_tpu_torch._private.fast_lane import (
+                            join_parts)
+                        yield ("yield_raw", join_parts(msg["parts"]))
+                        continue
                     yield _unpack(msg["parts"])
                     try:
                         # the consumer pulled the item: grant the producer
@@ -1073,6 +1289,12 @@ class WorkerClient:
                     except WorkerCrashed:
                         pass
                     continue
+                if self.raw_outcomes:
+                    if not msg["ok"]:
+                        from ray_tpu_torch._private.fast_lane import (
+                            join_parts)
+                        yield ("err_raw", join_parts(msg["parts"]))
+                    return
                 if not msg["ok"]:
                     e, tb = _unpack(msg["parts"])
                     setattr(e, "_remote_traceback", tb)
@@ -1195,15 +1417,64 @@ def _async_kill(w: WorkerClient) -> None:
                      name="worker-reaper").start()
 
 
+# The driver's import roots, shipped to a daemon at hello: by-reference
+# pickles of the driver's modules must resolve in the daemon's workers.
+_EXTRA_SYS_PATH: List[str] = []
+_SYS_PATH_VERSION = [0]
+
+# The hosting daemon's shm arena (name, capacity): handed to every worker
+# in the boot frame so it can attach the segment and run the zero-copy
+# object protocol. Unset outside daemon processes.
+_ARENA_INFO: List[Optional[tuple]] = [None]
+
+_SHM_LOCAL_OPS = frozenset({"shm_get_meta", "shm_release",
+                            "shm_put_reserve", "shm_put_seal",
+                            "shm_put_abort"})
+
+
+def set_extra_sys_path(paths: List[str]) -> None:
+    changed = False
+    for p in paths:
+        if p not in _EXTRA_SYS_PATH:
+            _EXTRA_SYS_PATH.append(p)
+            changed = True
+    if changed:
+        _SYS_PATH_VERSION[0] += 1
+
+
+def set_arena_info(name: str, capacity: int) -> None:
+    _ARENA_INFO[0] = (name, int(capacity))
+
+
 def _make_boot() -> Dict[str, Any]:
     # workers never own the card: hide it before anything touches CUDA
-    return {"env": {}, "force_cpu_platform": True}
+    boot: Dict[str, Any] = {"env": {}, "force_cpu_platform": True}
+    if _EXTRA_SYS_PATH:
+        boot["extra_sys_path"] = list(_EXTRA_SYS_PATH)
+    if _ARENA_INFO[0] is not None:
+        boot["arena"] = _ARENA_INFO[0]
+    return boot
 
 
 def _spawn_worker() -> WorkerClient:
+    # the version BEFORE the boot is built: a set_extra_sys_path racing
+    # this spawn leaves the worker stale, and ensure_sys_path re-sends
+    version = _SYS_PATH_VERSION[0]
     w = WorkerClient(_make_boot())
+    w._sys_path_version = version
     _ALL_WORKERS.add(w)
     return w
+
+
+def ensure_sys_path(w: WorkerClient) -> None:
+    """Re-send the driver's import roots to a worker that predates the
+    latest set_extra_sys_path."""
+    if getattr(w, "_sys_path_version", -1) != _SYS_PATH_VERSION[0]:
+        try:
+            w.notify_extend_sys_path(_EXTRA_SYS_PATH)
+            w._sys_path_version = _SYS_PATH_VERSION[0]
+        except Exception:
+            pass
 
 
 def acquire_worker() -> WorkerClient:
@@ -1231,6 +1502,7 @@ def release_worker(w: WorkerClient) -> None:
     if w.actor_id is None and w.alive():
         w.runtime = None
         w.node = None
+        w.raw_outcomes = False
         with _POOL_LOCK:
             keep = len(_IDLE) < _pool_max() and not _POOL_CLOSED.is_set()
             if keep:
@@ -1702,7 +1974,7 @@ class ProcessRouter:
             kind, _ = client.reset_actor()
         except Exception:
             kind = "err"
-        if kind != "ok":
+        if kind not in ("ok", "ok_raw"):
             client.kill(expected=True)
             return
         client._on_death.clear()    # stale actor-death callbacks

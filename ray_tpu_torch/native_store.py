@@ -228,6 +228,18 @@ class ShmObjectStore:
         view.flags.writeable = False
         return view
 
+    def get_ref(self, object_id: bytes) -> Tuple[int, int]:
+        """(offset, size) of the sealed object, holding a ref so the range
+        stays valid until release(). A client of another process attaches
+        the arena by name and reads the range directly."""
+        off = ctypes.c_uint64()
+        size = ctypes.c_uint64()
+        rc = self._lib.rtpu_get(self._handle, object_id,
+                                ctypes.byref(off), ctypes.byref(size))
+        if rc != 0:
+            raise KeyError(f"object {object_id!r} not in store (rc={rc})")
+        return off.value, size.value
+
     def get_ext(self, object_id: bytes) -> Tuple[int, int, int]:
         """(offset, size, slot) with the object's PROCESS-SHARED slot
         refcount incremented on the caller's behalf: an attached client
@@ -276,6 +288,13 @@ class ShmObjectStore:
         view = np.frombuffer(self._buf, np.uint8, count=size, offset=offset)
         view.flags.writeable = False
         return memoryview(view)
+
+    def view_range(self, offset: int, size: int) -> np.ndarray:
+        """Read-only uint8 ndarray over raw arena bytes."""
+        view = np.frombuffer(self._buf, np.uint8, count=size,
+                             offset=offset)
+        view.flags.writeable = False
+        return view
 
     def write_range(self, offset: int, payload) -> None:
         """Fill a reserved (unsealed) range — the direct-put write."""

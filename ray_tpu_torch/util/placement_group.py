@@ -148,6 +148,9 @@ class PlacementGroupManager:
             if node is not None and node.alive:
                 node.ledger.remove_total(b.scoped_resources(pg.id))
                 node.ledger.release(b.resources)
+                daemon = getattr(node, "daemon", None)
+                if daemon is not None:
+                    daemon.cancel_bundle(pg.id.hex(), b.index)
             b.node_id = None
 
     def remove(self, pg: PlacementGroup) -> None:
@@ -205,6 +208,32 @@ class PlacementGroupManager:
         pg._ready_event.wait(timeout)
         return pg.state, pg.bundles
 
+    def on_node_death(self, node_id: NodeID) -> None:
+        """Re-place the groups that had a bundle on a dead node: every
+        surviving bundle's reservation is released and the group goes
+        back to the pending queue (RESCHEDULING; waiters block again)."""
+        with self._lock:
+            for pg in self._groups.values():
+                if pg.state != "CREATED":
+                    continue
+                if any(b.node_id == node_id for b in pg.bundles):
+                    for b in pg.bundles:
+                        if b.node_id is not None and b.node_id != node_id:
+                            node = self._rt.get_node(b.node_id)
+                            if node is not None and node.alive:
+                                node.ledger.remove_total(
+                                    b.scoped_resources(pg.id))
+                                node.ledger.release(b.resources)
+                                daemon = getattr(node, "daemon", None)
+                                if daemon is not None:
+                                    daemon.cancel_bundle(pg.id.hex(),
+                                                         b.index)
+                        b.node_id = None
+                    pg.state = "RESCHEDULING"
+                    pg._ready_event.clear()
+                    self._pending.append(pg)
+        self._wake.set()
+
     def table(self) -> Dict[str, Dict]:
         with self._lock:
             return {pg.id.hex(): {
@@ -255,16 +284,34 @@ class PlacementGroupManager:
         if assignment is None:
             return False
         acquired: List[tuple] = []
+        ok = True
         for bundle, node in assignment:
             if not node.ledger.try_acquire(bundle.resources):
-                # roll back the partial reservation
-                for b, n in acquired:
-                    n.ledger.release(b.resources)
-                return False
+                ok = False
+                break
+            # a daemon-backed node: phase 1, PREPARE on the wire (the
+            # raylet's PrepareBundleResources)
+            daemon = getattr(node, "daemon", None)
+            if daemon is not None and not daemon.prepare_bundle(
+                    pg.id.hex(), bundle.index, dict(bundle.resources)):
+                node.ledger.release(bundle.resources)
+                ok = False
+                break
             acquired.append((bundle, node))
+        if not ok:  # roll back the partial reservation (the abort)
+            for bundle, node in acquired:
+                node.ledger.release(bundle.resources)
+                daemon = getattr(node, "daemon", None)
+                if daemon is not None:
+                    daemon.cancel_bundle(pg.id.hex(), bundle.index)
+            return False
         for bundle, node in acquired:
             node.ledger.add_total(bundle.scoped_resources(pg.id))
             bundle.node_id = node.node_id
+            # phase 2: COMMIT
+            daemon = getattr(node, "daemon", None)
+            if daemon is not None:
+                daemon.commit_bundle(pg.id.hex(), bundle.index)
         return True
 
     @staticmethod

@@ -556,3 +556,141 @@ def test_one_placement_and_train_script_gives_equal_results(
     assert port_out["bad_index"] == "TaskError(ValueError)"
     assert port_out["retry"] == (None, {"step": 3, "world": 2},
                                  [0, 1, 2, 3], {"step": 3})
+
+
+def _daemons_script(pkg, marker) -> dict:
+    """The daemon cluster's surface: tasks, actors, nested ops, errors, a
+    16 MiB array through a daemon's arena, a two-bundle group, and a
+    SIGKILLed daemon with a task retry and a lineage reconstruction."""
+    import os
+    import signal
+    import time
+
+    from importlib import import_module
+    pg_mod = import_module(pkg.__name__ + ".util.placement_group")
+    rt = pkg.init(num_nodes=2, resources={"CPU": 4}, cluster="daemons",
+                  object_store_memory=128 << 20)
+    out = {}
+    try:
+        handles = list(rt.cluster_backend.daemons.values())
+        out["processes"] = (rt.cluster_backend.head_proc.poll() is None,
+                            [h.proc.poll() is None for h in handles])
+
+        @pkg.remote
+        def add(a, b):
+            return a + b
+
+        @pkg.remote
+        def outer(x):
+            return pkg.get(add.remote(x, 1)) + 10
+
+        @pkg.remote(max_retries=0)
+        def boom():
+            raise KeyError("first")
+
+        @pkg.remote
+        def consume(x):
+            return x
+
+        @pkg.remote(max_retries=3)
+        def make(seed):
+            import numpy as np
+            rng = np.random.default_rng(seed)
+            return rng.standard_normal(4 << 20).astype(np.float32)
+
+        @pkg.remote
+        def total(refs):
+            return float(pkg.get(refs)[0].sum())
+
+        @pkg.remote
+        class Counter:
+            def __init__(self, start=0):
+                self.n = start
+
+            def inc(self, by=1):
+                self.n += by
+                return self.n
+
+        out["ref_args"] = pkg.get(add.remote(add.remote(1, 2), 4))
+        out["nested"] = pkg.get(outer.remote(1))
+        bad = boom.remote()
+        out["failing_task"] = _error_name(lambda: pkg.get(bad))
+        out["through_dependency"] = _error_name(
+            lambda: pkg.get(consume.remote(bad)))
+        c = Counter.remote(5)
+        out["actor"] = pkg.get([c.inc.remote() for _ in range(3)])
+        # 16 MiB made in a daemon's worker, left in its arena, read by the
+        # driver and by a consumer task in a worker
+        node0 = handles[0].node_id.hex()
+        big = make.options(scheduling_strategy=pkg.NodeAffinitySchedulingStrategy(
+            node_id=node0, soft=True)).remote(7)
+        arr = pkg.get(big)
+        out["array"] = (arr.shape, str(arr.dtype), float(arr.sum()),
+                        bool(arr.flags.writeable))
+        out["array_in_worker"] = pkg.get(total.remote([big]))
+        out["arena_used"] = max(h.client.call("daemon_stats")["store_used"]
+                                for h in handles) >= 16 << 20
+        # a group of two bundles, one on each daemon
+        pg = pg_mod.placement_group([{"CPU": 1}, {"CPU": 1}],
+                                    strategy="STRICT_SPREAD")
+        out["pg_ready"] = pg.wait(15)
+        out["pg_nodes"] = len({n for n in pg.bundle_nodes()})
+        strat = pkg.PlacementGroupSchedulingStrategy(placement_group=pg)
+        out["pg_task"] = pkg.get(add.options(
+            scheduling_strategy=strat).remote(20, 1))
+        pg_mod.remove_placement_group(pg)
+
+        # a SIGKILLed daemon: its running task retries on the survivor and
+        # the 16 MiB object it held is rebuilt from lineage
+        @pkg.remote(max_retries=2)
+        def slow():
+            import os as _os
+            import time as _time
+            n = len(_os.listdir(marker))
+            open(_os.path.join(marker, str(n)), "w").close()
+            if n == 0:
+                _time.sleep(30)
+            return "recovered"
+
+        ref = slow.options(scheduling_strategy=pkg.NodeAffinitySchedulingStrategy(
+            node_id=node0, soft=True)).remote()
+        deadline = time.monotonic() + 15
+        while (not os.listdir(marker)
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        del arr
+        os.kill(handles[0].proc.pid, signal.SIGKILL)
+        out["retry"] = pkg.get(ref, timeout=60)
+        deadline = time.monotonic() + 10
+        while (any(n.node_id.hex() == node0 for n in rt.alive_nodes())
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        out["victim_gone"] = not any(n.node_id.hex() == node0
+                                     for n in rt.alive_nodes())
+        again = pkg.get(big, timeout=60)
+        out["reconstructed"] = float(again.sum()) == out["array"][2]
+        out["attempts"] = len(os.listdir(marker))
+    finally:
+        pkg.shutdown()
+    return out
+
+
+def test_one_daemons_script_gives_equal_results(tmp_path, monkeypatch):
+    """cluster="daemons" in both packages: the same results and exception
+    class names, on each package's own head, daemons and wire."""
+    for var in ("RAY_TPU_PROCESS_WORKERS", "RAY_TPU_FAST_LANE",
+                "RAY_TPU_NATIVE_STORE", "RAY_TPU_CLUSTER"):
+        monkeypatch.delenv(var, raising=False)
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    jax_out = _daemons_script(ray_tpu, str(tmp_path / "jax"))
+    port_out = _daemons_script(ray_tpu_torch, str(tmp_path / "port"))
+    assert port_out == jax_out
+    assert port_out["processes"] == (True, [True, True])
+    assert port_out["failing_task"] == "TaskError(KeyError)"
+    assert port_out["actor"] == [6, 7, 8]
+    assert port_out["array"][:2] == ((4 << 20,), "float32")
+    assert port_out["array_in_worker"] == port_out["array"][2]
+    assert port_out["pg_ready"] and port_out["pg_nodes"] == 2
+    assert port_out["retry"] == "recovered" and port_out["victim_gone"]
+    assert port_out["reconstructed"] and port_out["attempts"] == 2
