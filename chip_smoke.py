@@ -296,6 +296,39 @@
    segment of the arenas, no session dir and no bytes above the base on
    the card. Alone (it runs phase 5 first): ``python -c "import
    chip_smoke, torch; chip_smoke.daemon_path(torch.device('cuda'))"``.
+   Phases 12-20 run on the runtime's default control-plane core, the
+   asyncio one (``_private/{eventloop,aio}.py``).
+21. The asyncio control-plane core, a cluster from the CLI, a drain and
+   other drivers: (a) ``init()`` runs the loop core (``debug_state()`` has
+   ``loop=``, the event loop runs); 1,000 no-op tasks on the driver's
+   threads (``IN_THREADS``) on each core in three alternated pairs, the
+   rates, the loop's largest lag sample and its slow-callback count;
+   (b) ``python -m ray_tpu_torch.scripts.cli start --head --num-daemons 2``
+   with ``RAY_TPU_ASYNC_CORE=0`` (the daemons on the threaded core), this
+   driver joined with ``init(address=)`` on the asyncio core
+   (``describe_peers`` says ``core=threaded``, ``cluster-status`` lists two
+   alive); three daemon tasks make q, k and v at bench_400m's attention
+   shapes (k on the second daemon), got as read-only views in the arenas,
+   to the card as bf16 and ``flash_fwd_wgmma`` once (counted), held to the
+   plain version; (c) an actor (``max_restarts=1``) and a 3 s task on k's
+   daemon, ``drain_node(<k's node>, deadline_s=20)``: the head and
+   ``cluster-status`` show it DRAINING, k is pushed to the other daemon
+   (``drain_objects_migrated`` >= 1, nothing reconstructed), the actor
+   answers from the survivor, the drained daemon leaves once its task is
+   done and the head marks it dead; the get of k is a view in the
+   survivor's arena and the kernel on it gives (b)'s output bit for bit
+   (one more launch); the drain's ms to the migration, the actor's answer
+   and the node's exit; (d) a second driver, a CPU subprocess through ``cli
+   attach``, runs tasks on the survivor; ``cli job-submit`` runs an
+   entrypoint to SUCCEEDED; a ``util.client`` subprocess puts 64 MiB
+   through ``serve_cluster`` in this driver and gets a task's sum of it;
+   nvidia-smi lists one context and no process of the cluster maps the
+   CUDA driver; (e) this driver's ``shutdown()`` leaves the cluster up
+   (``cluster-status`` answers), then ``cli stop``: no head, daemon or
+   worker process, no ``/dev/shm`` segment of the arenas, no cluster file
+   or session dir and no bytes above the base on the card. Alone (it runs
+   phase 5 first): ``python -c "import chip_smoke, torch;
+   chip_smoke.control_plane_path(torch.device('cuda'))"``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -4784,6 +4817,484 @@ def daemon_path(dev, phase5=None, phase19=None, smi=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the asyncio core, a cluster from the CLI, a drain, other drivers
+# ---------------------------------------------------------------------------
+
+def cli(*argv, env=None, timeout=120) -> subprocess.CompletedProcess:
+    """``python -m ray_tpu_torch.scripts.cli *argv`` from the checkout,
+    its output captured; raises on a non-zero exit."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(env or os.environ)
+    env["PYTHONPATH"] = here + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    out = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts.cli",
+                          *argv], capture_output=True, text=True,
+                         timeout=timeout, env=env, cwd=here)
+    if out.returncode != 0:
+        raise RuntimeError(f"cli {' '.join(argv[:2])} exited "
+                           f"{out.returncode}: {out.stderr[-2000:]}")
+    return out
+
+
+def cli_nodes(address: str) -> list:
+    return json.loads(cli("cluster-status", "--address",
+                          address).stdout)["nodes"]
+
+
+def descendants(pids: set) -> set:
+    """``pids`` and every live process descended from them."""
+    import os
+    parent = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    parent[int(entry)] = int(
+                        f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                pass
+    out = set(pids)
+    grew = True
+    while grew:
+        grew = False
+        for pid, ppid in parent.items():
+            if ppid in out and pid not in out:
+                out.add(pid)
+                grew = True
+    return out
+
+
+def core_rates(smi: str, pairs: int = 3) -> dict:
+    """Phase 21(a): ``init()`` runs the loop core (``debug_state()`` has
+    ``loop=`` and the process's event loop runs); 1,000 no-op tasks on the
+    driver's threads on each core, in alternated pairs; the lag gauge's
+    largest sample and the slow-callback count of the driver's loop."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import eventloop
+    from ray_tpu_torch.util import metrics
+    runtime = rt.init()
+    try:
+        state = runtime.debug_state()
+        if "loop=" not in state or not eventloop.running():
+            raise RuntimeError(f"phase 21(a): the default init() runs no "
+                               f"loop core: {state[:300]}")
+    finally:
+        rt.shutdown()
+
+    def driver_samples(name: str) -> list:
+        m = metrics.registry().get(name)
+        return [v for k, v in (m.samples() if m else ())
+                if ("proc", "driver") in k]
+
+    peak = [0.0]
+    done = threading.Event()
+
+    def sample_lag():
+        while not done.wait(0.01):
+            peak[0] = max([peak[0], *driver_samples(
+                "ray_tpu_event_loop_lag_seconds")])
+
+    sampler = threading.Thread(target=sample_lag, daemon=True)
+    sampler.start()
+    slow0 = sum(driver_samples("ray_tpu_event_loop_slow_callbacks_total"))
+    rates = {"async": [], "threaded": []}
+    try:
+        for _ in range(pairs):
+            for core, flag in (("async", True), ("threaded", False)):
+                rt.init(_system_config={**IN_THREADS, "async_core": flag})
+                try:
+                    rate, _ = noop_rate(noop())
+                finally:
+                    rt.shutdown()
+                rates[core].append(rate)
+    finally:
+        done.set()
+        sampler.join()
+    slow = sum(driver_samples("ray_tpu_event_loop_slow_callbacks_total")) \
+        - slow0
+    log(f"phase 21(a): the default init() runs the asyncio core (debug_state "
+        f"has loop=, the event loop runs); 1,000 no-op tasks on the driver's "
+        f"threads in {pairs} alternated pairs: asyncio core "
+        f"{[round(r) for r in rates['async']]} tasks/s, threaded core "
+        f"{[round(r) for r in rates['threaded']]} tasks/s; the driver loop's "
+        f"largest lag sample {peak[0] * 1e3:.2f} ms, {slow:.0f} slow "
+        f"callbacks over loop_slow_callback_s ({smi})")
+    return {"async_tasks_per_s": rates["async"],
+            "threaded_tasks_per_s": rates["threaded"],
+            "lag_max_ms": peak[0] * 1e3, "slow_callbacks": slow}
+
+
+def cli_start() -> tuple:
+    """Phase 21(b)'s cluster: ``cli start --head`` with two daemons on the
+    threaded core; (address, seconds)."""
+    import os
+    env = dict(os.environ, RAY_TPU_ASYNC_CORE="0")
+    t0 = time.perf_counter()
+    out = cli("start", "--head", "--num-daemons", "2",
+              "--resources", json.dumps({"CPU": 4}), env=env)
+    return (out.stdout.split("started at")[1].split()[0],
+            time.perf_counter() - t0)
+
+
+def cli_cluster_flash(dev, address: str, up_s: float, smi: str) -> dict:
+    """Phase 21(b): this driver joins the CLI's cluster (daemons on the
+    threaded core) on the asyncio core (``init(address=)``); three daemon
+    tasks make q, k and v (k on the second daemon), the driver gets them
+    as read-only views in the arenas, and ``flash_fwd_wgmma`` runs once on
+    them (counted), held to the plain version."""
+    import warnings
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import attention as attn
+    t0 = time.perf_counter()
+    runtime = rt.init(address=address)
+    attach_s = time.perf_counter() - t0
+    backend = runtime.cluster_backend
+    handles = sorted(backend.daemons.values(), key=lambda h: h.node_id.hex())
+    peers = backend.describe_peers()
+    alive = [n for n in cli_nodes(address) if n["alive"]]
+    if (len(handles) != 2 or len(alive) != 2 or backend.head_proc is not None
+            or any(h.proc is not None for h in handles)
+            or not all("core=threaded" in p for p in peers)):
+        raise RuntimeError(f"phase 21(b): joined {len(handles)} daemons, "
+                           f"cluster-status lists {len(alive)} alive, peers "
+                           f"{peers}")
+    home = {"q": handles[0], "k": handles[1], "v": handles[0]}
+
+    @rt.remote(max_retries=3)
+    def make(shape, seed):
+        return np.random.default_rng(seed).standard_normal(
+            shape, dtype=np.float32)
+
+    refs = {}
+    for i, (n, shape) in enumerate(ATTN_SHAPES.items()):
+        strat = rt.NodeAffinitySchedulingStrategy(
+            node_id=home[n].node_id.hex(), soft=False)
+        refs[n] = make.options(scheduling_strategy=strat).remote(shape, i)
+    rt.wait(list(refs.values()), num_returns=3, timeout=120)
+    views = dict(zip(refs, rt.get(list(refs.values()))))
+    spans = arena_spans(backend, handles)
+    inside = {n: [d for d, (lo, hi) in spans.items()
+                  if lo <= v.__array_interface__["data"][0] < hi]
+              for n, v in views.items()}
+    if (inside != {n: [home[n].node_id.hex()[:8]] for n in refs}
+            or any(v.flags.writeable for v in views.values())):
+        raise RuntimeError(f"phase 21(b): views inside the arenas {inside}")
+    for i, (n, shape) in enumerate(ATTN_SHAPES.items()):
+        if not np.array_equal(views[n], np.random.default_rng(i)
+                              .standard_normal(shape, dtype=np.float32)):
+            raise RuntimeError(f"phase 21(b): {n} is not its seed's values")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # from_numpy of a read-only view
+        q, k, v = (torch.from_numpy(views[n]).to(dev).to(torch.bfloat16)
+                   for n in ATTN_SHAPES)
+        torch.cuda.synchronize()
+    del views
+    attn.flash_attention_kernel.launches = 0
+    y = attn.flash_attention_kernel(q, k, v, True)
+    launches = attn.flash_attention_kernel.launches
+    plain = attn._flash_forward_plain(q, k, v, causal=True)
+    torch.testing.assert_close(y.float(), plain.float(), **BF16_TOL)
+    err = (y.float() - plain.float()).abs().max().item()
+    if launches != 1 or not torch.isfinite(y).all():
+        raise RuntimeError(f"phase 21(b): flash launches {launches}")
+    del plain, k
+    log(f"phase 21(b): `cli start --head --num-daemons 2` with "
+        f"RAY_TPU_ASYNC_CORE=0 up in {up_s:.2f} s at {address}; this driver "
+        f"joined on the asyncio core in {attach_s:.2f} s (init(address=)), "
+        f"describe_peers {peers}, cluster-status lists 2 alive; q and v made "
+        f"in daemon {home['q'].node_id.hex()[:8]}'s arena, k in "
+        f"{home['k'].node_id.hex()[:8]}'s, got as read-only views inside "
+        f"them; flash_fwd_wgmma, 1 launch, against the plain version "
+        f"max_abs_err {err:.3e} ({smi})")
+    return {"address": address, "refs": refs, "qk_v": (q, v), "out": y,
+            "home": home, "launches": launches, "max_abs_err": err,
+            "up_s": up_s, "attach_s": attach_s}
+
+
+def arena_spans(backend, handles) -> dict:
+    """Each daemon's arena as the driver maps it: node hex8 -> [lo, hi)."""
+    import ctypes
+    spans = {}
+    for h in handles:
+        arena = backend.arenas.handle(h.arena_name)
+        lo = ctypes.addressof(arena._buf)
+        spans[h.node_id.hex()[:8]] = (lo, lo + arena.capacity())
+    return spans
+
+
+def cli_cluster_drain(dev, part_b: dict, smi: str) -> dict:
+    """Phase 21(c): an actor (``max_restarts=1``) and a 3 s task on k's
+    daemon, then ``drain_node(<k's node>, deadline_s=20)``: the head and
+    ``cli cluster-status`` show it DRAINING; k is pushed to the other
+    daemon (``drain_objects_migrated`` >= 1, nothing reconstructed); the
+    actor answers from the survivor; once the task is done the drained
+    daemon leaves and the head marks it dead; the driver's get of k is a
+    view in the survivor's arena, and the kernel on it gives (b)'s output
+    bit for bit (one more launch)."""
+    import warnings
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch.ops import attention as attn
+    runtime = worker.global_runtime()
+    backend = runtime.cluster_backend
+    victim, survivor = part_b["home"]["k"], part_b["home"]["q"]
+    vhex, shex = victim.node_id.hex(), survivor.node_id.hex()
+    victim_pid = victim.client.call("daemon_ping")["pid"]
+
+    @rt.remote(max_restarts=1, max_task_retries=2)
+    class Where:
+        def node(self):
+            return rt.get_runtime_context().get_node_id()
+
+    @rt.remote(max_retries=0)
+    def busy(s):
+        time.sleep(s)
+        return rt.get_runtime_context().get_node_id()
+
+    actor = Where.options(scheduling_strategy=rt.NodeAffinitySchedulingStrategy(
+        node_id=vhex, soft=True)).remote()
+    first = rt.get(actor.node.remote())
+    running = busy.options(scheduling_strategy=rt.NodeAffinitySchedulingStrategy(
+        node_id=vhex, soft=False)).remote(3.0)
+    time.sleep(0.5)     # the task runs on the victim
+    gc.collect()
+    rebuilt0 = runtime.stats["objects_reconstructed"]
+    t0 = time.perf_counter()
+    if first != vhex or not rt.drain_node(vhex, deadline_s=20,
+                                          reason="phase 21"):
+        raise RuntimeError(f"phase 21(c): the actor on {first}; the drain "
+                           f"did not start")
+    head_view = {n["node_id"]: n for n in backend.head.list_nodes()}[vhex]
+    cli_view = {n["node_id"]: n for n in cli_nodes(part_b["address"])}[vhex]
+    if not (head_view["draining"] and cli_view["draining"]
+            and cli_view["alive"]):
+        raise RuntimeError(f"phase 21(c): the head shows {head_view}, "
+                           f"cluster-status {cli_view}")
+    migrate_s = answer_s = exit_s = None
+    while time.perf_counter() - t0 < 30 and exit_s is None:
+        now = time.perf_counter() - t0
+        if migrate_s is None and runtime.stats["drain_objects_migrated"]:
+            migrate_s = now
+        if answer_s is None:
+            try:
+                if rt.get(actor.node.remote(), timeout=5) == shex:
+                    answer_s = time.perf_counter() - t0
+            except Exception:   # noqa: BLE001 - moving
+                pass
+        if (runtime.get_node(victim.node_id) is None
+                and not _alive(victim_pid)):
+            exit_s = time.perf_counter() - t0
+        time.sleep(0.01)
+    ran_on = rt.get(running, timeout=30)
+    view = {n["node_id"]: n for n in backend.head.list_nodes()}[vhex]
+    if (None in (migrate_s, answer_s, exit_s) or view["alive"]
+            or not view["reason"].startswith("drained") or ran_on != vhex):
+        raise RuntimeError(f"phase 21(c): migrated {migrate_s}, answered "
+                           f"{answer_s}, left {exit_s}; the head's view "
+                           f"{view}; the running task ran on {ran_on}")
+    k_view = rt.get(part_b["refs"]["k"], timeout=60)
+    spans = arena_spans(backend, [survivor])
+    lo, hi = spans[shex[:8]]
+    addr = k_view.__array_interface__["data"][0]
+    rebuilt = runtime.stats["objects_reconstructed"] - rebuilt0
+    if not lo <= addr < hi or k_view.flags.writeable or rebuilt:
+        raise RuntimeError(f"phase 21(c): k at {addr:#x}, the survivor's "
+                           f"arena [{lo:#x}, {hi:#x}); {rebuilt} rebuilt")
+    q, v = part_b["qk_v"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        k = torch.from_numpy(k_view).to(dev).to(torch.bfloat16)
+        torch.cuda.synchronize()
+    del k_view
+    attn.flash_attention_kernel.launches = 0
+    y = attn.flash_attention_kernel(q, k, v, True)
+    launches = attn.flash_attention_kernel.launches
+    if launches != 1 or not torch.equal(y, part_b["out"]):
+        raise RuntimeError(f"phase 21(c): launches {launches}; the output on "
+                           f"the migrated k differs by "
+                           f"{(y.float() - part_b['out'].float()).abs().max().item()}")
+    del q, k, v, y
+    rt.kill(actor)
+    log(f"phase 21(c): drain_node({vhex[:8]}, deadline_s=20) with an actor "
+        f"and a 3 s task on it: the head and `cli cluster-status` showed it "
+        f"DRAINING; k migrated after {migrate_s * 1e3:.0f} ms "
+        f"(drain_objects_migrated {runtime.stats['drain_objects_migrated']}, "
+        f"objects_reconstructed {runtime.stats['objects_reconstructed']}), "
+        f"the actor answered from daemon {shex[:8]} after "
+        f"{answer_s * 1e3:.0f} ms, the task finished on the drained daemon, "
+        f"which left (pid {victim_pid} gone, the head's reason "
+        f"{view['reason']!r}) after {exit_s * 1e3:.0f} ms; the driver's get of "
+        f"k is a read-only view in the survivor's arena; flash_fwd_wgmma on "
+        f"it, 1 launch, equal to (b)'s output bit for bit ({smi})")
+    return {"launches": launches, "migrate_ms": migrate_s * 1e3,
+            "answer_ms": answer_s * 1e3, "exit_ms": exit_s * 1e3,
+            "survivor": survivor}
+
+
+def other_drivers(part_b: dict, survivor, smi: str) -> dict:
+    """Phase 21(d): a second driver, a CPU subprocess run through ``cli
+    attach``, runs tasks on the survivor; ``cli job-submit`` runs an
+    entrypoint to SUCCEEDED; a ``util.client`` subprocess puts 64 MiB
+    through ``serve_cluster`` in this driver and gets a task's sum of it."""
+    import os
+    from ray_tpu_torch.util.client import serve_cluster
+    address = part_b["address"]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("RAY_TPU_ASYNC_CORE", None)
+    script = ("import ray_tpu_torch as rt\n"
+              "r = rt.init()\n"
+              "@rt.remote\n"
+              "def where(x):\n"
+              "    return rt.get_runtime_context().get_node_id(), x * 3\n"
+              "out = rt.get([where.remote(i) for i in range(8)])\n"
+              "print('SECOND', sorted({n for n, _ in out}), "
+              "[x for _, x in out])\n"
+              "rt.shutdown()\n")
+    t0 = time.perf_counter()
+    out = cli("attach", "--cluster", address, "--", sys.executable, "-c",
+              script, env=env)
+    attach_s = time.perf_counter() - t0
+    want = f"SECOND {[survivor.node_id.hex()]} {[i * 3 for i in range(8)]}"
+    if want not in out.stdout:
+        raise RuntimeError(f"phase 21(d): the attached driver printed "
+                           f"{out.stdout[-500:]}")
+    t0 = time.perf_counter()
+    job = cli("job-submit", "python -c \"print('job says', 6 * 7)\"",
+              env=dict(env, RAY_TPU_ADDRESS=address))
+    job_s = time.perf_counter() - t0
+    if "job says 42" not in job.stdout or "SUCCEEDED" not in job.stdout:
+        raise RuntimeError(f"phase 21(d): the job printed {job.stdout[-500:]}")
+    server = serve_cluster(port=0)
+    client_script = (
+        "import sys, numpy as np\n"
+        "from ray_tpu_torch.util.client import connect\n"
+        "c = connect(sys.argv[1])\n"
+        "x = np.arange(16 << 20, dtype=np.float32)\n"
+        "ref = c.put(x)\n"
+        "total = c.remote(lambda a: float(a.sum(dtype=np.float64)))\n"
+        "print('CLIENT', c.get(total.remote(ref), timeout=120),"
+        " float(x.sum(dtype=np.float64)))\n"
+        "c.close()\n")
+    try:
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", client_script,
+             f"{server.address[0]}:{server.address[1]}"],
+            capture_output=True, text=True, timeout=180, cwd=here,
+            env=dict(env, PYTHONPATH=here))
+        client_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+    got = [ln.split()[1:] for ln in res.stdout.splitlines()
+           if ln.startswith("CLIENT")]
+    if res.returncode != 0 or not got or got[0][0] != got[0][1]:
+        raise RuntimeError(f"phase 21(d): the client exited "
+                           f"{res.returncode}: {res.stdout[-300:]} "
+                           f"{res.stderr[-1500:]}")
+    log(f"phase 21(d): `cli attach -- python -c ...`, a CPU driver with "
+        f"RAY_TPU_ADDRESS, ran 8 tasks on the survivor in {attach_s:.2f} s "
+        f"of command; `cli job-submit` ran its entrypoint to SUCCEEDED in "
+        f"{job_s:.2f} s; a util.client subprocess put 64 MiB through "
+        f"serve_cluster in this driver and got a task's sum of it "
+        f"({got[0][0]}) in {client_s:.2f} s ({smi})")
+    return {"second_driver_s": attach_s, "job_s": job_s, "client_s": client_s}
+
+
+def control_plane_path(dev, phase5=None, smi=None) -> dict:
+    """Phase 21: the asyncio core, a cluster from the CLI, a drain and
+    other drivers (see the module's docstring). Alone (it runs phase 5
+    first): ``python -c "import chip_smoke, torch;
+    chip_smoke.control_plane_path(torch.device('cuda'))"``."""
+    import glob
+    import os
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.scripts.cli import CLUSTER_FILE
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    if phase5 is None:
+        phase5 = train_path(dev, LlamaConfig.bench_400m().n_layers)
+    if rt.is_initialized():
+        raise RuntimeError("a runtime is still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    rates = core_rates(smi)
+    part_b = None
+    pids: set = set()
+    seen: list = []
+    address, up_s = cli_start()
+    try:
+        part_b = cli_cluster_flash(dev, address, up_s, smi)
+        figures = {k: part_b[k] for k in ("up_s", "attach_s", "max_abs_err")}
+        from ray_tpu_torch._private import worker
+        backend = worker.global_runtime().cluster_backend
+        with open(CLUSTER_FILE) as f:
+            record = json.load(f)
+        node_ids = [h.node_id.hex() for h in backend.daemons.values()]
+        pids = descendants({record["head_pid"], *record["daemon_pids"]})
+        only_driver_on_card(pids, "21(b)", seen)
+        drain = cli_cluster_drain(dev, part_b, smi)
+        drivers = other_drivers(part_b, drain["survivor"], smi)
+        pids |= descendants({record["head_pid"], *record["daemon_pids"]})
+        only_driver_on_card(pids, "21(d)", seen)
+        launches = part_b["launches"] + drain["launches"]
+        part_b = None
+        rt.shutdown()
+        # this driver did not own the cluster: it is still up
+        alive = [n["node_id"] for n in cli_nodes(address) if n["alive"]]
+        if len(alive) != 1:
+            raise RuntimeError(f"phase 21(e): after shutdown() "
+                               f"cluster-status lists {alive} alive")
+        pids |= descendants({record["head_pid"], *record["daemon_pids"]})
+    finally:
+        part_b = None
+        if rt.is_initialized():
+            rt.shutdown()
+        cli("stop", "--address", address)
+    deadline = time.monotonic() + 10
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = sorted(p for p in pids if _alive(p))
+    segments = [s for n in node_ids
+                for s in glob.glob(f"/dev/shm/rtpt_{n[:12]}*")]
+    if left or segments or os.path.exists(CLUSTER_FILE) \
+            or os.path.exists(record["session"]):
+        raise RuntimeError(f"phase 21(e): processes {left} left, segments "
+                           f"{segments}, the cluster file "
+                           f"{os.path.exists(CLUSTER_FILE)}, the session "
+                           f"{os.path.exists(record['session'])}")
+    freed, _ = wait_freed(base, "phase 21 after cli stop")
+    if freed > base:
+        raise RuntimeError(f"phase 21(e): {freed - base} bytes above the "
+                           f"base after cli stop")
+    seconds = time.perf_counter() - t0
+    log(f"phase 21(d): nvidia-smi listed one context on the card, pids "
+        f"{seen} in its namespace, after (b) and after (d); none of the "
+        f"cluster's {len(pids)} processes (the head, the daemons, their "
+        f"forkservers and workers) listed or mapping libcuda, this driver "
+        f"mapping it")
+    log(f"phase 21(e): after this driver's shutdown() cluster-status still "
+        f"answered (1 alive); after `cli stop` no head, daemon or worker "
+        f"process of the {len(pids)} left, no /dev/shm segment of the 2 "
+        f"arenas, no cluster file or session dir, {freed - base} bytes above "
+        f"the base; phase 21 in {seconds:.1f} s ({smi})")
+    out = {"part": "21", "launches": launches, **rates, **figures,
+           "seconds": seconds, "card": smi,
+           "migrate_ms": drain["migrate_ms"],
+           "answer_ms": drain["answer_ms"], "exit_ms": drain["exit_ms"],
+           **drivers, "processes": len(pids),
+           "bytes_after_stop": freed, "base_bytes": base}
+    log(json.dumps(out))
+    return out
+
+
 def _alive(pid) -> bool:
     """Whether ``pid`` is a live process (a zombie is not)."""
     if pid is None:
@@ -5008,6 +5519,14 @@ def main() -> int:
     # the card, nothing left after shutdown
     daemons = daemon_path(dev, train, native, smi)
     rows[2]["launches"] += daemons["launches"]
+
+    # 21. the asyncio control-plane core (the default) against the threaded
+    # one, a cluster stood up by the CLI and joined with init(address=),
+    # q, k and v from its arenas into the flash kernel, a drain that
+    # pushes k to the survivor (the kernel on it bit for bit), other
+    # drivers (attach, a job, util.client), nothing left after `cli stop`
+    control = control_plane_path(dev, train, smi)
+    rows[2]["launches"] += control["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

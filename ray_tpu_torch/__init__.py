@@ -53,7 +53,13 @@ libraries on that core: ``tune`` (Tuner, schedulers, searchers) and
 streaming executor with its actor pools and hash shuffle,
 ``streaming_split``, the readers and writers), whose ``to_jax`` feeds the
 card through pinned memory and a side stream — and the example scripts of
-``examples`` (the MNIST MLP, ViT streaming and the full-stack pipeline).
+``examples`` (the MNIST MLP, ViT streaming and the full-stack pipeline) —
+and the daemon cluster (``init(cluster="daemons")``: a head and node-daemon
+processes on the port's RPC wire) with its asyncio control-plane core (the
+default; ``async_core=False`` selects the threaded one), graceful drain
+(``drain_node``), and drivers that join a running cluster
+(``init(address=)``, ``python -m ray_tpu_torch.scripts.cli``, ``job``,
+``util.client``).
 
 Importing the package imports no ``torch``: the runtime checks for tensors
 only once ``torch`` is in ``sys.modules``, and detects the card at ``init``.
@@ -79,7 +85,7 @@ __all__ = [
     "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",
     "kill", "cancel", "get_actor", "get_runtime_context", "ObjectRef",
     "ObjectRefGenerator", "ActorHandle", "exit_actor", "cluster_resources",
-    "available_resources", "nodes", "exceptions", "method",
+    "available_resources", "nodes", "drain_node", "exceptions", "method",
     "NodeAffinitySchedulingStrategy", "NodeLabelSchedulingStrategy",
     "PlacementGroupSchedulingStrategy",
 ]
@@ -91,11 +97,16 @@ def init(num_nodes: int = 1,
          namespace: Optional[str] = None,
          ignore_reinit_error: bool = False,
          _system_config: Optional[Dict[str, Any]] = None,
-         cluster: Optional[str] = None) -> "_worker.Runtime":
+         cluster: Optional[str] = None,
+         address: Optional[str] = None) -> "_worker.Runtime":
     """Start the runtime with ``num_nodes`` virtual nodes in this process,
     or, with ``cluster="daemons"`` (JAX's ``RAY_TPU_CLUSTER=daemons``), a
     head and ``num_nodes`` node-daemon processes on this host, each with
-    ``resources`` and an arena of ``object_store_memory`` bytes.
+    ``resources`` and an arena of ``object_store_memory`` bytes, or join a
+    running cluster (``python -m ray_tpu_torch.scripts.cli start --head``)
+    with ``address="host:port"`` (``RAY_TPU_ADDRESS`` when not given, as
+    ``cli attach`` sets it); such a driver's ``shutdown`` leaves the
+    cluster up.
 
     ``resources=None`` detects this host's: its CPUs, and its CUDA cards as
     ``GPU`` when it has any. ``_system_config`` overrides flags of the table
@@ -107,10 +118,13 @@ def init(num_nodes: int = 1,
                            "(use ignore_reinit_error=True to allow)")
     from ray_tpu_torch._private.config import apply_system_config
     apply_system_config(_system_config)
+    import os as _os
+    if not address and _os.environ.get("RAY_TPU_ADDRESS"):
+        address = _os.environ["RAY_TPU_ADDRESS"]
     return _worker.init_runtime(
         num_nodes=num_nodes, resources_per_node=resources,
         object_store_memory=object_store_memory, namespace=namespace,
-        cluster=cluster)
+        cluster=cluster, address=address)
 
 
 def shutdown() -> None:
@@ -196,11 +210,27 @@ def nodes() -> List[Dict[str, Any]]:
     rt = _worker.global_worker()
     out = []
     for info in rt.gcs.nodes.values():
+        node = rt.get_node(info.node_id)
         out.append({
             "NodeID": info.node_id.hex(),
             "Alive": info.alive,
-            "Draining": False,
+            "Draining": bool(node is not None and node.draining),
             "Resources": dict(info.resources),
             "Labels": dict(info.labels),
         })
     return out
+
+
+def drain_node(node_id: Union[str, Any],
+               deadline_s: Optional[float] = None,
+               reason: str = "preemption") -> bool:
+    """Gracefully drain a node (a planned departure: preemption notice,
+    downscale, maintenance): new placements avoid it, queued tasks
+    resubmit elsewhere, primary object replicas and actors migrate off it,
+    and once its running work finishes it leaves the cluster with no
+    reconstruction debt. If ``deadline_s`` (default: the
+    ``drain_deadline_s`` flag) expires first, the drain escalates into the
+    ordinary node-death path. Returns True if a drain started."""
+    return _worker.global_worker().drain_node(node_id,
+                                              deadline_s=deadline_s,
+                                              reason=reason)

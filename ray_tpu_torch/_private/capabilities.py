@@ -1,0 +1,31 @@
+"""Declared registry of hello-advertised capability bits (counterpart of
+``ray_tpu/_private/capabilities.py``).
+
+The daemon's ``handle_hello_driver`` reply advertises what it can do; the
+driver stores each bit on its ``DaemonHandle`` under the bit's ``guard``
+attribute and reads it there. The table is data: a test holds it against
+a live hello reply and against ``DaemonHandle`` (every bit is in the reply
+and its guard attribute exists).
+
+The port's wire carries two bits. JAX's ``batch``, ``result_batch`` and
+``fence`` bits, with their frame flags (``via_pump``, ``term_pump``,
+``ep``/``att`` gating), are not advertised: the port's daemons always
+coalesce and always stamp (ROADMAP C). ``tenancy`` comes with tenancy
+(A11e).
+"""
+
+CAPABILITY_FLAGS = {
+    "objectplane": {
+        "kind": "hello",
+        "guard": "objectplane",
+        "doc": "daemon exposes the shm object arena (zero-copy gets)",
+    },
+    "async_core": {
+        "kind": "hello",
+        "guard": "_async_core_remote",
+        "doc": "daemon runs the single-threaded asyncio wire+dispatch core "
+               "(cfg().async_core). Frames are byte-identical across "
+               "cores, so the bit gates nothing on the wire: it makes "
+               "mixed clusters observable (describe_peers)",
+    },
+}

@@ -27,9 +27,12 @@ Payloads (functions, arguments, results) ride as blobs of the port's
 process wire (``fast_lane.join_parts`` of ``worker_process._pack``): only
 the driver and the workers load them.
 
-Left out, each with the ROADMAP item that brings it: ``attach`` (joining
-an existing cluster, ``init(address=...)``) and the targeted actor lane
-(A11c); task-event flushes, tenancy and the memory monitor (A11e).
+Joining a running cluster (``ClusterBackend.attach``, ``init(address=)``):
+a second driver dials the head of a cluster that ``ray-tpu start`` stood
+up, joins its daemons, and leaves them running at ``shutdown``.
+
+Left out, each with the ROADMAP item that brings it: the targeted actor
+lane (A11c); task-event flushes, tenancy and the memory monitor (A11e).
 """
 
 from __future__ import annotations
@@ -387,6 +390,7 @@ class DaemonHandle:
         self.arena_name: Optional[str] = None
         self.arena_capacity = 0
         self.client_id: Optional[str] = None
+        self._async_core_remote = False     # which core the daemon runs
         # fast lane: direct submit to the daemon's native core
         self.fast_port: Optional[int] = None
         self._fast = None
@@ -544,6 +548,7 @@ class DaemonHandle:
         self.arena_capacity = int(out.get("arena_capacity") or 0)
         self.client_id = out.get("client_id")
         self.epoch = int(out.get("epoch") or 0)
+        self._async_core_remote = bool(out.get("async_core"))
         self._job_id = job_id
         return out
 
@@ -1014,6 +1019,13 @@ class DaemonHandle:
                 self.proc.kill()
                 self.proc.wait(timeout=5.0)
 
+    def detach(self) -> None:
+        """Disconnect from a daemon this driver did not spawn (a joined
+        cluster): close the connection, leave the process running."""
+        self.flush_frees()      # the daemon lives on: release its store
+        self.mark_dead()
+        self.client.close()
+
     def sigkill(self) -> None:
         """Chaos path: hard-kill the daemon process (node failure)."""
         if self.proc is not None:
@@ -1313,6 +1325,7 @@ class ClusterBackend:
         self.runtime = runtime
         self.arenas = ArenaCache()
         self.node_resources: Dict[NodeID, Dict[str, float]] = {}
+        self._owns_cluster = True   # we spawned head and daemons: we stop them
         self.session_dir = tempfile.mkdtemp(prefix="ray_tpu_torch_session_")
         self._head_state = os.path.join(self.session_dir, "head_state.db")
         self._shutting_down = False
@@ -1357,6 +1370,56 @@ class ClusterBackend:
             raise
         self.head.subscribe("node", self._on_node_event)
         self.start_resource_reporter()
+
+    @classmethod
+    def attach(cls, runtime, address: str) -> "ClusterBackend":
+        """Join an existing cluster (``ray-tpu start``) as a new driver:
+        connect to its head, join its registered daemons and speak the
+        same wire. Nothing is spawned, and shutdown() leaves the cluster
+        running."""
+        from ray_tpu_torch._private.config import cfg
+        self = cls.__new__(cls)
+        self.runtime = runtime
+        self.arenas = ArenaCache()
+        self._owns_cluster = False
+        self.node_resources = {}
+        self.session_dir = tempfile.mkdtemp(prefix="ray_tpu_torch_driver_")
+        self._head_state = None
+        host, port = address.rsplit(":", 1)
+        self._head_port = int(port)
+        self.head_proc = None
+        self._shutting_down = False
+        self.daemons = {}
+        self._lock = threading.Lock()
+        self.owner_server = None
+        self.head = HeadClient((host, self._head_port),
+                               reconnect_window=cfg().head_grace_s)
+        try:
+            self.owner_service = OwnerService(runtime)
+            self.owner_server = rpc.serve(self.owner_service).start()
+            for info in self.head.list_nodes():
+                if info["alive"]:
+                    self._join_node(info, add_runtime_node=False)
+            if not self.daemons:
+                raise RuntimeError(
+                    f"cluster at {address} has no alive nodes to join")
+        except BaseException:
+            self.shutdown()
+            raise
+        self.head.subscribe("node", self._on_node_event)
+        self.start_resource_reporter()
+        return self
+
+    def describe_peers(self) -> List[str]:
+        """One line per connected daemon for debug_state: which
+        control-plane core the peer advertised in hello (the async_core
+        bit), and liveness. Frames are byte-identical across cores, so
+        this is where a mixed cluster shows."""
+        with self._lock:
+            handles = list(self.daemons.values())
+        return [f"daemon {h.node_id.hex()[:8]}: core="
+                f"{'async' if h._async_core_remote else 'threaded'} "
+                f"alive={not h.dead}" for h in handles]
 
     def start_resource_reporter(self, interval_s: float = 0.5) -> None:
         """The driver is the scheduling authority and owns the true
@@ -1459,13 +1522,34 @@ class ClusterBackend:
             self.daemons[node_id] = handle
         self.node_resources[node_id] = dict(info["resources"])
         if add_runtime_node:
-            self.runtime.add_remote_node(handle, dict(info["resources"]))
+            node = self.runtime.add_remote_node(handle,
+                                                dict(info["resources"]))
+            if info.get("draining"):
+                # joined mid-drain (we subscribed after the drain event):
+                # migrate with the remaining window
+                self.runtime.begin_node_drain(
+                    node, float(info.get("drain_deadline_s") or 0.0),
+                    info.get("drain_reason") or "drain")
         return handle
 
     def _on_node_event(self, event: Dict[str, Any]) -> None:
         kind = event.get("kind")
         if kind == "added":
             self._join_node(event.get("node") or {}, add_runtime_node=True)
+            return
+        if kind == "drain":
+            # a graceful drain announced (a preemption notice, another
+            # driver, the CLI): start the migration; begin_node_drain is
+            # idempotent, so the initiating driver's own call coexists
+            try:
+                node = self.runtime.get_node(
+                    NodeID.from_hex(event["node_id"]))
+            except (KeyError, ValueError):
+                return
+            if node is not None:
+                self.runtime.begin_node_drain(
+                    node, float(event.get("deadline_s") or 0.0),
+                    event.get("reason") or "drain")
             return
         if kind != "death":
             return
@@ -1480,6 +1564,10 @@ class ClusterBackend:
         handle.mark_dead()
         node = self.runtime.get_node(node_id)
         if node is not None:
+            if event.get("drain_expired"):
+                # the head's deadline escalation beat the driver's own
+                # timer (the runtime counts it exactly once)
+                self.runtime.count_drain_escalation(node)
             try:
                 self.runtime.remove_node(node, _from_cluster=True)
             except Exception:
@@ -1498,9 +1586,13 @@ class ClusterBackend:
             daemons = list(self.daemons.values())
             self.daemons.clear()
         for handle in daemons:
-            handle.stop()
+            if self._owns_cluster:
+                handle.stop()
+            else:       # a joined cluster: disconnect, do not stop
+                handle.detach()
         if self.head is not None:
-            self.head.stop_head()
+            if self._owns_cluster:
+                self.head.stop_head()
             self.head.close()
         if self.head_proc is not None:
             try:
@@ -1511,9 +1603,10 @@ class ClusterBackend:
         if self.owner_server is not None:
             self.owner_server.stop()
         self.arenas.close()
-        # a daemon that was SIGKILLed never unlinked its arena: remove
-        # every node's segment name (mappings still held stay valid)
-        from ray_tpu_torch.objectplane.arena import sweep_stale_segments
-        for node_id in list(self.node_resources):
-            sweep_stale_segments(f"rtpt_{node_id.hex()[:12]}")
+        if self._owns_cluster:
+            # a daemon that was SIGKILLed never unlinked its arena: remove
+            # every node's segment name (mappings still held stay valid)
+            from ray_tpu_torch.objectplane.arena import sweep_stale_segments
+            for node_id in list(self.node_resources):
+                sweep_stale_segments(f"rtpt_{node_id.hex()[:12]}")
         shutil.rmtree(self.session_dir, ignore_errors=True)

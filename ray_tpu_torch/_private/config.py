@@ -9,10 +9,9 @@ Resolution order per flag (highest wins):
 
 An unknown ``_system_config`` key raises, as in the reference. The table
 holds only the flags the port's runtime reads (the core, its process
-workers and the daemon cluster), with JAX's defaults but one:
-``async_core`` is False, and True raises, until the asyncio core is
-ported. The reference's other flags belong to parts of its runtime the
-port does not have yet.
+workers, the daemon cluster, the asyncio control plane and graceful
+drain), each with JAX's name, type, default and variable. The reference's
+other flags belong to parts of its runtime the port does not have yet.
 """
 
 from __future__ import annotations
@@ -109,9 +108,33 @@ FLAG_DEFS = [
     Flag("control_call_timeout_s", float, 60.0, "deadline of control-plane "
          "round trips whose reply is an ack (batch-submit and free "
          "flushes): a silent partition surfaces as an RpcError"),
-    Flag("async_core", bool, False, "the asyncio control plane (JAX's "
-         "default); not ported yet: the threaded core is the port's, and "
-         "True raises"),
+    # -- graceful drain / preemption --
+    Flag("drain_deadline_s", float, 30.0, "default graceful-drain window: "
+         "planned departures (preemption notice, downscale, maintenance) "
+         "migrate objects and actors and finish running work for up to "
+         "this long before escalating to the hard node-death path"),
+    Flag("drain_notice_file", str, "", "path the daemon's preemption "
+         "watcher polls; the file appearing (content = reason) triggers a "
+         "self-announced graceful drain"),
+    # -- the asyncio control plane (_private/eventloop.py, aio.py) --
+    Flag("lock_sanitizer", bool, False, "arm the loop-affinity check "
+         "(eventloop.assert_loop raises when loop-only code runs off the "
+         "event loop); JAX's lock-order half is not ported"),
+    Flag("async_core", bool, True, "single-threaded asyncio control "
+         "plane: one event loop per process owns every peer socket (wire, "
+         "reply pump, dispatch pass); off falls back to the "
+         "thread-per-connection core (mixed clusters interoperate via the "
+         "async_core hello bit)"),
+    Flag("loop_lag_probe_s", float, 0.25, "interval of the event-loop lag "
+         "probe behind ray_tpu_event_loop_lag_seconds; 0 disarms"),
+    Flag("loop_slow_callback_s", float, 0.05, "slow-callback watchdog "
+         "threshold: loop callbacks (asyncio debug timing) or probe lag "
+         "past this many seconds count into "
+         "ray_tpu_event_loop_slow_callbacks_total"),
+    Flag("async_debug", bool, False, "run the control-plane loop in "
+         "asyncio debug mode: per-callback timing feeds the slow-callback "
+         "watchdog and logs each offender (debug mode taxes every "
+         "callback)"),
 ]
 
 FLAGS: Dict[str, Flag] = {f.name: f for f in FLAG_DEFS}
@@ -145,12 +168,6 @@ class Config:
                 value = flag.type(raw)
             self._values[flag.name] = value
             self._provenance[flag.name] = source
-        if self._values["async_core"]:
-            raise ValueError(
-                "async_core=True: the asyncio control-plane core "
-                "(_private/aio.py, _private/eventloop.py) is the next part "
-                "of ROADMAP A11c and not ported yet; the port runs the "
-                "threaded core (async_core=False)")
         if self._values["cluster"] not in ("", "daemons"):
             raise ValueError(f"cluster={self._values['cluster']!r}: "
                              f"expected '' or 'daemons'")

@@ -34,8 +34,15 @@ Python per task.
 Worker-initiated core ops (nested ``ray_tpu_torch.*`` calls inside tasks)
 forward as blobs to the owner (the driver) over a connection of their own.
 
-Left out, each with the ROADMAP item that brings it: the preemption
-watcher and drain (A11c), the targeted actor lane (A11c), the
+Lifetime: a daemon the driver spawned ends when that driver's connection
+closes; one started with ``--persist`` (``ray-tpu start``) serves every
+driver that joins, ends a departed driver's actors, and once the last
+driver is gone drops its leases and actors and waits for the next.
+Preemption: SIGTERM, the ``drain_notice_file`` appearing, or
+``PreemptionWatcher.notify`` announce one graceful drain to the head.
+
+Left out, each with the ROADMAP item that brings it: the targeted actor
+lane (A11c), the
 cross-language tier (A11c), the per-node agent, the memory monitor and
 pressure, network chaos, failpoints, tenancy, profiling and the log
 monitor (A11e). Their handlers are not declared, so a call fails as any
@@ -56,7 +63,7 @@ import uuid
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
-from ray_tpu_torch._private import rpc
+from ray_tpu_torch._private import eventloop, rpc
 from ray_tpu_torch._private.head import HeadClient, _hb_interval, _retry
 from ray_tpu_torch._private.ids import ActorID, NodeID
 from ray_tpu_torch._private.rpc import Client, Connection, declare
@@ -99,6 +106,81 @@ declare("daemon_stats")
 declare("syncer_exchange", "view")
 declare("syncer_view")
 declare("core_op", "call", "payload", "task")
+
+
+# ---------------------------------------------------------------------------
+# preemption watcher: a self-announced graceful drain
+# ---------------------------------------------------------------------------
+
+class PreemptionWatcher:
+    """Funnels preemption and maintenance notices into ONE self-announced
+    graceful drain at the head. Sources, all ending in :meth:`notify`:
+
+    - SIGTERM: ``install_sigterm()`` (the daemon's ``main()`` installs it;
+      the handler only sets an event, the announce RPC runs on the
+      watcher's thread);
+    - the notice file (``drain_notice_file``): the file appearing is the
+      notice, its content the reason;
+    - ``notify(reason)`` from any integration hook.
+
+    After announcing, the daemon keeps serving: the head fences new
+    placements, drivers migrate work off, and the head escalates to the
+    death path at the deadline, whose heartbeat reply makes this process
+    exit."""
+
+    def __init__(self, node_id_hex: str, head_addr: Tuple[str, int],
+                 deadline_s: float, notice_file: str = ""):
+        self.node_id_hex = node_id_hex
+        self.head_addr = head_addr
+        self.deadline_s = deadline_s
+        self.notice_file = notice_file
+        self.announced = False
+        self._reason = "preemption"
+        self._event = threading.Event()
+
+    def notify(self, reason: str = "preemption") -> None:
+        self._reason = reason
+        self._event.set()
+
+    def install_sigterm(self) -> None:
+        import signal
+
+        def handler(signum, frame):
+            self.notify("sigterm")
+
+        try:
+            signal.signal(signal.SIGTERM, handler)
+        except ValueError:
+            pass    # not the main thread (embedded use): file and hook only
+
+    def start(self) -> None:
+        threading.Thread(target=self._loop, daemon=True,
+                         name="preemption-watch").start()
+
+    def _loop(self) -> None:
+        while not self._event.wait(0.2):
+            if self.notice_file and os.path.exists(self.notice_file):
+                try:
+                    with open(self.notice_file) as fh:
+                        reason = fh.read().strip() or "maintenance notice"
+                except OSError:
+                    reason = "maintenance notice"
+                self.notify(reason)
+        self._announce()
+
+    def _announce(self) -> None:
+        if self.announced:
+            return
+        self.announced = True
+        try:
+            head = HeadClient(self.head_addr)
+            try:
+                head.drain_node(self.node_id_hex, self.deadline_s,
+                                self._reason)
+            finally:
+                head.close()
+        except (OSError, rpc.RpcError):
+            pass    # head unreachable: the crash path recovers the node
 
 
 UNKNOWN_CLIENT = "?"
@@ -1018,13 +1100,15 @@ class _BatchReplyPump:
     frames: one frame carries every completion that landed within the
     linger window. Final outcomes, ``stored`` results and stream
     terminations of ``push_task_batch`` tasks all ride the same frames.
-    Knobs:
-    ``result_batch_max`` (entries a frame) and ``result_linger_us``.
+    Knobs: ``result_batch_max`` (entries a frame) and
+    ``result_linger_us``.
 
-    The threaded core: one thread waits on a condition (JAX's asyncio core
-    runs the pump as a chain of loop callbacks instead). A push fails only
-    by closing its connection, whose outcomes are then dropped (JAX
-    requeues a frame its failpoints drop). An outcome resent for a
+    Async core: the pump is a ``call_later`` chain on the event loop (one
+    cross-thread wake per linger window, and the flush runs where the
+    write batcher lives, so a chunk's push coalesces with other writes of
+    the loop). Threaded core: one thread waits on a condition. A push
+    fails only by closing its connection, whose outcomes are then dropped
+    (JAX requeues a frame its failpoints drop). An outcome resent for a
     duplicate frame is idempotent at the driver (a final outcome pops its
     waiter slot exactly once)."""
 
@@ -1034,13 +1118,45 @@ class _BatchReplyPump:
         self.max_per_frame = max(1, int(cfg().result_batch_max))
         self._cv = threading.Condition()
         self._buf: Dict[Connection, list] = {}  #: guarded by self._cv
-        threading.Thread(target=self._loop, daemon=True,
-                         name="batch-reply-pump").start()
+        self._aloop = eventloop.get_loop() if cfg().async_core else None
+        self._armed = False     #: guarded by self._cv (loop mode)
+        if self._aloop is None:
+            threading.Thread(target=self._loop, daemon=True,
+                             name="batch-reply-pump").start()
 
     def add(self, conn: Connection, out: Dict[str, Any]) -> None:
         with self._cv:
             self._buf.setdefault(conn, []).append(out)
-            self._cv.notify()
+            if self._aloop is None:
+                self._cv.notify()
+                return
+            if self._armed:
+                return      # a flush is already scheduled: coalesce
+            self._armed = True
+        if eventloop.on_loop():
+            self._arm_flush()
+        else:
+            self._aloop.call_soon_threadsafe(self._arm_flush)
+
+    def _arm_flush(self) -> None:  #: loop-only
+        if self.linger_s > 0:
+            self._aloop.call_later(self.linger_s, self._flush_on_loop)
+        else:
+            self._aloop.call_soon(self._flush_on_loop)
+
+    def _flush_on_loop(self) -> None:  #: loop-only
+        with self._cv:
+            buf, self._buf = self._buf, {}
+            self._armed = False
+        self._send(buf)
+
+    def _send(self, buf: Dict[Connection, list]) -> None:
+        for conn, entries in buf.items():
+            for i in range(0, len(entries), self.max_per_frame):
+                if conn.closed:
+                    break   # the driver is gone, its waiters with it
+                conn.push("task_batch_done",
+                          outcomes=entries[i:i + self.max_per_frame])
 
     def _loop(self) -> None:
         while True:
@@ -1052,12 +1168,7 @@ class _BatchReplyPump:
                 time.sleep(self.linger_s)
             with self._cv:
                 buf, self._buf = self._buf, {}
-            for conn, entries in buf.items():
-                for i in range(0, len(entries), self.max_per_frame):
-                    if conn.closed:
-                        break   # the driver is gone, its waiters with it
-                    conn.push("task_batch_done",
-                              outcomes=entries[i:i + self.max_per_frame])
+            self._send(buf)
 
 
 # completed batched-task outcomes kept for duplicate-frame resend; the cap
@@ -1124,10 +1235,15 @@ def _load_spec(blob: bytes):
 class DaemonService:
     def __init__(self, node_id_hex: str, resources: Dict[str, float],
                  object_store_bytes: int, host: str = "127.0.0.1",
-                 session_dir: Optional[str] = None):
+                 session_dir: Optional[str] = None, persist: bool = False):
         from ray_tpu_torch._private.config import cfg as _cfg
         self.node_id = NodeID.from_hex(node_id_hex)
         self.resources = resources
+        # persist=True (a cluster `ray-tpu start` stood up): outlive driver
+        # disconnects and serve the next driver; False (a driver's own
+        # session): end with the driver
+        self.persist = persist
+        self.preemption_watcher: Optional[PreemptionWatcher] = None
         # Spill armed only under the memory_pressure switch (off by
         # default, as in JAX): a disarmed table keeps every hook a
         # None-check. The default spill dir lives in the driver's session
@@ -1154,6 +1270,9 @@ class DaemonService:
                                self.objects._shm.capacity())
         self.owner: Optional[Client] = None
         self.driver_conn: Optional[Connection] = None
+        # every attached driver's connection -> its owner client, oldest
+        # first (a --persist daemon may serve several at once)
+        self._drivers: "OrderedDict[Connection, Client]" = OrderedDict()  #: guarded by self._lock
         # fencing epoch minted by the head at register_node; stamped into
         # heartbeats, hello replies and every result/stream frame
         self.epoch = 0
@@ -1300,8 +1419,15 @@ class DaemonService:
 
     # -- wiring ----------------------------------------------------------
     def handle_hello_driver(self, conn, rid, msg):
+        owner = rpc.connect(tuple(msg["owner_addr"]), timeout=None)
+        with self._lock:
+            # a persistent daemon may serve several drivers at once (a
+            # second one joined by `init(address=)`): the latest is the
+            # current owner; one that leaves hands back to the one before
+            self._drivers[conn] = owner
+            self._drivers.move_to_end(conn)
         self.driver_conn = conn
-        self.owner = rpc.connect(tuple(msg["owner_addr"]), timeout=None)
+        self.owner = owner
         self.runtime.job_id = _load_spec(msg["job_id"])
         self.runtime.namespace = msg["namespace"]
         # the driver's import roots: future workers get them in the boot
@@ -1328,6 +1454,9 @@ class DaemonService:
                 "fast_port": self.fast_port,
                 # result fencing: outcomes carry this registration epoch
                 "epoch": self.epoch,
+                # which wire+dispatch core this daemon runs (frames are
+                # identical either way: observational, capabilities.py)
+                "async_core": self._batch_pump._aloop is not None,
                 # zero-copy object plane: same-host clients attach this
                 # arena by name for direct puts and slot-ref'd gets
                 "objectplane": self.objects._shm is not None,
@@ -1350,10 +1479,67 @@ class DaemonService:
             # connection gone (a clean close and a SIGKILL look the same
             # here): reclaim every grant and reservation charged to it
             self.reclaim_client(cid, "disconnect")
-        if conn is self.driver_conn:
-            # driver gone: this daemon's work is orphaned; exit, as a
-            # raylet whose session ended
-            threading.Thread(target=self._exit_soon, daemon=True).start()
+        with self._lock:
+            owner = self._drivers.pop(conn, None)
+            rest = list(self._drivers.items())
+        if owner is None:
+            return      # not a driver's connection
+        if rest:
+            # another driver is still attached: it becomes the owner
+            # again, and only the departed driver's actors go
+            self.driver_conn, self.owner = rest[-1]
+            owner.close()
+            self._kill_actors(conn.meta.get("actors", ()))
+            return
+        if self.persist:
+            # a shared cluster (`ray-tpu start`): drop the departed
+            # driver's state and wait for the next one
+            self._reset_for_new_driver()
+            return
+        # driver gone: this daemon's work is orphaned; exit, as a raylet
+        # whose session ended
+        threading.Thread(target=self._exit_soon, daemon=True).start()
+
+    def _kill_actors(self, actor_ids) -> None:
+        router = self.runtime.process_router
+        with router._lock:
+            clients = [router._actor_workers.pop(aid, None)
+                       for aid in list(actor_ids)]
+        for client in clients:
+            if client is not None:
+                try:
+                    client.kill(expected=True)
+                except Exception:
+                    pass
+
+    def _reset_for_new_driver(self) -> None:
+        """Tear down the departed driver's leases and actors so the next
+        driver starts clean (its objects stay until arena pressure: a
+        cross-driver growth bounded by the arena's capacity)."""
+        self.driver_conn = None
+        old_owner, self.owner = self.owner, None
+        if old_owner is not None:
+            try:
+                old_owner.close()
+            except OSError:
+                pass
+        with self._lock:
+            self._drivers.clear()
+            leases = list(self._leases.values())
+            self._leases.clear()
+            self._task_rids.clear()
+            self._bundles.clear()
+            self._batch_running.clear()
+            self._batch_done.clear()
+        for client in leases:   # leased mid-task: state unknown, kill
+            try:
+                client.kill(expected=True)
+            except Exception:
+                pass
+        router = self.runtime.process_router
+        with router._lock:
+            actors = list(router._actor_workers)
+        self._kill_actors(actors)
 
     def _exit_soon(self) -> None:
         time.sleep(0.2)
@@ -1555,6 +1741,7 @@ class DaemonService:
             # fetch_function here with no driver round trip
             wp.register_function_blob(blob)
         resend = []
+        starts = []
         for entry in msg["tasks"]:
             key = (entry["task"], entry.get("attempt", 0))
             with self._lock:
@@ -1565,15 +1752,26 @@ class DaemonService:
                     resend.append(done)
                     continue
                 self._batch_running.add(key)
-            self._start_batch_task(conn, entry, key)
+            starts.append(self._start_batch_task(conn, entry, key))
+        if len(starts) == 1 or not eventloop.on_loop():
+            for start in starts:
+                self._task_pool.submit(start)
+        elif starts:
+            # on the loop: ONE pool job fans the starts out, so the pool's
+            # thread spawns stay off the loop
+            def _fan_out():
+                for start in starts:
+                    self._task_pool.submit(start)
+            self._task_pool.submit(_fan_out)
         for out in resend:
             self._batch_pump.add(conn, out)
         return {"ok": True, "accepted": len(msg["tasks"])}
 
-    def _start_batch_task(self, conn, entry, key: tuple) -> None:
-        """Acquire a pooled worker OFF the RPC lane thread (the pool may
-        cold-spawn a process) and run the shared pushed-task machinery
-        with the batch reply adapter."""
+    def _start_batch_task(self, conn, entry, key: tuple):
+        """The start closure of one batched task, to run on the task pool
+        (it acquires a pooled worker, which may cold-spawn a process, and
+        runs the shared pushed-task machinery with the batch reply
+        adapter)."""
         bconn = _BatchTaskConn(self, conn, entry["task"], key)
 
         def start():
@@ -1593,7 +1791,7 @@ class DaemonService:
                 wp.release_worker(client)
                 bconn.reply_error(None, f"{type(e).__name__}: {e}")
 
-        self._task_pool.submit(start)
+        return start
 
     def _batch_task_done(self, conn, key: tuple,
                          out: Dict[str, Any]) -> None:
@@ -1709,6 +1907,8 @@ class DaemonService:
             router = self.runtime.process_router
             with router._lock:
                 router._actor_workers[spec.actor_id] = client
+            # the creating driver's actors end when it leaves
+            conn.meta.setdefault("actors", set()).add(spec.actor_id)
             actor_id = spec.actor_id
             client.add_death_callback(
                 lambda c, aid=actor_id: router._actor_worker_died(aid, c))
@@ -2127,6 +2327,8 @@ def main() -> None:
     parser.add_argument("--announce-fd", type=int, default=-1)
     parser.add_argument("--session-dir", default="",
                         help="the driver's session dir (spill files)")
+    parser.add_argument("--persist", action="store_true",
+                        help="survive driver disconnects (shared cluster)")
     args = parser.parse_args()
 
     # the daemon and its workers never own the card
@@ -2135,7 +2337,9 @@ def main() -> None:
     resources = json.loads(args.resources)
     service = DaemonService(args.node_id, resources,
                             args.object_store_bytes, host=args.host,
-                            session_dir=args.session_dir or None)
+                            session_dir=args.session_dir or None,
+                            persist=args.persist)
+    eventloop.set_proc_label(f"daemon:{args.node_id[:8]}")
     server = rpc.serve(service, host=args.host, port=0).start()
     if args.announce_fd >= 0:
         os.write(args.announce_fd, f"{server.addr[1]}\n".encode())
@@ -2158,6 +2362,16 @@ def main() -> None:
     # that declares this node dead, ends the session.
     from ray_tpu_torch._private.config import cfg
     grace = cfg().head_grace_s
+
+    # SIGTERM or the maintenance-notice file announce a graceful drain
+    # (the head then fences placements, drivers migrate, and the deadline
+    # escalates to node death)
+    watcher = PreemptionWatcher(args.node_id, head_addr,
+                                cfg().drain_deadline_s,
+                                cfg().drain_notice_file)
+    watcher.install_sigterm()
+    watcher.start()
+    service.preemption_watcher = watcher
 
     def reconnect() -> "HeadClient | None":
         if grace <= 0:

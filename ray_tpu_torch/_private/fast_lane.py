@@ -399,6 +399,13 @@ class FastLaneClient:
 
     def wait(self, slot: list,
              timeout: Optional[float] = None) -> Tuple[int, Any]:
+        # the loop-affinity contract of AsyncClient.call: blocking the
+        # process event loop here would stall every peer it serves
+        from ray_tpu_torch._private import eventloop
+        if eventloop.on_loop():
+            raise RuntimeError(
+                "FastLaneClient.wait would block the event loop; fast-lane "
+                "round trips belong on worker or caller threads")
         if not slot[0].wait(timeout):
             raise TimeoutError("fast lane reply timed out")
         if slot[1] is _UNSUBMITTED:

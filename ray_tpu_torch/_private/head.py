@@ -9,10 +9,14 @@ authority and lineage stay with the single controller (the driver), and
 the card's data never crosses this process.
 
 Services:
-- NodeInfo: register_node / heartbeat / list_nodes / mark_node_dead; a
-  monitor thread marks nodes dead after ``node_dead_after_s`` without a
-  heartbeat and publishes a ``death`` event on the ``node`` channel
-  (active health checking). A node declared dead may NOT re-register
+- NodeInfo: register_node / heartbeat / list_nodes / mark_node_dead /
+  drain_node; a monitor thread marks nodes dead after
+  ``node_dead_after_s`` without a heartbeat and publishes a ``death``
+  event on the ``node`` channel (active health checking).
+  ``drain_node(node_id, deadline_s, reason)`` moves a node to the
+  DRAINING state (alive, no new placements) and publishes a ``drain``
+  event so drivers migrate work off it; the monitor escalates to the
+  death path when the deadline expires. A node declared dead may NOT re-register
   under the same id (zombie fencing, the heartbeat ``{"dead": True}``
   contract); each registration mints a higher fencing epoch.
 - InternalKV: kv_put / kv_get / kv_del / kv_keys (bytes in, bytes out).
@@ -21,16 +25,17 @@ Services:
 - Resource views: report_resources (the driver's availability) and
   report_loads_gossip (the daemons' converged peer view).
 
-Fault tolerance: with ``--state-path`` the KV table, the pubsub logs and
-the nodes' epochs are written through to sqlite (rows in the wire's
-encoding), so a head respawned after a SIGKILL resumes with the same KV,
-valid pubsub cursors and monotonic epochs. Membership is not persisted:
-live daemons re-register on their next heartbeat.
+Fault tolerance: with ``--state-path`` the KV table, the pubsub logs, the
+nodes' epochs and the drain records are written through to sqlite (rows
+in the wire's encoding), so a head respawned after a SIGKILL resumes with
+the same KV, valid pubsub cursors, monotonic epochs and its drains (a
+draining daemon that re-registers gets its DRAINING state back with the
+remaining window). Membership is not persisted: live daemons re-register
+on their next heartbeat.
 
-Left out, each with the ROADMAP item that brings it: drain_node (A11c),
-the task-event store, metrics and profile federation and tenancy records
-(A11e). Their methods are not declared here, so a call fails as any
-undeclared method does.
+Left out, each with the ROADMAP item that brings it: the task-event store,
+metrics and profile federation and tenancy records (A11e). Their methods
+are not declared here, so a call fails as any undeclared method does.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ declare("register_node", "node_id", "resources", "labels", "addr")
 declare("heartbeat", "node_id", "available", "epoch")
 declare("list_nodes")
 declare("mark_node_dead", "node_id", "reason")
+declare("drain_node", "node_id", "deadline_s", "reason")
 declare("kv_put", "key", "value", "overwrite", "ns")
 declare("kv_get", "key", "ns")
 declare("kv_del", "key", "ns")
@@ -79,7 +85,7 @@ TRANSIENT_WINDOW = 200
 class _NodeEntry:
     __slots__ = ("node_id", "resources", "labels", "addr", "alive",
                  "last_beat", "available", "reason", "avail_gossip_ts",
-                 "epoch")
+                 "draining", "drain_deadline", "drain_reason", "epoch")
 
     def __init__(self, node_id: str, resources: Dict[str, float],
                  labels: Dict[str, str], addr: Tuple[str, int]):
@@ -92,6 +98,11 @@ class _NodeEntry:
         self.available = dict(resources)
         self.reason = ""
         self.avail_gossip_ts = 0.0   # last driver report for this node
+        # graceful drain: alive + draining = no NEW placements, running
+        # work may finish; past drain_deadline the monitor escalates
+        self.draining = False
+        self.drain_deadline = 0.0    # monotonic
+        self.drain_reason = ""
         # fencing epoch minted at register_node; a frame stamped with a
         # LOWER epoch comes from a pre-death incarnation
         self.epoch = 0
@@ -100,7 +111,12 @@ class _NodeEntry:
         return {"node_id": self.node_id, "resources": self.resources,
                 "labels": self.labels, "addr": list(self.addr),
                 "alive": self.alive, "available": self.available,
-                "epoch": self.epoch, "reason": self.reason}
+                "epoch": self.epoch, "reason": self.reason,
+                "draining": self.draining,
+                "drain_reason": self.drain_reason,
+                "drain_deadline_s": (
+                    max(0.0, self.drain_deadline - time.monotonic())
+                    if self.draining else 0.0)}
 
 
 class _HeadStore:
@@ -162,6 +178,9 @@ class _HeadStore:
 # restarts, or a healed pre-restart zombie could stamp frames the fence
 # accepts.
 _EPOCH_KEY = b"\x00epoch\x00"
+# Drain records persist under the same colon-free raw-prefix scheme, each
+# row a frame of the wire's encoding ({"deadline_wall", "reason"}).
+_DRAIN_KEY = b"\x00drain\x00"
 
 
 class HeadService:
@@ -186,9 +205,22 @@ class HeadService:
         self._gossip_loads: Dict[str, Dict[str, Any]] = {}  #: guarded by self._lock
         # node_id -> last minted fencing epoch (persisted)
         self._node_epochs: Dict[str, int] = {}  #: guarded by self._lock
+        # node_id -> (wall-clock deadline, reason): drains survive a head
+        # restart (membership does not, so a record re-attaches when the
+        # draining daemon re-registers after the respawn)
+        self._drains: Dict[str, Tuple[float, str]] = {}  #: guarded by self._lock
         if state_path:
             self._store = _HeadStore(state_path)
             self._kv, self._events = self._store.load()
+            for key in [k for k in self._kv if k.startswith(_DRAIN_KEY)]:
+                blob = self._kv.pop(key)
+                try:
+                    rec = rpc.loads_frame(blob)
+                    self._drains[key[len(_DRAIN_KEY):].decode()] = (
+                        float(rec["deadline_wall"]), str(rec["reason"]))
+                except Exception:
+                    # a malformed record must not keep the head down
+                    self._store.delete(key)
             for key in [k for k in self._kv if k.startswith(_EPOCH_KEY)]:
                 blob = self._kv.pop(key)
                 try:
@@ -213,6 +245,14 @@ class HeadService:
                 # published, owners already recovered its work); a
                 # re-registration would resurrect it with stale state.
                 return {"ok": False, "dead": True, "reason": cur.reason}
+            drain = self._drains.get(node_id)
+            if drain is not None:
+                # a drain survived a head restart: re-attach it with the
+                # remaining wall-clock window
+                entry.draining = True
+                entry.drain_deadline = time.monotonic() + max(
+                    0.0, drain[0] - time.time())
+                entry.drain_reason = drain[1]
             # a monotonic fencing epoch for this incarnation: bumped on
             # every register, persisted so it survives a head respawn
             epoch = self._node_epochs.get(node_id, 0) + 1
@@ -224,7 +264,15 @@ class HeadService:
             self._nodes[node_id] = entry
         conn.meta["node_id"] = node_id
         self._publish("node", {"kind": "added", "node": entry.view()})
-        return {"ok": True, "epoch": entry.epoch}
+        if entry.draining:
+            # re-announce so a (re)subscribed driver resumes the migration
+            self._publish("node", {
+                "kind": "drain", "node_id": node_id,
+                "deadline_s": max(0.0, entry.drain_deadline
+                                  - time.monotonic()),
+                "reason": entry.drain_reason})
+        return {"ok": True, "draining": entry.draining,
+                "epoch": entry.epoch}
 
     def handle_heartbeat(self, conn, rid, msg):
         node_id = msg["node_id"]
@@ -246,10 +294,11 @@ class HeadService:
             if time.monotonic() - entry.avail_gossip_ts > 2.0:
                 entry.available = msg["available"]
             was_dead = not entry.alive
+            draining = entry.draining
         if was_dead:
             # a heartbeat from a node declared dead: tell it to exit
             return {"ok": False, "dead": True}
-        return {"ok": True}
+        return {"ok": True, "draining": draining}
 
     def handle_list_nodes(self, conn, rid, msg):
         with self._lock:
@@ -261,21 +310,59 @@ class HeadService:
                     n["gossip_version"] = g["v"]
             return {"nodes": nodes}
 
+    def handle_drain_node(self, conn, rid, msg):
+        """Graceful drain: keep the node alive but DRAINING, so running
+        work can finish and drivers migrate objects and actors off it, and
+        publish ``drain``; the health monitor escalates to the death path
+        when ``deadline_s`` expires."""
+        node_id = msg["node_id"]
+        deadline_s = max(0.0, float(msg.get("deadline_s") or 0.0))
+        reason = msg.get("reason") or "drain"
+        with self._lock:
+            entry = self._nodes.get(node_id)
+            if entry is None or not entry.alive:
+                return {"ok": False, "unknown": True}
+            if entry.draining:
+                # idempotent: the first drain's deadline stands
+                return {"ok": True, "already": True}
+            entry.draining = True
+            entry.drain_deadline = time.monotonic() + deadline_s
+            entry.drain_reason = reason
+            self._drains[node_id] = (time.time() + deadline_s, reason)
+            if self._store is not None:
+                self._store.put(_DRAIN_KEY + node_id.encode(),
+                                rpc.dumps_frame({
+                                    "deadline_wall": time.time()
+                                    + deadline_s,
+                                    "reason": reason}))
+        self._publish("node", {"kind": "drain", "node_id": node_id,
+                               "deadline_s": deadline_s,
+                               "reason": reason})
+        return {"ok": True}
+
     def handle_mark_node_dead(self, conn, rid, msg):
         # the driver observed a daemon failure first-hand (an RPC error)
         # and reports it before the health window elapses
         self._mark_dead(msg["node_id"], msg["reason"])
         return {"ok": True}
 
-    def _mark_dead(self, node_id: str, reason: str) -> None:
+    def _mark_dead(self, node_id: str, reason: str,
+                   drain_expired: bool = False) -> None:
         with self._lock:
             entry = self._nodes.get(node_id)
             if entry is None or not entry.alive:
                 return
             entry.alive = False
             entry.reason = reason
+            was_draining = entry.draining
+            entry.draining = False
+            self._drains.pop(node_id, None)
+            if self._store is not None:
+                self._store.delete(_DRAIN_KEY + node_id.encode())
         self._publish("node", {"kind": "death", "node_id": node_id,
-                               "reason": reason})
+                               "reason": reason,
+                               "was_draining": was_draining,
+                               "drain_expired": drain_expired})
 
     def _health_loop(self) -> None:
         while not self._stop.wait(_hb_interval()):
@@ -284,11 +371,23 @@ class HeadService:
                 self._exit_orphaned()
             now = time.monotonic()
             window = _dead_after()
+            dead: List[str] = []
+            expired: List[str] = []
             with self._lock:
-                dead = [e.node_id for e in self._nodes.values()
-                        if e.alive and now - e.last_beat > window]
+                for entry in self._nodes.values():
+                    if not entry.alive:
+                        continue
+                    if now - entry.last_beat > window:
+                        dead.append(entry.node_id)
+                    elif entry.draining and now > entry.drain_deadline:
+                        expired.append(entry.node_id)
             for node_id in dead:
                 self._mark_dead(node_id, "missed heartbeats")
+            for node_id in expired:
+                # escalation: the drain window closed with the node still
+                # up; lineage covers whatever did not migrate in time
+                self._mark_dead(node_id, "drain deadline expired",
+                                drain_expired=True)
 
     def _exit_orphaned(self) -> None:
         """The driver died without head_stop: drop the state file (no
@@ -502,6 +601,12 @@ class HeadClient:
     def list_nodes(self) -> List[Dict[str, Any]]:
         return self._call("list_nodes")["nodes"]
 
+    def drain_node(self, node_id: str, deadline_s: float,
+                   reason: str = "drain") -> Dict[str, Any]:
+        """Ask the head to move a node into the DRAINING state."""
+        return self._call("drain_node", node_id=node_id,
+                          deadline_s=float(deadline_s), reason=reason)
+
     def mark_node_dead(self, node_id: str, reason: str) -> None:
         self._call("mark_node_dead", node_id=node_id, reason=reason)
 
@@ -628,6 +733,8 @@ def main() -> None:
                         help="exit once this process (the driver that "
                              "spawned the head) is gone; 0 = never")
     args = parser.parse_args()
+    from ray_tpu_torch._private import eventloop
+    eventloop.set_proc_label("head")
     service = HeadService(state_path=args.state_path or None,
                           parent_pid=args.parent_pid or None)
     server = rpc.serve(service, host=args.host, port=args.port).start()

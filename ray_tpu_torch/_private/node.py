@@ -4,8 +4,15 @@
 Each node owns a resource ledger, a backlog of tasks gated on resource
 availability, a pool of threads that executes them, and the actor executors
 living on the node. The scheduler (:mod:`ray_tpu_torch._private.scheduler`)
-assigns a task to a node, the node's dispatch thread admits it when
-resources free up, and a pooled thread runs it.
+assigns a task to a node, the node's dispatch pass admits it when
+resources free up, and a pooled thread runs it. With ``cfg().async_core``
+(the default) the dispatch pass is a callback on the process event loop
+(``_private/eventloop.py``); with the threaded core it is a thread of the
+node's own.
+
+Graceful drain (``start_drain``): a draining node takes no new placements,
+hands its queued and admitted-but-unstarted tasks back to the runtime, and
+lets its running work finish.
 
 Every task runs in the process that called ``init``, as the reference's
 does with process workers off: the card's kernels and torch's host ops
@@ -19,6 +26,7 @@ import asyncio
 import heapq
 import queue
 import threading
+import time
 from collections import OrderedDict, deque
 from typing import Any, Callable, Dict, List, Optional
 
@@ -28,6 +36,9 @@ from ray_tpu_torch._private.object_store import LocalObjectStore
 from ray_tpu_torch._private.task_spec import TaskKind, TaskSpec
 
 _DISPATCH_POLL_S = 5.0
+
+# Queue sentinel that only wakes the dispatch pass (None means exit).
+_WAKE = object()
 
 
 def _bump_cluster_epoch() -> None:
@@ -43,6 +54,19 @@ class ResourceLedger:
         self.total = dict(total)
         self._available = dict(total)
         self._cond = threading.Condition()
+        # availability-grew hook (loop-hosted dispatch): fired outside the
+        # condition lock after release, release_many and add_total, so the
+        # pass wakes at once instead of polling; the threaded dispatch
+        # thread waits on the condition and never sets it
+        self.on_change: Optional[Callable[[], None]] = None
+
+    def _fire_on_change(self) -> None:
+        cb = self.on_change
+        if cb is not None:
+            try:
+                cb()
+            except Exception:
+                pass    # a wake hook must never fail a release
 
     def can_fit_total(self, demand: Dict[str, float]) -> bool:
         return all(self.total.get(k, 0.0) >= v for k, v in demand.items())
@@ -63,6 +87,7 @@ class ResourceLedger:
                 self.total[k] = self.total.get(k, 0.0) + v
                 self._available[k] = self._available.get(k, 0.0) + v
             self._cond.notify_all()
+        self._fire_on_change()
         _bump_cluster_epoch()   # can_fit_total's answers changed
 
     def remove_total(self, extra: Dict[str, float]) -> None:
@@ -86,6 +111,7 @@ class ResourceLedger:
                     self._available[k] = min(
                         self._available.get(k, 0.0) + v, self.total[k])
             self._cond.notify_all()
+        self._fire_on_change()
 
     def wait_for_change(self, timeout: float) -> None:
         with self._cond:
@@ -127,6 +153,7 @@ class ResourceLedger:
                             self._available.get(k, 0.0) + v * count,
                             self.total[k])
             self._cond.notify_all()
+        self._fire_on_change()
 
 
 class ActorExecutor:
@@ -320,6 +347,23 @@ class _ExecPool:
             threading.Thread(target=self._work, daemon=True,
                              name=f"{self._name}-{base - i}").start()
 
+    def steal_pending(self) -> List[TaskSpec]:
+        """Take every admitted-but-unstarted spec at once (drain handback,
+        node death). Specs in flight finish on their threads."""
+        with self._cv:
+            out = list(self._q)
+            self._q.clear()
+        return out
+
+    def has_handback_pending(self) -> bool:
+        """Whether a queued spec could still be handed back. A spec the
+        scheduler bounced back (nowhere else fits) stays and runs here:
+        without this filter the drain pass would steal and requeue it at
+        every pass until a thread freed up."""
+        with self._cv:
+            return any(not getattr(s, "_drain_bounced", False)
+                       for s in self._q)
+
     def stop(self) -> None:
         with self._cv:
             self._stopped = True
@@ -351,7 +395,7 @@ class _ExecPool:
 
 
 class Node:
-    """One (virtual) node: resources + store + dispatch loop + actors."""
+    """One (virtual) node: resources + store + dispatch pass + actors."""
 
     def __init__(self, node_id: NodeID, resources: Dict[str, float],
                  labels: Dict[str, str], store: LocalObjectStore,
@@ -363,6 +407,10 @@ class Node:
         self.store = store
         self._execute_task = execute_task
         self.alive = True
+        # Graceful drain: alive + draining = running work finishes, no new
+        # placements; the dispatch pass hands queued-but-unstarted tasks
+        # back to the runtime for resubmission elsewhere.
+        self.draining = False
         # a daemon-backed node (cluster="daemons"): its DaemonHandle, and
         # the dependency-staging hook called at enqueue
         self.daemon = None
@@ -376,9 +424,12 @@ class Node:
         self._backlog: "OrderedDict[tuple, deque]" = OrderedDict()
         self._backlog_n = 0
         # Demand of enqueued-but-not-yet-admitted tasks; lets the cluster
-        # scheduler see load before the dispatch loop acquires resources.
+        # scheduler see load before the dispatch pass acquires resources.
         self._pending_demand: Dict[str, float] = {}  #: guarded by self._pending_lock
         self._pending_lock = threading.Lock()
+        # admitted tasks not yet finished (the drain waits for these)
+        self._running: set = set()      #: guarded by self._running_lock
+        self._running_lock = threading.Lock()
         # Coalesced ledger-release staging (flat combining): completing
         # tasks append here; whichever thread finds no flush in progress
         # drains the whole batch with one release_many call.
@@ -389,10 +440,31 @@ class Node:
         pool_size = int(cfg().exec_pool_size) or max_worker_threads
         self._exec_pool = _ExecPool(pool_size, self._run_spec,
                                     name=f"task-{node_id.hex()[:8]}")
-        self._dispatcher = threading.Thread(
-            target=self._dispatch_loop, daemon=True,
-            name=f"dispatch-{node_id.hex()[:8]}")
-        self._dispatcher.start()
+        # dispatch instrumentation (debug_state's loop=), filled by both
+        # dispatchers
+        self.loop_stats = {"dispatch_iterations": 0, "tasks_launched": 0,
+                           "max_queue_lag_ms": 0.0, "launch_ms_total": 0.0}
+        # async core: the dispatch pass is a callback on the process event
+        # loop. Producers stage on a plain deque and arm one
+        # call_soon_threadsafe per burst behind a dirty flag; ledger
+        # releases wake the pass through the ledger's on_change hook.
+        # Threaded core: the dispatch thread below.
+        if cfg().async_core:
+            from ray_tpu_torch._private import eventloop
+            self._aloop = eventloop.get_loop()
+            self._inbox: deque = deque()     # GIL-atomic append/popleft
+            self._wake_armed = False         # dirty flag (benign races)
+            self._stopped = False            #: loop-only
+            self._stopped_evt = threading.Event()
+            self._retry_timer = None         #: loop-only
+            self._dispatcher = None
+            self.ledger.on_change = self._wake_loop
+        else:
+            self._aloop = None
+            self._dispatcher = threading.Thread(
+                target=self._dispatch_loop, daemon=True,
+                name=f"dispatch-{node_id.hex()[:8]}")
+            self._dispatcher.start()
 
     def info(self) -> NodeInfo:
         return NodeInfo(node_id=self.node_id, alive=self.alive,
@@ -401,6 +473,7 @@ class Node:
 
     # -- normal task path --------------------------------------------------
     def enqueue(self, spec: TaskSpec) -> None:
+        spec._enqueued_at = time.perf_counter()
         if self.prefetch is not None and spec.dependencies():
             # stage remote deps toward this node while the task waits for
             # admission (a cheap no-op when every dep is local)
@@ -411,7 +484,30 @@ class Node:
         with self._pending_lock:
             for k, v in spec.resources.items():
                 self._pending_demand[k] = self._pending_demand.get(k, 0.0) + v
-        self._queue.put(spec)
+        self._post(spec)
+
+    def _post(self, item) -> None:
+        """Dispatch-input hand-off. Threaded core: the blocking queue (one
+        futex wake an item). Async core: stage on a plain deque and arm one
+        call_soon_threadsafe per burst of submissions."""
+        if self._aloop is None:
+            self._queue.put(item)
+            return
+        self._inbox.append(item)
+        self._wake_loop()
+
+    def _wake_loop(self) -> None:
+        # a benign race on the flag: two producers may both arm (the
+        # second pass finds empty stages); a producer that sees the flag
+        # already set is covered by the armed pass, which drains AFTER
+        # clearing the flag
+        if self._wake_armed or self._aloop is None:
+            return
+        self._wake_armed = True
+        try:
+            self._aloop.call_soon_threadsafe(self._loop_pass)
+        except RuntimeError:
+            pass    # the loop is gone (interpreter exit)
 
     def _drop_pending_many(self, specs) -> None:
         """One pending-lock round-trip for a whole admitted batch."""
@@ -441,9 +537,11 @@ class Node:
                     spec = self._queue.get(timeout=timeout)
                     if spec is None:
                         return
+                    timeout = 0.0
+                    if spec is _WAKE:
+                        continue
                     self._ingest(spec)
                     spec = None     # the backlog holds it now
-                    timeout = 0.0
             except queue.Empty:
                 pass
             progressed = self._dispatch_pass()
@@ -451,7 +549,8 @@ class Node:
                 self.ledger.wait_for_change(0.05)
 
     def _ingest(self, spec: TaskSpec) -> None:
-        """Bucket one submitted spec into the backlog (dispatch thread)."""
+        """Bucket one submitted spec into the backlog (the dispatch thread
+        or the event loop, whichever owns the backlog in this mode)."""
         key = tuple(sorted(spec.resources.items()))
         bucket = self._backlog.get(key)
         if bucket is None:
@@ -459,10 +558,55 @@ class Node:
         bucket.append(spec)
         self._backlog_n += 1
 
+    def _loop_pass(self) -> None:  #: loop-only
+        """One dispatch round on the process event loop (async core).
+
+        The dirty flag is cleared first: a wake staged after the clear
+        schedules a fresh pass, one staged before it is drained below (an
+        occasional extra no-op pass is cheaper than a lost wake)."""
+        self._wake_armed = False
+        if self._retry_timer is not None:
+            self._retry_timer.cancel()
+            self._retry_timer = None
+        if self._stopped:
+            return
+        inbox = self._inbox
+        while inbox:
+            item = inbox.popleft()
+            if item is None:
+                # node shutdown: the pass stops; shutdown() takes the
+                # backlog once it sees this
+                self._stopped = True
+                self._stopped_evt.set()
+                return
+            if item is _WAKE:
+                continue
+            self._ingest(item)
+        progressed = self._dispatch_pass()
+        if self._backlog_n and not progressed and not self._stopped:
+            # blocked on resources with no release in flight: poll-retry,
+            # the threaded loop's wait_for_change(0.05); a real release
+            # cancels this timer through the ledger's on_change wake
+            self._retry_timer = self._aloop.call_later(0.05,
+                                                       self._retry_pass)
+
+    def _retry_pass(self) -> None:  #: loop-only
+        self._retry_timer = None
+        self._loop_pass()
+
     def _dispatch_pass(self) -> bool:
-        """One admission pass over the backlog buckets. Returns whether any
-        bucket made progress."""
+        """One admission pass over the backlog buckets (shared by both
+        dispatchers). Returns whether any bucket made progress; the caller
+        decides how to wait when blocked."""
+        if self.draining and (self._backlog_n
+                              or self._exec_pool.has_handback_pending()):
+            # hand queued-but-unstarted work back to the cluster scheduler
+            # (no retry consumed): backlog entries AND specs already
+            # admitted into the exec pool's queue. Whatever bounces back
+            # (nowhere else fits) falls through and dispatches here.
+            self._resubmit_backlog()
         progressed = False
+        self.loop_stats["dispatch_iterations"] += 1
         for key in list(self._backlog):
             bucket = self._backlog.get(key)
             if bucket is None:
@@ -477,13 +621,26 @@ class Node:
                 admitted = [bucket.popleft() for _ in range(n)]
                 self._backlog_n -= n
                 self._drop_pending_many(admitted)
+                t0 = time.perf_counter()
                 for spec in admitted:
                     # pairs this admission's ledger acquire with exactly
                     # one release: the runtime may release early (see
                     # worker._release_task_resources) or _run_spec's
                     # `finally` does
                     spec._resources_released = False
+                    enq = getattr(spec, "_enqueued_at", 0.0)
+                    if enq:
+                        lag_ms = (t0 - enq) * 1000
+                        if lag_ms > self.loop_stats["max_queue_lag_ms"]:
+                            self.loop_stats["max_queue_lag_ms"] = lag_ms
+                # counted before the pool takes them: a task may finish
+                # (and a get observe it) before control returns here
+                self.loop_stats["tasks_launched"] += n
+                with self._running_lock:
+                    self._running.update(s.task_id for s in admitted)
                 self._exec_pool.submit_batch(admitted)
+                self.loop_stats["launch_ms_total"] += (
+                    time.perf_counter() - t0) * 1000
                 progressed = True
             if not bucket:
                 self._backlog.pop(key, None)
@@ -494,6 +651,8 @@ class Node:
         try:
             self._execute_task(spec, self)
         finally:
+            with self._running_lock:
+                self._running.discard(spec.task_id)
             if (spec.kind != TaskKind.ACTOR_CREATION
                     and not getattr(spec, "_resources_released", True)):
                 # Actors hold their resources for their whole lifetime;
@@ -501,11 +660,29 @@ class Node:
                 spec._resources_released = True
                 self.stage_release(spec.resources)
 
+    def is_idle(self) -> bool:
+        """No task running, admitted or queued here (the drain's clean
+        departure test)."""
+        with self._running_lock:
+            if self._running:
+                return False
+        if self._aloop is not None:
+            return self._backlog_n == 0 and not self._inbox
+        return self._backlog_n == 0 and self._queue.empty()
+
     # -- coalesced ledger release (flat combining) -----------------------
     def stage_release(self, resources: Dict[str, float]) -> None:
         """Release ledger resources, coalescing concurrent completions: if
         another thread is already flushing, this release rides its drain;
-        otherwise this thread flushes inline."""
+        otherwise this thread flushes inline. Async core: the completing
+        thread releases into the ledger itself, whose on_change hook wakes
+        the loop's dispatch pass, so a task's resources are back before
+        its result is delivered (JAX's async core stages the release for
+        the loop's next pass, and a read of the available resources right
+        after a get could miss it)."""
+        if self._aloop is not None:
+            self.ledger.release(resources)
+            return
         with self._stage_lock:
             self._release_stage.append(resources)
             if self._stage_flushing:
@@ -545,6 +722,81 @@ class Node:
                 entry[1] += 1
         self.ledger.release_many(groups.values())
 
+    # -- graceful drain ----------------------------------------------------
+    def start_drain(self) -> None:
+        """Enter the DRAINING state: running tasks finish, the dispatch
+        pass returns queued work to the runtime, the scheduler stops
+        placing here. Any thread; the backlog itself stays the
+        dispatcher's (woken by the sentinel)."""
+        self.draining = True
+        # DRAINING must leave cached pick_node candidate sets now
+        _bump_cluster_epoch()
+        self._post(_WAKE)
+
+    @staticmethod
+    def _notify_off_loop(fn: Callable[[], None]) -> None:
+        """Run runtime notifications off the event loop: the lost and
+        drained callbacks resubmit through the scheduler and may make
+        blocking RPCs (which raise on the loop by design)."""
+        from ray_tpu_torch._private import eventloop
+        if eventloop.on_loop():
+            threading.Thread(target=fn, daemon=True,
+                             name="node-notify").start()
+        else:
+            fn()
+
+    def _resubmit_backlog(self) -> None:
+        """Graceful-drain pass (dispatcher only): queued tasks not bounced
+        before go back to the cluster scheduler; a task the scheduler sent
+        back here (nothing else fits) keeps its spot and runs locally."""
+        from ray_tpu_torch._private import worker
+        rt = worker.global_runtime()
+        if rt is None:
+            return
+        keep: "OrderedDict[tuple, deque]" = OrderedDict()
+        moved: List[TaskSpec] = []
+        for key, bucket in self._backlog.items():
+            stay: deque = deque()
+            for spec in bucket:
+                if getattr(spec, "_drain_bounced", False):
+                    stay.append(spec)
+                else:
+                    moved.append(spec)
+            if stay:
+                keep[key] = stay
+        self._backlog = keep
+        self._backlog_n = sum(len(b) for b in keep.values())
+        self._drop_pending_many(moved)
+        drained = moved + self._steal_drain_handback()
+        if drained:
+            def _notify() -> None:
+                for spec in drained:
+                    rt.on_node_task_drained(spec, self)
+            self._notify_off_loop(_notify)
+
+    def _steal_drain_handback(self) -> List[TaskSpec]:
+        """Admitted-but-unstarted specs still in the exec pool's queue are
+        stolen back and their ledger admission undone, to be handed to the
+        scheduler like backlog entries (no retry consumed). Bounced-back
+        specs (nothing else fits) re-feed the pool and run here."""
+        stolen = self._exec_pool.steal_pending()
+        if not stolen:
+            return []
+        requeue = [s for s in stolen if getattr(s, "_drain_bounced", False)]
+        handback = [s for s in stolen
+                    if not getattr(s, "_drain_bounced", False)]
+        if requeue:
+            self._exec_pool.submit_batch(requeue)
+        with self._running_lock:
+            for spec in handback:
+                self._running.discard(spec.task_id)
+        for spec in handback:
+            # undo the admission's ledger acquire before rescheduling
+            if not getattr(spec, "_resources_released", True):
+                spec._resources_released = True
+                self.stage_release(spec.resources)
+        return handback
+
     # -- actor hosting -----------------------------------------------------
     def host_actor(self, executor: ActorExecutor) -> None:
         with self._actors_lock:
@@ -557,22 +809,32 @@ class Node:
     # -- lifecycle ---------------------------------------------------------
     def shutdown(self) -> Dict[ActorID, List[TaskSpec]]:
         """Stop the node; returns per-actor pending tasks. Tasks still
-        queued here (not yet admitted) go back to the runtime as lost to
-        the node's death: retried elsewhere, or failed."""
+        queued here (not yet admitted, or admitted and not started) go back
+        to the runtime as lost to the node's death: retried elsewhere, or
+        failed."""
         self.alive = False
         _bump_cluster_epoch()
-        self._queue.put(None)
+        self._post(None)
         pending_by_actor: Dict[ActorID, List[TaskSpec]] = {}
         with self._actors_lock:
             actors = dict(self.actors)
             self.actors.clear()
         for aid, ex in actors.items():
             pending_by_actor[aid] = ex.kill("node died")
-        if threading.current_thread() is not self._dispatcher:
-            # the backlog is the dispatch thread's: take it once that
-            # thread has stopped
+        # the backlog is the dispatcher's: take it once the dispatcher has
+        # stopped (the dispatch thread joined, or the loop pass that saw
+        # the sentinel)
+        if self._aloop is not None:
+            from ray_tpu_torch._private import eventloop
+            if eventloop.on_loop():
+                self._stopped = True
+            else:
+                self._stopped_evt.wait(timeout=5.0)
+            self._fail_backlog()
+        elif threading.current_thread() is not self._dispatcher:
             self._dispatcher.join(timeout=5.0)
             self._fail_backlog()
+        self._fail_pool_pending()
         # let in-flight pool work unwind, then retire the idle threads
         self._exec_pool.stop()
         return pending_by_actor
@@ -587,13 +849,36 @@ class Node:
                 spec = self._queue.get_nowait()
             except queue.Empty:
                 break
-            if spec is not None:
+            if spec is not None and spec is not _WAKE:
                 backlog.append(spec)
+        if self._aloop is not None:
+            while self._inbox:
+                spec = self._inbox.popleft()
+                if spec is not None and spec is not _WAKE:
+                    backlog.append(spec)
         if not backlog:
             return
         self._drop_pending_many(backlog)
+        self._notify_lost(backlog)
+
+    def _fail_pool_pending(self) -> None:
+        """Node death with specs admitted but not started: the same
+        lost-task flow as the backlog."""
+        stolen = self._exec_pool.steal_pending()
+        if not stolen:
+            return
+        with self._running_lock:
+            for spec in stolen:
+                self._running.discard(spec.task_id)
+        self._notify_lost(stolen)
+
+    def _notify_lost(self, specs: List[TaskSpec]) -> None:
         from ray_tpu_torch._private import worker
         rt = worker.global_runtime()
-        if rt is not None:
-            for spec in backlog:
+        if rt is None:
+            return
+
+        def _notify() -> None:
+            for spec in specs:
                 rt.on_node_task_lost(spec, self)
+        self._notify_off_loop(_notify)

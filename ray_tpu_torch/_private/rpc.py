@@ -21,8 +21,11 @@ the fast lane (``_private/fast_lane.py``) shares.
   ``RpcError``. Payloads that hold user objects ride inside frames as
   ``bytes``; daemons never load them.
 
-Server model: one decode thread per connection feeding a shared handler
-pool, so requests pipeline. Per-connection arrival order is kept for
+Two cores speak these frames, chosen per process by ``cfg().async_core``
+in ``serve()`` and ``connect()``: the asyncio core (``aio.py``, the
+default, as in JAX) and the threaded core below. Threaded server model:
+one decode thread per connection feeding a shared handler pool, so
+requests pipeline. Per-connection arrival order is kept for
 ordinary handlers by a FIFO lane; handlers that may block are marked
 ``@concurrent`` and run outside the lane. Dispatch is by method name to a
 service object (``handle_<method>``). A handler may return ``HOLD`` to
@@ -545,19 +548,29 @@ class Server:
 
 
 # ---------------------------------------------------------------------------
-# core selection: the threaded core is the port's only one until the
-# asyncio core is ported (``async_core`` raises when set)
+# core selection: both cores speak identical frames, so a threaded peer and
+# an asyncio peer interoperate on one socket; cfg().async_core is a choice
+# of each process (advertised in the async_core hello bit), not a version
+# of the wire
 # ---------------------------------------------------------------------------
 
-def serve(service: Any, host: str = "127.0.0.1", port: int = 0) -> Server:
-    """Build the server core (NOT started: call .start())."""
+def serve(service: Any, host: str = "127.0.0.1", port: int = 0):
+    """Build the configured server core (NOT started: call .start())."""
+    from ray_tpu_torch._private.config import cfg
+    if cfg().async_core:
+        from ray_tpu_torch._private.aio import AsyncServer
+        return AsyncServer(service, host=host, port=port)
     return Server(service, host=host, port=port)
 
 
 def connect(addr: Tuple[str, int], timeout: float = 30.0,
             on_push: Optional[Callable[[str, Dict[str, Any]], None]]
-            = None) -> Client:
-    """Dial with the client core."""
+            = None):
+    """Dial with the configured client core."""
+    from ray_tpu_torch._private.config import cfg
+    if cfg().async_core:
+        from ray_tpu_torch._private.aio import AsyncClient
+        return AsyncClient(addr, timeout=timeout, on_push=on_push)
     return Client(addr, timeout=timeout, on_push=on_push)
 
 

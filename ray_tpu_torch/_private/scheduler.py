@@ -4,7 +4,11 @@
 Hybrid top-k (pack up to a utilization threshold, then spread), SPREAD,
 node affinity (hard/soft) and node-label selection. The two-level split is
 kept: this module only picks a node; admission happens in the node's
-dispatch loop (:mod:`ray_tpu_torch._private.node`).
+dispatch pass (:mod:`ray_tpu_torch._private.node`).
+
+A DRAINING node takes no new placement while another alive node can hold
+the demand; a hard affinity pin still lands on it, and a label selector's
+fallback never widens past the selector.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ _EPOCH_LOCK = threading.Lock()
 
 
 def bump_cluster_epoch() -> int:
-    """Invalidate cached feasibility (node add/remove). Cheap and safe to
-    over-call."""
+    """Invalidate cached feasibility (node add/remove/drain). Cheap and
+    safe to over-call."""
     global _EPOCH
     with _EPOCH_LOCK:
         _EPOCH += 1
@@ -51,6 +55,13 @@ def cluster_epoch() -> int:
 
 class SchedulingError(Exception):
     """Task is infeasible: no alive node can ever satisfy it."""
+
+
+def _soft_excluded(n: Any) -> bool:
+    """Alive but taking no NEW placements: DRAINING. Soft: when every
+    alive node is excluded, callers fall back to them (running somewhere
+    beats failing a feasible demand)."""
+    return bool(getattr(n, "draining", False))
 
 
 _INFEASIBLE = object()      # negative-cache sentinel
@@ -83,24 +94,37 @@ class ClusterScheduler:
         alive = [n for n in nodes if n.alive]
         if not alive:
             raise SchedulingError("no alive nodes in cluster")
+        # DRAINING nodes take no new placements while their running work
+        # finishes; when every alive node drains, fall back to them
+        schedulable = [n for n in alive if not _soft_excluded(n)] or alive
         if isinstance(strategy, NodeAffinitySchedulingStrategy):
-            return self._pick_affinity(spec, strategy, alive)
+            return self._pick_affinity(spec, strategy, alive, schedulable)
         if isinstance(strategy, NodeLabelSchedulingStrategy):
+            # filter BOTH pools: the draining fallback must never widen
+            # past the label selector, and a selector whose only match is
+            # draining still runs there rather than failing
             alive = self._filter_labels(strategy, alive)
             if not alive:
                 raise SchedulingError("no node matches label selector")
+            schedulable = [n for n in alive
+                           if not _soft_excluded(n)] or alive
             strategy = "DEFAULT"
 
-        feasible = self._compute_feasible(spec, alive)
+        feasible = self._compute_feasible(spec, alive, schedulable)
         if strategy == "SPREAD":
             return self._pick_spread(spec, feasible)
         return self._pick_hybrid(spec, feasible, preferred)
 
     # -- feasibility cache -------------------------------------------------
     @staticmethod
-    def _compute_feasible(spec: TaskSpec, alive: List[Node]) -> List[Node]:
-        feasible = [n for n in alive
+    def _compute_feasible(spec: TaskSpec, alive: List[Node],
+                          schedulable: List[Node]) -> List[Node]:
+        feasible = [n for n in schedulable
                     if n.ledger.can_fit_total(spec.resources)]
+        if not feasible:
+            # a demand only a draining node can hold still runs there
+            feasible = [n for n in alive
+                        if n.ledger.can_fit_total(spec.resources)]
         if not feasible:
             raise SchedulingError(
                 f"resource demand {spec.resources} is infeasible on every "
@@ -123,20 +147,24 @@ class ClusterScheduler:
                 f"resource demand {spec.resources} is infeasible on every "
                 f"alive node")
         if entry is not None:
-            # epoch bumps cover membership changes; this cheap re-check
-            # makes a missed bump degrade to a recompute instead of a
-            # placement on a dead node
-            if all(n.alive for n in entry):
+            # epoch bumps cover membership and drain changes; this cheap
+            # re-check makes a missed bump degrade to a recompute instead
+            # of a placement on a dead or draining node
+            if all(n.alive and not _soft_excluded(n) for n in entry):
                 return entry
         alive = [n for n in nodes if n.alive]
         if not alive:
             raise SchedulingError("no alive nodes in cluster")
+        schedulable = [n for n in alive if not _soft_excluded(n)] or alive
         try:
-            feasible = self._compute_feasible(spec, alive)
+            feasible = self._compute_feasible(spec, alive, schedulable)
         except SchedulingError:
             self._feas_store(epoch, key, _INFEASIBLE)
             raise
-        self._feas_store(epoch, key, feasible)
+        # only clean candidate sets are cached: a draining-fallback pick
+        # is re-evaluated per task (a last resort, not a steady state)
+        if all(not _soft_excluded(n) for n in feasible):
+            self._feas_store(epoch, key, feasible)
         return feasible
 
     def _feas_store(self, epoch: int, key: tuple, value: Any) -> None:
@@ -188,19 +216,25 @@ class ClusterScheduler:
 
     def _pick_affinity(self, spec: TaskSpec,
                        strategy: NodeAffinitySchedulingStrategy,
-                       alive: List[Node]) -> Node:
+                       alive: List[Node],
+                       schedulable: Optional[List[Node]] = None) -> Node:
+        if schedulable is None:
+            schedulable = alive
         target = None
         for n in alive:
             if n.node_id.hex() == strategy.node_id:
                 target = n
                 break
         if target is not None and target.ledger.can_fit_total(spec.resources):
-            return target
+            # a hard pin still lands on a draining target (the user chose
+            # the node); soft affinity prefers a node that will live
+            if not (strategy.soft and getattr(target, "draining", False)):
+                return target
         if strategy.soft:
             return self._pick_hybrid(spec, [
-                n for n in alive
+                n for n in schedulable
                 if n.ledger.can_fit_total(spec.resources)
-            ] or alive, None)
+            ] or schedulable, None)
         raise SchedulingError(
             f"node {strategy.node_id[:8]} is dead or cannot fit "
             f"{spec.resources} (hard affinity)")

@@ -161,7 +161,8 @@ class Runtime:
                  object_store_memory: int = 2 * 1024 ** 3,
                  namespace: Optional[str] = None,
                  session_dir: Optional[str] = None,
-                 cluster: Optional[str] = None):
+                 cluster: Optional[str] = None,
+                 address: Optional[str] = None):
         self.job_id = JobID.from_random()
         self.worker_id = WorkerID.from_random()
         self.namespace = namespace or self.job_id.hex()
@@ -184,7 +185,9 @@ class Runtime:
         self._nodes_lock = threading.RLock()
         #: guarded by self._loc_lock
         self._locations: Dict[ObjectID, Set[NodeID]] = {}
-        self._loc_lock = threading.Lock()
+        # reentrant: a cyclic GC pass may run an ObjectRef's __del__ (and
+        # so _free_object) on a thread that already holds it
+        self._loc_lock = threading.RLock()
 
         self._tasks: Dict[TaskID, _InFlightTask] = {}  #: guarded by self._tasks_lock
         self._tasks_lock = threading.Lock()
@@ -200,7 +203,12 @@ class Runtime:
         self.stats: Dict[str, int] = {"objects_reconstructed": 0,
                                       "objects_push_prefetched": 0,
                                       "tasks_retried": 0,
-                                      "actor_restarts": 0}
+                                      "actor_restarts": 0,
+                                      # graceful drain, JAX's keys
+                                      "drains_total": 0,
+                                      "drain_objects_migrated": 0,
+                                      "drain_actors_migrated": 0,
+                                      "drain_escalations_total": 0}
 
         #: guarded by self._actor_lock
         self._actor_pending_tasks: Dict[ActorID, List[TaskSpec]] = {}
@@ -210,6 +218,8 @@ class Runtime:
         self._generators: Dict[TaskID, GeneratorState] = {}
         self._shutdown = False
         self.pg_manager = PlacementGroupManager(self)
+        from ray_tpu_torch._private import eventloop
+        eventloop.set_proc_label("driver")
 
         # Process workers: the default path for host-plane tasks and
         # actors. Accelerator-plane work stays in this process, which owns
@@ -223,7 +233,16 @@ class Runtime:
         self.cluster_backend = None
         if cluster is None:
             cluster = cfg().cluster or None
-        if cluster == "daemons":
+        if address:
+            # join a running cluster (`ray-tpu start`) as a new driver:
+            # nothing is spawned, and shutdown leaves the cluster up
+            from ray_tpu_torch._private.cluster import ClusterBackend
+            backend = ClusterBackend.attach(self, address)
+            self.cluster_backend = backend
+            for node_id, handle in list(backend.daemons.items()):
+                self.add_remote_node(handle,
+                                     dict(backend.node_resources[node_id]))
+        elif cluster == "daemons":
             # a head and node-daemon OS processes behind the wire; every
             # schedulable node is a daemon. Accelerator-plane work still
             # runs here, on the node's dispatch thread (_execute_inline).
@@ -460,6 +479,245 @@ class Runtime:
             for k, v in n.ledger.available().items():
                 out[k] = out.get(k, 0.0) + v
         return out
+
+    # ------------------------------------------------------------------
+    # graceful node drain (preemption / downscale / maintenance)
+    # ------------------------------------------------------------------
+    def drain_node(self, node, deadline_s: Optional[float] = None,
+                   reason: str = "preemption") -> bool:
+        """Gracefully drain a node: no new placements land on it, its
+        queued tasks resubmit elsewhere, primary object replicas and actors
+        migrate off it, and once its running work completes it leaves the
+        cluster. If the deadline expires first, the drain escalates into
+        the ordinary node-death path (lineage covers what did not migrate).
+
+        ``node`` is a Node, NodeID or node-id hex string. Returns True if
+        a drain was started (False: unknown, dead or already draining)."""
+        if not isinstance(node, Node):
+            node_id = (NodeID.from_hex(node) if isinstance(node, str)
+                       else node)
+            node = self.get_node(node_id)
+            if node is None:
+                return False
+        if deadline_s is None:
+            from ray_tpu_torch._private.config import cfg
+            deadline_s = cfg().drain_deadline_s
+        backend = self.cluster_backend
+        if backend is not None and node.daemon is not None:
+            # publish through the head: the DRAINING state (and its
+            # deadline escalation) outlives this driver and a head restart
+            try:
+                backend.head.drain_node(node.node_id.hex(), deadline_s,
+                                        reason)
+            except Exception:
+                pass        # head unreachable: drain locally anyway
+        started = self.begin_node_drain(node, deadline_s, reason)
+        # the head's own drain event may have won the race to start the
+        # migration: that still counts as "draining now"
+        return started or node.draining
+
+    def begin_node_drain(self, node: Node, deadline_s: float,
+                         reason: str) -> bool:
+        """Idempotent driver-side entry (also fed by the head's ``drain``
+        event): flips the node to DRAINING and starts the migration."""
+        with self._nodes_lock:
+            if (not node.alive or node.draining
+                    or self._nodes.get(node.node_id) is not node):
+                return False
+            node.start_drain()
+        self.stats["drains_total"] += 1
+        threading.Thread(target=self._drain_node_worker,
+                         args=(node, deadline_s, reason), daemon=True,
+                         name=f"drain-{node.node_id.hex()[:8]}").start()
+        return True
+
+    def _drain_node_worker(self, node: Node, deadline_s: float,
+                           reason: str) -> None:
+        deadline = time.monotonic() + max(0.0, deadline_s)
+        # flush coalesced frees first: the draining daemon should not
+        # migrate (or hold) objects the driver already released
+        for n in [node] + self.alive_nodes():
+            if n.daemon is not None:
+                try:
+                    n.daemon.flush_frees()
+                except Exception:
+                    pass
+        try:
+            self._migrate_node_objects(node)
+            self._migrate_node_actors(node, reason, deadline=deadline)
+        except Exception:
+            pass    # the escalation still bounds the drain
+        while time.monotonic() < deadline:
+            if node.is_idle():
+                # clean drain: sweep again (results stored and actors
+                # created while draining live here too), then leave with
+                # no reconstruction debt
+                try:
+                    self._migrate_node_actors(node, reason,
+                                              deadline=deadline)
+                    self._migrate_node_objects(node)
+                except Exception:
+                    pass
+                self._finish_drain(node, reason)
+                return
+            time.sleep(0.05)
+        self._escalate_drain(node, reason)
+
+    def _migrate_node_objects(self, node: Node) -> int:
+        """Copy sole-replica objects off the draining node so its
+        departure loses nothing: daemon to daemon (a push, a pull as the
+        fallback, then indexed on the target), or between in-process
+        stores."""
+        targets = [n for n in self.alive_nodes()
+                   if n.node_id != node.node_id and not n.draining]
+        if not targets:
+            return 0
+        moved = 0
+        i = 0
+        for oid in node.store.object_ids():
+            with self._loc_lock:
+                if self._locations.get(oid, set()) - {node.node_id}:
+                    continue        # a replica already lives elsewhere
+            target = targets[i % len(targets)]
+            i += 1
+            try:
+                src, dst = node.daemon, target.daemon
+                if src is not None and dst is not None:
+                    # bytes move daemon to daemon, never through the
+                    # driver: the chunked push first, a pull as fallback
+                    key, nbytes, raw = node.store.meta_of(oid)
+                    try:
+                        ok = src.push_object(key, dst.addr,
+                                             ref=oid.binary()).get("ok",
+                                                                   False)
+                    except Exception:
+                        ok = False
+                    if not ok and not dst.pull_object(
+                            key, src.addr, 1, ref=oid.binary(), raw=raw):
+                        continue
+                    target.store.register_remote(oid, key, nbytes, raw=raw)
+                else:
+                    value = node.store.get(oid)
+                    # the size cached at insert: a large pytree pays no
+                    # fresh walk
+                    target.store.put(oid, value,
+                                     nbytes=node.store.nbytes_of(oid)
+                                     or _nbytes_of(value))
+            except Exception:
+                continue        # this object stays; lineage covers it
+            with self._loc_lock:
+                self._locations.setdefault(oid, set()).add(target.node_id)
+            moved += 1
+        if moved:
+            self.stats["drain_objects_migrated"] += moved
+        return moved
+
+    def _migrate_node_actors(self, node: Node, reason: str,
+                             deadline: Optional[float] = None) -> int:
+        """Restart the draining node's actors on surviving nodes through
+        the restart machinery, gracefully: pending tasks replay on the new
+        incarnation and the planned move does not consume max_restarts."""
+        from ray_tpu_torch._private.task_spec import (
+            NodeAffinitySchedulingStrategy)
+        with node._actors_lock:
+            actors = dict(node.actors)
+        migrate: Dict[ActorID, ActorExecutor] = {}
+        for actor_id, executor in actors.items():
+            info = self.gcs.get_actor_info(actor_id)
+            strat = getattr(getattr(info, "creation_spec", None),
+                            "scheduling_strategy", None)
+            if (isinstance(strat, NodeAffinitySchedulingStrategy)
+                    and not strat.soft
+                    and strat.node_id == node.node_id.hex()):
+                # hard-pinned here: it cannot live anywhere else; it works
+                # on until the node departs
+                continue
+            migrate[actor_id] = executor
+        with node._actors_lock:
+            for actor_id in migrate:
+                node.actors.pop(actor_id, None)
+        moved = 0
+        cause = f"node draining ({reason})"
+        for actor_id, executor in migrate.items():
+            pending = executor.kill(cause)
+            # let an in-flight method finish before the actor's worker is
+            # recycled: kill() stops dispatch, so the executor threads end
+            # after the current call (bounded by the drain deadline)
+            for t in executor._threads:
+                budget = 1.0
+                if deadline is not None:
+                    budget = min(budget, max(0.0,
+                                             deadline - time.monotonic()))
+                t.join(timeout=budget)
+            try:
+                self._handle_actor_death(actor_id, cause,
+                                         pending_tasks=pending,
+                                         may_restart=True, graceful=True)
+                moved += 1
+            except Exception:
+                continue
+        if moved:
+            self.stats["drain_actors_migrated"] += moved
+        return moved
+
+    def _finish_drain(self, node: Node, reason: str) -> None:
+        """Clean completion: the node leaves through the normal removal
+        flow, with its objects replicated and its actors elsewhere."""
+        if self.get_node(node.node_id) is None:
+            return      # a death event won the race
+        backend = self.cluster_backend
+        if backend is not None and node.daemon is not None:
+            try:
+                backend.head.mark_node_dead(node.node_id.hex(),
+                                            f"drained ({reason})")
+            except Exception:
+                pass
+            try:
+                node.daemon.stop()
+            except Exception:
+                pass
+        try:
+            self.remove_node(node, _from_cluster=True)
+        except Exception:
+            pass
+
+    def count_drain_escalation(self, node: Node) -> None:
+        """Exactly-once escalation accounting: the driver's deadline timer
+        and the head's death event race to escalate one drain; whichever
+        wins counts, the loser is a no-op."""
+        with self._nodes_lock:
+            if getattr(node, "_drain_escalated", False):
+                return
+            node._drain_escalated = True
+        self.stats["drain_escalations_total"] += 1
+
+    def _escalate_drain(self, node: Node, reason: str) -> None:
+        """The deadline expired with work still on the node: the ordinary
+        node-death path (retries and lineage reconstruction recover what
+        did not migrate in time)."""
+        if self.get_node(node.node_id) is None:
+            return      # drained cleanly, or the head escalated first
+        self.count_drain_escalation(node)
+        try:
+            self.remove_node(node)
+        except Exception:
+            pass
+
+    def on_node_task_drained(self, spec: TaskSpec, node: Node) -> None:
+        """A queued-but-unstarted task handed back by a draining node:
+        reschedule it elsewhere without consuming a retry (a planned
+        departure, not a failure)."""
+        with self._tasks_lock:
+            inflight = self._tasks.get(spec.task_id)
+        if inflight is None:
+            return
+        with inflight.lock:
+            if inflight.cancelled:
+                return
+        # one bounce only: if the scheduler sends it back (nothing else
+        # fits), the draining node's dispatch pass runs it there
+        spec._drain_bounced = True
+        self._schedule(spec, inflight)
 
     # ------------------------------------------------------------------
     # objects
@@ -731,6 +989,13 @@ class Runtime:
             spec.pg_demand = dict(spec.resources)
         demand = spec.pg_demand
         candidates = pg.bundles if idx == -1 else [pg.bundles[idx]]
+        if idx == -1 and len(candidates) > 1:
+            # a bundle on a draining node is the last resort (the group
+            # re-places when the node leaves)
+            def _bundle_draining(b) -> int:
+                n = self.get_node(b.node_id) if b.node_id else None
+                return 1 if getattr(n, "draining", False) else 0
+            candidates = sorted(candidates, key=_bundle_draining)
         chosen = None
         for bundle in candidates:
             if not all(bundle.resources.get(k, 0.0) >= v - 1e-9
@@ -775,9 +1040,10 @@ class Runtime:
         """Prefer the node holding the largest dependency (locality-aware)."""
         with self._nodes_lock:
             nodes = dict(self._nodes)
+        deps = spec.dependencies()
         with self._loc_lock:
             dep_locs = [(dep, list(self._locations.get(dep, ())))
-                        for dep in spec.dependencies()]
+                        for dep in deps]
         best, best_size = None, 0
         for dep, node_ids in dep_locs:
             for node_id in node_ids:
@@ -1476,6 +1742,11 @@ class Runtime:
                             cause="exit_actor() called")
             return
         except BaseException as e:  # noqa: BLE001
+            if (isinstance(e, exc.ActorDiedError) and node.draining
+                    and self._resubmit_drained_actor_task(spec)):
+                # the drain's worker recycle caught this call mid-flight:
+                # a planned migration replays it on the new incarnation
+                return
             self._finish_task(spec, node, error=exc.ActorError(
                 e, spec.name, spec.actor_id))
             return
@@ -1486,6 +1757,23 @@ class Runtime:
             self._drain_generator(spec, node, result)
             return
         self._finish_task(spec, node, result=result)
+
+    def _resubmit_drained_actor_task(self, spec: TaskSpec) -> bool:
+        """Replay an actor task whose worker a graceful drain recycled,
+        only while the actor can still restart (a DEAD actor keeps the
+        normal failure)."""
+        info = self.gcs.get_actor_info(spec.actor_id)
+        if info is None or info.state == ActorState.DEAD:
+            return False
+        with self._tasks_lock:
+            inflight = self._tasks.get(spec.task_id)
+        if inflight is None:
+            return False
+        with inflight.lock:
+            if inflight.cancelled:
+                return False
+        self._submit_actor_task(spec, inflight, spec.dependencies())
+        return True
 
     async def _execute_actor_task_async(self, spec: TaskSpec, instance: Any,
                                         node: Node) -> None:
@@ -1560,7 +1848,12 @@ class Runtime:
 
     def _handle_actor_death(self, actor_id: ActorID, cause: str,
                             pending_tasks: List[TaskSpec],
-                            may_restart: bool) -> None:
+                            may_restart: bool,
+                            graceful: bool = False) -> None:
+        """``graceful=True`` is the planned-migration variant (a node
+        drain): the restart neither consumes the actor's max_restarts nor
+        fails its pending tasks, which replay on the new incarnation
+        whatever max_task_retries says."""
         self.process_router.discard_actor(actor_id)
         # actor-lifetime borrows die with the incarnation
         svc = getattr(self.cluster_backend, "owner_service", None)
@@ -1581,13 +1874,14 @@ class Runtime:
                 host.ledger.release(info.creation_spec.resources)
             info.node_id = None
         can_restart = (may_restart and info.creation_spec is not None
-                       and (info.max_restarts == -1
+                       and (graceful or info.max_restarts == -1
                             or info.num_restarts < info.max_restarts))
         if can_restart:
-            info.num_restarts += 1
             self.stats["actor_restarts"] += 1
+            if not graceful:    # a planned move burns no budget
+                info.num_restarts += 1
             self.gcs.update_actor_state(actor_id, ActorState.RESTARTING)
-            if info.max_task_retries != 0:
+            if graceful or info.max_task_retries != 0:
                 # pending tasks survive the restart and replay on the new
                 # incarnation
                 with self._actor_lock:
@@ -1667,6 +1961,28 @@ class Runtime:
             self._fail_task(target.spec, exc.TaskError(
                 exc.TaskCancelledError(target.spec.task_id),
                 target.spec.name))
+
+    # ------------------------------------------------------------------
+    # debug state (JAX's raylet-style dump with the dispatch stats)
+    # ------------------------------------------------------------------
+    def debug_state(self) -> str:
+        lines = [f"session: {self.session_dir}",
+                 f"stats: {self.stats}",
+                 f"tracked refs: {self.refcounter.num_tracked()}",
+                 f"lineage entries: {self.lineage.num_entries()}"]
+        for node in self.nodes():
+            with node._running_lock:
+                running = len(node._running)
+            lines.append(
+                f"node {node.node_id.hex()[:8]}: alive={node.alive} "
+                f"running={running} backlog={node._backlog_n} "
+                f"actors={len(node.actors)} "
+                f"store_used={node.store.used_bytes()} "
+                f"loop={node.loop_stats}")
+        if self.cluster_backend is not None:
+            # which control-plane core each daemon advertised in hello
+            lines.extend(self.cluster_backend.describe_peers())
+        return "\n".join(lines)
 
     # ------------------------------------------------------------------
     # shutdown

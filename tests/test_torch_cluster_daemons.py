@@ -826,8 +826,7 @@ _CLUSTER_FLAGS = [
 @pytest.mark.parametrize("name", _CLUSTER_FLAGS)
 def test_cluster_flag_matches_jax(name):
     """Each flag the daemon cluster reads is JAX's flag: same name, type,
-    default and environment variable (``async_core`` is the one departure,
-    tested below)."""
+    default and environment variable."""
     from ray_tpu._private import config as jax_config
     from ray_tpu_torch._private import config as port_config
     jax_flag = jax_config.FLAGS[name]
@@ -836,14 +835,22 @@ def test_cluster_flag_matches_jax(name):
         jax_flag.type, jax_flag.default, jax_flag.env_var)
 
 
-def test_async_core_is_not_ported_yet():
-    """JAX's default control-plane core is asyncio (async_core=True); the
-    port runs the threaded core, and asking for the other raises naming
-    the item that brings it."""
-    with pytest.raises(ValueError, match="A11c"):
-        rt_api.init(num_nodes=1, resources={"CPU": 1}, cluster="daemons",
-                    _system_config={"async_core": True})
-    assert not rt_api.is_initialized()
+_CORE_AND_DRAIN_FLAGS = [
+    "async_core", "loop_lag_probe_s", "loop_slow_callback_s",
+    "async_debug", "lock_sanitizer", "drain_deadline_s",
+    "drain_notice_file"]
+
+
+@pytest.mark.parametrize("name", _CORE_AND_DRAIN_FLAGS)
+def test_core_and_drain_flag_matches_jax(name):
+    """The asyncio core's and the drain's flags are JAX's: same name,
+    type, default (``async_core`` True, the asyncio core) and variable."""
+    from ray_tpu._private import config as jax_config
+    from ray_tpu_torch._private import config as port_config
+    jax_flag = jax_config.FLAGS[name]
+    flag = port_config.FLAGS[name]
+    assert (flag.type, flag.default, flag.env_var) == (
+        jax_flag.type, jax_flag.default, jax_flag.env_var)
 
 
 def test_a_daemon_started_by_hand_joins_the_driver(daemon_cluster):

@@ -4,8 +4,13 @@ One script runs on both packages' public API and must give equal results
 and equal exception class names: once with JAX's process workers off
 (``RAY_TPU_PROCESS_WORKERS=0``, every task in the calling process), and
 once with both packages at their defaults (process workers, and plain tasks
-through each one's native fast lane).
+through each one's native fast lane). The in-process and the daemons
+scripts run on each control-plane core (``RAY_TPU_ASYNC_CORE``: the
+asyncio core, both packages' default, and the threaded one).
 """
+
+import contextlib
+import gc
 
 import numpy as np
 import pytest
@@ -17,6 +22,21 @@ from ray_tpu._private import object_store as jax_store
 from ray_tpu._private import task_spec as jax_spec
 from ray_tpu_torch._private import object_store as port_store
 from ray_tpu_torch._private import task_spec as port_spec
+
+
+@contextlib.contextmanager
+def _jax_without_cyclic_gc():
+    """JAX's runtime deadlocks when a cyclic GC pass runs an old ref's
+    ``__del__`` inside its locations lock (``_locality_node`` holds a
+    non-reentrant lock that ``_free_object`` takes again; ROADMAP C). Its
+    runs here collect first and hold the collector off; the port's runs
+    keep it on (the port's lock is reentrant)."""
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
 
 
 def _error_name(fn) -> str:
@@ -115,12 +135,15 @@ def jax_in_process(monkeypatch):
     ray_tpu.shutdown()
 
 
-def test_one_script_gives_equal_results(jax_in_process):
-    ray_tpu.init(num_nodes=1, resources={"CPU": 8})
-    try:
-        jax_out = _script(ray_tpu)
-    finally:
-        ray_tpu.shutdown()
+@pytest.mark.parametrize("core", ["1", "0"], ids=["async", "threaded"])
+def test_one_script_gives_equal_results(jax_in_process, monkeypatch, core):
+    monkeypatch.setenv("RAY_TPU_ASYNC_CORE", core)
+    with _jax_without_cyclic_gc():
+        ray_tpu.init(num_nodes=1, resources={"CPU": 8})
+        try:
+            jax_out = _script(ray_tpu)
+        finally:
+            ray_tpu.shutdown()
     ray_tpu_torch.init(num_nodes=1, resources={"CPU": 8})
     try:
         port_out = _script(ray_tpu_torch)
@@ -145,13 +168,14 @@ def test_one_script_at_both_defaults_through_both_lanes(monkeypatch):
                 "RAY_TPU_NATIVE_STORE"):
         monkeypatch.delenv(var, raising=False)
     from ray_tpu._private import worker as jax_worker
-    ray_tpu.init(num_nodes=1, resources={"CPU": 8})
-    try:
-        jax_out = _script(ray_tpu)
-        jax_lane = jax_worker.global_runtime().process_router \
-            ._fast_core.stats()["submitted"]
-    finally:
-        ray_tpu.shutdown()
+    with _jax_without_cyclic_gc():
+        ray_tpu.init(num_nodes=1, resources={"CPU": 8})
+        try:
+            jax_out = _script(ray_tpu)
+            jax_lane = jax_worker.global_runtime().process_router \
+                ._fast_core.stats()["submitted"]
+        finally:
+            ray_tpu.shutdown()
     rt = ray_tpu_torch.init(num_nodes=1, resources={"CPU": 8})
     try:
         port_out = _script(ray_tpu_torch)
@@ -167,10 +191,8 @@ def test_one_script_at_both_defaults_through_both_lanes(monkeypatch):
 
 
 def test_all_names_but_the_later_items():
-    """Every name of ``ray_tpu.__all__`` but drain_node (graceful drain
-    comes with the daemon topology)."""
-    later = {"drain_node"}
-    assert set(ray_tpu_torch.__all__) == set(ray_tpu.__all__) - later
+    """Every name of ``ray_tpu.__all__``: no later item is left."""
+    assert set(ray_tpu_torch.__all__) == set(ray_tpu.__all__)
     for name in ray_tpu_torch.__all__:
         assert hasattr(ray_tpu_torch, name), name
 
@@ -660,7 +682,7 @@ def _daemons_script(pkg, marker) -> dict:
             time.sleep(0.05)
         del arr
         os.kill(handles[0].proc.pid, signal.SIGKILL)
-        out["retry"] = pkg.get(ref, timeout=60)
+        out["retry"] = pkg.get(ref, timeout=30)
         deadline = time.monotonic() + 10
         while (any(n.node_id.hex() == node0 for n in rt.alive_nodes())
                and time.monotonic() < deadline):
@@ -675,15 +697,36 @@ def _daemons_script(pkg, marker) -> dict:
     return out
 
 
-def test_one_daemons_script_gives_equal_results(tmp_path, monkeypatch):
+def _jax_daemons_reference(tmp_path) -> dict:
+    """JAX's side of the daemons script. JAX's daemons lose the task
+    retried after the SIGKILL in about a third of runs on an 8-core host
+    (its get times out, or the retry goes back to the dead daemon and
+    fails with ``WorkerCrashedError``; the port's does neither: ROADMAP C),
+    so a JAX run that fails so runs again in a fresh marker dir, at most
+    three times."""
+    for attempt in range(3):
+        marker = tmp_path / f"jax{attempt}"
+        marker.mkdir()
+        try:
+            with _jax_without_cyclic_gc():
+                return _daemons_script(ray_tpu, str(marker))
+        except (ray_tpu.exceptions.GetTimeoutError,
+                ray_tpu.exceptions.TaskError):
+            if attempt == 2:
+                raise
+
+
+@pytest.mark.parametrize("core", ["1", "0"], ids=["async", "threaded"])
+def test_one_daemons_script_gives_equal_results(tmp_path, monkeypatch, core):
     """cluster="daemons" in both packages: the same results and exception
-    class names, on each package's own head, daemons and wire."""
+    class names, on each package's own head, daemons and wire, with the
+    driver, head and daemons on each control-plane core."""
     for var in ("RAY_TPU_PROCESS_WORKERS", "RAY_TPU_FAST_LANE",
                 "RAY_TPU_NATIVE_STORE", "RAY_TPU_CLUSTER"):
         monkeypatch.delenv(var, raising=False)
-    (tmp_path / "jax").mkdir()
+    monkeypatch.setenv("RAY_TPU_ASYNC_CORE", core)
     (tmp_path / "port").mkdir()
-    jax_out = _daemons_script(ray_tpu, str(tmp_path / "jax"))
+    jax_out = _jax_daemons_reference(tmp_path)
     port_out = _daemons_script(ray_tpu_torch, str(tmp_path / "port"))
     assert port_out == jax_out
     assert port_out["processes"] == (True, [True, True])

@@ -281,3 +281,31 @@ def test_generator_error_propagates(runtime):
     with pytest.raises(Exception, match="mid-stream"):
         next(it)
         next(it)
+
+
+def test_free_while_the_locations_lock_is_held(runtime):
+    """A ref dropped on a thread that holds the runtime's locations lock
+    (what a cyclic GC pass inside a locked section does: it runs the ref's
+    ``__del__`` there) frees the object instead of deadlocking."""
+    import threading
+
+    @rt.remote
+    def big():
+        return np.ones(1 << 18)
+
+    ref = big.remote()
+    rt.get(ref)
+    oid = ref.id
+
+    def drop_under_lock(box):
+        with runtime._loc_lock:
+            box.pop()       # the last handle: __del__ -> _free_object
+
+    box = [ref]
+    del ref
+    t = threading.Thread(target=drop_under_lock, args=(box,), daemon=True)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive(), "the free deadlocked on the locations lock"
+    with runtime._loc_lock:
+        assert oid not in runtime._locations
