@@ -329,6 +329,39 @@
    or session dir and no bytes above the base on the card. Alone (it runs
    phase 5 first): ``python -c "import chip_smoke, torch;
    chip_smoke.control_plane_path(torch.device('cuda'))"``.
+22. The rest of the cluster: (a) on ``init(cluster="daemons",
+   num_nodes=2, resources={"CPU": 4})`` a serialized actor is lane-bound
+   (a tag in its daemon's native core) and a ``max_concurrency=2`` one of
+   the same class is not; 1,000 calls on each in three alternated pairs,
+   calls/s, the cores' ``submitted`` count rising by every lane call and
+   by no classic one; the lane-bound actor makes q, k and v at phase 20's
+   seeds and shapes into the arenas (a worker ``put``), the driver reads
+   them as read-only views into ``flash_fwd_wgmma`` (one launch, counted),
+   held to the plain version; its worker SIGKILLed, the actor answers
+   under a fresh tag; (b) g++ builds ``csrc/cpp_client.cc`` and
+   ``csrc/api_demo.cc`` into the build directory; the demo (no Python in
+   its process) drives the cluster and prints the CPU test's lines; the
+   client (through ``cpp_client.py``) writes q's bytes into a daemon's
+   table, the driver reads them (``get_object_blob``) into the kernel (one
+   launch), bit for bit (a)'s output; the build and demo times and the
+   put's MB/s; (d, first half) a ``ProcessHostProvider`` and
+   ``Reconciler`` on (a)'s cluster provision a real daemon for a
+   ``{"CPU": 16}`` bundle, a ``num_cpus=9`` task lands there, and idle it
+   is drained and its process ends; (c) on a fresh ``init()``, bench_400m's
+   app (phase 14's, 32 slots) behind ``start_grpc_proxy()`` takes 8
+   ``predict`` and 8 ``predict_stream`` requests (prompts of 32-256 tokens,
+   32 new, greedy, one at a time) and gives the tokens of the same requests
+   through the handle of a second copy of the app, the paged kernel once
+   per layer per decode step of both engines; a stream's first chunk, a
+   unary result and tokens/s beside the handle's; (d, second half) ``cluster_launcher.up``
+   from a JSON config (a head and two workers), a CPU driver (a subprocess,
+   the card hidden) joins and runs tasks, ``down`` ends the three; (e) at
+   (a), (b) and with the launcher's cluster up nvidia-smi lists one
+   context and no process of the clusters maps the CUDA driver; after them
+   no head, daemon or worker process, no ``/dev/shm`` segment of the
+   arenas, no session dir and no bytes above the base on the card. Alone:
+   ``python -c "import chip_smoke, torch;
+   chip_smoke.cluster_tier_path(torch.device('cuda'))"``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -5295,6 +5328,586 @@ def control_plane_path(dev, phase5=None, smi=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the rest of the cluster: the targeted actor lane, a native C++
+# program, serve's second ingress, the autoscaler and the launcher
+# ---------------------------------------------------------------------------
+
+def lane_submitted(handles) -> int:
+    """The daemons' native cores' submit count (pool and targeted)."""
+    return sum(h.client.call("daemon_stats")["fast_lane"].get("submitted", 0)
+               for h in handles)
+
+
+def lane_actor_class():
+    import os
+    import ray_tpu_torch as rt
+
+    @rt.remote(max_restarts=1)
+    class Lane:
+        def pid(self):
+            return os.getpid()
+
+        def make(self, shape, seed):
+            # put from the worker: an array >= 256 KiB is written straight
+            # into the daemon's arena, and the ref comes back in a list
+            return [rt.put(np.random.default_rng(seed).standard_normal(
+                shape, dtype=np.float32))]
+
+    return Lane
+
+
+def lane_rates(handles, lane, classic, pairs: int = 3) -> dict:
+    """Phase 22(a)'s rates: 1,000 calls on the lane-bound actor and 1,000 on
+    the ``max_concurrency=2`` one (the classic path) in alternated pairs;
+    the cores count every lane call and none of the classic ones."""
+    import ray_tpu_torch as rt
+    rates = {"lane": [], "classic": []}
+    counted = {"lane": 0, "classic": 0}
+    for a in (lane, classic):
+        rt.get([a.pid.remote() for _ in range(100)])      # warm up
+    for _ in range(pairs):
+        for key, a in (("lane", lane), ("classic", classic)):
+            before = lane_submitted(handles)
+            t0 = time.perf_counter()
+            rt.get([a.pid.remote() for _ in range(1000)])
+            rates[key].append(1000 / (time.perf_counter() - t0))
+            counted[key] += lane_submitted(handles) - before
+    if counted["lane"] < 1000 * pairs or counted["classic"]:
+        raise RuntimeError(f"phase 22(a): the cores counted {counted} of "
+                           f"{pairs} x 1,000 calls a path: the calls did "
+                           f"not take the lane")
+    return {"rates": rates, "submitted": counted}
+
+
+def lane_flash(dev, lane) -> dict:
+    """Phase 22(a)'s kernel: the lane-bound actor makes q, k and v at phase
+    20's seeds and shapes; the driver gets them as read-only views inside
+    the daemons' arenas, to the card as bf16 into ``flash_fwd_wgmma`` (one
+    launch, counted), held to the plain version at ``BF16_TOL``."""
+    import ctypes
+    import warnings
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch.ops import attention as attn
+    backend = worker.global_runtime().cluster_backend
+    t0 = time.perf_counter()
+    refs = {n: rt.get(lane.make.remote(shape, i))[0]
+            for i, (n, shape) in enumerate(ATTN_SHAPES.items())}
+    views = dict(zip(refs, rt.get(list(refs.values()))))
+    make_s = time.perf_counter() - t0
+    spans = []
+    for h in backend.daemons.values():
+        arena = backend.arenas.handle(h.arena_name)
+        lo = ctypes.addressof(arena._buf)
+        spans.append((lo, lo + arena.capacity()))
+    for i, (n, view) in enumerate(views.items()):
+        addr = view.__array_interface__["data"][0]
+        if (view.flags.writeable
+                or not any(lo <= addr < hi for lo, hi in spans)
+                or not np.array_equal(view, np.random.default_rng(i)
+                                      .standard_normal(ATTN_SHAPES[n],
+                                                       dtype=np.float32))):
+            raise RuntimeError(f"phase 22(a): {n} is not a read-only view "
+                               f"of its seed's values inside an arena")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # from_numpy of a read-only view
+        q, k, v = (torch.from_numpy(views[n]).to(dev).to(torch.bfloat16)
+                   for n in ATTN_SHAPES)
+        torch.cuda.synchronize()
+    del views
+    attn.flash_attention_kernel.launches = 0
+    out = attn.flash_attention_kernel(q, k, v, True)
+    launches = attn.flash_attention_kernel.launches
+    plain = attn._flash_forward_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), plain.float(), **BF16_TOL)
+    err = (out.float() - plain.float()).abs().max().item()
+    if launches != 1 or not torch.isfinite(out).all():
+        raise RuntimeError(f"phase 22(a): flash launches {launches}")
+    del plain, refs
+    return {"qkv": (q, k, v), "out": out, "launches": launches,
+            "max_abs_err": err, "make_s": make_s}
+
+
+def lane_restart(runtime, lane) -> dict:
+    """Phase 22(a)'s restart: the lane-bound actor's worker SIGKILLed; the
+    actor comes back in a new worker under a fresh tag and answers."""
+    import os
+    import signal
+    import ray_tpu_torch as rt
+    tag1 = runtime._actor_executors[lane._actor_id].instance.fast_tag
+    pid1 = rt.get(lane.pid.remote())
+    t0 = time.perf_counter()
+    os.kill(pid1, signal.SIGKILL)
+    pid2 = None
+    while time.perf_counter() - t0 < 60:
+        try:
+            pid2 = rt.get(lane.pid.remote(), timeout=10)
+            break
+        except Exception:   # noqa: BLE001 - restarting
+            time.sleep(0.05)
+    restart_s = time.perf_counter() - t0
+    tag2 = runtime._actor_executors[lane._actor_id].instance.fast_tag
+    if pid2 is None or pid2 == pid1 or not tag2 or tag2 == tag1:
+        raise RuntimeError(f"phase 22(a): after the SIGKILL of {pid1} the "
+                           f"actor answered from {pid2}, tags {tag1} -> "
+                           f"{tag2}")
+    return {"tags": (tag1, tag2), "pids": (pid1, pid2),
+            "restart_s": restart_s}
+
+
+def lane_path(dev, smi: str) -> dict:
+    """Phase 22(a): the targeted actor lane on the daemon cluster."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    runtime = worker.global_runtime()
+    handles = list(runtime.cluster_backend.daemons.values())
+    Lane = lane_actor_class()
+    lane = Lane.remote()
+    classic = Lane.options(max_concurrency=2).remote()
+    rt.get([lane.pid.remote(), classic.pid.remote()])
+    tags = (runtime._actor_executors[lane._actor_id].instance.fast_tag,
+            runtime._actor_executors[classic._actor_id].instance.fast_tag)
+    if not tags[0] or tags[1] is not None:
+        raise RuntimeError(f"phase 22(a): the actors' tags are {tags}")
+    rates = lane_rates(handles, lane, classic)
+    flash = lane_flash(dev, lane)
+    restart = lane_restart(runtime, lane)
+    rt.kill(classic)
+    r = rates["rates"]
+    log(f"phase 22(a): a lane-bound actor (tag {tags[0]}) and a "
+        f"max_concurrency=2 one (no tag); 1,000 calls each in 3 alternated "
+        f"pairs: the targeted lane {[round(x) for x in r['lane']]} calls/s, "
+        f"the classic path {[round(x) for x in r['classic']]} calls/s; the "
+        f"cores' submitted count rose {rates['submitted']['lane']} on the "
+        f"lane and {rates['submitted']['classic']} on the classic path; the "
+        f"actor made q, k and v {ATTN_SHAPES['q']} / {ATTN_SHAPES['k']} "
+        f"into the arenas in {flash['make_s']:.2f} s, read as read-only "
+        f"views, flash_fwd_wgmma 1 launch, max_abs_err "
+        f"{flash['max_abs_err']:.3e} against the plain version; its worker "
+        f"SIGKILLed (pid {restart['pids'][0]}): back in pid "
+        f"{restart['pids'][1]} under tag {restart['tags'][1]} after "
+        f"{restart['restart_s']:.2f} s ({smi})")
+    return {**flash, "lane_calls_per_s": r["lane"],
+            "classic_calls_per_s": r["classic"],
+            "submitted": rates["submitted"]["lane"],
+            "restart_s": restart["restart_s"]}
+
+
+def demo_lines(demo: str, lib: str, head_port: int, daemon) -> tuple:
+    """Run the native demo against the cluster; (its KEY=value lines,
+    seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([demo, "127.0.0.1", str(head_port), daemon.addr[0],
+                          str(daemon.addr[1]), lib], capture_output=True,
+                         text=True, timeout=120)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise RuntimeError(f"phase 22(b): the demo exited {out.returncode}: "
+                           f"{out.stdout[-1000:]} {out.stderr[-1000:]}")
+    return (dict(line.split("=", 1)
+                 for line in out.stdout.strip().splitlines()), seconds)
+
+
+def native_program(dev, flash: dict, smi: str) -> dict:
+    """Phase 22(b): g++ builds ``csrc/cpp_client.cc`` and the demo
+    ``csrc/api_demo.cc`` (over ``ray_tpu_api.h``) into the build directory;
+    the demo drives the cluster (KV, ping, objects, an exported task and
+    actor) and prints the CPU test's lines; the client (through
+    ``cpp_client.py``) writes q's bytes into a daemon's object table, the
+    driver reads them into the flash kernel, bit for bit 22(a)'s output."""
+    import warnings
+    import torch
+    from ray_tpu_torch import _build, xlang
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch.cpp_client import CppClient
+    from ray_tpu_torch.ops import attention as attn
+    backend = worker.global_runtime().cluster_backend
+    daemon = list(backend.daemons.values())[0]
+    t0 = time.perf_counter()
+    lib = str(_build.build_host("cpp_client"))
+    demo = str(_build.BUILD_DIR / "api_demo")
+    subprocess.run(["g++", "-O2", "-std=c++17", "-Wall", "-o", demo,
+                    str(_build.CSRC / "api_demo.cc"), "-ldl"], check=True,
+                   timeout=300)
+    build_s = time.perf_counter() - t0
+
+    def add(a, b):
+        return a + b
+
+    def greet(who):
+        return f"hello {who}"
+
+    class Counter:
+        def __init__(self, start):
+            self.n = start
+
+        def inc(self, k):
+            self.n += k
+            return self.n
+
+    xlang.export_task("add", add)
+    xlang.export_task("greet", greet)
+    xlang.export_actor_class("Counter", Counter)
+    lines, demo_s = demo_lines(demo, lib, backend.head.addr[1], daemon)
+    want = {"KV": "embedded-value", "PING": str(daemon.proc.pid),
+            "OBJ": "300000", "ADD": "42", "GREET": "hello embedded",
+            "COUNT1": "101", "COUNT2": "106", "MISSING_OK": "0",
+            "DONE": "1"}
+    if lines != want:
+        raise RuntimeError(f"phase 22(b): the demo printed {lines}")
+    q_seed = np.random.default_rng(0).standard_normal(ATTN_SHAPES["q"],
+                                                      dtype=np.float32)
+    client = CppClient(daemon.addr)
+    try:
+        t1 = time.perf_counter()
+        client.put_object(b"cpp-q", q_seed.tobytes())
+        put_s = time.perf_counter() - t1
+    finally:
+        client.close()
+    blob = daemon.get_object_blob(b"cpp-q")
+    q_host = np.frombuffer(blob, dtype=np.float32).reshape(ATTN_SHAPES["q"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        q = torch.from_numpy(q_host).to(dev).to(torch.bfloat16)
+    _, k, v = flash["qkv"]
+    attn.flash_attention_kernel.launches = 0
+    out = attn.flash_attention_kernel(q, k, v, True)
+    launches = attn.flash_attention_kernel.launches
+    if launches != 1 or not torch.equal(out, flash["out"]):
+        raise RuntimeError(f"phase 22(b): launches {launches}; the output on "
+                           f"the C++ client's q differs from 22(a)'s by "
+                           f"{(out.float() - flash['out'].float()).abs().max().item()}")
+    mb_s = q_seed.nbytes / put_s / 1e6
+    del q, out, blob, q_host
+    log(f"phase 22(b): g++ built the client library and the demo in "
+        f"{build_s:.1f} s; the demo (no Python in its process) ran in "
+        f"{demo_s * 1e3:.0f} ms and printed the CPU test's lines {lines}; "
+        f"the client wrote q ({q_seed.nbytes / 2**20:.0f} MiB) into daemon "
+        f"{daemon.node_id.hex()[:8]}'s table in {put_s * 1e3:.1f} ms "
+        f"({mb_s:.0f} MB/s); flash_fwd_wgmma on it, 1 launch, equal to "
+        f"22(a)'s output bit for bit ({smi})")
+    return {"launches": launches, "build_s": build_s, "demo_ms": demo_s * 1e3,
+            "put_mb_s": mb_s}
+
+
+def autoscale_checks(runtime, smi: str) -> dict:
+    """Phase 22(d), the autoscaler: a ``ProcessHostProvider`` and a
+    ``Reconciler`` on 22(a)'s cluster provision a real daemon for a
+    ``{"CPU": 16}`` bundle; a task lands there; idle, the node is drained
+    and its process ends."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler_v2 import (InstanceStatus,
+                                             ProcessHostProvider, Reconciler)
+    from ray_tpu_torch.util.placement_group import (placement_group,
+                                                    remove_placement_group)
+    before = {n.node_id for n in runtime.alive_nodes()}
+    provider = ProcessHostProvider(runtime)
+    rec = Reconciler(runtime, provider, idle_timeout_s=0.5)
+    t0 = time.perf_counter()
+    pg = placement_group([{"CPU": 16}], strategy="PACK")
+    while time.perf_counter() - t0 < 60:
+        rec.reconcile()
+        if pg.wait(0.2):
+            break
+    up_s = time.perf_counter() - t0
+    rec.reconcile()
+    new = {n.node_id for n in runtime.alive_nodes()} - before
+    running = rec.instance_manager.list(InstanceStatus.RAY_RUNNING)
+    if len(new) != 1 or not running or running[0].node_type != "cpu-host":
+        raise RuntimeError(f"phase 22(d): new nodes {new}, instances "
+                           f"{[(i.node_type, i.status) for i in running]}")
+    record = next(iter(provider._launched.values()))
+    remove_placement_group(pg)
+
+    @rt.remote(num_cpus=9)          # only the provisioned host fits it
+    def where():
+        return rt.get_runtime_context().get_node_id()
+
+    t1 = time.perf_counter()
+    node = rt.get(where.remote(), timeout=60)
+    task_s = time.perf_counter() - t1
+    if node != next(iter(new)).hex():
+        raise RuntimeError(f"phase 22(d): the task ran on {node}")
+    t2 = time.perf_counter()
+    while time.perf_counter() - t2 < 60:
+        rec.reconcile()
+        if rec.instance_manager.list(InstanceStatus.TERMINATED):
+            break
+        time.sleep(0.1)
+    end_s = time.perf_counter() - t2
+    if (not rec.instance_manager.list(InstanceStatus.TERMINATED)
+            or _alive(record["pid"])):
+        raise RuntimeError(f"phase 22(d): the provisioned daemon (pid "
+                           f"{record['pid']}) did not end")
+    log(f"phase 22(d): the reconciler provisioned a real daemon (pid "
+        f"{record['pid']}, cpu-host) for a CPU 16 bundle in {up_s:.2f} s, a "
+        f"num_cpus=9 task landed there in {task_s:.2f} s, and idle it was "
+        f"drained and its process ended in {end_s:.2f} s "
+        f"({rec.stats}) ({smi})")
+    return {"node_ids": [record["node_id"]], "pids": {record["pid"]},
+            "provision_s": up_s, "task_s": task_s, "end_s": end_s}
+
+
+def grpc_ingress(dev, smi: str) -> dict:
+    """Phase 22(c): bench_400m's app (32 slots, phase 14's) behind
+    ``start_grpc_proxy()``: 8 requests by ``predict`` and 8 by
+    ``predict_stream`` (prompts of 32-256 tokens, 32 new tokens, greedy),
+    one at a time; then the same 16 through the handle of a second copy of
+    the app (same config and seed: both engines cold for each prompt, each
+    serving one request at a time). The tokens must be equal, the paged
+    kernel once per layer per decode step of both engines and no other
+    kernel."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.bench import bench_setup, warm_replicas
+    from ray_tpu_torch.llm.serving import (LLMConfig, build_llm_app,
+                                           join_engine_threads)
+    from ray_tpu_torch.serve.grpc_proxy import (GrpcServeClient,
+                                                start_grpc_proxy,
+                                                stop_grpc_proxy)
+    setup = bench_setup(dev)
+    mcfg = setup["model_config"]
+    rng = np.random.default_rng(22)
+    lens = rng.integers(32, 257, 16) if dev.type == "cuda" \
+        else rng.integers(8, 25, 16)
+    prompts = [rng.integers(1, mcfg.vocab_size, n).tolist() for n in lens]
+    new = 32 if dev.type == "cuda" else 8
+    rt.init()
+    try:
+        apps = {}
+        for name in ("grpc", "handle"):
+            cfg = LLMConfig(model_id=f"bench-{name}", model_config=mcfg,
+                            max_slots=setup["max_slots"],
+                            max_seq=setup["max_seq"])
+            apps[name] = serve.run(build_llm_app(cfg, device=dev),
+                                   name=name, route_prefix=f"/{name}")
+            warm_replicas(rt, cfg.model_id, setup["warm_lens"])
+        client = GrpcServeClient(f"127.0.0.1:{start_grpc_proxy()}")
+
+        def engine_steps(model_id: str) -> int:
+            reps = rt.get(rt.get_actor("serve_controller")
+                          .get_replicas.remote(model_id))["replicas"]
+            return sum(rt.get(r.handle_request.remote("stats", (), {}))
+                       ["decode_steps"] for r in reps)
+
+        def run(path: str) -> dict:
+            tokens, first_ms, wall = [], [], 0.0
+            for i, prompt in enumerate(prompts):
+                req = {"prompt": prompt, "max_tokens": new}
+                stream = i >= 8
+                t0 = time.perf_counter()
+                if path == "grpc" and not stream:
+                    ids = client.predict(req, application="grpc")["token_ids"]
+                    first = time.perf_counter() - t0
+                elif path == "grpc":
+                    ids, first = [], None
+                    for chunk in client.predict_stream(
+                            dict(req, stream=True), application="grpc"):
+                        first = first or time.perf_counter() - t0
+                        if "token_id" in chunk:
+                            ids.append(chunk["token_id"])
+                elif not stream:
+                    ids = apps["handle"].remote(req).result()["token_ids"]
+                    first = time.perf_counter() - t0
+                else:
+                    ids, first = [], None
+                    for chunk in apps["handle"].options(stream=True).remote(
+                            dict(req, stream=True)):
+                        first = first or time.perf_counter() - t0
+                        if "token_id" in chunk:
+                            ids.append(chunk["token_id"])
+                wall += time.perf_counter() - t0
+                tokens.append(list(ids))
+                first_ms.append(first * 1e3)
+            # a unary call's first item is its whole result
+            return {"tokens": tokens,
+                    "unary_ms": float(np.median(first_ms[:8])),
+                    "stream_first_ms": float(np.median(first_ms[8:])),
+                    "tokens_per_s": sum(map(len, tokens)) / wall}
+
+        steps0 = {n: engine_steps(f"bench-{n}") for n in apps}
+        for c in kernel_counters():
+            c.launches = 0
+        # one path after the other: run at once, the two engines' threads
+        # and clients share the host's cores and each ran ~4x slower on
+        # the H100's host
+        via = {n: run(n) for n in apps}
+        launches = read_launches()
+        steps = sum(engine_steps(f"bench-{n}") - steps0[n] for n in apps)
+        client.close()
+        stop_grpc_proxy()
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+        join_engine_threads()
+    check_paged_only("phase 22(c)", launches, steps, mcfg.n_layers)
+    if (via["grpc"]["tokens"] != via["handle"]["tokens"]
+            or not all(via["grpc"]["tokens"])):
+        raise RuntimeError(f"phase 22(c): the proxy's tokens differ from "
+                           f"the handle's: {via['grpc']['tokens'][:2]} / "
+                           f"{via['handle']['tokens'][:2]}")
+    g, h = via["grpc"], via["handle"]
+    log(f"phase 22(c): bench_400m's app (32 slots) behind the second "
+        f"ingress: 8 predict + 8 predict_stream requests (prompts "
+        f"{lens.min()}-{lens.max()} tokens, {new} new, greedy, one at a "
+        f"time) gave the tokens of the same requests through a second "
+        f"copy's handle; median time to the "
+        f"first item: a stream's first chunk {g['stream_first_ms']:.1f} ms "
+        f"through the proxy, {h['stream_first_ms']:.1f} ms through the "
+        f"handle, a unary result {g['unary_ms']:.1f} / {h['unary_ms']:.1f} "
+        f"ms; {g['tokens_per_s']:.1f} / {h['tokens_per_s']:.1f} tokens/s; "
+        f"paged launches {launches['paged_decode_attention']} ({steps} "
+        f"decode steps x {mcfg.n_layers} layers) ({smi})")
+    return {"launches": launches["paged_decode_attention"],
+            **{f"{n}_{k}": via[n][k] for n in via
+               for k in ("stream_first_ms", "unary_ms", "tokens_per_s")}}
+
+
+def launcher_checks(tmp: str, smi: str, seen: list) -> dict:
+    """Phase 22(d), the launcher: ``cluster_launcher.up`` from a JSON config
+    (a head and two workers, the subprocess provider); a CPU driver (a
+    subprocess with the card hidden) joins it and runs tasks; ``down``
+    ends the three."""
+    import os
+    from ray_tpu_torch import cluster_launcher as cl
+    config = os.path.join(tmp, "cluster.json")
+    with open(config, "w") as f:
+        json.dump({"cluster_name": f"smoke-{os.getpid()}",
+                   "provider": {"type": "subprocess"},
+                   "head": {"resources": {"CPU": 2}},
+                   "worker": {"resources": {"CPU": 2}, "count": 2}}, f)
+    t0 = time.perf_counter()
+    state = cl.up(config)
+    pids = {n["pid"] for n in state["nodes"]}
+    node_ids = [n["node_id"] for n in state["nodes"] if n["kind"] == "worker"]
+    try:
+        if not cl.wait_for_nodes(state["address"], 2, timeout=60):
+            raise RuntimeError("phase 22(d): the launched workers never "
+                               "registered")
+        up_s = time.perf_counter() - t0
+        pids = descendants(pids)
+        only_driver_on_card(pids, "22(d)", seen)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=here + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        script = ("import os, ray_tpu_torch as rt\n"
+                  f"rt.init(address={state['address']!r})\n"
+                  "f = rt.remote(lambda i: (i * i, os.getpid()))\n"
+                  "out = rt.get([f.remote(i) for i in range(16)])\n"
+                  "print('SQUARES', sum(v for v, _ in out))\n"
+                  "print('PIDS', len({p for _, p in out}))\n"
+                  "rt.shutdown()\n")
+        t1 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", script],
+                             capture_output=True, text=True, timeout=120,
+                             env=env, cwd=here)
+        join_s = time.perf_counter() - t1
+        if out.returncode != 0 or f"SQUARES {sum(i * i for i in range(16))}" \
+                not in out.stdout:
+            raise RuntimeError(f"phase 22(d): the CPU driver exited "
+                               f"{out.returncode}: {out.stdout[-500:]} "
+                               f"{out.stderr[-1500:]}")
+        pids = descendants(pids)
+    finally:
+        t2 = time.perf_counter()
+        n = cl.down(config)
+        down_s = time.perf_counter() - t2
+    if n != 3:
+        raise RuntimeError(f"phase 22(d): down ended {n} nodes")
+    log(f"phase 22(d): cluster_launcher.up from a JSON config stood up a "
+        f"head and 2 workers in {up_s:.2f} s; a CPU driver joined and ran "
+        f"16 tasks in {join_s:.2f} s ({out.stdout.split()}); down ended "
+        f"{n} in {down_s:.2f} s ({smi})")
+    return {"pids": pids, "node_ids": node_ids, "up_s": up_s,
+            "join_s": join_s, "down_s": down_s}
+
+
+def cluster_tier_path(dev, smi=None) -> dict:
+    """Phase 22: the rest of the cluster (see the module's docstring).
+    Alone: ``python -c "import chip_smoke, torch;
+    chip_smoke.cluster_tier_path(torch.device('cuda'))"``."""
+    import glob
+    import os
+    import tempfile
+    import torch
+    import ray_tpu_torch as rt
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    if rt.is_initialized():
+        raise RuntimeError("a runtime is still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    runtime = rt.init(cluster="daemons", num_nodes=2, resources={"CPU": 4})
+    backend = runtime.cluster_backend
+    node_ids = [h.node_id.hex() for h in backend.daemons.values()]
+    session = backend.session_dir
+    pids: set = set()
+    seen: list = []
+    try:
+        pids = cluster_pids(runtime, set())
+        lane = lane_path(dev, smi)
+        pids |= cluster_pids(runtime, set())
+        only_driver_on_card(pids, "22(a)", seen)
+        native = native_program(dev, lane, smi)
+        pids |= cluster_pids(runtime, set())
+        only_driver_on_card(pids, "22(b)", seen)
+        scaled = autoscale_checks(runtime, smi)
+        pids |= scaled["pids"]
+        node_ids += scaled["node_ids"]
+        figures = {"lane_calls_per_s": lane["lane_calls_per_s"],
+                   "classic_calls_per_s": lane["classic_calls_per_s"],
+                   "lane_submitted": lane["submitted"],
+                   "lane_restart_s": lane["restart_s"],
+                   "lane_max_abs_err": lane["max_abs_err"],
+                   **{k: native[k] for k in ("build_s", "demo_ms",
+                                             "put_mb_s")},
+                   **{k: scaled[k] for k in ("provision_s", "task_s",
+                                             "end_s")}}
+        flash_launches = lane["launches"] + native["launches"]
+    finally:
+        lane = None
+        rt.shutdown()
+    ingress = grpc_ingress(dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        launched = launcher_checks(tmp, smi, seen)
+    pids |= launched["pids"]
+    node_ids += launched["node_ids"]
+    deadline = time.monotonic() + 15
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = sorted(p for p in pids if _alive(p))
+    segments = [s for n in node_ids
+                for s in glob.glob(f"/dev/shm/rtpt_{n[:12]}*")]
+    if left or segments or os.path.exists(session):
+        raise RuntimeError(f"phase 22(e): processes {left} left, segments "
+                           f"{segments}, the session dir "
+                           f"{os.path.exists(session)}")
+    freed, _ = wait_freed(base, "phase 22 after shutdown()")
+    if freed > base:
+        raise RuntimeError(f"phase 22(e): {freed - base} bytes above the "
+                           f"base after shutdown()")
+    seconds = time.perf_counter() - t0
+    log(f"phase 22(e): nvidia-smi listed one context, pids {seen}, with the "
+        f"daemon cluster up and with the launcher's; none of the "
+        f"{len(pids)} processes of the clusters (heads, daemons, their "
+        f"forkservers and workers, the provisioned daemon) left, no "
+        f"/dev/shm segment of the {len(node_ids)} arenas, no session dir, "
+        f"{freed - base} bytes above the base; phase 22 in {seconds:.1f} s "
+        f"({smi})")
+    out = {"part": "22", "flash_launches": flash_launches,
+           "paged_launches": ingress["launches"], **figures,
+           **{k: v for k, v in ingress.items() if k != "launches"},
+           **{k: launched[k] for k in ("up_s", "join_s", "down_s")},
+           "processes": len(pids), "bytes_after_shutdown": freed,
+           "base_bytes": base, "seconds": seconds, "card": smi}
+    log(json.dumps(out))
+    return out
+
+
 def _alive(pid) -> bool:
     """Whether ``pid`` is a live process (a zombie is not)."""
     if pid is None:
@@ -5527,6 +6140,14 @@ def main() -> int:
     # drivers (attach, a job, util.client), nothing left after `cli stop`
     control = control_plane_path(dev, train, smi)
     rows[2]["launches"] += control["launches"]
+
+    # 22. the rest of the cluster: a lane-bound actor's q, k and v from the
+    # arenas into the flash kernel and a native C++ program's q (bit for
+    # bit), serve's second ingress on bench_400m's app (the paged kernel),
+    # the autoscaler's real daemon and the launcher's cluster, nothing left
+    tier = cluster_tier_path(dev, smi)
+    rows[2]["launches"] += tier["flash_launches"]
+    rows[0]["launches"] += tier["paged_launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -4,8 +4,9 @@ On first use each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface under
 ``build/ray_tpu_torch/`` at the root of the checkout, keyed by a hash of the
 source and the flags, and loaded with ``ctypes``. The runtime's host
-libraries, ``csrc/<name>.cc`` (the shared-memory object store and the fast
-lane's core; counterpart of ``ray_tpu/_private/native_build.py``), are
+libraries, ``csrc/<name>.cc`` (the shared-memory object store, the fast
+lane's core and the C++ client; counterpart of
+``ray_tpu/_private/native_build.py``), are
 compiled the same way by ``g++``. Nothing is built when a module is
 imported: the CPU tests import every module on hosts without nvcc.
 """
@@ -46,7 +47,8 @@ _SIGNATURES = {
 # host C++ libraries: JAX's g++ line, and the libraries each source needs
 HOST_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17", "-Wall")
 HOST_LIBS = {"shm_store": ("-lpthread", "-lrt"),
-             "daemon_core": ("-lpthread",)}
+             "daemon_core": ("-lpthread",),
+             "cpp_client": ("-lpthread",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -31,8 +31,13 @@ Joining a running cluster (``ClusterBackend.attach``, ``init(address=)``):
 a second driver dials the head of a cluster that ``ray-tpu start`` stood
 up, joins its daemons, and leaves them running at ``shutdown``.
 
-Left out, each with the ROADMAP item that brings it: the targeted actor
-lane (A11c); task-event flushes, tenancy and the memory monitor (A11e).
+The targeted actor lane: a daemon's serialized actor carries a tag
+(``RemoteActorInstance.fast_tag``), and its plain method calls go straight
+to the actor's worker through the daemon's native core, strictly FIFO;
+streaming calls keep the classic path.
+
+Left out, each with the ROADMAP item that brings it: task-event flushes,
+tenancy and the memory monitor (A11e).
 """
 
 from __future__ import annotations
@@ -594,8 +599,25 @@ class DaemonHandle:
         payload = _fle.build_payload(
             spec, fid, args_blob, spec.job_id or self._job_id,
             self.node_id)
+        return self._lane_roundtrip(fl, spec, lambda: fl.submit(payload))
+
+    def _call_actor_fast(self, fl, tag: int, spec, args_blob: bytes):
+        """An actor-method call through the targeted lane (the actor's
+        worker, strictly FIFO). Returns the (kind, value) outcome, or None
+        when the caller should take the classic path (nothing ran)."""
+        from ray_tpu_torch._private import fast_lane as _fle
+        payload = _fle.build_actor_payload(
+            spec, args_blob, spec.job_id or self._job_id, self.node_id)
+        return self._lane_roundtrip(
+            fl, spec, lambda: fl.submit_targeted(tag, payload))
+
+    def _lane_roundtrip(self, fl, spec, submit):
+        """One lane submit, wait and decode, shared by plain tasks and
+        targeted actor calls: the (kind, value) outcome, or None when
+        nothing was submitted."""
+        from ray_tpu_torch._private import fast_lane as _fle
         try:
-            rid, slot = fl.submit(payload)
+            rid, slot = submit()
         except _fle.FastLaneError:
             if self.dead:
                 raise DaemonCrashed("daemon died (fast lane)")
@@ -766,7 +788,8 @@ class DaemonHandle:
             raise RemoteWorkerCrashed(out["error"])
         if kind == "err":
             raise _load_error(out["blob"])
-        return RemoteActorInstance(self, spec.actor_id)
+        return RemoteActorInstance(self, spec.actor_id,
+                                   fast_tag=out.get("fast_tag"))
 
     def call_actor_method(self, spec, args_blob: bytes):
         task_hex = spec.task_id.hex()
@@ -1065,13 +1088,27 @@ def _slim_spec_blob(spec) -> bytes:
 class RemoteActorInstance:
     """The driver's handle to an actor hosted in a daemon's worker."""
 
-    __slots__ = ("daemon", "actor_id")
+    __slots__ = ("daemon", "actor_id", "fast_tag")
 
-    def __init__(self, daemon: DaemonHandle, actor_id):
+    def __init__(self, daemon: DaemonHandle, actor_id,
+                 fast_tag: Optional[int] = None):
         self.daemon = daemon
         self.actor_id = actor_id
+        # the actor worker's tag in the daemon's native core (None: the
+        # classic RPC path only)
+        self.fast_tag = fast_tag
 
     def call_actor_method(self, spec, args_blob: bytes):
+        """Plain calls ride the targeted lane (per-actor FIFO in the
+        native core); streaming calls stay on the classic path."""
+        if (self.fast_tag is not None
+                and spec.num_returns not in ("streaming", "dynamic")):
+            fl = self.daemon._fast_client()
+            if fl is not None:
+                out = self.daemon._call_actor_fast(fl, self.fast_tag,
+                                                   spec, args_blob)
+                if out is not None:
+                    return out
         return self.daemon.call_actor_method(spec, args_blob)
 
 

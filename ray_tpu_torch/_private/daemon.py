@@ -41,11 +41,20 @@ driver is gone drops its leases and actors and waits for the next.
 Preemption: SIGTERM, the ``drain_notice_file`` appearing, or
 ``PreemptionWatcher.notify`` announce one graceful drain to the head.
 
-Left out, each with the ROADMAP item that brings it: the targeted actor
-lane (A11c), the
-cross-language tier (A11c), the per-node agent, the memory monitor and
-pressure, network chaos, failpoints, tenancy, profiling and the log
-monitor (A11e). Their handlers are not declared, so a call fails as any
+A serialized actor (``max_concurrency == 1``, no concurrency groups) gets
+a tag in that core: its worker joins the core as a targeted lane, and the
+driver sends its method calls there, strictly FIFO, with no daemon Python
+per call. A restarted actor gets a fresh tag.
+
+The cross-language tier (``xlang_*``): functions and actor classes that
+Python exported by name to the head's KV (``ray_tpu_torch.xlang``) run on
+this daemon's pooled workers for a client in another language
+(``csrc/cpp_client.cc``); arguments and results cross as plain values in
+the wire's own frame encoding, never as a pickle of user objects.
+
+Left out, each with the ROADMAP item that brings it: the per-node agent,
+the memory monitor and pressure, network chaos, failpoints, tenancy,
+profiling and the log monitor (A11e). Their handlers are not declared, so a call fails as any
 undeclared method does.
 """
 
@@ -101,6 +110,12 @@ declare("seal_object", "oid", "ref", "raw", "nbytes")
 declare("push_object", "oid", "to_addr", "ref")
 declare("push_chunk", "oid", "off", "total", "blob", "ref", "raw")
 declare("daemon_ping")
+# the cross-language tier (C++ clients): names resolve through the head's
+# KV; "args" is a frame-encoded list of plain values, and results come
+# back as plain values (no pickle of a user object crosses the boundary)
+declare("xlang_submit", "name", "args")
+declare("xlang_create_actor", "cls", "name", "args")
+declare("xlang_call_actor", "name", "method", "args")
 declare("daemon_stop")
 declare("daemon_stats")
 declare("syncer_exchange", "view")
@@ -1283,6 +1298,9 @@ class DaemonService:
         self._lease_seq = 0                        #: guarded by self._lock
         # task_id hex -> (client, worker rid) for cancel/gen_ack
         self._task_rids: Dict[str, Tuple[Any, str]] = {}  #: guarded by self._lock
+        # cross-language actors: name -> [actor id, seqno, call lock]
+        self._xlang_actors: Dict[str, list] = {}   #: guarded by self._lock
+        self._xlang_head_client = None             #: guarded by self._lock
         # batched-submit dedupe keyed (task hex, attempt): a retried frame
         # must not double-execute: running tasks are skipped, finished
         # ones get their recorded outcome resent
@@ -1322,6 +1340,7 @@ class DaemonService:
         self.fast_port: Optional[int] = None
         self._fast_host = host
         self._fast_workers: list = []
+        self._fast_tag_seq = 0        # targeted-lane (actor) tags
         self._fast_max = max(1, min(16, int(resources.get("CPU", 2) or 2)))
         if _cfg().fast_lane:
             try:
@@ -1912,10 +1931,36 @@ class DaemonService:
             actor_id = spec.actor_id
             client.add_death_callback(
                 lambda c, aid=actor_id: router._actor_worker_died(aid, c))
-            conn.reply(rid, outcome="ok", worker_pid=client.pid)
+            conn.reply(rid, outcome="ok", worker_pid=client.pid,
+                       fast_tag=self._grant_fast_tag(client, spec))
 
         self._task_pool.submit(run)
         return rpc.HOLD
+
+    def _grant_fast_tag(self, client, spec) -> Optional[int]:
+        """Bind a serialized actor's worker to the native core under a
+        fresh tag, so its method calls skip this daemon's Python; None
+        keeps the actor on the classic path (a concurrent actor, a
+        concurrency group, no core, or a join that failed)."""
+        if (self.fast_core is None or spec.max_concurrency != 1
+                or spec.concurrency_groups):
+            return None
+        with self._lock:
+            self._fast_tag_seq += 1
+            tag = self._fast_tag_seq
+        lane_host = ("127.0.0.1" if self._fast_host in ("0.0.0.0", "")
+                     else self._fast_host)
+        try:
+            trid, tpend = client._request({
+                "op": "join_fast_lane",
+                "addr": [lane_host, self.fast_port], "tag": tag})
+            out = client._wait_outcome(trid, tpend)
+        except Exception:
+            return None
+        if out[0] not in ("ok", "ok_raw"):
+            return None
+        client.lane_tag = tag
+        return tag
 
     def handle_call_actor_method(self, conn, rid, msg):
         from ray_tpu_torch._private.fast_lane import split_joined
@@ -2171,6 +2216,195 @@ class DaemonService:
         if size is None:
             return {"missing": True}
         return {"size": size}
+
+    # -- the cross-language tier (C++ API) ------------------------------
+    # Functions and classes are exported by name to the head's KV from
+    # Python (ray_tpu_torch.xlang); a C++ client submits by name with plain
+    # arguments; execution happens on this daemon's pooled workers.
+
+    def _xlang_head(self):
+        with self._lock:
+            if self._xlang_head_client is None:
+                if self.head_addr is None:
+                    raise RuntimeError("daemon has no head address")
+                self._xlang_head_client = HeadClient(self.head_addr)
+            return self._xlang_head_client
+
+    @staticmethod
+    def _xlang_plain(value):
+        """A result crossing the language boundary, as plain values."""
+        import numpy as np
+        if isinstance(value, np.integer):
+            return int(value)
+        if isinstance(value, np.floating):
+            return float(value)
+        if isinstance(value, np.ndarray):
+            return value.tolist()
+        if isinstance(value, (list, tuple)):
+            return [DaemonService._xlang_plain(v) for v in value]
+        if isinstance(value, dict):
+            return {str(k): DaemonService._xlang_plain(v)
+                    for k, v in value.items()}
+        if value is None or isinstance(value, (bool, int, float, str,
+                                               bytes)):
+            return value
+        raise TypeError(
+            f"xlang result of type {type(value).__name__} cannot cross "
+            f"the language boundary; return plain values")
+
+    def _xlang_kv_blob(self, kind: str, name: str):
+        return self._xlang_head().kv_get(f"xlang:{kind}:{name}".encode())
+
+    @staticmethod
+    def _xlang_args(blob) -> list:
+        """The caller's arguments: a frame-encoded list of plain values
+        (the unpickler refuses any global)."""
+        args = rpc.loads_frame(blob)
+        if not isinstance(args, (list, tuple)):
+            raise TypeError(f"xlang args are a list, not "
+                            f"{type(args).__name__}")
+        return list(args)
+
+    def handle_xlang_submit(self, conn, rid, msg):
+        """One cross-language task on a pooled worker."""
+        def run():
+            from ray_tpu_torch._private import worker_process as wp
+            from ray_tpu_torch._private.ids import TaskID
+            from ray_tpu_torch._private.task_spec import TaskKind, TaskSpec
+            client = None
+            streaming = False
+            try:
+                blob = self._xlang_kv_blob("fn", msg["name"])
+                if blob is None:
+                    conn.reply(rid, outcome="err",
+                               error=f"no exported xlang function "
+                                     f"{msg['name']!r}")
+                    return
+                fid = wp.register_function_blob(blob)
+                spec = TaskSpec(
+                    task_id=TaskID.from_random(), kind=TaskKind.NORMAL,
+                    name=f"xlang:{msg['name']}", func=None)
+                parts = wp._pack((tuple(self._xlang_args(msg["args"])), {}))
+                client = self._checkout()
+                client.raw_outcomes = False     # decoded here
+                outcome = client.execute_task(spec, self.node_stub, fid,
+                                              parts)
+                if outcome[0] == "ok":
+                    conn.reply(rid, outcome="ok",
+                               result=self._xlang_plain(outcome[1]))
+                elif outcome[0] == "gen":
+                    # mid-stream: the worker must not go back to the pool
+                    streaming = True
+                    conn.reply(rid, outcome="err",
+                               error="xlang tasks cannot stream")
+                else:
+                    conn.reply(rid, outcome="err", error=repr(outcome[1]))
+            except BaseException as e:  # noqa: BLE001 - shipped back
+                conn.reply(rid, outcome="err", error=repr(e))
+            finally:
+                if client is not None:
+                    if streaming:
+                        client.kill(expected=True)
+                    wp.release_worker(client)   # reaps a killed worker
+
+        self._task_pool.submit(run)
+        return rpc.HOLD
+
+    def handle_xlang_create_actor(self, conn, rid, msg):
+        """Create a Python actor of a class exported by name on a pooled
+        worker, addressable by ``msg['name']`` for xlang_call_actor."""
+        def run():
+            from ray_tpu_torch._private import worker_process as wp
+            from ray_tpu_torch._private.ids import TaskID
+            from ray_tpu_torch._private.task_spec import TaskKind, TaskSpec
+            taken = f"xlang actor name {msg['name']!r} already taken"
+            try:
+                with self._lock:
+                    if msg["name"] in self._xlang_actors:
+                        conn.reply(rid, outcome="err", error=taken)
+                        return
+                blob = self._xlang_kv_blob("actor", msg["cls"])
+                if blob is None:
+                    conn.reply(rid, outcome="err",
+                               error=f"no exported xlang actor class "
+                                     f"{msg['cls']!r}")
+                    return
+                fid = wp.register_function_blob(blob)
+                spec = TaskSpec(
+                    task_id=TaskID.from_random(),
+                    kind=TaskKind.ACTOR_CREATION,
+                    name=f"xlang:{msg['cls']}", func=None,
+                    actor_id=ActorID.from_random(),
+                    actor_name=msg["name"])
+                parts = wp._pack((tuple(self._xlang_args(msg["args"])), {}))
+                router = self.runtime.process_router
+                router.create_actor(spec, self.node_stub, (fid, parts))
+                with self._lock:
+                    lost_race = msg["name"] in self._xlang_actors
+                    if not lost_race:
+                        self._xlang_actors[msg["name"]] = [
+                            spec.actor_id, 0, threading.Lock()]
+                if lost_race:
+                    # a concurrent create won the name: end ours (outside
+                    # the ledger lock)
+                    router.discard_actor(spec.actor_id, expected=True)
+                    conn.reply(rid, outcome="err", error=taken)
+                    return
+                conn.reply(rid, outcome="ok", actor_id=spec.actor_id.hex())
+            except BaseException as e:  # noqa: BLE001 - shipped back
+                conn.reply(rid, outcome="err", error=repr(e))
+
+        self._task_pool.submit(run)
+        return rpc.HOLD
+
+    def handle_xlang_call_actor(self, conn, rid, msg):
+        with self._lock:
+            entry = self._xlang_actors.get(msg["name"])
+        if entry is None:
+            return {"outcome": "err",
+                    "error": f"no xlang actor named {msg['name']!r}"}
+        actor_id = entry[0]
+        router = self.runtime.process_router
+        with router._lock:
+            client = router._actor_workers.get(actor_id)
+        if client is None or client.dead:
+            return {"outcome": "err", "error": "actor is dead"}
+
+        def run():
+            from ray_tpu_torch._private import worker_process as wp
+            from ray_tpu_torch._private.ids import TaskID
+            from ray_tpu_torch._private.task_spec import TaskKind, TaskSpec
+            try:
+                # the actor's calls run one at a time in arrival order: two
+                # clients calling one named actor hold its lock across the
+                # seqno and the call
+                with entry[2]:
+                    with self._lock:
+                        entry[1] += 1
+                        seqno = entry[1]
+                    spec = TaskSpec(
+                        task_id=TaskID.from_random(),
+                        kind=TaskKind.ACTOR_TASK,
+                        name=f"xlang:{msg['name']}.{msg['method']}",
+                        func=msg["method"], actor_id=actor_id,
+                        method_name=msg["method"], seqno=seqno)
+                    parts = wp._pack(
+                        (tuple(self._xlang_args(msg["args"])), {}))
+                    outcome = client.call_method(spec, self.node_stub,
+                                                 parts)
+                if outcome[0] == "ok":
+                    conn.reply(rid, outcome="ok",
+                               result=self._xlang_plain(outcome[1]))
+                elif outcome[0] == "err":
+                    conn.reply(rid, outcome="err", error=repr(outcome[1]))
+                else:
+                    conn.reply(rid, outcome="err",
+                               error=f"unsupported outcome {outcome[0]}")
+            except BaseException as e:  # noqa: BLE001 - shipped back
+                conn.reply(rid, outcome="err", error=repr(e))
+
+        self._task_pool.submit(run)
+        return rpc.HOLD
 
     def handle_get_object_chunk(self, conn, rid, msg):
         blob = self.objects.read_range(msg["oid"], msg["off"], msg["size"])

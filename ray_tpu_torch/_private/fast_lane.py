@@ -10,10 +10,13 @@ protocol from Python:
 
 - :class:`CoreHandle` — start/stop the in-process C++ event loop via ctypes.
 - :class:`FastLaneClient` — driver side: submit plain tasks straight to the
-  core (one frame out, one frame in).
+  core (one frame out, one frame in), and actor-method calls to a tagged
+  worker (:meth:`FastLaneClient.submit_targeted`).
 - :func:`worker_fast_lane_start` — worker side: a lane thread reading EXEC
   frames plus ONE persistent exec thread (no per-task thread spawn),
-  replying RESULT frames.
+  replying RESULT frames. With a ``tag`` the worker is an actor's: the
+  core routes it only the submits addressed to that tag, strictly FIFO
+  (the targeted actor lane, ops 0x09-0x0b).
 
 Encoding. A task payload is JAX's map (ids as raw bytes) as a stdlib pickle
 of a plain dict; JAX's is msgpack, which the card's machine lacks. Arguments,
@@ -25,12 +28,12 @@ own), joined into ONE blob, because a lane frame is one body
 parts`` (:func:`join_parts`). The receiver reads each out-of-band buffer as
 a view into that blob, uncopied (:func:`loads_joined`).
 
-Only plain NORMAL tasks ride the lane — actors, generator functions and
-multi-return tasks keep the pipe. Left out, each with the ROADMAP item that
-brings it: the failpoint and netchaos seams, the lock sanitizer and the
-``RetryPolicy`` backoff of reconnects (A11e; a bounded loop of a few tries
-here); the targeted actor lane (ops 0x09-0x0b of the core) as the daemons
-use it.
+Plain NORMAL tasks ride the pool lane, and a daemon's serialized actors
+(``max_concurrency == 1``, no concurrency groups) the targeted lane;
+generator functions, multi-return tasks and streaming calls keep the pipe.
+Left out, each with the ROADMAP item that brings it: the failpoint and
+netchaos seams, the lock sanitizer and the ``RetryPolicy`` backoff of
+reconnects (A11e; a bounded loop of a few tries here).
 """
 
 from __future__ import annotations
@@ -56,6 +59,12 @@ OP_PING = 0x05
 OP_EXEC = 0x06
 OP_REPLY = 0x07
 OP_CANCEL_EXEC = 0x08
+# targeted lane (actors): a tagged worker serves exactly the submits
+# addressed to its tag, strictly FIFO; the core acks the tagged hello once
+# the tag is routable
+OP_HELLO_TAGGED = 0x09
+OP_SUBMIT_TARGETED = 0x0a
+OP_HELLO_ACK = 0x0b
 
 KIND_OK = 0x00
 KIND_ERR = 0x01
@@ -378,6 +387,10 @@ class FastLaneClient:
         """Send a task payload; returns (rid, slot) to wait on."""
         return self._submit_op(OP_SUBMIT, b"", payload)
 
+    def submit_targeted(self, tag: int, payload) -> Tuple[int, list]:
+        """Send to the tagged worker (per-actor FIFO ordering)."""
+        return self._submit_op(OP_SUBMIT_TARGETED, _U64.pack(tag), payload)
+
     def _submit_op(self, op: int, extra: bytes,
                    payload) -> Tuple[int, list]:
         if self.dead:
@@ -458,6 +471,23 @@ def build_payload(spec, fid: str, args_blob, job_id, node_id) -> bytes:
     }, protocol=5)
 
 
+def build_actor_payload(spec, args_blob, job_id, node_id) -> bytes:
+    """Driver-side: the payload of a targeted actor-method call."""
+    return pickle.dumps({
+        "method": spec.method_name,
+        "args": args_blob,
+        "job": job_id.binary() if job_id is not None else b"",
+        "task": spec.task_id.binary(),
+        "node": node_id.binary() if node_id is not None else b"",
+        "aid": spec.actor_id.binary() if spec.actor_id is not None else b"",
+        "name": spec.name or "",
+        "res": {k: float(v) for k, v in (spec.resources or {}).items()},
+        "pg": (spec.placement_group_id.binary()
+               if spec.placement_group_id is not None else b""),
+        "pgc": bool(spec.pg_capture),
+    }, protocol=5)
+
+
 # ---------------------------------------------------------------------------
 # worker side
 # ---------------------------------------------------------------------------
@@ -484,22 +514,39 @@ def _drain_capped(gen) -> list:
     return items
 
 
-def worker_fast_lane_start(addr: Tuple[str, int], state) -> None:
+def worker_fast_lane_start(addr: Tuple[str, int], state,
+                           tag: Optional[int] = None) -> None:
     """Connect this worker process to the core and serve EXEC frames.
 
     One lane thread reads frames; one persistent exec thread runs tasks (no
     per-task thread creation). CANCEL_EXEC async-raises KeyboardInterrupt
     into the exec thread, the classic path's soft-cancel contract; a forced
-    one exits the process, which the core reports as CRASHED."""
+    one exits the process, which the core reports as CRASHED.
+
+    With ``tag`` the worker registers targeted (an actor's lane): the core
+    routes it only the submits addressed to the tag, strictly FIFO, and the
+    exec thread runs them as method calls on ``state.actor_instance`` under
+    ``state.actor_lock``, so classic calls on the pipe stay serialized with
+    lane calls."""
     sock = socket.create_connection(addr, timeout=10.0)
     sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
     sock.settimeout(None)
     wlock = threading.Lock()
+    frames = _frame_stream(sock)
 
     def send(op: int, head: bytes, payload=b"") -> None:
         _send_lane_frame(sock, wlock, op, head, payload)
 
-    send(OP_HELLO_WORKER, b"")
+    if tag is not None:
+        send(OP_HELLO_TAGGED, _U64.pack(tag))
+        # only once the core acks is the tag routable: the daemon's
+        # create-actor reply (and so the driver's first targeted submit)
+        # cannot outrun the registration
+        body = next(frames)
+        if not body or body[0] != OP_HELLO_ACK:
+            raise RuntimeError("targeted lane hello not acknowledged")
+    else:
+        send(OP_HELLO_WORKER, b"")
 
     import queue as _q
     tasks: "_q.Queue[Optional[Tuple[int, dict]]]" = _q.Queue()
@@ -510,8 +557,8 @@ def worker_fast_lane_start(addr: Tuple[str, int], state) -> None:
     import inspect
 
     from ray_tpu_torch._private import runtime_context
-    from ray_tpu_torch._private.ids import (JobID, NodeID, PlacementGroupID,
-                                            TaskID)
+    from ray_tpu_torch._private.ids import (ActorID, JobID, NodeID,
+                                            PlacementGroupID, TaskID)
     from ray_tpu_torch._private.worker_process import (_current_rid,
                                                        _dump_exc, _pack)
 
@@ -523,7 +570,7 @@ def worker_fast_lane_start(addr: Tuple[str, int], state) -> None:
                 "job_id": JobID(msg["job"]) if msg["job"] else None,
                 "task_id": TaskID(msg["task"]),
                 "node_id": NodeID(msg["node"]) if msg["node"] else None,
-                "actor_id": None,
+                "actor_id": ActorID(msg["aid"]) if msg.get("aid") else None,
                 "resources": msg["res"],
                 "task_name": msg["name"],
                 "placement_group_id": (PlacementGroupID(msg["pg"])
@@ -534,9 +581,22 @@ def worker_fast_lane_start(addr: Tuple[str, int], state) -> None:
             token = runtime_context._set_context(**ctx)
             try:
                 args, kwargs = loads_joined(msg["args"])
-                fn = state._fn({"fn_id": msg["fid"]})
-                result = fn(*args, **kwargs)
-                if inspect.isgenerator(result):
+                if "method" in msg:
+                    # an actor call: on the live instance, serialized with
+                    # the pipe's calls by the actor lock (the order is the
+                    # core's per-tag FIFO). A generator drains here, inside
+                    # the context and the lock, so no other method
+                    # interleaves with its body.
+                    with state.actor_lock:
+                        method = getattr(state.actor_instance,
+                                         msg["method"])
+                        result = method(*args, **kwargs)
+                        if inspect.isgenerator(result):
+                            gen_items = _drain_capped(result)
+                else:
+                    fn = state._fn({"fn_id": msg["fid"]})
+                    result = fn(*args, **kwargs)
+                if gen_items is None and inspect.isgenerator(result):
                     # a PLAIN function returned a live generator: its body
                     # already ran (side effects included), so the lane must
                     # not hand the task back for a re-run. Drain here —
@@ -591,7 +651,7 @@ def worker_fast_lane_start(addr: Tuple[str, int], state) -> None:
 
     def lane_loop() -> None:
         try:
-            for body in _frame_stream(sock):
+            for body in frames:
                 if not body:
                     continue
                 op = body[0]

@@ -79,7 +79,6 @@ class GCS:
         self.actors: Dict[ActorID, ActorInfo] = {}
         self._named_actors: Dict[Tuple[str, str], ActorID] = {}
         self._kv: Dict[str, Dict[bytes, bytes]] = {}
-        self._live: Dict[str, Any] = {}
         self.pubsub = Pubsub()
 
     # -- nodes -------------------------------------------------------------
@@ -201,19 +200,3 @@ class GCS:
 
     def kv_exists(self, key: bytes, namespace: bytes = b"") -> bool:
         return self.kv_get(key, namespace) is not None
-
-    # -- live objects (the in-process topology only) -----------------------
-    def live_put(self, key: str, value: Any) -> None:
-        """Keep ``value`` itself under ``key``, uncopied, for as long as
-        the runtime lives (serve's controller checkpoint: its specs hold
-        classes defined in functions and the init arguments of replicas,
-        weights on the card among them). ``None`` drops the key."""
-        with self._lock:
-            if value is None:
-                self._live.pop(key, None)
-            else:
-                self._live[key] = value
-
-    def live_get(self, key: str) -> Any:
-        with self._lock:
-            return self._live.get(key)

@@ -63,9 +63,14 @@ and the workers attach the daemon's shared-memory arena
 (``objectplane/arena.py``, handed over in the boot frame) for zero-copy
 gets and direct puts (``WorkerProxyRuntime._shm_get``/``_shm_put``).
 
-Left out, each with the ROADMAP item that brings it: the targeted actor
-lane (A11c), the compiled-DAG stages, runtime environments, profiling
-bursts and metrics flushes (A11e).
+A daemon's serialized actor joins its worker to the native core as a
+targeted lane (``join_fast_lane`` with a ``tag``): its method calls then
+reach the worker with no daemon Python, and the pipe's calls take the
+actor lock so the two never interleave.
+
+Left out, each with the ROADMAP item that brings it: the compiled-DAG
+stages, runtime environments, profiling bursts and metrics flushes
+(A11e).
 """
 
 from __future__ import annotations
@@ -588,6 +593,11 @@ class _WorkerState:
         self._pending_lock = threading.Lock()
         self._task_threads: Dict[str, threading.Thread] = {}
         self.actor_instance: Any = None
+        # serializes method calls between the pipe and the targeted lane;
+        # engaged only once the lane binds (_lane_bound), so actors off the
+        # lane keep their configured concurrency
+        self.actor_lock = threading.RLock()
+        self._lane_bound = False
         self._fn_cache: Dict[str, Any] = {}
         self._gen_sems: Dict[str, threading.Semaphore] = {}
         self.proxy = WorkerProxyRuntime(self)
@@ -647,11 +657,15 @@ class _WorkerState:
             elif op == "join_fast_lane":
                 # dedicate this worker to the native core's task lane
                 # (fast_lane.py); the channel stays open for host ops
-                # (fetch_function, nested core ops)
+                # (fetch_function, nested core ops). With a tag, this is
+                # an actor's targeted lane.
                 try:
                     from ray_tpu_torch._private.fast_lane import (
                         worker_fast_lane_start)
-                    worker_fast_lane_start(tuple(msg["addr"]), self)
+                    worker_fast_lane_start(tuple(msg["addr"]), self,
+                                           tag=msg.get("tag"))
+                    if msg.get("tag") is not None:
+                        self._lane_bound = True
                     self.send({"id": msg["id"], "op": "result", "ok": True},
                               _pack(None))
                 except BaseException as e:  # noqa: BLE001 - shipped back
@@ -681,8 +695,13 @@ class _WorkerState:
 
         rid = msg["id"]
         _current_rid.rid = rid
+        # a lane-bound actor's pipe call holds the actor lock through a
+        # streaming drain too: it must not interleave with a lane call
+        locked = msg["op"] == "call_method" and self._lane_bound
         try:
             token = runtime_context._set_context(**(msg.get("ctx") or {}))
+            if locked:
+                self.actor_lock.acquire()
             try:
                 op = msg["op"]
                 if op == "create_actor":
@@ -735,6 +754,8 @@ class _WorkerState:
                         self._gen_sems.pop(rid, None)
                     return
             finally:
+                if locked:
+                    self.actor_lock.release()
                 runtime_context._reset_context(token)
             self.send({"id": rid, "op": "result", "ok": True},
                       _pack(result))
@@ -1073,6 +1094,7 @@ class WorkerClient:
         self.node = None
         self.actor_id: Optional[ActorID] = None
         self.fast_lane = False       # dedicated to the native core's lane
+        self.lane_tag = None         # an actor's targeted-lane tag
         # in a daemon: results stay blobs, relayed without loading
         self.raw_outcomes = False
         self.expected_death = False
@@ -1965,8 +1987,11 @@ class ProcessRouter:
             return
         with client._pending_lock:
             busy = bool(client._pending)
-        if not expected or busy or not client.alive():
-            # a killed actor's process dies with its running calls
+        if (not expected or busy or not client.alive()
+                or client.lane_tag is not None):
+            # a killed actor's process dies with its running calls; a
+            # lane-bound worker keeps its tagged lane and lock, so it never
+            # goes back to the pool
             client.kill(expected=expected)
             return
         # clean death: reset the instance and recycle the worker

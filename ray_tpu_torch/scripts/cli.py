@@ -12,10 +12,13 @@ current_cluster.json`` (``tempfile.gettempdir()``), apart from JAX's
 ``attach`` work without an address. Every process of the cluster runs
 with the card hidden (``cluster._spawn``).
 
+``up`` and ``down`` stand a cluster up from a config file and tear it
+down (``ray_tpu_torch/cluster_launcher.py``; JSON, or YAML where ``yaml``
+is installed).
+
 ``status``, ``summary``, ``memory``, ``timeline``, ``profile``,
 ``microbenchmark``, ``dashboard`` and ``debug`` wait for the modules they
-read (ROADMAP A11e); ``up`` and ``down`` for the cluster launcher
-(ROADMAP A11c). Each exits 2 naming its item.
+read (ROADMAP A11e). Each exits 2 naming its item.
 """
 
 from __future__ import annotations
@@ -39,8 +42,6 @@ _LATER = {
     "profile": "A11e (profiling)",
     "microbenchmark": "A11e (_private/perf.py)",
     "dashboard": "A11e (the dashboard)", "debug": "A11e (util.rpdb)",
-    "up": "A11c (the cluster launcher)",
-    "down": "A11c (the cluster launcher)",
 }
 
 
@@ -315,6 +316,24 @@ def cmd_attach(args) -> int:
     return subprocess.call(cmd, env=env)
 
 
+def cmd_up(args) -> int:
+    """Create the cluster a config file describes (JAX's ``ray-tpu up``)."""
+    from ray_tpu_torch.cluster_launcher import up
+    state = up(args.config_file)
+    workers = sum(1 for n in state["nodes"] if n["kind"] == "worker")
+    print(f"cluster {state['cluster_name']!r} up at {state['address']} "
+          f"({workers} workers)")
+    print(f'connect with: ray_tpu_torch.init(address="{state["address"]}")')
+    return 0
+
+
+def cmd_down(args) -> int:
+    from ray_tpu_torch.cluster_launcher import down
+    n = down(args.config_file)
+    print(f"terminated {n} nodes")
+    return 0
+
+
 def _cmd_later(args) -> int:
     print(f"`{args.command}` is not ported yet: ROADMAP "
           f"{_LATER[args.command]}", file=sys.stderr)
@@ -366,6 +385,11 @@ def main(argv=None) -> int:
         help="open-loop serving load generator "
              "(see `loadgen --help`)")
     p.add_argument("rest", nargs=argparse.REMAINDER)
+    p = sub.add_parser("up")
+    p.add_argument("config_file", help="cluster config, JSON or YAML (see "
+                                       "ray_tpu_torch/cluster_launcher.py)")
+    p = sub.add_parser("down")
+    p.add_argument("config_file")
     p = sub.add_parser("attach")
     p.add_argument("cmd", nargs=argparse.REMAINDER,
                    help="command to run attached (default: $SHELL)")
@@ -390,6 +414,7 @@ def main(argv=None) -> int:
         "cluster-status": cmd_cluster_status, "drain": cmd_drain,
         "serve-deploy": cmd_serve_deploy, "job-submit": cmd_job_submit,
         "attach": cmd_attach, "loadgen": cmd_loadgen,
+        "up": cmd_up, "down": cmd_down,
     }[args.command]
     return handler(args)
 

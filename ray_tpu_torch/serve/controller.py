@@ -10,13 +10,11 @@ The controller is an actor; a daemon thread runs the reconcile+autoscale
 loop. Handles learn replica membership via ``get_replicas`` (versioned
 pull — the long-poll equivalent).
 
-The checkpoint is the one departure. The reference ``cloudpickle``s the
-deployment specs into the GCS KV; the port's stdlib pickler takes no class
-defined inside a function, and pickling an init argument would copy it
-(an LLM's weights on the card, on every deploy). The in-process GCS keeps
-the live spec objects instead (``GCS.live_put``): a restarted controller
-finds them as long as the runtime lives, which is as long as the replicas
-it re-binds to live, and nothing is copied.
+The checkpoint is JAX's: the deployment specs (classes, init arguments,
+target counts) go to the GCS KV as bytes on every deploy and delete, here
+a blob of the port's by-value pickler (``_private/serialization.py``;
+JAX's is ``cloudpickle``), and a restarted controller reads them back. A
+spec that cannot be pickled leaves the checkpoint as it was, as in JAX.
 """
 
 from __future__ import annotations
@@ -61,7 +59,7 @@ class _DeploymentState:
         self.replica_ids: Dict[int, str] = {}
 
 
-_CKPT_KEY = "serve::applications"
+_CKPT_KEY = b"serve::applications"
 
 
 class ServeController:
@@ -123,6 +121,7 @@ class ServeController:
         return rt.gcs if rt is not None else None
 
     def _checkpoint(self) -> None:
+        from ray_tpu_torch._private import serialization
         kv = self._kv()
         if kv is None:
             return
@@ -130,13 +129,26 @@ class ServeController:
             specs = {name: (st.deployment, st.init_args, st.init_kwargs,
                             st.target_replicas)
                      for name, st in self._state.items()}
-        kv.live_put(_CKPT_KEY, specs)
+        try:
+            kv.kv_put(_CKPT_KEY, serialization.dumps(specs))
+        except Exception:
+            pass
 
     def _recover_from_checkpoint(self) -> None:
+        from ray_tpu_torch._private import serialization
         kv = self._kv()
         if kv is None:
             return
-        specs = kv.live_get(_CKPT_KEY) or {}
+        try:
+            blob = kv.kv_get(_CKPT_KEY)
+        except Exception:
+            return
+        if not blob:
+            return
+        try:
+            specs = serialization.loads(blob)
+        except Exception:
+            return
         for name, (dep, args, kwargs, target) in specs.items():
             st = _DeploymentState(dep, args, kwargs)
             st.target_replicas = target

@@ -569,7 +569,7 @@ def test_port_reads_nothing_of_jax_native_dir():
     ``native/`` or loads the libraries JAX builds there."""
     from ray_tpu_torch import _build
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    for name in ("shm_store", "daemon_core"):
+    for name in ("shm_store", "daemon_core", "cpp_client"):
         assert (_build.CSRC / f"{name}.cc").exists()
         assert _build.host_library_path(name).parent == _build.BUILD_DIR
     for dirpath, _, files in os.walk(os.path.join(root, "ray_tpu_torch")):

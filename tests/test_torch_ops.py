@@ -546,14 +546,20 @@ def test_port_imports_only_the_stdlib_torch_and_numpy():
     (parquet, csv, json, orc, Delta and ``"pyarrow"`` batches), ``pandas``
     in ``data/block.py`` (``"pandas"`` batches, ``from_pandas``) and
     ``PIL`` in ``data/read_api.py`` (``read_images``). The port's blocks
-    are numpy, so the rest of the data layer runs without them."""
+    are numpy, so the rest of the data layer runs without them. The
+    cluster tier adds two: ``yaml`` in ``cluster_launcher.py`` (a YAML
+    config; a JSON one is read with ``json`` first) and ``joblib`` in
+    ``util/joblib_backend.py`` (its backend subclasses a joblib class, so
+    the class is built inside ``register_ray``)."""
     import sys
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy",
                                               "ray_tpu_torch"}
     lazy_only = {("transformers", "tokenizer.py"), ("yaml", "schema.py"),
                  ("pyarrow", "block.py"), ("pandas", "block.py"),
                  ("pyarrow", "dataset.py"), ("pyarrow", "read_api.py"),
-                 ("PIL", "read_api.py"), ("pyarrow", "offline.py")}
+                 ("PIL", "read_api.py"), ("pyarrow", "offline.py"),
+                 ("yaml", "cluster_launcher.py"),
+                 ("joblib", "joblib_backend.py")}
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     lazy = set()
@@ -572,4 +578,6 @@ def test_port_imports_only_the_stdlib_torch_and_numpy():
         ("pyarrow", "ray_tpu_torch/data/dataset.py"),
         ("pyarrow", "ray_tpu_torch/data/read_api.py"),
         ("PIL", "ray_tpu_torch/data/read_api.py"),
-        ("pyarrow", "ray_tpu_torch/rl/offline.py")}
+        ("pyarrow", "ray_tpu_torch/rl/offline.py"),
+        ("yaml", "ray_tpu_torch/cluster_launcher.py"),
+        ("joblib", "ray_tpu_torch/util/joblib_backend.py")}

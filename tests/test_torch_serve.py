@@ -897,14 +897,14 @@ def test_serve_controller_crash_recovery(ray_start_regular):
 # ---------------------------------------------------------------------------
 
 def test_checkpoint_keeps_init_arguments_uncopied(ray_start_regular):
-    """The checkpoint holds the live specs: a class defined in this
-    function (which the stdlib pickler refuses) is recovered, a tensor
-    bound as an init argument is the same tensor object in the checkpoint
-    (weights are never serialized on deploy), and the killed controller's
-    loop stops."""
+    """The checkpoint is JAX's, bytes in the GCS KV: a class defined in
+    this function (which the by-value pickler carries) and a tensor bound
+    as an init argument come back from the bytes, equal and not the same
+    objects; the killed controller's loop stops, and a new controller
+    recovers the deployment from the bytes."""
     import torch
 
-    from ray_tpu_torch._private import worker
+    from ray_tpu_torch._private import serialization, worker
     from ray_tpu_torch.serve.api import _get_controller
     from ray_tpu_torch.serve.controller import _CKPT_KEY
 
@@ -921,8 +921,11 @@ def test_checkpoint_keeps_init_arguments_uncopied(ray_start_regular):
     handle = serve.run(Holder.bind(weights))
     assert handle.remote(None).result() == 15.0
     gcs = worker.global_runtime().gcs
-    dep, args, kwargs, target = gcs.live_get(_CKPT_KEY)["Holder"]
-    assert args[0] is weights and dep is Holder
+    blob = gcs.kv_get(_CKPT_KEY)
+    assert isinstance(blob, bytes)
+    dep, args, kwargs, target = serialization.loads(blob)["Holder"]
+    assert args[0] is not weights and torch.equal(args[0], weights)
+    assert dep.name == "Holder" and target == 1
     old = ray_tpu_torch.get_actor("serve_controller")
     loop = worker.global_runtime()._actor_executors[
         old._actor_id].instance._thread
@@ -934,7 +937,7 @@ def test_checkpoint_keeps_init_arguments_uncopied(ray_start_regular):
     h2 = DeploymentHandle("Holder", _get_controller(create=True))
     assert h2.remote(None).result(timeout=30) == 15.0
     serve.delete("default")
-    assert "Holder" not in gcs.live_get(_CKPT_KEY)
+    assert "Holder" not in serialization.loads(gcs.kv_get(_CKPT_KEY))
 
 
 def test_http_proxy_legacy_threaded(serve_cluster):

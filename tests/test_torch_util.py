@@ -295,3 +295,71 @@ def test_actor_pool_and_queue_hand_tensors_over_uncopied(in_process_runtime):
     q.put(t)
     assert q.get().data_ptr() == t.data_ptr()
     q.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_util_extras.py: the serializability inspector and the joblib
+# backend
+# ---------------------------------------------------------------------------
+
+def test_inspect_serializability():
+    import threading
+
+    from ray_tpu_torch.util.check_serialize import inspect_serializability
+
+    ok, failures = inspect_serializability(lambda x: x + 1)
+    assert ok and not failures
+
+    lock = threading.Lock()
+
+    def bad():
+        return lock
+
+    ok, failures = inspect_serializability(bad, name="bad")
+    assert not ok
+    assert any("lock" in f.name for f in failures)
+
+
+def test_inspect_serializability_follows_the_by_value_pickler():
+    """A class defined in a function and a closure over it go by value
+    (what a worker process receives), and a leaf deep in an attribute is
+    named; the verdicts equal JAX's inspector's over ``cloudpickle``."""
+    import threading
+
+    from ray_tpu.util.check_serialize import \
+        inspect_serializability as jax_inspect
+
+    from ray_tpu_torch.util.check_serialize import inspect_serializability
+
+    class Local:
+        def __init__(self):
+            self.scale = 3
+
+    class Holder:
+        def __init__(self):
+            self.inner = {"ok": 1, "cond": threading.Condition()}
+
+    local = Local()
+    cases = [(lambda x: x * local.scale, "closure"), (Holder(), "holder"),
+             (Local, "cls")]
+    for obj, name in cases:
+        ok, failures = inspect_serializability(obj, name=name)
+        jok, jfailures = jax_inspect(obj, name=name)
+        assert ok == jok, name
+        assert sorted(f.name for f in failures) == \
+            sorted(f.name for f in jfailures), name
+    ok, failures = inspect_serializability(Holder(), name="holder")
+    assert not ok and "_lock" in [f.name for f in failures]
+    assert inspect_serializability(lambda x: x * local.scale)[0]
+
+
+def test_joblib_backend(ray_start_regular):
+    from joblib import Parallel, delayed, parallel_backend
+
+    from ray_tpu_torch.util.joblib_backend import register_ray
+
+    register_ray()
+    with parallel_backend("ray_tpu"):
+        out = Parallel(n_jobs=4)(delayed(lambda x: x * x)(i)
+                                 for i in range(8))
+    assert out == [i * i for i in range(8)]
