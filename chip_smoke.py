@@ -393,6 +393,40 @@
    no session dir, and the card within 64 MiB of its base. Alone:
    ``python -c "import chip_smoke, torch;
    chip_smoke.observability_path(torch.device('cuda'))"``.
+24. Chaos: (a) daemon tasks (two returns: the submit coalescer and the
+   result pump) make q, k and v at phase 20's seeds and shapes into
+   ``flash_fwd_wgmma`` (one launch, held to the plain version) on
+   ``init(cluster="daemons", num_nodes=2, resources={"CPU": 4})``, once
+   with nothing armed and once with seed 24's ``failpoints`` (the driver's
+   ``batch.submit_flush`` drop, the daemons' ``batch.result_flush`` drops
+   and ``daemon.push_task`` delays) and ``net_chaos`` (driver->daemon
+   latency, jitter and duplicates): the outputs bit for bit, each body run
+   once, the driver's fire counts and the daemons' ``ray_tpu_retries_total``
+   and ``ray_tpu_link_chaos_injected_total`` at the head's federated
+   exposition above 0, duplicated pings answered once; the time of each;
+   (b) on a fresh cluster the lane's first connect rides ``RetryPolicy``
+   past a ``cluster.lane_reconnect`` error arm (``max=2``), then a one-way
+   driver->daemon partition (control link and lane, a 3 s window) opens
+   mid-burst of lane and classic tasks: the silent flush times out
+   (``control_call_timeout_s`` 1.5) and marks the node dead, every task
+   gives its value once, the victim's late frames count in
+   ``ray_tpu_fenced_results_total``, and q, k and v made across the
+   partition give (a)'s output bit for bit; (c) ``memory_pressure`` with
+   arenas of 8 x q's bytes, watermarks 0.2,0.45, a spill budget of 1.5 x
+   q's bytes and a 0.1 s tick: a ballast past soft spills the cold q, whose
+   get restores it into the kernel bit for bit (a)'s output; three more
+   with the budget spent go hard: a task whose argument lives on the hard
+   node lands on the other, a put rides ``RetryPolicy`` through
+   ``MemoryPressureError`` until the ballast is freed; each level change is
+   printed; (d) a daemon worker's task raises with post-mortem on: ``cli
+   debug`` lists its session, ``rpdb.connect`` prints a local and
+   continues, the error reaches the driver; (e) everything disarmed, the
+   lane's no-op tasks/s on the default ``init()`` beside phase 19's; (f) at
+   (a) and (c) nvidia-smi lists one context and no process of the clusters
+   maps the CUDA driver; after it no process, no ``/dev/shm`` segment, no
+   session or spill dir, and the card within 64 MiB of its base. Alone:
+   ``python -c "import chip_smoke, torch;
+   chip_smoke.chaos_path(torch.device('cuda'))"``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -6487,6 +6521,610 @@ def observability_path(dev, smi=None) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# 24. chaos: failpoints, network chaos, the retry policy, memory pressure and
+# the remote debugger
+# ---------------------------------------------------------------------------
+
+CHAOS_SEED = 24
+# the driver's flush resends one lost batch; each daemon's result pump
+# resends two lost completion frames; half the daemons' pushes are late
+CHAOS_FAILPOINTS = ("batch.submit_flush=drop:max=1;"
+                    "batch.result_flush=drop:max=2;"
+                    "daemon.push_task=delay(20):p=0.5")
+# the driver's frames to each daemon: 2-5 ms late and half of them sent
+# twice, from 300 ms after the link's first frame (the hello) on
+CHAOS_LINKS = "driver>daemon=lat=2:jitter=3:dup=0.5:start=300"
+
+
+def chaos_make():
+    """Phase 24's daemon task: one of phase 20's arrays from its seed, with
+    a second return (the classic path: the submit coalescer and the result
+    pump) and one line in ``path`` for each run of its body."""
+    import ray_tpu_torch as rt
+
+    @rt.remote(num_returns=2, max_retries=5)
+    def make(shape, seed, path):
+        with open(path, "a") as f:
+            f.write(f"{seed}\n")
+        return (np.random.default_rng(seed).standard_normal(
+            shape, dtype=np.float32), seed)
+    return make
+
+
+def chaos_flash(dev, views: dict, part: str) -> tuple:
+    """q, k and v (host arrays or arena views) to the card as bf16 and
+    ``flash_fwd_wgmma`` once (the counter at 0 before it), held to the plain
+    version at ``BF16_TOL``: (output, launches, max_abs_err)."""
+    import warnings
+    import torch
+    from ray_tpu_torch.ops import attention as attn
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # from_numpy of a read-only view
+        q, k, v = (torch.from_numpy(np.asarray(views[n])).to(dev)
+                   .to(torch.bfloat16) for n in ATTN_SHAPES)
+    attn.flash_attention_kernel.launches = 0
+    out = attn.flash_attention_kernel(q, k, v, True)
+    launches = attn.flash_attention_kernel.launches
+    plain = attn._flash_forward_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), plain.float(), **BF16_TOL)
+    err = (out.float() - plain.float()).abs().max().item()
+    if launches != 1 or not torch.isfinite(out).all():
+        raise RuntimeError(f"phase 24({part}): flash launches {launches}")
+    return out, launches, err
+
+
+def exposition_sum(text: str, name: str, **labels) -> dict:
+    """node_id (or "" for the driver's own series) -> the sum of the
+    samples of ``name`` whose labels include ``labels``."""
+    out: dict = {}
+    for line in text.splitlines():
+        if not line.startswith(name + "{") and not line.startswith(
+                name + " "):
+            continue
+        body, value = line.rsplit(" ", 1)
+        got = dict(re.findall(r'(\w+)="([^"]*)"', body))
+        if all(got.get(k) == v for k, v in labels.items()):
+            node = got.get("node_id", "")
+            out[node] = out.get(node, 0.0) + float(value)
+    return out
+
+
+def chaos_track(runtime, track: dict) -> None:
+    """Remember a cluster's processes, arenas and session dir for 24(f)."""
+    backend = runtime.cluster_backend
+    track["pids"] |= descendants(cluster_pids(runtime, set()))
+    track["nodes"] += [h.node_id.hex() for h in backend.daemons.values()]
+    track["sessions"].append(backend.session_dir)
+
+
+def chaos_seeded(dev, tmp: str, smi: str, track: dict) -> dict:
+    """Phase 24(a): q, k and v made by daemon tasks and read into the flash
+    kernel, on a cluster with nothing armed and on one with seed 24's
+    failpoints and link policy; the outputs bit for bit, the fire counts,
+    the daemons' retries and injected link effects at the head's
+    federated exposition, duplicates answered once at the caller."""
+    import os
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import failpoints as fp
+    from ray_tpu_torch._private import netchaos as nc
+    from ray_tpu_torch._private.rpc import _WIRE_CLIENT_REQS
+    from ray_tpu_torch.util.metrics import (cluster_prometheus_text,
+                                            prometheus_text)
+    runs = {}
+    for armed in (False, True):
+        cfg = ({"failpoints": CHAOS_FAILPOINTS, "failpoints_seed": CHAOS_SEED,
+                "net_chaos": CHAOS_LINKS, "net_chaos_seed": CHAOS_SEED}
+               if armed else {})
+        path = os.path.join(tmp, f"made_{int(armed)}.txt")
+        runtime = rt.init(cluster="daemons", num_nodes=2,
+                          resources={"CPU": 4}, _system_config=cfg)
+        try:
+            chaos_track(runtime, track)
+            handles = list(runtime.cluster_backend.daemons.values())
+            time.sleep(0.4)     # past the link policy's 300 ms start
+            t0 = time.perf_counter()
+            make = chaos_make()
+            refs = {n: make.remote(shape, i, path)
+                    for i, (n, shape) in enumerate(ATTN_SHAPES.items())}
+            views = dict(zip(refs, rt.get([r[0] for r in refs.values()],
+                                          timeout=120)))
+            seeds = rt.get([r[1] for r in refs.values()], timeout=60)
+            out, launches, err = chaos_flash(dev, views, "a")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            del views
+            if seeds != [0, 1, 2]:
+                raise RuntimeError(f"phase 24(a): seeds {seeds}")
+            with open(path) as f:
+                ran = sorted(int(x) for x in f.read().split())
+            if ran != [0, 1, 2]:
+                raise RuntimeError(f"phase 24(a) armed={armed}: the bodies "
+                                   f"ran {ran} (each exactly once)")
+            only_driver_on_card(track["pids"], f"24(a) armed={armed}",
+                                track["seen"])
+            run = {"out": out, "launches": launches, "max_abs_err": err,
+                   "seconds": seconds}
+            if armed:
+                # duplicates: pings on the chaotic links, one reply each
+                calls0 = _WIRE_CLIENT_REQS.get("daemon_ping", 0)
+                for _ in range(8):
+                    for h in handles:
+                        h.client.call("daemon_ping", timeout=10.0)
+                calls = _WIRE_CLIENT_REQS.get("daemon_ping", 0) - calls0
+                run["fires"] = {n: fp.fire_count(n) for n in
+                                ("batch.submit_flush",)}
+                run["driver_injected"] = {
+                    e: nc.injected_count(e) for e in ("delay", "dup")}
+                # the daemons' counters reach the head on their beats
+                deadline = time.monotonic() + 15
+                while True:
+                    text = cluster_prometheus_text()
+                    nodes = {h.node_id.hex() for h in handles}
+                    retries = exposition_sum(text, "ray_tpu_retries_total")
+                    links = exposition_sum(
+                        text, "ray_tpu_link_chaos_injected_total")
+                    served = exposition_sum(
+                        text, "ray_tpu_rpc_server_requests_total",
+                        method="daemon_ping")
+                    d_retries = sum(v for k, v in retries.items()
+                                    if k in nodes)
+                    d_links = sum(v for k, v in links.items() if k in nodes)
+                    d_served = sum(v for k, v in served.items()
+                                   if k in nodes)
+                    if (d_retries > 0 and d_links > 0
+                            and d_served > calls) \
+                            or time.monotonic() > deadline:
+                        break
+                    time.sleep(0.25)
+                run.update(daemon_retries=d_retries, daemon_links=d_links,
+                           pings=calls, pings_served=d_served,
+                           driver_retries=exposition_sum(
+                               prometheus_text(), "ray_tpu_retries_total",
+                               loop="batch.submit_flush").get("", 0.0))
+                if (run["fires"]["batch.submit_flush"] < 1
+                        or run["driver_injected"]["dup"] < 1
+                        or d_retries <= 0 or d_links <= 0
+                        or d_served <= calls):
+                    raise RuntimeError(f"phase 24(a): fire counts "
+                                       f"{run['fires']}, the driver's "
+                                       f"injected effects "
+                                       f"{run['driver_injected']}, the "
+                                       f"daemons' retries {retries} and "
+                                       f"link effects {links}, {calls} pings "
+                                       f"served {served} times")
+            runs[armed] = run
+        finally:
+            rt.shutdown()
+            fp.reset()
+            nc.reset()
+    if not torch.equal(runs[True]["out"], runs[False]["out"]):
+        raise RuntimeError("phase 24(a): the armed output differs from the "
+                           "unarmed one")
+    a = runs[True]
+    log(f"phase 24(a): seed {CHAOS_SEED}, failpoints '{CHAOS_FAILPOINTS}', "
+        f"links '{CHAOS_LINKS}': 3 daemon tasks made q, k and v (each body "
+        f"ran once) into flash_fwd_wgmma (1 launch, max_abs_err "
+        f"{a['max_abs_err']:.3e}), bit for bit the unarmed output; the "
+        f"driver's fires {a['fires']}, its injected effects "
+        f"{a['driver_injected']}, its submit-flush retries "
+        f"{a['driver_retries']:.0f}; the daemons' ray_tpu_retries_total "
+        f"{a['daemon_retries']:.0f} and ray_tpu_link_chaos_injected_total "
+        f"{a['daemon_links']:.0f} at the head's exposition; {a['pings']} "
+        f"pings served {a['pings_served']:.0f} times, each answered once; "
+        f"make-to-kernel {runs[False]['seconds']:.2f} s unarmed, "
+        f"{a['seconds']:.2f} s armed ({smi})")
+    return {"out": runs[False]["out"], "launches": runs[False]["launches"]
+            + a["launches"], "max_abs_err": a["max_abs_err"],
+            "unarmed_s": runs[False]["seconds"], "armed_s": a["seconds"],
+            "fires": a["fires"], "driver_injected": a["driver_injected"],
+            "daemon_retries": a["daemon_retries"],
+            "daemon_link_effects": a["daemon_links"],
+            "pings": a["pings"], "pings_served": a["pings_served"]}
+
+
+def chaos_partition(dev, ref_out, tmp: str, smi: str, track: dict) -> dict:
+    """Phase 24(b): the lane's first connect rides ``RetryPolicy`` past two
+    injected errors; a one-way driver->daemon partition with a 3 s window
+    opens in the middle of a burst of lane and classic tasks; the silent
+    link ends in a typed timeout and the node's death, every task gives its
+    value once, the victim's late result frames are fenced, and q, k and v
+    made across the partition give (a)'s output bit for bit."""
+    import os
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import failpoints as fp
+    from ray_tpu_torch._private import netchaos as nc
+    from ray_tpu_torch.util.metrics import prometheus_text
+    path = os.path.join(tmp, "made_b.txt")
+    runtime = rt.init(cluster="daemons", num_nodes=2, resources={"CPU": 4},
+                      _system_config={"control_call_timeout_s": 1.5})
+    try:
+        chaos_track(runtime, track)
+        victim, survivor = list(runtime.cluster_backend.daemons.values())
+        vh = victim.node_id.hex()
+        fp.configure("cluster.lane_reconnect", "error", max_fires=2)
+
+        @rt.remote(max_retries=5)
+        def plain(i):
+            time.sleep(0.02)
+            return i * 7
+
+        @rt.remote(max_retries=5, num_returns=2)
+        def pair(i):
+            time.sleep(0.02)
+            return i, i * 11
+
+        @rt.remote(max_retries=5, num_returns=2)
+        def slow(i):
+            time.sleep(2.5)
+            return i, -i
+
+        t0 = time.perf_counter()
+        pre = [pair.remote(i) for i in range(8)]
+        pre_plain = [plain.remote(i) for i in range(8)]
+        rt.get([r for pr in pre for r in pr] + pre_plain, timeout=60)
+        reconnects = fp.fire_count("cluster.lane_reconnect")
+        lane_retries = exposition_sum(prometheus_text(),
+                                      "ray_tpu_retries_total",
+                                      loop="fast_lane.reconnect").get("", 0)
+        fenced0 = sum(exposition_sum(
+            prometheus_text(), "ray_tpu_fenced_results_total").values())
+        at_victim = rt.NodeAffinitySchedulingStrategy(node_id=vh, soft=True)
+        stale = [slow.options(scheduling_strategy=at_victim).remote(i)
+                 for i in range(2)]
+        time.sleep(0.3)     # the slow bodies are running on the victim
+        nc.activate(f"driver>daemon@{vh}=partition:dur=3000;"
+                    f"driver>daemon@lane:{vh}=partition:dur=3000",
+                    seed=CHAOS_SEED)
+        make = chaos_make()
+        refs = {n: make.options(scheduling_strategy=at_victim).remote(
+                    shape, i, path)
+                for i, (n, shape) in enumerate(ATTN_SHAPES.items())}
+        post = [pair.remote(i) for i in range(8, 16)]
+        post_plain = [plain.options(scheduling_strategy=at_victim).remote(i)
+                      for i in range(8, 16)]
+        vals = rt.get([r for pr in pre + post + stale for r in pr],
+                      timeout=120)
+        want = ([x for i in range(16) for x in (i, i * 11)]
+                + [x for i in range(2) for x in (i, -i)])
+        plains = rt.get(pre_plain + post_plain, timeout=120)
+        views = dict(zip(refs, rt.get([r[0] for r in refs.values()],
+                                      timeout=120)))
+        out, launches, err = chaos_flash(dev, views, "b")
+        torch.cuda.synchronize()
+        burst_s = time.perf_counter() - t0
+        del views
+        deadline = time.monotonic() + 15
+        while True:
+            fenced = sum(exposition_sum(
+                prometheus_text(), "ray_tpu_fenced_results_total").values())
+            if fenced > fenced0 or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        drops = nc.injected_count("drop")
+        links = sorted({e["policy"] for e in nc.hit_log()})
+        if (vals != want or plains != [i * 7 for i in range(16)]
+                or not victim.dead or drops < 1 or fenced <= fenced0
+                or reconnects != 2 or lane_retries < 2
+                or not torch.equal(out, ref_out)):
+            raise RuntimeError(f"phase 24(b): values {vals == want} "
+                               f"{plains}, victim dead {victim.dead}, "
+                               f"{drops} frames dropped on {links}, fenced "
+                               f"{fenced0} -> {fenced}, lane reconnect "
+                               f"errors {reconnects} and retries "
+                               f"{lane_retries}, output equal "
+                               f"{torch.equal(out, ref_out)}")
+        survived = rt.get(plain.remote(99), timeout=60)
+    finally:
+        rt.shutdown()
+        fp.reset()
+        nc.reset()
+    log(f"phase 24(b): the lane's first connect rode RetryPolicy past "
+        f"{reconnects} injected errors ({lane_retries:.0f} retries of loop "
+        f"fast_lane.reconnect); a one-way partition driver->daemon "
+        f"{vh[:8]} (control and lane, 3 s window) mid-burst dropped {drops} "
+        f"frames on {links}: the silent flush timed out (1.5 s) and marked "
+        f"the node dead, 34 tasks gave their values once, "
+        f"ray_tpu_fenced_results_total {fenced0:.0f} -> {fenced:.0f} from "
+        f"the victim's late frames, the survivor answered ({survived}); q, "
+        f"k and v made across the partition into flash_fwd_wgmma (1 launch, "
+        f"max_abs_err {err:.3e}) bit for bit (a)'s output; {burst_s:.2f} s "
+        f"({smi})")
+    return {"launches": launches, "max_abs_err": err, "drops": drops,
+            "fenced": fenced - fenced0, "reconnect_errors": reconnects,
+            "lane_retries": lane_retries, "seconds": burst_s}
+
+
+def chaos_pressure(dev, ref_out, tmp: str, smi: str, track: dict) -> dict:
+    """Phase 24(c) and (d): ``memory_pressure`` on, each arena 8 x q's
+    bytes (512 MiB), watermarks 0.2,0.45 and a spill budget of 1.5 x q's
+    bytes (96 MiB); plain tasks make the arrays (one return: an arena entry
+    of the array's bytes). A ballast over soft spills the cold q, which
+    restores bit for bit into the kernel; three more with the budget spent
+    go hard: a put rides ``RetryPolicy``
+    through ``MemoryPressureError`` until refs are freed, and a task
+    preferring the hard node lands on the other. Then a daemon task raises
+    with post-mortem on: ``cli debug`` lists its session, ``rpdb.connect``
+    prints a local and continues, and the error reaches the driver."""
+    import os
+    import threading
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.ids import ObjectID
+    from ray_tpu_torch.util import rpdb
+    from ray_tpu_torch.util.metrics import prometheus_text
+    qbytes = int(np.prod(ATTN_SHAPES["q"])) * 4
+    env = {"RAY_TPU_MEMORY_PRESSURE": "1", "RAY_TPU_PRESSURE_TICK_S": "0.1",
+           "RAY_TPU_ARENA_SPILL_WATERMARKS": "0.2,0.45",
+           "RAY_TPU_ARENA_SPILL_BUDGET_BYTES": str(3 * qbytes // 2)}
+    os.environ.update(env)
+    try:
+        runtime = rt.init(cluster="daemons", num_nodes=2,
+                          resources={"CPU": 4},
+                          object_store_memory=8 * qbytes)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    levels: list = []
+    try:
+        chaos_track(runtime, track)
+        backend = runtime.cluster_backend
+        victim, other = list(backend.daemons.values())
+        t_base = time.perf_counter()
+        on_level = victim._on_node_pressure
+
+        def record(level):
+            levels.append((round(time.perf_counter() - t_base, 3), level))
+            log(f"phase 24(c): daemon {victim.node_id.hex()[:8]} -> {level} "
+                f"at {levels[-1][0]:.3f} s")
+            on_level(level)
+        victim._on_node_pressure = record
+
+        def wait_level(want, what, timeout=20.0):
+            deadline = time.monotonic() + timeout
+            while victim.pressure_level != want:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"phase 24(c): {what}: the level "
+                                       f"stayed {victim.pressure_level} "
+                                       f"({levels})")
+                time.sleep(0.02)
+
+        def spill():
+            return victim.client.call("daemon_stats")["spill"]
+
+        @rt.remote
+        def make(shape, seed):
+            return np.random.default_rng(seed).standard_normal(
+                shape, dtype=np.float32)
+
+        pin = {"q": victim, "k": other, "v": other}
+        refs = {n: make.options(scheduling_strategy=(
+                    rt.NodeAffinitySchedulingStrategy(
+                        node_id=pin[n].node_id.hex(), soft=False))).remote(
+                    shape, i)
+                for i, (n, shape) in enumerate(ATTN_SHAPES.items())}
+        rt.wait(list(refs.values()), num_returns=3, timeout=120)
+        at_victim = rt.NodeAffinitySchedulingStrategy(
+            node_id=victim.node_id.hex(), soft=False)
+        ballast = [make.options(scheduling_strategy=at_victim).remote(
+            ATTN_SHAPES["q"], 100)]
+        rt.wait(ballast, timeout=60)
+        # soft: the controller spills the cold q down to the soft line
+        deadline = time.monotonic() + 20
+        while spill()["spills"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        soft_spill = spill()
+        if soft_spill["spills"] < 1 or not any(lv == "soft"
+                                               for _, lv in levels):
+            raise RuntimeError(f"phase 24(c): no soft spill ({soft_spill}, "
+                               f"levels {levels})")
+        views = dict(zip(refs, rt.get(list(refs.values()), timeout=60)))
+        restored = spill()
+        out, launches, err = chaos_flash(dev, views, "c")
+        torch.cuda.synchronize()
+        only_driver_on_card(track["pids"], "24(c)", track["seen"])
+        del views
+        if restored["restores"] < 1 or not torch.equal(out, ref_out):
+            raise RuntimeError(f"phase 24(c): restores {restored}, output "
+                               f"equal {torch.equal(out, ref_out)}")
+        # hard: more ballast with the spill budget spent
+        ballast += [make.options(scheduling_strategy=at_victim).remote(
+            ATTN_SHAPES["q"], 101 + i) for i in range(3)]
+        wait_level("hard", "three more arrays of q's size")
+
+        @rt.remote
+        def where(x):
+            return rt.get_runtime_context().get_node_id()
+
+        landed = rt.get(where.remote(ballast[-1]), timeout=60)
+        done: dict = {}
+        node = runtime.get_node(victim.node_id)
+
+        def put():
+            t0 = time.perf_counter()
+            try:
+                node.store.put(ObjectID.from_random(),
+                               np.ones(1 << 18, np.float32))
+                done["s"] = time.perf_counter() - t0
+            except Exception as e:  # noqa: BLE001 - reported below
+                done["error"] = repr(e)
+
+        putter = threading.Thread(target=put, name="pressure-put")
+        putter.start()
+        time.sleep(0.5)         # the put meets the hard level
+        retries_hard = exposition_sum(
+            prometheus_text(), "ray_tpu_retries_total",
+            loop="put.backpressure").get("", 0.0)
+        ballast.clear()         # relief: the refs go, the arena drains
+        gc.collect()
+        putter.join(timeout=35)
+        wait_level("ok", "the ballast freed")
+        if (landed != other.node_id.hex() or "error" in done
+                or putter.is_alive() or retries_hard < 1):
+            raise RuntimeError(f"phase 24(c): the task landed on "
+                               f"{landed[:8]}, the put {done} (alive "
+                               f"{putter.is_alive()}), put.backpressure "
+                               f"retries {retries_hard}")
+        log(f"phase 24(c): arenas of {8 * qbytes / 2**20:g} MiB, watermarks "
+            f"0.2,0.45, spill budget {1.5 * qbytes / 2**20:g} MiB, tick 0.1 "
+            f"s: a {qbytes / 2**20:g} MiB ballast on daemon "
+            f"{victim.node_id.hex()[:8]} spilled the cold q ({soft_spill}); "
+            f"its get restored it ({restored['restores']} restores) into "
+            f"flash_fwd_wgmma (1 launch, max_abs_err {err:.3e}) bit for bit "
+            f"(a)'s output; three more with the budget spent went hard: a task "
+            f"preferring the hard node landed on {landed[:8]}, a put rode "
+            f"RetryPolicy through MemoryPressureError "
+            f"({retries_hard:.0f} retries of loop put.backpressure by 0.5 s) "
+            f"and landed {done['s']:.2f} s after its start once the ballast "
+            f"was freed; levels {levels} ({smi})")
+
+        # (d) the remote debugger on a daemon worker
+        @rt.remote(max_retries=0)
+        def crash():
+            import os as _os
+            _os.environ["RAY_TPU_POST_MORTEM"] = "1"
+            clue = "phase-24-clue"
+            raise ValueError(f"exploded with {clue}")
+
+        t0 = time.perf_counter()
+        ref = crash.remote()
+        deadline = time.monotonic() + 30
+        sessions = []
+        while not sessions and time.monotonic() < deadline:
+            sessions = rpdb.sessions_from_kv(backend.head)
+            time.sleep(0.05)
+        address = f"{backend.head.addr[0]}:{backend.head.addr[1]}"
+        listed = cli("debug", "--cluster", address)
+        if not sessions or listed.returncode != 0 or \
+                f"{sessions[0]['host']}:{sessions[0]['port']}" \
+                not in listed.stdout:
+            raise RuntimeError(f"phase 24(d): sessions {sessions}, cli "
+                               f"debug {listed.returncode} "
+                               f"{listed.stdout!r} {listed.stderr[-500:]}")
+        s = sessions[0]
+        transcript = rpdb.connect(s["host"], s["port"],
+                                  commands=["p clue", "c"])
+        try:
+            rt.get(ref, timeout=60)
+            raised = None
+        except Exception as e:  # noqa: BLE001 - checked below
+            raised = e
+        left = rpdb.sessions_from_kv(backend.head)
+        debug_s = time.perf_counter() - t0
+        if ("phase-24-clue" not in transcript or raised is None
+                or "exploded" not in str(raised) or left):
+            raise RuntimeError(f"phase 24(d): transcript {transcript!r}, "
+                               f"the driver got {raised!r}, sessions left "
+                               f"{left}")
+        log(f"phase 24(d): a daemon worker's task (pid {s['pid']}) raised "
+            f"with post-mortem on; cli debug listed {s['host']}:{s['port']} "
+            f"(task {str(s.get('task_id'))[:12]}), rpdb.connect printed "
+            f"the local ('phase-24-clue') and continued, the driver got "
+            f"{type(raised).__name__}; the session retracted; {debug_s:.2f} "
+            f"s ({smi})")
+    finally:
+        rt.shutdown()
+    return {"launches": launches, "max_abs_err": err, "levels": levels,
+            "spills": restored["spills"], "restores": restored["restores"],
+            "put_retries": retries_hard, "put_s": done["s"],
+            "debug_s": debug_s}
+
+
+def chaos_disarmed(phase19, smi: str) -> dict:
+    """Phase 24(e): everything disarmed, the lane's no-op tasks/s on the
+    default ``init()`` beside phase 19's figure (every seam then costs one
+    module-global boolean read)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import failpoints as fp
+    from ray_tpu_torch._private import netchaos as nc
+    if fp.ENABLED or nc.ENABLED:
+        raise RuntimeError("phase 24(e): chaos still armed")
+    rt.init()
+    try:
+        rate, _ = noop_rate(noop())
+    finally:
+        rt.shutdown()
+    before = (phase19 or {}).get("lane_tasks_per_s")
+    log(f"phase 24(e): everything disarmed, {rate:.0f} no-op lane tasks/s "
+        f"(phase 19's {before if before is None else round(before)}) "
+        f"({smi})")
+    return {"lane_tasks_per_s": rate, "phase19_lane_tasks_per_s": before}
+
+
+def chaos_path(dev, phase19=None, smi=None) -> dict:
+    """Phase 24: chaos (see the module's docstring). Alone: ``python -c
+    "import chip_smoke, torch; chip_smoke.chaos_path(torch.device('cuda'))"``
+    (phase 19's figure is then absent from (e))."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import failpoints as fp
+    from ray_tpu_torch._private import netchaos as nc
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    if rt.is_initialized():
+        raise RuntimeError("a runtime is still up")
+    # warm the kernel and the plain version's matmuls on small inputs, so
+    # (a)'s first, unarmed run pays no module load when run alone
+    warm = {n: np.ones((1, 128) + tuple(shape[2:]), np.float32)
+            for n, shape in ATTN_SHAPES.items()}
+    chaos_flash(dev, warm, "warm-up")
+    del warm
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    track = {"pids": set(), "nodes": [], "sessions": [], "seen": []}
+    try:
+        a = chaos_seeded(dev, tmp, smi, track)
+        b = chaos_partition(dev, a["out"], tmp, smi, track)
+        c = chaos_pressure(dev, a["out"], tmp, smi, track)
+        e = chaos_disarmed(phase19, smi)
+    finally:
+        fp.reset()
+        nc.reset()
+        if rt.is_initialized():
+            rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del a["out"]
+    pids = track["pids"]
+    deadline = time.monotonic() + 15
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = sorted(p for p in pids if _alive(p))
+    segments = [s for n in track["nodes"]
+                for s in glob.glob(f"/dev/shm/rtpt_{n[:12]}*")]
+    sessions = [s for s in track["sessions"] if os.path.exists(s)]
+    if left or segments or sessions:
+        raise RuntimeError(f"phase 24(f): processes {left} left, segments "
+                           f"{segments}, session (and spill) dirs "
+                           f"{sessions}")
+    freed, _ = wait_freed(base, "phase 24 after shutdown()")
+    if freed - base > 64 << 20:
+        raise RuntimeError(f"phase 24(f): {freed - base} bytes above the "
+                           f"base after shutdown()")
+    seconds = time.perf_counter() - t0
+    log(f"phase 24(f): nvidia-smi listed one context, pids "
+        f"{track['seen']}; none of the {len(pids)} processes of the four "
+        f"clusters left, no /dev/shm segment of their arenas, no session "
+        f"or spill dir, {freed - base} bytes above the base; phase 24 in "
+        f"{seconds:.1f} s ({smi})")
+    launches = a["launches"] + b["launches"] + c["launches"]
+    result = {"part": "24", "launches": launches,
+              "seeded": a, "partition": b,
+              "pressure": {k: v for k, v in c.items() if k != "levels"},
+              "levels": c["levels"], "disarmed": e,
+              "bytes_after_shutdown": freed, "base_bytes": base,
+              "seconds": seconds, "card": smi}
+    log(json.dumps(result))
+    return result
+
+
 def _alive(pid) -> bool:
     """Whether ``pid`` is a live process (a zombie is not)."""
     if pid is None:
@@ -6735,6 +7373,13 @@ def main() -> int:
     # logs, tracing's cost, nothing left
     observed = observability_path(dev, smi)
     rows[2]["launches"] += observed["flash_launches"]
+
+    # 24. chaos: seed 24's failpoints and link policy on a daemon cluster
+    # (q, k and v into the flash kernel bit for bit the unarmed output), a
+    # partition that heals, memory pressure to soft and hard, the remote
+    # debugger on a daemon worker, the disarmed lane's rate, nothing left
+    chaos = chaos_path(dev, native, smi)
+    rows[2]["launches"] += chaos["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -20,8 +20,11 @@ Wire parity is the contract:
 - A frame that is not plain data is refused by the sender and by the
   receiver, as in the threaded core.
 
-JAX's failpoint and netchaos seams are not ported (ROADMAP A11e, second
-part); the threaded core leaves them out the same way.
+Chaos: the threaded core's failpoint seams (``rpc.client.send``,
+``rpc.client.recv``, ``rpc.server.recv``) fire here under the same names,
+so one schedule hits whichever core a process runs; netchaos sits below
+the frame layer in the write batcher and the frame protocol, and its
+delays ride ``call_later`` (the loop never sleeps) in per-link FIFO.
 
 Thread affinity: everything the loop calls is loop-only. Handlers run on
 pool or dedicated threads unless marked ``@rpc.loop_safe``; their replies
@@ -38,11 +41,22 @@ from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from ray_tpu_torch._private import eventloop
+from ray_tpu_torch._private import failpoints as _fp
+from ray_tpu_torch._private import netchaos as _nc
 from ray_tpu_torch._private.rpc import (  # one set of counters, schemas
     # and limits for both cores: exposition and validation cannot drift
     _LEN, _WIRE, _WIRE_LOCK, _WIRE_CLIENT_REQS, _WIRE_SERVER_REQS, HOLD,
     MAX_FRAME, SEND_CONCAT_MAX, RemoteError, RpcError, _validate,
     dumps_frame, loads_frame)
+
+
+def _raw_sock(transport) -> Any:
+    """The real ``socket.socket`` behind a transport. asyncio hands out a
+    ``TransportSocket`` facade with ``__slots__`` (not weakref-able), but
+    netchaos keys link identity in a WeakKeyDictionary: unwrap to the
+    underlying socket object, stable for the connection's lifetime."""
+    ts = transport.get_extra_info("socket")
+    return getattr(ts, "_sock", ts)
 
 
 class _WriteBatcher:
@@ -56,12 +70,13 @@ class _WriteBatcher:
 
     def __init__(self, loop: asyncio.AbstractEventLoop, transport,
                  sock) -> None:
-        # ``sock`` is JAX's chaos-link identity; the port keeps the
-        # signature (the seams come with A11e's second part)
         self._loop = loop
         self._transport = transport
+        self._sock = sock               # chaos-link identity
         self._stage: deque = deque()
         self._armed = False
+        self._delayed: deque = deque()  # (blob, due): chaos-delayed FIFO
+        self._timer: Optional[asyncio.TimerHandle] = None
         self.frames = 0                 # staged frames (test hook)
         self.writes = 0                 # flush batches (test hook)
 
@@ -69,7 +84,27 @@ class _WriteBatcher:
         n = len(blob)
         if n > MAX_FRAME:
             raise RpcError(f"frame too large: {n}")
-        _WIRE["bytes_sent"] += n + 4    # lossy-tolerant plain add
+        if _nc.ENABLED:
+            # chaos below the frame layer: drop suppresses the WHOLE frame,
+            # dup stages the same complete frame twice, delay queues it
+            # FIFO behind earlier delayed frames on this link
+            verdict, delay_s = _nc.on_send_decide(self._sock, n + 4)
+            if verdict is _nc.DROP_FRAME:
+                return
+            copies = 2 if verdict is _nc.DUP_FRAME else 1
+            if delay_s > 0 or self._delayed:
+                due = self._loop.time() + delay_s
+                for _ in range(copies):
+                    self._delayed.append((blob, due))
+                self._arm_timer()
+                return
+            for _ in range(copies):
+                self._stage_frame(blob)
+            return
+        self._stage_frame(blob)
+
+    def _stage_frame(self, blob) -> None:  #: loop-only
+        _WIRE["bytes_sent"] += len(blob) + 4    # lossy-tolerant plain add
         _WIRE["frames_sent"] += 1
         self.frames += 1
         self._stage.append(blob)
@@ -78,6 +113,21 @@ class _WriteBatcher:
             # call_soon, not a write now: whatever the rest of this loop
             # iteration stages joins the same flush
             self._loop.call_soon(self._flush)
+
+    def _arm_timer(self) -> None:  #: loop-only
+        if self._timer is not None:
+            return
+        due = self._delayed[0][1]
+        self._timer = self._loop.call_later(
+            max(0.0, due - self._loop.time()), self._release_delayed)
+
+    def _release_delayed(self) -> None:  #: loop-only
+        self._timer = None
+        now = self._loop.time()
+        while self._delayed and self._delayed[0][1] <= now:
+            self._stage_frame(self._delayed.popleft()[0])
+        if self._delayed:
+            self._arm_timer()
 
     def _flush(self) -> None:  #: loop-only
         self._armed = False
@@ -107,11 +157,17 @@ class _WriteBatcher:
 
 class _FrameProtocol(asyncio.Protocol):
     """Framing on the loop. ``owner`` (AsyncClient or AsyncConnection)
-    supplies ``_attached``, ``_on_frame`` and ``_on_lost``."""
+    supplies ``_attached``, ``_on_frame`` and ``_on_lost`` and a ``sock``
+    attribute for chaos-link identity. Inbound chaos delays re-schedule
+    delivery through ``call_later`` (the loop never sleeps), keeping
+    per-link FIFO as the threaded reader's in-line sleep does."""
 
     def __init__(self, owner) -> None:
         self._owner = owner
+        self._loop = eventloop.get_loop()
         self._buf = bytearray()
+        self._in_delayed: deque = deque()  # (blob, due)
+        self._in_timer: Optional[asyncio.TimerHandle] = None
         self.transport = None
 
     def connection_made(self, transport) -> None:  #: loop-only
@@ -136,26 +192,61 @@ class _FrameProtocol(asyncio.Protocol):
             off += 4 + n
             _WIRE["bytes_recv"] += n + 4    # lossy-tolerant plain add
             _WIRE["frames_recv"] += 1
-            try:
-                msg = loads_frame(blob)
-            except RpcError:
-                self._violation()
+            if _nc.ENABLED:
+                verdict, delay_s = _nc.on_recv_decide(
+                    self._owner.sock, n + 4)
+                if verdict is _nc.DROP_FRAME:
+                    continue    # inbound frame lost on the simulated link
+                if delay_s > 0 or self._in_delayed:
+                    self._in_delayed.append(
+                        (blob, self._loop.time() + delay_s))
+                    self._arm_in_timer()
+                    continue
+            if not self._deliver(blob):
                 return
-            if not isinstance(msg, dict):
-                self._violation()
-                return
-            self._owner._on_frame(msg)
         if off:
             del buf[:off]
+
+    def _arm_in_timer(self) -> None:  #: loop-only
+        if self._in_timer is not None:
+            return
+        due = self._in_delayed[0][1]
+        self._in_timer = self._loop.call_later(
+            max(0.0, due - self._loop.time()), self._release_in_delayed)
+
+    def _release_in_delayed(self) -> None:  #: loop-only
+        self._in_timer = None
+        now = self._loop.time()
+        while self._in_delayed and self._in_delayed[0][1] <= now:
+            if not self._deliver(self._in_delayed.popleft()[0]):
+                return
+        if self._in_delayed:
+            self._arm_in_timer()
+
+    def _deliver(self, blob: bytes) -> bool:  #: loop-only
+        try:
+            msg = loads_frame(blob)
+        except RpcError:
+            self._violation()
+            return False
+        if not isinstance(msg, dict):
+            self._violation()
+            return False
+        self._owner._on_frame(msg)
+        return True
 
     def _violation(self) -> None:  #: loop-only
         # a protocol violation is the connection's death, as the threaded
         # reader's exit is; abort tears down through connection_lost
         self._buf.clear()
+        self._in_delayed.clear()
         if self.transport is not None:
             self.transport.abort()
 
     def connection_lost(self, exc) -> None:  #: loop-only
+        if self._in_timer is not None:
+            self._in_timer.cancel()
+            self._in_timer = None
         self._owner._on_lost(exc)
 
 
@@ -176,6 +267,7 @@ class AsyncClient:
         self._sock = socket.create_connection(self.addr, timeout=10.0)
         self._sock.settimeout(None)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.sock = self._sock          # chaos-link identity
         self._id = 0                    #: guarded by self._id_lock
         self._id_lock = threading.Lock()
         self._pending: Dict[int, list] = {}  #: guarded by self._plock
@@ -197,11 +289,21 @@ class AsyncClient:
             self._sock.close()
             raise
 
+    def link(self, peer_role: str, link_id: str = "") -> "AsyncClient":
+        """Tag this connection's socket with the peer's chaos-link
+        identity (cold path; chainable)."""
+        _nc.register_link(self._sock, peer_role, link_id)
+        return self
+
     # -- loop side ----------------------------------------------------
     def _attached(self, transport) -> None:  #: loop-only
         self._batcher = _WriteBatcher(self._loop, transport, self._sock)
 
     def _on_frame(self, msg: Dict[str, Any]) -> None:  #: loop-only
+        # the threaded core's seam name: one seam, two cores
+        if _fp.ENABLED and _fp.fire(
+                "rpc.client.recv", method=msg.get("m", "")) is _fp.DROP:
+            return      # reply/push lost in transit
         rid = msg.get("i")
         if rid is None:
             # server push (no correlation id): inline on the loop, as the
@@ -261,6 +363,15 @@ class AsyncClient:
 
     def _call_counted(self, method: str, timeout: Optional[float],
                       kw: Dict[str, Any]) -> Dict[str, Any]:
+        # the threaded client's discipline: the failpoint fires BEFORE the
+        # pending slot exists, and a deadline-less caller surfaces a
+        # dropped send as transport death
+        dropped = (_fp.ENABLED and _fp.fire(
+            "rpc.client.send", method=method) is _fp.DROP)
+        if dropped and (timeout if timeout is not None
+                        else self._timeout) is None:
+            self._fail_all()
+            raise RpcError(f"send to {self.addr} dropped by failpoint")
         msg = dict(kw)
         msg["m"] = method
         with self._id_lock:
@@ -272,7 +383,8 @@ class AsyncClient:
         with self._plock:
             self._pending[rid] = slot
         try:
-            self._send_blob(blob)
+            if not dropped:
+                self._send_blob(blob)
         except (OSError, RuntimeError, RpcError):
             self._fail_all()
             raise RpcError(f"send to {self.addr} failed")
@@ -292,6 +404,9 @@ class AsyncClient:
     def notify(self, method: str, **kw) -> None:
         """Fire-and-forget (no reply expected)."""
         _validate(method, kw)
+        if (_fp.ENABLED and _fp.fire("rpc.client.send",
+                                     method=method) is _fp.DROP):
+            return              # notification lost in transit
         msg = dict(kw)
         msg["m"] = method
         blob = dumps_frame(msg)
@@ -343,9 +458,15 @@ class AsyncConnection:
         self._lane_lock = threading.Lock()
         self._lane_busy = False
 
+    def link(self, peer_role: str, link_id: str = "") -> "AsyncConnection":
+        """Tag the accepted socket's chaos-link identity (hello/register)."""
+        if self.sock is not None:
+            _nc.register_link(self.sock, peer_role, link_id)
+        return self
+
     # -- loop side ----------------------------------------------------
     def _attached(self, transport) -> None:  #: loop-only
-        self.sock = transport.get_extra_info("socket")
+        self.sock = _raw_sock(transport)
         self.peer = transport.get_extra_info("peername")
         self._batcher = _WriteBatcher(self._loop, transport, self.sock)
 
@@ -434,6 +555,9 @@ class AsyncServer:
     def _dispatch(self, conn: AsyncConnection,
                   msg: Dict[str, Any]) -> None:  #: loop-only
         method = msg.get("m", "")
+        if _fp.ENABLED and _fp.fire(
+                "rpc.server.recv", method=method) is _fp.DROP:
+            return      # request lost before dispatch
         rid = msg.get("i")
         with _WIRE_LOCK:
             _WIRE_SERVER_REQS[method] = _WIRE_SERVER_REQS.get(method, 0) + 1

@@ -7,10 +7,10 @@ attribute and reads it there. The table is data: a test holds it against
 a live hello reply and against ``DaemonHandle`` (every bit is in the reply
 and its guard attribute exists).
 
-The port's wire carries two bits. JAX's ``batch``, ``result_batch`` and
-``fence`` bits, with their frame flags (``via_pump``, ``term_pump``,
-``ep``/``att`` gating), are not advertised: the port's daemons always
-coalesce and always stamp (ROADMAP C). ``tenancy`` comes with tenancy
+The port's wire carries three bits. JAX's ``batch`` and ``result_batch``
+bits and the frame flags ``via_pump`` and ``term_pump`` are not
+advertised: the port's daemons always coalesce and always answer a classic
+submit on the result pump (ROADMAP C). ``tenancy`` comes with tenancy
 (A11e, third part).
 """
 
@@ -27,5 +27,12 @@ CAPABILITY_FLAGS = {
                "(cfg().async_core). Frames are byte-identical across "
                "cores, so the bit gates nothing on the wire: it makes "
                "mixed clusters observable (describe_peers)",
+    },
+    "fence": {
+        "kind": "hello",
+        "guard": "_fence_supported",
+        "doc": "daemon stamps result and stream frames with its "
+               "registration epoch (``ep``): the driver fences frames of "
+               "a superseded incarnation after a healed partition",
     },
 }

@@ -61,6 +61,7 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch._private import daemon as _daemon_schemas  # noqa: F401 - declares the daemon RPC schemas
+from ray_tpu_torch._private import failpoints as _fp
 from ray_tpu_torch._private import rpc
 from ray_tpu_torch._private.head import HeadClient
 from ray_tpu_torch._private.ids import NodeID
@@ -219,6 +220,10 @@ class _SubmitCoalescer:
     (``DaemonHandle._on_push``). The daemon dedupes by (task, attempt),
     so a resent frame never executes a task twice."""
 
+    # resends of one batch whose flush failed in transit (an injected
+    # drop or error) before the handle is treated as dead
+    _MAX_SEND_ATTEMPTS = 8
+
     def __init__(self, handle: "DaemonHandle"):
         from ray_tpu_torch._private.config import cfg
         self.handle = handle
@@ -297,25 +302,45 @@ class _SubmitCoalescer:
                     fns[fid] = fetch_function_blob(fid)
                 except KeyError:
                     pass    # workers fall back to the fetch core op
-        if handle.dead:
-            return      # mark_dead already failed the waiters
-        self._record_linger(batch, time.perf_counter())
-        try:
-            # the reply is an enqueue ack (results ride the pump), so a
-            # deadline is safe: an unacked flush past it means a wedged
-            # link, which the RpcError path treats as node death
-            from ray_tpu_torch._private.config import cfg
-            handle.client.call("push_task_batch", tasks=batch, fns=fns,
-                               timeout=cfg().control_call_timeout_s)
-        except rpc.RemoteError as e:
-            handle._ingest_batch([{"task": entry["task"], "e": str(e)}
-                                  for entry in batch])
+        from ray_tpu_torch._private.config import cfg
+        from ray_tpu_torch._private.retry import record_retry
+        for attempt in range(self._MAX_SEND_ATTEMPTS):
+            if handle.dead:
+                return      # mark_dead already failed the waiters
+            if attempt:
+                record_retry("batch.submit_flush")  # a resend of the batch
+            if _fp.ENABLED:
+                try:
+                    act = _fp.fire("batch.submit_flush", n=len(batch),
+                                   attempt=attempt)
+                except Exception:   # noqa: BLE001 — injected error arm:
+                    # the attempt "failed in transit"; resend the same
+                    # batch (idempotent at the daemon)
+                    continue
+                if act is _fp.DROP:
+                    continue        # frame lost before the send; resend
+            # the linger ends as the frame leaves, before the round trip
+            self._record_linger(batch, time.perf_counter())
+            try:
+                # the reply is an enqueue ack (results ride the pump), so
+                # a deadline is safe: an unacked flush past it means a
+                # wedged link, which the RpcError path treats as node
+                # death
+                handle.client.call("push_task_batch", tasks=batch, fns=fns,
+                                   timeout=cfg().control_call_timeout_s)
+            except rpc.RemoteError as e:
+                handle._ingest_batch([{"task": entry["task"], "e": str(e)}
+                                      for entry in batch])
+                return
+            except rpc.RpcError:
+                handle.mark_dead()      # transport death: node failure
+                return
+            if fns:
+                handle._fns_shipped.update(fns)
             return
-        except rpc.RpcError:
-            handle.mark_dead()      # transport death: node failure
-            return
-        if fns:
-            handle._fns_shipped.update(fns)
+        # attempts exhausted (a persistent injected failure): surface as a
+        # daemon-level failure so task retry accounting engages
+        handle.mark_dead()
 
 
 class _FreeCoalescer:
@@ -379,6 +404,18 @@ class _FreeCoalescer:
             self._cv.notify_all()
 
     def _send(self, oids: List[bytes]) -> None:
+        if _fp.ENABLED:
+            try:
+                act = _fp.fire("batch.free_flush", n=len(oids))
+            except Exception:   # noqa: BLE001 — injected error arm
+                act = _fp.DROP
+            if act is _fp.DROP:
+                # flush failed in transit: requeue; object deletion is
+                # idempotent at the daemon, so the retry is safe
+                with self._cv:
+                    if not self._stopped:
+                        self._oids[:0] = oids
+                return
         try:
             from ray_tpu_torch._private.config import cfg
             self.handle.client.call("free_objects", oids=oids,
@@ -413,12 +450,15 @@ class DaemonHandle:
         self._slock = threading.Lock()
         self.on_actor_worker_died = None  # set by the backend
         self.client = rpc.connect(self.addr, timeout=None,
-                                  on_push=self._on_push)
+                                  on_push=self._on_push).link(
+                                      "daemon", node_id.hex())
         self.dead = False
         # fencing: the daemon's registration epoch (learned at hello); a
         # frame stamped with a LOWER epoch comes from a superseded
-        # incarnation and must not resolve waiters
+        # incarnation and must not resolve waiters. Only a daemon whose
+        # hello advertises ``fence`` is fenced by epoch
         self.epoch = 0
+        self._fence_supported = False
         # zero-copy object plane (set from the hello reply)
         self.objectplane = False
         self.arena_name: Optional[str] = None
@@ -442,6 +482,11 @@ class DaemonHandle:
         self._free = _FreeCoalescer(self)
         self.runtime = None                 # bound by the backend
         self._job_id = None
+        # node memory-pressure level (daemon node_pressure pushes, or the
+        # gossip row at join), mirrored onto the runtime Node so pick_node
+        # soft-excludes a hard node as it does a draining one
+        self.pressure_level = "ok"
+        self._batch_supported = True        # from hello (submit_batch)
 
     # -- push demux -------------------------------------------------------
     def _on_push(self, method: str, msg: Dict[str, Any]) -> None:
@@ -463,6 +508,8 @@ class DaemonHandle:
                 stream = self._streams.get(msg["task"])
             if stream is not None:
                 stream.q.put(msg)
+        elif method == "node_pressure":
+            self._on_node_pressure(msg.get("level") or "ok")
         elif method == "actor_worker_died":
             cb = self.on_actor_worker_died
             if cb is not None:
@@ -472,6 +519,19 @@ class DaemonHandle:
                                  args=(msg["actor_id"], msg["cause"]),
                                  daemon=True,
                                  name="actor-death-cb").start()
+
+    def _on_node_pressure(self, level: str) -> None:
+        """A daemon's pressure transition: mirror the level onto the
+        runtime Node and drop the scheduler's feasibility cache (a cached
+        pick must not keep landing work on a node that just went hard)."""
+        self.pressure_level = level
+        rt = self.runtime
+        node = rt.get_node(self.node_id) if rt is not None else None
+        if node is not None \
+                and getattr(node, "pressure_level", "ok") != level:
+            node.pressure_level = level
+            from ray_tpu_torch._private.scheduler import bump_cluster_epoch
+            bump_cluster_epoch()
 
     def mark_dead(self) -> None:
         self.dead = True
@@ -500,6 +560,11 @@ class DaemonHandle:
             fl.close()
 
     def _stale_epoch(self, msg: Dict[str, Any]) -> bool:
+        """True when a frame's ``ep`` stamp is from a SUPERSEDED daemon
+        incarnation. An unstamped frame, or any frame from a daemon whose
+        hello did not advertise fencing, is never stale."""
+        if not self._fence_supported:
+            return False
         ep = msg.get("ep")
         return ep is not None and bool(self.epoch) and ep < self.epoch
 
@@ -617,12 +682,16 @@ class DaemonHandle:
         self.arena_capacity = int(out.get("arena_capacity") or 0)
         self.client_id = out.get("client_id")
         self.epoch = int(out.get("epoch") or 0)
+        self._fence_supported = bool(out.get("fence"))
         self._async_core_remote = bool(out.get("async_core"))
         self._job_id = job_id
+        # submit_batch=False: one classic submit_task a task, whose
+        # completion still returns on the task_batch_done pump
+        self._batch_supported = bool(cfg().submit_batch)
         return out
 
     def _submit_coalescer(self) -> Optional[_SubmitCoalescer]:
-        if self.dead:
+        if not self._batch_supported or self.dead:
             return None
         batch = self._batch
         if batch is not None:
@@ -646,10 +715,22 @@ class DaemonHandle:
             port = self.fast_port
             if port is None:
                 return None
-            from ray_tpu_torch._private.fast_lane import connect_with_retries
+            from ray_tpu_torch._private.fast_lane import (
+                FastLaneClient, lane_reconnect_policy)
+
+            def connect():
+                if _fp.ENABLED:
+                    _fp.fire("cluster.lane_reconnect",
+                             node=self.node_id.hex()[:8])
+                return FastLaneClient(
+                    (self.addr[0], port),
+                    link_id=f"lane:{self.node_id.hex()}")
+
             try:
-                fl = connect_with_retries((self.addr[0], port))
-            except OSError:
+                fl = lane_reconnect_policy().run(
+                    connect, loop="fast_lane.reconnect",
+                    retry_on=(OSError, _fp.FailpointError))
+            except (OSError, _fp.FailpointError):
                 self.fast_port = None        # core gone: stop retrying
                 return None
             self._fast = fl
@@ -704,7 +785,9 @@ class DaemonHandle:
             # dead node before its death is seen)
             if self.dead or not self._answers():
                 raise DaemonCrashed(str(e))
-            raise RemoteWorkerCrashed(f"fast lane died mid-call: {e}")
+            crash = RemoteWorkerCrashed(f"fast lane died mid-call: {e}")
+            crash.fast_lane = True
+            raise crash
         finally:
             with self._fast_lock:
                 self._fast_rids.pop(task_hex, None)
@@ -722,7 +805,11 @@ class DaemonHandle:
         if kind == _fle.KIND_CANCELLED:
             return ("err", KeyboardInterrupt())
         if kind == _fle.KIND_CRASHED:
-            raise RemoteWorkerCrashed(bytes(blob).decode(errors="replace"))
+            crash = RemoteWorkerCrashed(bytes(blob).decode(errors="replace"))
+            # lane workers' task ids live in the native core: the OOM check
+            # must use the lane's (time-window) attribution
+            crash.fast_lane = True
+            raise crash
         raise RuntimeError(f"unknown fast-lane outcome kind {kind}")
 
     # -- task submit ------------------------------------------------------
@@ -750,11 +837,14 @@ class DaemonHandle:
             self._streams[task_hex] = stream
         out = None
         try:
-            batch = self._submit_coalescer()
-            if batch is None:
+            if self.dead:
                 raise DaemonCrashed(
                     f"daemon {self.node_id.hex()[:8]} is dead")
-            out = self._submit_batched(batch, spec, fid, args_blob)
+            batch = self._submit_coalescer()
+            if batch is not None:
+                out = self._submit_batched(batch, spec, fid, args_blob)
+            else:
+                out = self._submit_via_pump(spec, fid, args_blob)
             return self._decode_outcome(out, spec, stream)
         finally:
             if out_is_final(out):
@@ -804,6 +894,47 @@ class DaemonHandle:
         if out is None:
             raise DaemonCrashed(
                 f"daemon {self.node_id.hex()[:8]} died (batched submit)")
+        if out.get("e"):
+            raise rpc.RemoteError(out["e"])
+        return out
+
+    def _submit_via_pump(self, spec, fid: str,
+                         args_blob: bytes) -> Dict[str, Any]:
+        """One classic submit_task RPC a task (``submit_batch=False``):
+        the reply is an immediate ack, and the completion returns on the
+        task_batch_done pump, with the coalesced path's outcome dict and
+        error surface."""
+        task_hex = spec.task_id.hex()
+        slot = [threading.Event(), None, spec.attempt_number]
+        with self._bw_lock:
+            if self.dead:
+                raise DaemonCrashed(
+                    f"daemon {self.node_id.hex()[:8]} is dead")
+            self._batch_waiters[task_hex] = slot
+        kw = self._task_entry(spec, fid, args_blob)
+        if spec.trace_sampled:
+            kw["name"] = spec.name
+            kw["trace"] = spec.trace_id
+        if fid not in self._fns_shipped:
+            try:
+                from ray_tpu_torch._private.worker_process import \
+                    fetch_function_blob
+                kw["fns"] = {fid: fetch_function_blob(fid)}
+            except KeyError:
+                pass    # workers fall back to the fetch core op
+        try:
+            self._call("submit_task", **kw)
+        except BaseException:
+            with self._bw_lock:
+                self._batch_waiters.pop(task_hex, None)
+            raise
+        if "fns" in kw:
+            self._fns_shipped.add(fid)
+        slot[0].wait()
+        out = slot[1]
+        if out is None:
+            raise DaemonCrashed(
+                f"daemon {self.node_id.hex()[:8]} died (pumped submit)")
         if out.get("e"):
             raise rpc.RemoteError(out["e"])
         return out
@@ -886,6 +1017,10 @@ class DaemonHandle:
 
     def cancel_task(self, task_id, force: bool) -> bool:
         task_hex = task_id.hex()
+        if _fp.ENABLED:
+            act = _fp.fire("cluster.cancel", task=task_hex)
+            if act is _fp.DROP:
+                return False        # cancel request lost in transit
         with self._fast_lock:
             entry = self._fast_rids.get(task_hex)
         if entry is not None:
@@ -1063,7 +1198,12 @@ class DaemonHandle:
                           ref=ref)
 
     def put_object_blob(self, oid: bytes, blob: bytes) -> None:
-        self._call("put_object", oid=oid, blob=blob)
+        out = self._call("put_object", oid=oid, blob=blob)
+        if isinstance(out, dict) and out.get("backpressure"):
+            from ray_tpu_torch.exceptions import MemoryPressureError
+            raise MemoryPressureError(
+                f"node {self.node_id.hex()[:8]} rejected put under "
+                f"{out.get('level', 'hard')} memory pressure")
 
     def free_objects(self, oids: List[bytes]) -> None:
         try:
@@ -1222,7 +1362,14 @@ class RemoteStore:
         blob = _dump_blob(value)
         if self._direct_put_blob(object_id, key, blob):
             return
-        self.daemon.put_object_blob(key, blob)
+        from ray_tpu_torch._private.retry import RetryPolicy
+        from ray_tpu_torch.exceptions import MemoryPressureError
+        # hard-pressure backpressure is retriable by contract: the node is
+        # spilling its way back to capacity, so ride the policy until
+        # relief instead of failing the put
+        RetryPolicy.default(deadline_s=30.0).run(
+            lambda: self.daemon.put_object_blob(key, blob),
+            loop="put.backpressure", retry_on=(MemoryPressureError,))
         self.register_remote(object_id, key, len(blob))
         self.stats["puts"] += 1
 
@@ -1581,6 +1728,15 @@ class ClusterBackend:
                 job_hex = self.runtime.job_id.hex()
                 for ev in batch:
                     ev.setdefault("job_id", job_hex)
+                if _fp.ENABLED:
+                    try:
+                        # drop/error arm = a flush lost in transit; the
+                        # unadvanced cursor resends next interval
+                        if _fp.fire("trace.flush",
+                                    n=len(batch)) is _fp.DROP:
+                            return
+                    except Exception:
+                        return
                 try:
                     self.head.task_events_push(batch)
                 except rpc.RpcError:
@@ -1604,6 +1760,14 @@ class ClusterBackend:
             time.sleep(0.25)
             if self._shutting_down or self.head_proc.poll() is None:
                 continue
+            if _fp.ENABLED:
+                try:
+                    # a delay arm extends the outage; an error arm is a
+                    # failed respawn attempt (the next tick retries): an
+                    # escape here would kill the supervisor thread
+                    _fp.fire("head.respawn")
+                except Exception:  # noqa: BLE001 — injected faults
+                    continue
             try:
                 proc, _ = _spawn(
                     "ray_tpu_torch._private.head",
@@ -1678,6 +1842,11 @@ class ClusterBackend:
                 self.runtime.begin_node_drain(
                     node, float(info.get("drain_deadline_s") or 0.0),
                     info.get("drain_reason") or "drain")
+            # joined while the node was already pressured (the
+            # node_pressure push was missed): the gossip row carries it
+            level = (info.get("gossip_load") or {}).get("pressure")
+            if level and level != "ok":
+                handle._on_node_pressure(level)
         return handle
 
     def _on_node_event(self, event: Dict[str, Any]) -> None:

@@ -10,9 +10,9 @@ Resolution order per flag (highest wins):
 An unknown ``_system_config`` key raises, as in the reference. The table
 holds only the flags the port's runtime reads (the core, its process
 workers, the daemon cluster, the asyncio control plane and graceful
-drain, and the observability layer), each with JAX's name, type, default
-and variable. The reference's other flags belong to parts of its runtime
-the port does not have yet.
+drain, the observability layer and chaos), each with JAX's name, type,
+default and variable. The reference's other flags belong to parts of its
+runtime the port does not have yet.
 """
 
 from __future__ import annotations
@@ -85,14 +85,30 @@ FLAG_DEFS = [
     Flag("push_prefetch", bool, True, "push a task's dependencies to the "
          "consumer's daemon when the task is queued there (PushManager); "
          "False = pull-only transfer"),
-    Flag("memory_pressure", bool, False, "arm arena spilling in each "
-         "daemon's object table (the pressure controller itself is not "
-         "ported); off keeps every put/get path a None-check"),
+    Flag("memory_pressure", bool, False, "arm each daemon's "
+         "PressureController (_private/pressure.py): it fuses host RSS, "
+         "arena occupancy and the spill-dir budget into an ok/soft/hard "
+         "level; soft spills cold arena entries and throttles "
+         "push-prefetch, hard rejects new reservations and puts with a "
+         "retriable MemoryPressureError and steers placement away; off "
+         "keeps every put/get path a None-check"),
+    Flag("arena_spill_watermarks", str, "0.70,0.85", "soft,hard arena "
+         "occupancy fractions: past soft the controller spills cold "
+         "sealed unpinned entries back down to the soft line; past hard "
+         "(or when the host monitor is at its own threshold) new "
+         "reservations and puts are rejected with MemoryPressureError"),
     Flag("arena_spill_dir", str, "", "directory for spilled arena entries; "
          "empty = spill_<node> in the driver's session dir, removed with "
          "the daemon"),
     Flag("arena_spill_budget_bytes", int, 0, "cap on total bytes parked "
          "in the spill dir (0 = unbounded)"),
+    Flag("pressure_tick_s", float, 0.5, "PressureController evaluation "
+         "period (seconds); 0 disarms the controller even when "
+         "memory_pressure is on"),
+    Flag("submit_batch", bool, True, "coalesce driver->daemon task "
+         "submissions into push_task_batch frames (False = one "
+         "submit_task RPC per task; completions still ride the result "
+         "pump)"),
     Flag("submit_batch_max", int, 64, "most tasks a push_task_batch "
          "frame"),
     Flag("submit_linger_us", int, 200, "how long (microseconds) the submit "
@@ -109,6 +125,25 @@ FLAG_DEFS = [
     Flag("control_call_timeout_s", float, 60.0, "deadline of control-plane "
          "round trips whose reply is an ack (batch-submit and free "
          "flushes): a silent partition surfaces as an RpcError"),
+    Flag("retry_base_backoff_s", float, 0.05, "RetryPolicy.default "
+         "first-backoff cap (exponential, full jitter)"),
+    Flag("retry_max_backoff_s", float, 2.0, "RetryPolicy.default "
+         "backoff cap ceiling"),
+    # -- chaos (_private/failpoints.py, netchaos.py) --
+    Flag("failpoints", str, "", "failpoint spec activating deterministic "
+         "fault injection, e.g. 'rpc.client.send=drop:every=3'; exported "
+         "as RAY_TPU_FAILPOINTS so spawned daemon, head and worker "
+         "processes arm the same seams"),
+    Flag("failpoints_seed", int, 0, "RNG seed for probabilistic "
+         "failpoint arms (0 = unseeded); same seed => same schedule"),
+    Flag("net_chaos", str, "", "network-chaos link-policy spec degrading "
+         "control-plane links deterministically, e.g. "
+         "'driver>daemon=drop=0.3;daemon>head=partition:start=500"
+         ":dur=2000'; exported as RAY_TPU_NET_CHAOS so spawned daemon, "
+         "head and worker processes degrade the same links"),
+    Flag("net_chaos_seed", int, 0, "RNG seed for probabilistic "
+         "link-policy draws (0 = unseeded); same seed => same "
+         "drop/dup/jitter schedule"),
     # -- graceful drain / preemption --
     Flag("drain_deadline_s", float, 30.0, "default graceful-drain window: "
          "planned departures (preemption notice, downscale, maintenance) "

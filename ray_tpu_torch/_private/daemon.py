@@ -62,9 +62,14 @@ driver (``worker_log`` pushes), polices its workers' memory
 ``profile_burst`` for itself and its workers, and serves a per-node HTTP
 agent (``start_agent``: ``/api/stats``, ``/api/profile/cpu``, ``/metrics``).
 
-Left out, each with the part of ROADMAP A11e that brings it: pressure,
-network chaos and failpoints (the second part), tenancy (the third). Their
-handlers are not declared, so a call fails as any undeclared method does.
+Chaos: the failpoint seams of the daemon (drain, spill, restore, pulls,
+the result pump, reclamation, leases, pushes, the OOM check and the beat's
+flushes), its role on the network-chaos graph, a ``PressureController``
+under ``memory_pressure`` (soft spills, hard rejects new reservations and
+puts, ``node_pressure`` pushes), and the ``fail_points``/``net_chaos``
+hooks that arm one daemon alone. Left out, with the part of ROADMAP A11e
+that brings it: tenancy (the third). Its handlers are not declared, so a
+call fails as any undeclared method does.
 """
 
 from __future__ import annotations
@@ -81,9 +86,11 @@ import uuid
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
+from ray_tpu_torch._private import failpoints as _fp
+from ray_tpu_torch._private import netchaos as _nc
 from ray_tpu_torch._private import eventloop, rpc
 from ray_tpu_torch._private import events as _events
-from ray_tpu_torch._private.head import HeadClient, _hb_interval, _retry
+from ray_tpu_torch._private.head import HeadClient, _hb_interval
 from ray_tpu_torch._private.ids import ActorID, NodeID
 from ray_tpu_torch._private.lock_sanitizer import tracked_lock
 from ray_tpu_torch._private.rpc import Client, Connection, declare
@@ -100,6 +107,10 @@ declare("push_task", "spec", "fid", "args", "lease_id", "backpressure")
 # per (daemon, fid); completions return batched on task_batch_done push
 # frames. Retried frames dedupe by (task, attempt).
 declare("push_task_batch", "tasks", "fns")
+# one classic submit a task (the driver's submit_batch=False): acked at
+# once, its completion rides the task_batch_done pump
+declare("submit_task", "task", "attempt", "spec", "fid", "args",
+        "backpressure")
 declare("create_actor", "spec", "fid", "args")
 declare("call_actor_method", "spec", "args")
 declare("kill_actor", "actor_id", "expected")
@@ -126,6 +137,11 @@ declare("set_memory_limit", "limit")
 declare("oom_check", "task_id", "fast_lane")
 declare("push_chunk", "oid", "off", "total", "blob", "ref", "raw")
 declare("daemon_ping")
+# chaos harness only: (de)activate a seeded netchaos or failpoint spec
+# inside THIS daemon process, where the env form (which reaches every
+# spawned process) is too blunt: one node's head link, one node's level
+declare("net_chaos", "spec")
+declare("fail_points", "spec")
 # the cross-language tier (C++ clients): names resolve through the head's
 # KV; "args" is a frame-encoded list of plain values, and results come
 # back as plain values (no pickle of a user object crosses the boundary)
@@ -203,6 +219,16 @@ class PreemptionWatcher:
         if self.announced:
             return
         self.announced = True
+        if _fp.ENABLED:
+            try:
+                # drop/error arm = the notice never reaches the head (the
+                # node then just dies: the crash path is the backstop); a
+                # delay arm shrinks the drain window
+                if _fp.fire("drain.announce",
+                            node=self.node_id_hex) is _fp.DROP:
+                    return
+            except Exception:
+                return
         try:
             head = HeadClient(self.head_addr)
             try:
@@ -606,6 +632,15 @@ class ObjectTable:
         valid (deferred) mapping and re-reads from disk next time."""
         if key in self._spilled or key not in self._entries:
             return True     # idempotent: already parked / already gone
+        if _fp.ENABLED:
+            # drop/error arm = this spill attempt fails; the entry stays
+            # resident at tier host-shm and a later pass retries
+            try:
+                if _fp.fire("arena.spill", key=key.hex()[:16],
+                            nbytes=size) is _fp.DROP:
+                    return False
+            except Exception:
+                return False
         try:
             view = self._shm.get_view(key)      # increfs
             try:
@@ -719,6 +754,17 @@ class ObjectTable:
             if spilled is None:
                 return True     # already resident (idempotent)
             path, size = spilled
+            if _fp.ENABLED:
+                # drop/error arm = this restore attempt fails; the read
+                # path serves the spill file directly and retries later
+                try:
+                    if _fp.fire("arena.restore", key=key.hex()[:16],
+                                nbytes=size) is _fp.DROP:
+                        self._spill_stats["restore_failed"] += 1
+                        return False
+                except Exception:
+                    self._spill_stats["restore_failed"] += 1
+                    return False
             try:
                 with open(path, "rb") as fh:
                     data = fh.read()
@@ -1037,6 +1083,11 @@ class PullManager:
                 pull.event.set()
 
     def _transfer(self, pull: _Pull) -> None:
+        if _fp.ENABLED:
+            # an error arm fails this transfer attempt (the waiter sees
+            # the error and may fall back to the owner's directory); a
+            # delay arm stretches the transfer window
+            _fp.fire("daemon.pull_transfer")
         if self.objects.contains(pull.oid):
             return  # a deduped predecessor already landed it
         peer = self._peer(tuple(pull.from_addr))
@@ -1124,7 +1175,15 @@ class _BatchTaskConn:
             out["stream"] = method
             out["att"] = self.key[1]
             out["ep"] = self.service.epoch
-            self.service._batch_pump.add(self.conn, out)
+            pump = self.service._batch_pump
+            if pump._aloop is not None and not eventloop.on_loop():
+                # the stream's last task_yield may still wait in the loop's
+                # queue (conn.push hands it over with call_soon_threadsafe),
+                # and a pump flush already due would ship the termination
+                # ahead of it: join the same FIFO, behind the yield
+                pump._aloop.call_soon_threadsafe(pump.add, self.conn, out)
+            else:
+                pump.add(self.conn, out)
             return
         self.conn.push(method, **kw)
 
@@ -1140,11 +1199,13 @@ class _BatchReplyPump:
     Async core: the pump is a ``call_later`` chain on the event loop (one
     cross-thread wake per linger window, and the flush runs where the
     write batcher lives, so a chunk's push coalesces with other writes of
-    the loop). Threaded core: one thread waits on a condition. A push
-    fails only by closing its connection, whose outcomes are then dropped
-    (JAX requeues a frame its failpoints drop). An outcome resent for a
-    duplicate frame is idempotent at the driver (a final outcome pops its
-    waiter slot exactly once)."""
+    the loop). Threaded core: one thread waits on a condition. A frame
+    lost in transit (the ``batch.result_flush`` seam's drop or error arm)
+    requeues its entries and the rest of its connection's, in order, and
+    the next pass resends them after at least a 1 ms backoff; a closed
+    connection's outcomes are dropped (the driver is gone). An outcome
+    resent is idempotent at the driver (a final outcome pops its waiter
+    slot exactly once)."""
 
     def __init__(self, task_events=None, node_hex: str = ""):
         from ray_tpu_torch._private.config import cfg
@@ -1178,9 +1239,10 @@ class _BatchReplyPump:
         else:
             self._aloop.call_soon_threadsafe(self._arm_flush)
 
-    def _arm_flush(self) -> None:  #: loop-only
-        if self.linger_s > 0:
-            self._aloop.call_later(self.linger_s, self._flush_on_loop)
+    def _arm_flush(self, backoff: float = 0.0) -> None:  #: loop-only
+        delay = max(self.linger_s, backoff)
+        if delay > 0:
+            self._aloop.call_later(delay, self._flush_on_loop)
         else:
             self._aloop.call_soon(self._flush_on_loop)
 
@@ -1188,20 +1250,55 @@ class _BatchReplyPump:
         with self._cv:
             buf, self._buf = self._buf, {}
             self._armed = False
-        self._send(buf)
+        if not self._send(buf):
+            return
+        with self._cv:
+            re_arm = not self._armed and bool(self._buf)
+            if re_arm:
+                self._armed = True
+        if re_arm:
+            # the 1 ms floor is the threaded pump's backoff after a failed
+            # pass: no busy spin at linger 0 against a failing link
+            self._arm_flush(backoff=0.001)
 
-    def _send(self, buf: Dict[Connection, list]) -> None:
+    def _send(self, buf: Dict[Connection, list]) -> bool:
+        """Push every buffered chunk; True when a chunk was lost in
+        transit (it and the rest of its connection's entries are back in
+        the buffer, in order)."""
+        failed = False
         for conn, entries in buf.items():
             for i in range(0, len(entries), self.max_per_frame):
                 if conn.closed:
                     break   # the driver is gone, its waiters with it
                 chunk = entries[i:i + self.max_per_frame]
-                now = time.perf_counter()
-                conn.push("task_batch_done", outcomes=[o for o, _ in chunk])
-                dwell = max((now - t for _, t in chunk if t), default=0.0)
-                if dwell:
-                    _metrics.note_queue_dwell("daemon.reply_pump", dwell)
-                    self._record_flush_spans(chunk, now)
+                if not self._send_chunk(conn, chunk):
+                    failed = True
+                    with self._cv:
+                        self._buf.setdefault(conn, [])[:0] = entries[i:]
+                    # the resend is a retry of this loop (counted, as the
+                    # RetryPolicy loops are, in ray_tpu_retries_total)
+                    from ray_tpu_torch._private.retry import record_retry
+                    record_retry("batch.result_flush", 0.001)
+                    break
+        return failed
+
+    def _send_chunk(self, conn: Connection, chunk) -> bool:
+        if _fp.ENABLED:
+            try:
+                # drop/error arm = the frame is lost in transit; the
+                # caller requeues and the next pass resends
+                if _fp.fire("batch.result_flush",
+                            n=len(chunk)) is _fp.DROP:
+                    return False
+            except Exception:
+                return False
+        now = time.perf_counter()
+        conn.push("task_batch_done", outcomes=[o for o, _ in chunk])
+        dwell = max((now - t for _, t in chunk if t), default=0.0)
+        if dwell:
+            _metrics.note_queue_dwell("daemon.reply_pump", dwell)
+            self._record_flush_spans(chunk, now)
+        return True
 
     def _record_flush_spans(self, chunk, now: float) -> None:
         """The result_flush phase: completion buffered on the pump -> its
@@ -1218,16 +1315,22 @@ class _BatchReplyPump:
                 start_wall=_events.wall_at(t_add), end_mono=now)
 
     def _loop(self) -> None:
+        failed_last_pass = False
         while True:
             with self._cv:
                 while not self._buf:
                     self._cv.wait()
-            # short linger: completions that land together leave together
-            if self.linger_s:
-                time.sleep(self.linger_s)
+            # short linger: completions that land together leave together.
+            # After a failed pass it is the retry backoff too, floored so a
+            # linger of 0 cannot busy-spin against a failing link
+            linger = self.linger_s
+            if failed_last_pass:
+                linger = max(linger, 0.001)
+            if linger:
+                time.sleep(linger)
             with self._cv:
                 buf, self._buf = self._buf, {}
-            self._send(buf)
+            failed_last_pass = self._send(buf)
 
 
 # completed batched-task outcomes kept for duplicate-frame resend; the cap
@@ -1371,6 +1474,10 @@ class DaemonService:
         self._batch_done: "OrderedDict[tuple, Dict[str, Any]]" = OrderedDict()
         self._batch_pump = _BatchReplyPump(self.task_events, node_id_hex)
         self._bundles: Dict[Tuple[str, int], Dict[str, Any]] = {}  #: guarded by self._lock
+        # the node's memory-pressure level, advertised on heartbeats and
+        # the syncer row and pushed to the driver on transitions; "ok"
+        # for ever when cfg().memory_pressure is off
+        self.pressure: Optional[Any] = None        # PressureController
         self._peers: Dict[Tuple[str, int], Client] = {}  #: guarded by self._lock
         self.head_addr = None            # set by main()
         # peer resource gossip: versioned per-node load entries, merged
@@ -1517,7 +1624,9 @@ class DaemonService:
 
     # -- wiring ----------------------------------------------------------
     def handle_hello_driver(self, conn, rid, msg):
-        owner = rpc.connect(tuple(msg["owner_addr"]), timeout=None)
+        conn.link("driver")
+        owner = rpc.connect(tuple(msg["owner_addr"]),
+                            timeout=None).link("driver")
         with self._lock:
             # a persistent daemon may serve several drivers at once (a
             # second one joined by `init(address=)`): the latest is the
@@ -1551,7 +1660,7 @@ class DaemonService:
         return {"ok": True, "pid": os.getpid(),
                 "fast_port": self.fast_port,
                 # result fencing: outcomes carry this registration epoch
-                "epoch": self.epoch,
+                "epoch": self.epoch, "fence": True,
                 # which wire+dispatch core this daemon runs (frames are
                 # identical either way: observational, capabilities.py)
                 "async_core": self._batch_pump._aloop is not None,
@@ -1679,6 +1788,16 @@ class DaemonService:
         aborts its reservations and reaps, so deferred deletes free now
         instead of at daemon restart. Returns (refs dropped, reservations
         aborted); idempotent per client."""
+        if _fp.ENABLED:
+            try:
+                # drop/error arm = the event-path reclaim is LOST (the
+                # death signal raced a daemon hiccup); the heartbeat
+                # orphan sweep is the backstop and must still converge
+                if _fp.fire("arena.grant_reclaim", client=client_id,
+                            reason=reason) is _fp.DROP:
+                    return (0, 0)
+            except Exception:
+                return (0, 0)
         try:
             dropped, aborted = self.objects.reclaim_client(client_id)
         except Exception:
@@ -1694,6 +1813,14 @@ class DaemonService:
         between reserve and seal), grants charged to worker pids that no
         longer exist, and ledger drift from silent local releases."""
         obj = self.objects
+        if _fp.ENABLED:
+            try:
+                # drop/error arm = this sweep pass is skipped whole (a
+                # later beat retries); a delay arm stretches the pass
+                if _fp.fire("arena.reservation_sweep") is _fp.DROP:
+                    return
+            except Exception:
+                return
         try:
             ttl = float(os.environ.get("RAY_TPU_ARENA_RESERVE_TTL_S",
                                        "30"))
@@ -1751,6 +1878,10 @@ class DaemonService:
 
     def handle_request_worker_lease(self, conn, rid, msg):
         """Grant a pooled worker (the raylet's RequestWorkerLease)."""
+        if _fp.ENABLED:
+            # delay arm = a slow lease grant; error arm = the lease is
+            # denied (a RemoteError at the driver)
+            _fp.fire("daemon.lease")
         client = self._checkout()
         with self._lock:
             self._lease_seq += 1
@@ -1877,6 +2008,28 @@ class DaemonService:
             self._batch_pump.add(conn, out)
         return {"ok": True, "accepted": len(msg["tasks"])}
 
+    def handle_submit_task(self, conn, rid, msg):
+        """One classic submit (a driver with ``submit_batch=False``): the
+        reply is an immediate ack and the completion returns on the
+        task_batch_done pump, deduplicated by (task, attempt) in the batch
+        tables, so a resent submit never runs twice."""
+        from ray_tpu_torch._private import worker_process as wp
+        for _fid, blob in (msg.get("fns") or {}).items():
+            wp.register_function_blob(blob)
+        key = (msg["task"], msg.get("attempt", 0))
+        msg["_t0"] = time.perf_counter()    # the dispatch span's start
+        with self._lock:
+            if key in self._batch_running:
+                return {"outcome": "pump"}  # a duplicate of one in flight
+            resend = self._batch_done.get(key)
+            if resend is None:
+                self._batch_running.add(key)
+        if resend is not None:
+            self._batch_pump.add(conn, resend)
+        else:
+            self._task_pool.submit(self._start_batch_task(conn, msg, key))
+        return {"outcome": "pump"}
+
     def _start_batch_task(self, conn, entry, key: tuple):
         """The start closure of one batched task, to run on the task pool
         (it acquires a pooled worker, which may cold-spawn a process, and
@@ -1940,19 +2093,23 @@ class DaemonService:
         def run():
             from ray_tpu_torch._private.worker_process import WorkerCrashed
 
-            t0 = msg.get("_t0")
-            if t0 is not None and spec.trace_sampled:
-                # the dispatch phase: frame arrival -> the exec request to
-                # the worker (the daemon's queue wait and worker checkout)
-                now = time.perf_counter()
-                _events.record_phase(
-                    self.task_events, task_id=task_hex, name=spec.name,
-                    phase="dispatch", dur_s=now - t0,
-                    node_id=self.node_id.hex(),
-                    proc=f"daemon:{self.node_id.hex()[:8]}",
-                    trace_id=spec.trace_id,
-                    start_wall=_events.wall_at(t0), end_mono=now)
             try:
+                if _fp.ENABLED:
+                    # a crash arm kills the DAEMON mid-push (node death);
+                    # an error arm fails just this task's push
+                    _fp.fire("daemon.push_task", task=task_hex)
+                t0 = msg.get("_t0")
+                if t0 is not None and spec.trace_sampled:
+                    # the dispatch phase: frame arrival -> the exec request
+                    # to the worker (the daemon's queue wait and checkout)
+                    now = time.perf_counter()
+                    _events.record_phase(
+                        self.task_events, task_id=task_hex,
+                        name=spec.name, phase="dispatch", dur_s=now - t0,
+                        node_id=self.node_id.hex(),
+                        proc=f"daemon:{self.node_id.hex()[:8]}",
+                        trace_id=spec.trace_id,
+                        start_wall=_events.wall_at(t0), end_mono=now)
                 wrid, pend = client._request({
                     "op": "execute_task", "fn_id": msg["fid"],
                     "ctx": client._ctx_fields(spec, self.node_stub,
@@ -2173,6 +2330,11 @@ class DaemonService:
                 obj.ext_release(slot, cid)
             return True
         if call == "shm_put_reserve":
+            if self.pressure_level() == "hard":
+                # shed NEW arena writes while hard-pressured; the worker
+                # falls back to its classic put (a payload round trip,
+                # never an error)
+                return {"full": True, "backpressure": True}
             off = obj.reserve(kw["key"], int(kw["size"]),
                               self._worker_client_id(client))
             if off is None:
@@ -2187,6 +2349,10 @@ class DaemonService:
         raise ValueError(f"unknown shm op {call!r}")
 
     def handle_put_object(self, conn, rid, msg):
+        if self.pressure_level() == "hard":
+            # typed retriable backpressure: the driver raises
+            # MemoryPressureError and rides RetryPolicy until relief
+            return {"backpressure": True, "level": "hard"}
         self.objects.put(msg["oid"], msg["blob"])
         key = msg["oid"]
         if key.startswith(b"put:"):
@@ -2207,6 +2373,8 @@ class DaemonService:
         """Reserve arena space for a same-host client's direct put (the
         client writes through its own mapping, then seal_object).
         Idempotent for a retried (oid, size)."""
+        if self.pressure_level() == "hard":
+            return {"full": True, "backpressure": True}
         off = self.objects.reserve(msg["oid"], int(msg["size"]),
                                    self._conn_client_id(conn))
         if off is None:
@@ -2528,6 +2696,10 @@ class DaemonService:
             + fast.get("queued", 0),
             "store_used": self.objects.used_bytes(),
             "fast_queued": fast.get("queued", 0),
+            # the pressure level rides the load view, so a driver's
+            # pick_node soft-excludes a hard node even when it never heard
+            # the node_pressure push
+            "pressure": self.pressure_level(),
         }
 
     def _syncer_tick(self) -> None:
@@ -2623,6 +2795,30 @@ class DaemonService:
     def handle_daemon_ping(self, conn, rid, msg):
         return {"pid": os.getpid(), "node_id": self.node_id.hex()}
 
+    def handle_net_chaos(self, conn, rid, msg):
+        """Chaos harness hook: install (or clear, with an empty spec) a
+        seeded netchaos registry in THIS daemon process, for a schedule
+        that must degrade one daemon's link only."""
+        spec = msg.get("spec") or ""
+        if not spec:
+            _nc.reset()
+            return {"ok": True, "active": False}
+        seed = msg.get("seed")
+        _nc.activate(spec, seed=int(seed) if seed is not None else None)
+        return {"ok": True, "active": True, "links": _nc.describe()}
+
+    def handle_fail_points(self, conn, rid, msg):
+        """The failpoint twin of ``net_chaos``: arm (or clear) a seeded
+        failpoint registry in THIS daemon process, e.g. a
+        ``pressure.level=return(hard)`` on one node."""
+        spec = msg.get("spec") or ""
+        if not spec:
+            _fp.reset()
+            return {"ok": True, "active": False}
+        seed = msg.get("seed")
+        _fp.activate(spec, seed=int(seed) if seed is not None else None)
+        return {"ok": True, "active": True, "arms": _fp.describe()}
+
     def handle_daemon_stats(self, conn, rid, msg):
         with self._lock:
             leases = len(self._leases)
@@ -2642,6 +2838,7 @@ class DaemonService:
                 "arena": self.objects.arena_name,
                 "slot_refs": self.slot_ref_attribution(),
                 "fast_lane": fast,
+                "pressure": self.pressure_level(),
                 "spill": self.objects.spill_stats(),
                 "bundles": bundles,
                 "agent_port": self.agent_port,
@@ -2682,6 +2879,21 @@ class DaemonService:
             self.memory_monitor = MemoryMonitor(
                 None, candidates_fn=self._memory_candidates)
             self.memory_monitor.start()
+        if cfg().memory_pressure and cfg().pressure_tick_s > 0:
+            from ray_tpu_torch._private.pressure import PressureController
+            self.pressure = PressureController(
+                self.objects, monitor=self.memory_monitor,
+                on_level=self._on_pressure_level)
+            self.pressure.start()
+
+    def pressure_level(self) -> str:
+        return self.pressure.level if self.pressure is not None else "ok"
+
+    def _on_pressure_level(self, old: str, new: str) -> None:
+        """A pressure transition: tell the driver at once (placement
+        reacts now, not at the next gossip round), on the push lane
+        DRAINING uses; heartbeats and gossip carry it to everyone else."""
+        self.notify_driver("node_pressure", level=new)
 
     def handle_set_memory_limit(self, conn, rid, msg):
         """The driver's cluster-wide limit; starts this node's monitor if
@@ -2700,6 +2912,8 @@ class DaemonService:
         """Did this node's monitor OOM-kill the worker running
         ``task_id`` (or, for lane crashes only, any worker very recently:
         lane tasks' ids live in the native core)?"""
+        if _fp.ENABLED:
+            _fp.fire("daemon.oom_check", task=msg.get("task_id", ""))
         mon = self.memory_monitor
         if mon is None:
             return {"oom": False, "kills": 0}
@@ -2817,14 +3031,26 @@ _PROFILE_PUSH_S = 2.0
 
 def _gate_profile_flush(last_push: float, now: Optional[float] = None,
                         period: float = _PROFILE_PUSH_S):
-    """The heartbeat's profile payload, or None (off cadence, or nothing
-    sampled). Records are cumulative and the head replaces on receipt, so
-    the caller advances its cadence stamp only on an acknowledged beat: a
-    lost payload is re-sent, fresher, on the next one."""
+    """The heartbeat's profile payload, or None (off cadence, nothing
+    sampled, or lost to the ``profile.flush`` seam). Records are
+    cumulative and the head replaces on receipt, so the caller advances
+    its cadence stamp only on an acknowledged beat: a lost payload is
+    re-sent, fresher, on the next one."""
     now = time.monotonic() if now is None else now
     if now - last_push < period:
         return None
-    return _profiling.node_profile()
+    try:
+        payload = _profiling.node_profile()
+    except Exception:
+        return None
+    if payload is not None and _fp.ENABLED:
+        try:
+            if _fp.fire("profile.flush",
+                        procs=len(payload.get("procs", []))) is _fp.DROP:
+                payload = None
+        except Exception:
+            payload = None
+    return payload
 
 
 def _publish_object_plane_metrics(service: DaemonService) -> None:
@@ -2873,6 +3099,7 @@ def main() -> None:
     from ray_tpu_torch._private.platform import pin_cpu_env
     pin_cpu_env()
     resources = json.loads(args.resources)
+    _nc.set_local_role("daemon")
     service = DaemonService(args.node_id, resources,
                             args.object_store_bytes, host=args.host,
                             session_dir=args.session_dir or None,
@@ -2914,7 +3141,12 @@ def main() -> None:
     service.start_agent(args.host)
 
     def reconnect() -> "HeadClient | None":
+        from ray_tpu_torch._private.retry import RetryPolicy
+
         if grace <= 0:
+            # head restarts disabled: the window is already over
+            # (RetryPolicy reads deadline_s=0 as "no deadline", which
+            # would dial the dead head for ever)
             return None
 
         def attempt() -> HeadClient:
@@ -2932,7 +3164,9 @@ def main() -> None:
             return client
 
         try:
-            return _retry(attempt, grace, (OSError, rpc.RpcError))
+            return RetryPolicy.default(deadline_s=grace).run(
+                attempt, loop="daemon.head_reconnect",
+                retry_on=(OSError, rpc.RpcError))
         except (OSError, rpc.RpcError):
             return None     # the head stayed down past the grace window
 
@@ -2965,6 +3199,14 @@ def main() -> None:
         if time.monotonic() - last_trace_push >= trace_push_s:
             spans = service.task_events.events_after(
                 trace_cursor)[:trace_batch_max]
+        if spans and _fp.ENABLED:
+            try:
+                # drop/error arm = this flush is lost in transit; the
+                # unadvanced cursor re-sends the batch next beat
+                if _fp.fire("trace.flush", n=len(spans)) is _fp.DROP:
+                    spans = []
+            except Exception:
+                spans = []
         snapshot = None
         if time.monotonic() - last_metrics_push >= metrics_push_s:
             snapshot = _metrics.export_snapshot()

@@ -31,9 +31,11 @@ a view into that blob, uncopied (:func:`loads_joined`).
 Plain NORMAL tasks ride the pool lane, and a daemon's serialized actors
 (``max_concurrency == 1``, no concurrency groups) the targeted lane;
 generator functions, multi-return tasks and streaming calls keep the pipe.
-Left out, each with the part of ROADMAP A11e that brings it: the failpoint
-and netchaos seams and the ``RetryPolicy`` backoff of reconnects (the second
-part; a bounded loop of a few tries here).
+
+Chaos: ``fast_lane.submit`` and ``fast_lane.ping`` are failpoint seams (a
+drop surfaces as lane death, never a half-written frame), netchaos sits
+below the lane's framing on both sides (a whole frame is dropped or
+duplicated), and reconnects ride :func:`lane_reconnect_policy`.
 """
 
 from __future__ import annotations
@@ -45,8 +47,10 @@ import pickle
 import socket
 import struct
 import threading
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from ray_tpu_torch._private import failpoints as _fp
+from ray_tpu_torch._private import netchaos as _nc
 
 from ray_tpu_torch._private.rpc import SEND_CONCAT_MAX as _SEND_CONCAT_MAX
 
@@ -127,6 +131,10 @@ def _frame_stream(sock: socket.socket):
             end = off + 4 + blen
             if end > n:
                 break
+            if (_nc.ENABLED
+                    and _nc.on_recv(sock, blen + 4) is _nc.DROP_FRAME):
+                off = end       # frame lost on the simulated link
+                continue
             yield buf[off + 4:end]
             off = end
         if off:
@@ -143,12 +151,20 @@ def _send_lane_frame(sock: socket.socket, wlock: threading.Lock, op: int,
     payloads concatenate (one syscall); large payloads go as a second
     sendall under the same lock — no multi-MB concat copy."""
     prefix = _U32.pack(1 + len(head) + len(payload)) + bytes([op]) + head
+    copies = 1
+    if _nc.ENABLED:
+        verdict = _nc.on_send(sock, len(prefix) + len(payload))
+        if verdict is _nc.DROP_FRAME:
+            return      # whole frame suppressed; lane framing intact
+        if verdict is _nc.DUP_FRAME:
+            copies = 2
     with wlock:
-        if len(payload) <= _SEND_CONCAT_MAX:
-            sock.sendall(prefix + payload)
-        else:
-            sock.sendall(prefix)
-            sock.sendall(payload)
+        for _ in range(copies):
+            if len(payload) <= _SEND_CONCAT_MAX:
+                sock.sendall(prefix + payload)
+            else:
+                sock.sendall(prefix)
+                sock.sendall(payload)
 
 
 # ---------------------------------------------------------------------------
@@ -225,28 +241,25 @@ def replay_gen_list(blob):
     return replay()
 
 
-# a bounded reconnect: the core may be mid-restart; persistent failure is
-# the caller's cue to disable the lane
-RECONNECT_TRIES = 3
-RECONNECT_BASE_S = 0.02
-
-
-def connect_with_retries(addr: Tuple[str, int]) -> "FastLaneClient":
-    for attempt in range(RECONNECT_TRIES - 1):
-        try:
-            return FastLaneClient(addr)
-        except OSError:
-            time.sleep(RECONNECT_BASE_S * 2 ** attempt)
-    return FastLaneClient(addr)
+def lane_reconnect_policy():
+    """The shared reconnect schedule of lane clients: a brief backoff
+    window (the core may be mid-restart); persistent failure is the
+    caller's cue to disable the lane."""
+    from ray_tpu_torch._private.retry import RetryPolicy
+    return RetryPolicy(max_attempts=3, base_s=0.02, max_backoff_s=0.2)
 
 
 class FastLaneClient:
     """One connection to a C++ core; thread-safe submit."""
 
-    def __init__(self, addr: Tuple[str, int]):
+    def __init__(self, addr: Tuple[str, int], link_id: str = "lane"):
         self._sock = socket.create_connection(addr, timeout=10.0)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._sock.settimeout(None)
+        # default identity is the bare "lane"; the driver passes a
+        # node-scoped id ("lane:<node_hex>") so a chaos spec can partition
+        # ONE node's lane without touching its siblings
+        _nc.register_link(self._sock, "daemon", link_id=link_id)
         from ray_tpu_torch._private.lock_sanitizer import tracked_lock
         self._wlock = tracked_lock("fast_lane.wire", reentrant=False)
         self._rids = itertools.count(1)
@@ -334,6 +347,17 @@ class FastLaneClient:
         concatenating the big payload."""
         run: list = []
         for f, _ in batch:
+            if _nc.ENABLED:
+                nb = (len(f[0]) + len(f[1])) if isinstance(f, tuple) \
+                    else len(f)
+                verdict = _nc.on_send(self._sock, nb)
+                if verdict is _nc.DROP_FRAME:
+                    continue    # staged frame lost on the simulated link
+                if verdict is _nc.DUP_FRAME:
+                    if isinstance(f, tuple):
+                        run.extend(f)
+                    else:
+                        run.append(f)
             if isinstance(f, tuple):
                 if run:
                     self._sock.sendall(
@@ -402,10 +426,18 @@ class FastLaneClient:
         with self._plock:
             self._pending[rid] = slot
         try:
+            # DROP surfaces as a send failure: the lane is a stream
+            # socket, so a lost frame desyncs framing; peers treat it as
+            # connection loss, and the caller's classic fallback stays
+            # safe (nothing was submitted)
+            if _fp.ENABLED and _fp.fire("fast_lane.submit",
+                                        op=op) is _fp.DROP:
+                raise OSError("frame dropped by failpoint")
             self._send(op, _U64.pack(rid) + extra, payload, rid=rid)
         except Exception as e:  # noqa: BLE001 — any send-path failure
-            # must pop the slot and mark the lane dead; a narrower catch
-            # leaked one pending slot per escape
+            # (socket death OR an injected error of any class) must pop
+            # the slot and mark the lane dead; a narrower catch leaked one
+            # pending slot per escape
             self.dead = True
             with self._plock:
                 self._pending.pop(rid, None)
@@ -439,6 +471,14 @@ class FastLaneClient:
     def ping(self, timeout: float = 5.0) -> Dict[str, int]:
         # through _submit_op: a send failure pops the pending slot and
         # marks the lane dead, never a leaked slot or a raw OSError
+        if _fp.ENABLED:
+            try:
+                if _fp.fire("fast_lane.ping") is _fp.DROP:
+                    raise OSError("ping dropped by failpoint")
+            except Exception as e:  # noqa: BLE001 — any injected class
+                # marks the lane dead and surfaces as the typed error
+                self.dead = True
+                raise FastLaneError(str(e))
         rid, slot = self._submit_op(OP_PING, b"", b"")
         kind, blob = self.wait(slot, timeout)
         if kind != KIND_PONG or len(blob) < 32:
@@ -533,6 +573,7 @@ def worker_fast_lane_start(addr: Tuple[str, int], state,
     sock = socket.create_connection(addr, timeout=10.0)
     sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
     sock.settimeout(None)
+    _nc.register_link(sock, "daemon", link_id="lane")
     wlock = threading.Lock()
     frames = _frame_stream(sock)
 
@@ -561,8 +602,8 @@ def worker_fast_lane_start(addr: Tuple[str, int], state,
     from ray_tpu_torch._private import runtime_context
     from ray_tpu_torch._private.ids import (ActorID, JobID, NodeID,
                                             PlacementGroupID, TaskID)
-    from ray_tpu_torch._private.worker_process import (_current_rid,
-                                                       _dump_exc, _pack)
+    from ray_tpu_torch._private.worker_process import (
+        _current_rid, _dump_exc, _pack, _post_mortem_on_error)
 
     def run_one(tid: int, msg: dict) -> None:
         current["tid"] = tid
@@ -582,30 +623,33 @@ def worker_fast_lane_start(addr: Tuple[str, int], state,
             gen_items = None
             token = runtime_context._set_context(**ctx)
             try:
-                args, kwargs = loads_joined(msg["args"])
-                if "method" in msg:
-                    # an actor call: on the live instance, serialized with
-                    # the pipe's calls by the actor lock (the order is the
-                    # core's per-tag FIFO). A generator drains here, inside
-                    # the context and the lock, so no other method
-                    # interleaves with its body.
-                    with state.actor_lock:
-                        method = getattr(state.actor_instance,
-                                         msg["method"])
-                        result = method(*args, **kwargs)
-                        if inspect.isgenerator(result):
-                            gen_items = _drain_capped(result)
-                else:
-                    fn = state._fn({"fn_id": msg["fid"]})
-                    result = fn(*args, **kwargs)
-                if gen_items is None and inspect.isgenerator(result):
-                    # a PLAIN function returned a live generator: its body
-                    # already ran (side effects included), so the lane must
-                    # not hand the task back for a re-run. Drain here —
-                    # inside the runtime context — and ship the item list;
-                    # the driver replays it as a stream. Generator
-                    # FUNCTIONS never ride the lane (driver eligibility).
-                    gen_items = _drain_capped(result)
+                # the remote debugger holds a crashed frame open when
+                # RAY_TPU_POST_MORTEM=1, as on the pipe path
+                with _post_mortem_on_error():
+                    args, kwargs = loads_joined(msg["args"])
+                    if "method" in msg:
+                        # an actor call: on the live instance, serialized with
+                        # the pipe's calls by the actor lock (the order is the
+                        # core's per-tag FIFO). A generator drains here, inside
+                        # the context and the lock, so no other method
+                        # interleaves with its body.
+                        with state.actor_lock:
+                            method = getattr(state.actor_instance,
+                                             msg["method"])
+                            result = method(*args, **kwargs)
+                            if inspect.isgenerator(result):
+                                gen_items = _drain_capped(result)
+                    else:
+                        fn = state._fn({"fn_id": msg["fid"]})
+                        result = fn(*args, **kwargs)
+                    if gen_items is None and inspect.isgenerator(result):
+                        # a PLAIN function returned a live generator: its body
+                        # already ran (side effects included), so the lane must
+                        # not hand the task back for a re-run. Drain here —
+                        # inside the runtime context — and ship the item list;
+                        # the driver replays it as a stream. Generator
+                        # FUNCTIONS never ride the lane (driver eligibility).
+                        gen_items = _drain_capped(result)
             finally:
                 runtime_context._reset_context(token)
             kind, value = ((KIND_GEN_LIST, gen_items)

@@ -59,6 +59,7 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
+from ray_tpu_torch._private import failpoints as _fp
 from ray_tpu_torch._private import rpc
 from ray_tpu_torch._private.lock_sanitizer import tracked_lock
 from ray_tpu_torch._private.rpc import HOLD, Client, Connection, declare
@@ -340,6 +341,7 @@ class HeadService:
                                 str(epoch).encode())
             self._nodes[node_id] = entry
         conn.meta["node_id"] = node_id
+        conn.link("daemon", node_id)
         self._publish("node", {"kind": "added", "node": entry.view()})
         if entry.draining:
             # re-announce so a (re)subscribed driver resumes the migration
@@ -568,6 +570,10 @@ class HeadService:
 
     # -- internal KV -----------------------------------------------------
     def handle_kv_put(self, conn, rid, msg):
+        if _fp.ENABLED:
+            # crash arm = the head dies mid-put (the respawn and redial
+            # drill); an error arm is a RemoteError at the caller
+            _fp.fire("head.kv_put")
         key = msg["ns"] + b":" + msg["key"]
         with self._lock:
             if not msg["overwrite"] and key in self._kv:
@@ -614,6 +620,9 @@ class HeadService:
         return HOLD
 
     def _publish(self, channel: str, event: Any) -> None:
+        if _fp.ENABLED and _fp.fire("head.pubsub_publish",
+                                    channel=channel) is _fp.DROP:
+            return      # event lost before the log (subscribers starve)
         with self._lock:
             log = self._events.setdefault(channel, [])
             log.append(event)
@@ -672,23 +681,6 @@ class HeadService:
         return {"ok": True}
 
 
-def _retry(fn, window_s: float, retry_on, abort=None, sleep=time.sleep):
-    """Call ``fn`` until it returns, retrying on ``retry_on`` with a
-    backoff of 50 ms doubling to 2 s, for at most ``window_s`` seconds
-    (the last failure is raised). ``abort()`` true stops early."""
-    deadline = time.monotonic() + window_s
-    delay = 0.05
-    while True:
-        try:
-            return fn()
-        except retry_on:
-            left = deadline - time.monotonic()
-            if left <= 0 or (abort is not None and abort()):
-                raise
-        sleep(min(delay, max(0.0, left)))
-        delay = min(delay * 2, 2.0)
-
-
 class HeadClient:
     """Typed client for the head's services, with background subscribers.
 
@@ -697,7 +689,7 @@ class HeadClient:
     path across a head restart."""
 
     def __init__(self, addr: Tuple[str, int], reconnect_window: float = 0.0):
-        self._client = rpc.connect(addr)
+        self._client = rpc.connect(addr).link("head")
         self.addr = tuple(addr)
         self._reconnect_window = reconnect_window
         self._dial_lock = threading.Lock()
@@ -707,6 +699,7 @@ class HeadClient:
         # close them (a parked long-poll otherwise holds its socket open)
         self._sub_clients: List[Client] = []  #: guarded by self._sub_lock
         self._sub_lock = threading.Lock()
+        self._retry_policy = None   # built lazily; immutable once made
 
     def _redial(self) -> None:
         with self._dial_lock:
@@ -714,13 +707,18 @@ class HeadClient:
                 return
             # raises OSError while the head is down; the lock makes
             # concurrent callers wait for ONE reconnect
-            client = rpc.connect(self.addr)
+            client = rpc.connect(self.addr).link("head")
             old, self._client = self._client, client
             old.close()
 
     def _call(self, method: str, timeout: Optional[float] = None, **kw):
         if self._reconnect_window <= 0:
             return self._client.call(method, timeout=timeout, **kw)
+        if self._retry_policy is None:
+            # built once: cfg() reads must not ride every head RPC
+            from ray_tpu_torch._private.retry import RetryPolicy
+            self._retry_policy = RetryPolicy.default(
+                deadline_s=self._reconnect_window)
 
         def attempt():
             try:
@@ -733,7 +731,8 @@ class HeadClient:
                     pass        # head still down: the next attempt retries
                 raise
 
-        return _retry(attempt, self._reconnect_window, rpc.RpcError)
+        return self._retry_policy.run(
+            attempt, loop="head.redial", retry_on=(rpc.RpcError,))
 
     # node info
     def register_node(self, node_id: str, resources: Dict[str, float],
@@ -840,11 +839,16 @@ class HeadClient:
                             return
                         # head restart: re-dial and resume from our cursor
                         # (the persisted event log keeps it valid)
+                        from ray_tpu_torch._private.retry import RetryPolicy
                         try:
-                            new = _retry(
+                            # a stop-interruptible backoff: close() must
+                            # not wait out a redial sleep
+                            new = RetryPolicy.default(
+                                deadline_s=self._reconnect_window).run(
                                 lambda: rpc.connect(self.addr,
                                                     timeout=None),
-                                self._reconnect_window, OSError,
+                                loop="head.subscribe_redial",
+                                retry_on=(OSError,),
                                 abort=self._sub_stop.is_set,
                                 sleep=self._sub_stop.wait)
                         except OSError:
@@ -905,6 +909,8 @@ def main() -> None:
                         help="exit once this process (the driver that "
                              "spawned the head) is gone; 0 = never")
     args = parser.parse_args()
+    from ray_tpu_torch._private import netchaos as _nc
+    _nc.set_local_role("head")
     from ray_tpu_torch._private import eventloop
     eventloop.set_proc_label("head")
     service = HeadService(state_path=args.state_path or None,

@@ -15,9 +15,9 @@ object store's device tier. Only worker processes are candidates, never
 the driver. The driver runs one monitor over its own workers, and each
 daemon one over its node's (``DaemonService.start_memory_monitor``).
 
-Left out, each with the part of ROADMAP A11e that brings it: JAX's
-``TenantAwarePolicy`` (tenancy, the third part) and the pressure
-controller's preemption counter (``PressureController``, the second part).
+Each kill counts into ``ray_tpu_oom_preemptions_total{reason}``
+(``pressure.count_oom_preemption``). Left out: JAX's ``TenantAwarePolicy``
+(tenancy, the third part of ROADMAP A11e).
 """
 
 from __future__ import annotations
@@ -290,6 +290,12 @@ class MemoryMonitor:
             self.oom_killed_tasks.add(victim.task_id)
         if victim.actor_id is not None:
             self.oom_killed_actors.add(victim.actor_id)
+        try:
+            from ray_tpu_torch._private.pressure import count_oom_preemption
+            count_oom_preemption(
+                getattr(self.policy, "last_reason", "host") or "host")
+        except Exception:
+            pass
         try:
             os.kill(victim.pid, signal.SIGKILL)
         except (ProcessLookupError, PermissionError):

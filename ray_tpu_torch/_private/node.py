@@ -414,6 +414,10 @@ class Node:
         # placements; the dispatch pass hands queued-but-unstarted tasks
         # back to the runtime for resubmission elsewhere.
         self.draining = False
+        # memory-pressure level ("ok"/"soft"/"hard"), mirrored from the
+        # daemon's node_pressure pushes; pick_node soft-excludes "hard"
+        # nodes as it does draining ones
+        self.pressure_level = "ok"
         # a daemon-backed node (cluster="daemons"): its DaemonHandle, and
         # the dependency-staging hook called at enqueue
         self.daemon = None

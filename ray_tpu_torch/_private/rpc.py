@@ -40,9 +40,11 @@ import pickle
 import socket
 import struct
 import threading
-import time
 from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple
+
+from ray_tpu_torch._private import failpoints as _fp
+from ray_tpu_torch._private import netchaos as _nc
 
 _LEN = struct.Struct("!I")
 MAX_FRAME = 1 << 31
@@ -75,8 +77,8 @@ def concurrent(handler):
 
 
 def loop_safe(handler):
-    """Mark a handler as non-blocking. The asyncio core (not ported yet)
-    runs such handlers inline on its event loop; the threaded core
+    """Mark a handler as non-blocking. The asyncio core runs such
+    handlers inline on its event loop; the threaded core
     ignores the marker (lane semantics)."""
     handler._rpc_loop_safe = True
     return handler
@@ -184,6 +186,7 @@ def wire_metric_entries() -> list:
             "description": "inbound RPC requests by method",
             "samples": [[[["method", m]], v]
                         for m, v in sorted(server.items())]})
+    out.extend(_nc.chaos_metric_entries())
     return out
 
 
@@ -202,6 +205,19 @@ def send_frame_bytes(sock: socket.socket, blob, wlock) -> None:
     n = len(blob)
     if n > MAX_FRAME:
         raise RpcError(f"frame too large: {n}")
+    if _nc.ENABLED:
+        # chaos sits BELOW the frame layer: a drop suppresses the WHOLE
+        # frame (never a byte prefix, so framing stays intact); a dup
+        # delivers the same complete frame twice back-to-back
+        verdict = _nc.on_send(sock, n + 4)
+        if verdict is _nc.DROP_FRAME:
+            return
+        if verdict is _nc.DUP_FRAME:
+            _write_frame(sock, blob, n, wlock)
+    _write_frame(sock, blob, n, wlock)
+
+
+def _write_frame(sock: socket.socket, blob, n: int, wlock) -> None:
     _WIRE["bytes_sent"] += n + 4    # lossy-tolerant plain add (hot path)
     _WIRE["frames_sent"] += 1
     if n <= SEND_CONCAT_MAX:
@@ -237,12 +253,17 @@ def recv_exact(sock: socket.socket, n: int) -> bytearray:
 
 
 def _recv_frame(sock: socket.socket) -> Dict[str, Any]:
-    (n,) = _LEN.unpack(recv_exact(sock, 4))
-    if n > MAX_FRAME:
-        raise RpcError(f"frame too large: {n}")
-    _WIRE["bytes_recv"] += n + 4    # lossy-tolerant plain add (hot path)
-    _WIRE["frames_recv"] += 1
-    msg = loads_frame(recv_exact(sock, n))
+    while True:
+        (n,) = _LEN.unpack(recv_exact(sock, 4))
+        if n > MAX_FRAME:
+            raise RpcError(f"frame too large: {n}")
+        _WIRE["bytes_recv"] += n + 4    # lossy-tolerant plain add
+        _WIRE["frames_recv"] += 1
+        blob = recv_exact(sock, n)
+        if _nc.ENABLED and _nc.on_recv(sock, n + 4) is _nc.DROP_FRAME:
+            continue        # inbound frame lost on the simulated link
+        break
+    msg = loads_frame(blob)
     if not isinstance(msg, dict):
         raise RpcError(f"a frame is a dict, not {type(msg).__name__}")
     return msg
@@ -274,10 +295,20 @@ class Client:
                                         name=f"rpc-client-{self.addr[1]}")
         self._reader.start()
 
+    def link(self, peer_role: str, link_id: str = "") -> "Client":
+        """Tag this connection's socket with the peer's chaos-link
+        identity (cold path; chainable: ``Client(addr).link("head")``)."""
+        _nc.register_link(self._sock, peer_role, link_id)
+        return self
+
     def _read_loop(self) -> None:
         try:
             while True:
                 msg = _recv_frame(self._sock)
+                if _fp.ENABLED and _fp.fire(
+                        "rpc.client.recv",
+                        method=msg.get("m", "")) is _fp.DROP:
+                    continue    # reply/push lost in transit
                 rid = msg.get("i")
                 if rid is None:
                     # server push (no correlation id)
@@ -292,8 +323,9 @@ class Client:
                 if slot is not None:
                     slot[1] = msg
                     slot[0].set()
-        except Exception:   # any reader exit must fail pending slots, or
-            # timeout=None callers hang for ever on a dead connection
+        except Exception:   # transport death AND injected faults: any
+            # reader exit must fail pending slots, or timeout=None callers
+            # hang for ever on a dead connection
             self._fail_all()
 
     def _fail_all(self) -> None:
@@ -323,6 +355,18 @@ class Client:
 
     def _call_counted(self, method: str, timeout: Optional[float],
                       kw: Dict[str, Any]) -> Dict[str, Any]:
+        # failpoint BEFORE the pending slot exists: an error arm must not
+        # leak a slot; a DROP arm skips the send so the caller times out
+        # exactly like real frame loss
+        dropped = (_fp.ENABLED and _fp.fire(
+            "rpc.client.send", method=method) is _fp.DROP)
+        if dropped and (timeout if timeout is not None
+                        else self._timeout) is None:
+            # a deadline-less caller (long-poll subscribers) can never
+            # observe a lost frame as a timeout: surface the drop as
+            # transport failure instead of wedging the waiter for ever
+            self._fail_all()
+            raise RpcError(f"send to {self.addr} dropped by failpoint")
         msg = dict(kw)
         msg["m"] = method
         with self._id_lock:
@@ -334,7 +378,8 @@ class Client:
         with self._plock:
             self._pending[rid] = slot
         try:
-            send_frame_bytes(self._sock, blob, self._wlock)
+            if not dropped:
+                send_frame_bytes(self._sock, blob, self._wlock)
         except (OSError, RpcError):
             self._fail_all()
             raise RpcError(f"send to {self.addr} failed")
@@ -354,6 +399,9 @@ class Client:
     def notify(self, method: str, **kw) -> None:
         """Fire-and-forget (no reply expected)."""
         _validate(method, kw)
+        if (_fp.ENABLED and _fp.fire("rpc.client.send",
+                                     method=method) is _fp.DROP):
+            return              # notification lost in transit
         msg = dict(kw)
         msg["m"] = method
         blob = dumps_frame(msg)
@@ -398,6 +446,12 @@ class Connection:
         self._lane: deque = deque()
         self._lane_lock = threading.Lock()
         self._lane_busy = False
+
+    def link(self, peer_role: str, link_id: str = "") -> "Connection":
+        """Tag the accepted socket's chaos-link identity: services call
+        this once the peer identifies itself (hello/register)."""
+        _nc.register_link(self.sock, peer_role, link_id)
+        return self
 
     def reply(self, rid: int, **kw) -> None:
         msg = dict(kw)
@@ -490,6 +544,9 @@ class Server:
             while not self._stop:
                 msg = _recv_frame(conn.sock)
                 method = msg.get("m", "")
+                if _fp.ENABLED and _fp.fire(
+                        "rpc.server.recv", method=method) is _fp.DROP:
+                    continue    # request lost before dispatch
                 rid = msg.get("i")
                 with _WIRE_LOCK:
                     _WIRE_SERVER_REQS[method] = \
@@ -575,19 +632,23 @@ def connect(addr: Tuple[str, int], timeout: float = 30.0,
 
 
 def wait_for_server(addr: Tuple[str, int], timeout: float = 15.0) -> None:
-    """Probe ``addr`` until it accepts a connection (backoff 50 ms doubling
-    to 0.5 s), or raise RpcError after ``timeout`` seconds."""
+    """Probe ``addr`` until it accepts a connection (``RetryPolicy``,
+    backoff capped at 50 ms doubling to 0.5 s), or raise RpcError after
+    ``timeout`` seconds."""
+    from ray_tpu_torch._private.retry import RetryPolicy
+
     if timeout <= 0:
+        # an exhausted budget means fail NOW (RetryPolicy reads
+        # deadline_s=0 as "no deadline" and would probe for ever)
         raise RpcError(f"server at {addr} did not come up in {timeout}s")
-    deadline = time.monotonic() + timeout
-    delay = 0.05
-    while True:
-        try:
-            with socket.create_connection(tuple(addr), timeout=1.0):
-                return
-        except OSError:
-            if time.monotonic() >= deadline:
-                raise RpcError(
-                    f"server at {addr} did not come up in {timeout}s")
-        time.sleep(min(delay, max(0.0, deadline - time.monotonic())))
-        delay = min(delay * 2, 0.5)
+
+    def probe() -> None:
+        with socket.create_connection(tuple(addr), timeout=1.0):
+            return
+
+    try:
+        RetryPolicy(base_s=0.05, max_backoff_s=0.5,
+                    deadline_s=timeout).run(
+            probe, loop="rpc.wait_for_server", retry_on=(OSError,))
+    except OSError:
+        raise RpcError(f"server at {addr} did not come up in {timeout}s")

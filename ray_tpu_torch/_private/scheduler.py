@@ -58,10 +58,12 @@ class SchedulingError(Exception):
 
 
 def _soft_excluded(n: Any) -> bool:
-    """Alive but taking no NEW placements: DRAINING. Soft: when every
-    alive node is excluded, callers fall back to them (running somewhere
-    beats failing a feasible demand)."""
-    return bool(getattr(n, "draining", False))
+    """Alive but taking no NEW placements: DRAINING, or under HARD memory
+    pressure (the node is shedding load). Soft: when every alive node is
+    excluded, callers fall back to them (running somewhere beats failing
+    a feasible demand)."""
+    return bool(getattr(n, "draining", False)
+                or getattr(n, "pressure_level", "ok") == "hard")
 
 
 _INFEASIBLE = object()      # negative-cache sentinel

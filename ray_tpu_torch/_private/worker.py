@@ -50,6 +50,7 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch._private import failpoints as _fp
 from ray_tpu_torch._private import events as trace_events
 from ray_tpu_torch._private import runtime_context
 from ray_tpu_torch._private.gcs import GCS, ActorInfo, ActorState
@@ -246,6 +247,15 @@ class Runtime:
         self._generators: Dict[TaskID, GeneratorState] = {}
         self._shutdown = False
         self.pg_manager = PlacementGroupManager(self)
+        # deterministic fault injection and network chaos: the flags arm
+        # this process and export their env form, so the daemons, head
+        # and workers it spawns arm the same seams and links
+        from ray_tpu_torch._private import failpoints as _failpoints
+        from ray_tpu_torch._private import netchaos as _netchaos
+        from ray_tpu_torch._private.config import cfg as _cfg
+        _failpoints.maybe_activate_from_config(_cfg())
+        _netchaos.maybe_activate_from_config(_cfg())
+        _netchaos.set_local_role("driver")
         from ray_tpu_torch._private import eventloop
         eventloop.set_proc_label("driver")
 
@@ -357,6 +367,11 @@ class Runtime:
             return
         from ray_tpu_torch._private.config import cfg
         if not cfg().push_prefetch:
+            return
+        if getattr(node, "pressure_level", "ok") != "ok":
+            # soft or hard memory pressure: stage no optional copies onto
+            # the node; the demand pull still serves the task's arguments
+            # when it runs
             return
         with self._loc_lock:
             locs = {dep: list(self._locations.get(dep, ()))
@@ -615,6 +630,11 @@ class Runtime:
                     continue        # a replica already lives elsewhere
             target = targets[i % len(targets)]
             i += 1
+            if _fp.ENABLED:
+                try:
+                    _fp.fire("drain.migrate_object", oid=oid.hex())
+                except Exception:
+                    continue    # this object stays; lineage covers it
             try:
                 src, dst = node.daemon, target.daemon
                 if src is not None and dst is not None:
@@ -733,6 +753,14 @@ class Runtime:
         if self.get_node(node.node_id) is None:
             return      # drained cleanly, or the head escalated first
         self.count_drain_escalation(node)
+        if _fp.ENABLED:
+            try:
+                # a delay arm stretches the escalation window; an error
+                # arm must NOT suppress the escalation (the node would
+                # linger draining for ever)
+                _fp.fire("drain.deadline", node=node.node_id.hex())
+            except Exception:
+                pass
         try:
             self.remove_node(node)
         except Exception:
@@ -1333,8 +1361,10 @@ class Runtime:
             task_name=spec.name, placement_group_id=spec.placement_group_id,
             pg_capture=spec.pg_capture)
         t_exec0 = time.perf_counter() if spec.trace_sampled else 0.0
+        from ray_tpu_torch.util.rpdb import post_mortem_on_error
         try:
-            result = spec.func(*args, **kwargs)
+            with post_mortem_on_error():
+                result = spec.func(*args, **kwargs)
         except BaseException as e:  # noqa: BLE001
             self._finish_task(spec, node,
                               error=exc.TaskError(e, spec.name))
@@ -1495,10 +1525,46 @@ class Runtime:
                 spec.name))
 
     def _retry(self, spec: TaskSpec) -> None:
-        """Resubmit the task under its own task id, one attempt later."""
+        """Resubmit the task under its own task id, one attempt later,
+        after ``TASK_RETRY``'s backoff. The wait is deferred on the shared
+        timer, never a blocking sleep: a node's death fans retries for a
+        whole backlog out on one thread."""
         if self._shutdown:
             return
         self.stats["tasks_retried"] += 1
+        from ray_tpu_torch._private.retry import (TASK_RETRY, defer,
+                                                  record_retry)
+        if _fp.ENABLED:
+            # ANY injected error turns the would-be retry into a terminal
+            # failure (an escape here would leave the task neither
+            # retried nor failed); a delay arm stretches the retry storm
+            try:
+                _fp.fire("worker.retry", task=spec.task_id.hex(),
+                         attempt=spec.attempt_number)
+            except Exception as e:  # noqa: BLE001 — routed to the task
+                self._fail_task(spec, exc.TaskError(e, spec.name))
+                return
+        backoff = TASK_RETRY.backoff_s(spec.attempt_number)
+        record_retry("worker.task_retry", backoff)
+        if backoff >= 0.01:
+            def fire_retry(spec=spec):
+                # a resubmit that raises fails the task: the timer's own
+                # backstop would drop it and leave its futures hanging
+                try:
+                    self._resubmit_retry(spec)
+                except Exception as e:  # noqa: BLE001 — routed to task
+                    try:
+                        self._fail_task(spec, exc.TaskError(e, spec.name))
+                    except Exception:
+                        pass
+
+            defer(backoff, fire_retry)
+            return
+        self._resubmit_retry(spec)
+
+    def _resubmit_retry(self, spec: TaskSpec) -> None:
+        if self._shutdown:
+            return
         respec = _clone_spec_for_retry(spec)
         # one critical section for check + replace: a gap between the pop
         # and the reinsert would hide the task from a concurrent cancel()
@@ -1540,6 +1606,12 @@ class Runtime:
         skip = len(state.items)
         try:
             for item in gen:
+                if _fp.ENABLED:
+                    # a per-item seam: an error arm kills the stream
+                    # midway (the consumer sees a typed error); a delay
+                    # arm throttles it
+                    _fp.fire("worker.generator_stream",
+                             task=spec.task_id.hex())
                 if skip > 0:
                     skip -= 1
                     continue

@@ -98,6 +98,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ray_tpu_torch._private import failpoints as _fp
 from ray_tpu_torch._private import serialization
 from ray_tpu_torch._private.device_objects import DeviceValue, wire_dumps
 from ray_tpu_torch._private.ids import ActorID, ObjectID, TaskID
@@ -533,9 +534,7 @@ class WorkerProxyRuntime:
             return None
         try:
             ar.write(out["off"], payload)
-            sealed = self._state.call_host(
-                "shm_put_seal", key=key, ref=oid.binary(), raw=raw)
-            if not (isinstance(sealed, dict) and sealed.get("ok")):
+            if not self._seal_with_retry(key, oid, raw, nbytes):
                 raise RuntimeError("seal refused")
             return self._state.call_host(
                 "put_stored", oid=oid.binary(), key=key, nbytes=nbytes,
@@ -543,6 +542,21 @@ class WorkerProxyRuntime:
         except Exception:
             self._shm_put_abort(key)
             return None
+
+    def _seal_with_retry(self, key: bytes, oid, raw, nbytes: int) -> bool:
+        for _ in range(3):
+            if _fp.ENABLED:
+                try:
+                    # drop arm = the seal message is lost in transit;
+                    # resend (sealing is idempotent at the daemon)
+                    if _fp.fire("shm.seal", nbytes=nbytes) is _fp.DROP:
+                        continue
+                except Exception:
+                    continue
+            out = self._state.call_host(
+                "shm_put_seal", key=key, ref=oid.binary(), raw=raw)
+            return bool(isinstance(out, dict) and out.get("ok"))
+        return False
 
     def _shm_put_abort(self, key: bytes) -> None:
         try:
@@ -767,57 +781,58 @@ class _WorkerState:
             if locked:
                 self.actor_lock.acquire()
             try:
-                op = msg["op"]
-                if op == "create_actor":
-                    cls = self._fn(msg)
-                    args, kwargs = _unpack(msg["parts"])
-                    self.actor_instance = cls(*args, **kwargs)
-                    result = None
-                elif op == "call_method":
-                    method = getattr(self.actor_instance, msg["method"])
-                    args, kwargs = _unpack(msg["parts"])
-                    result = method(*args, **kwargs)
-                elif op == "reset_actor":
-                    # Clean actor teardown: drop the instance so the
-                    # process can go back to the idle pool. If anything
-                    # still holds the instance after gc (a thread the actor
-                    # started, a module global) the worker is dirty and
-                    # must be killed, not recycled.
-                    inst, self.actor_instance = self.actor_instance, None
-                    wr = weakref.ref(inst) if inst is not None else None
-                    del inst
-                    import gc
-                    gc.collect()
-                    if wr is not None and wr() is not None:
-                        raise RuntimeError("actor instance still "
-                                           "referenced; worker dirty")
-                    result = None
-                else:
-                    fn = self._fn(msg)
-                    args, kwargs = _unpack(msg["parts"])
-                    result = fn(*args, **kwargs)
-                if inspect.isgenerator(result):
-                    # producer-side flow control: at most `backpressure`
-                    # unacked items cross the pipe; the driver acks as the
-                    # consumer pulls them
-                    bp = msg.get("backpressure") or -1
-                    sem = None
-                    if bp > 0:
-                        sem = threading.Semaphore(bp)
-                        self._gen_sems[rid] = sem
-                    try:
-                        self.send({"id": rid, "op": "gen_start"})
-                        for item in result:
-                            if sem is not None:
-                                sem.acquire()
-                            self.send({"id": rid, "op": "yield"},
-                                      _pack(item))
-                        self._flush_metrics()   # before the release
-                        self.send({"id": rid, "op": "result", "ok": True,
-                                   "span": exec_span()}, _pack(None))
-                    finally:
-                        self._gen_sems.pop(rid, None)
-                    return
+                with _post_mortem_on_error():
+                    op = msg["op"]
+                    if op == "create_actor":
+                        cls = self._fn(msg)
+                        args, kwargs = _unpack(msg["parts"])
+                        self.actor_instance = cls(*args, **kwargs)
+                        result = None
+                    elif op == "call_method":
+                        method = getattr(self.actor_instance, msg["method"])
+                        args, kwargs = _unpack(msg["parts"])
+                        result = method(*args, **kwargs)
+                    elif op == "reset_actor":
+                        # Clean actor teardown: drop the instance so the
+                        # process can go back to the idle pool. If anything
+                        # still holds the instance after gc (a thread the actor
+                        # started, a module global) the worker is dirty and
+                        # must be killed, not recycled.
+                        inst, self.actor_instance = self.actor_instance, None
+                        wr = weakref.ref(inst) if inst is not None else None
+                        del inst
+                        import gc
+                        gc.collect()
+                        if wr is not None and wr() is not None:
+                            raise RuntimeError("actor instance still "
+                                               "referenced; worker dirty")
+                        result = None
+                    else:
+                        fn = self._fn(msg)
+                        args, kwargs = _unpack(msg["parts"])
+                        result = fn(*args, **kwargs)
+                    if inspect.isgenerator(result):
+                        # producer-side flow control: at most `backpressure`
+                        # unacked items cross the pipe; the driver acks as the
+                        # consumer pulls them
+                        bp = msg.get("backpressure") or -1
+                        sem = None
+                        if bp > 0:
+                            sem = threading.Semaphore(bp)
+                            self._gen_sems[rid] = sem
+                        try:
+                            self.send({"id": rid, "op": "gen_start"})
+                            for item in result:
+                                if sem is not None:
+                                    sem.acquire()
+                                self.send({"id": rid, "op": "yield"},
+                                          _pack(item))
+                            self._flush_metrics()   # before the release
+                            self.send({"id": rid, "op": "result", "ok": True,
+                                       "span": exec_span()}, _pack(None))
+                        finally:
+                            self._gen_sems.pop(rid, None)
+                        return
             finally:
                 if locked:
                     self.actor_lock.release()
@@ -848,6 +863,18 @@ _PROFILE_RESULT_S = 1.0
 _last_profile_sent = [0.0]
 
 
+def _post_mortem_on_error():
+    """The remote debugger's hook (one definition, in ``util/rpdb.py``,
+    shared with the in-process path), guarded so a debugger-side import
+    failure never masks the user's exception."""
+    import contextlib
+    try:
+        from ray_tpu_torch.util.rpdb import post_mortem_on_error
+        return post_mortem_on_error()
+    except Exception:
+        return contextlib.nullcontext()
+
+
 def _result_profile():
     from ray_tpu_torch.util import profiling
     rec = profiling.process_profile()
@@ -870,6 +897,10 @@ def _child_main(sock: socket.socket) -> None:
     # Ctrl+C goes to the whole foreground process group; workers must not
     # die with it (the driver decides shutdown).
     signal.signal(signal.SIGINT, signal.SIG_IGN)
+    # network-chaos role: any control-plane socket this worker opens (the
+    # lane's result delivery) matches worker>* link policies
+    from ray_tpu_torch._private import netchaos as _nc
+    _nc.set_local_role("worker")
     chan = _Channel(sock)
     boot, _ = chan.recv()
     os.environ.update(boot.get("env", {}))
@@ -1120,17 +1151,22 @@ def dispatch_core_op(rt, holder, call: str, kw: Dict[str, Any],
     if call == "gcs_nodes":
         return dict(rt.gcs.nodes)
     if call.startswith("gcs_kv_"):
+        # the store util.rpdb._kv prefers: the head's KV when there is one
+        # (discoverable from other processes, as `cli debug` needs), else
+        # the driver's gcs
+        backend = getattr(rt, "cluster_backend", None)
+        store = getattr(backend, "head", None) or rt.gcs
         ns = kw.get("namespace", b"")
         if call == "gcs_kv_put":
-            return rt.gcs.kv_put(kw["key"], kw["value"],
-                                 overwrite=kw.get("overwrite", True),
-                                 namespace=ns)
+            return store.kv_put(kw["key"], kw["value"],
+                                overwrite=kw.get("overwrite", True),
+                                namespace=ns)
         if call == "gcs_kv_get":
-            return rt.gcs.kv_get(kw["key"], namespace=ns)
+            return store.kv_get(kw["key"], namespace=ns)
         if call == "gcs_kv_del":
-            return rt.gcs.kv_del(kw["key"], namespace=ns)
+            return store.kv_del(kw["key"], namespace=ns)
         if call == "gcs_kv_keys":
-            return rt.gcs.kv_keys(kw["prefix"], namespace=ns)
+            return store.kv_keys(kw["prefix"], namespace=ns)
     if call == "fetch_function":
         return fetch_function_blob(kw["fid"])
     if call == "put_stored":
@@ -1896,7 +1932,8 @@ class ProcessRouter:
         if self._fast is not None and not self._fast.dead:
             return self._fast
         from ray_tpu_torch._private.fast_lane import (CoreHandle,
-                                                      connect_with_retries)
+                                                      FastLaneClient,
+                                                      lane_reconnect_policy)
         try:
             with self._fast_lock:
                 if self._fast is not None and not self._fast.dead:
@@ -1911,9 +1948,16 @@ class ProcessRouter:
                                      daemon=True,
                                      name="router-fastlane").start()
                 port = self._fast_core.port
-            # connect outside the lock: the retries' sleeps must not stall
-            # cancel_task's bookkeeping
-            fl = connect_with_retries(("127.0.0.1", port))
+            # connect outside the lock: the retry window's backoff sleeps
+            # must not stall cancel_task's bookkeeping
+            def connect():
+                if _fp.ENABLED:
+                    _fp.fire("fast_lane.reconnect")
+                return FastLaneClient(("127.0.0.1", port))
+
+            fl = lane_reconnect_policy().run(
+                connect, loop="fast_lane.reconnect",
+                retry_on=(OSError, _fp.FailpointError))
             with self._fast_lock:
                 if self._fast is None or self._fast.dead:
                     self._fast = fl

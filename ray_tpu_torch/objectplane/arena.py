@@ -40,6 +40,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ray_tpu_torch._private import failpoints as _fp
 
 
 class WorkerArena:
@@ -70,6 +71,13 @@ class WorkerArena:
             if self._failed:
                 return None
             try:
+                if _fp.ENABLED:
+                    # drop/error arm = the mapping fails (a hardened
+                    # /dev/shm, a wrong segment): the per-task RPC
+                    # fallback, not a task failure
+                    if _fp.fire("shm.attach",
+                                arena=self.name) is _fp.DROP:
+                        raise RuntimeError("shm.attach failpoint drop")
                 from ray_tpu_torch.native_store import ShmObjectStore
                 self._store = ShmObjectStore.attach(self.name)
             except Exception:

@@ -28,6 +28,8 @@ import threading
 from collections import deque
 from typing import Any, Dict, Optional, Tuple
 
+from ray_tpu_torch._private import failpoints as _fp
+
 
 
 def _push_chunk_size() -> int:
@@ -112,6 +114,11 @@ class PushManager:
                 push.event.set()
 
     def _transfer(self, push: _Push) -> None:
+        if _fp.ENABLED:
+            # an error arm fails this push attempt (the object still
+            # travels on demand through the pull path); a delay arm
+            # stretches the transfer window
+            _fp.fire("daemon.push_transfer")
         size = self.objects.nbytes_of(push.oid)
         if size is None:
             raise KeyError(f"push source lost {push.oid!r}")

@@ -20,8 +20,9 @@ The read commands, as in JAX: ``status``, ``summary`` and ``memory`` (the
 state API and each node's store), ``timeline`` (the merged chrome trace),
 ``profile`` (a cluster-wide stack profile), ``microbenchmark`` (the
 runtime's core-op rates) and ``dashboard``. Each runs a runtime of its own,
-or joins the cluster ``RAY_TPU_ADDRESS`` names. ``debug`` waits for
-``util.rpdb`` (the second part of ROADMAP A11e) and exits 2 naming it.
+or joins the cluster ``RAY_TPU_ADDRESS`` names. ``debug`` lists the remote
+debugger's sessions advertised in the running cluster's KV, or attaches to
+one (``util/rpdb.py``).
 """
 
 from __future__ import annotations
@@ -36,9 +37,6 @@ import time
 
 CLUSTER_DIR = os.path.join(tempfile.gettempdir(), "ray_tpu_torch")
 CLUSTER_FILE = os.path.join(CLUSTER_DIR, "current_cluster.json")
-
-# subcommand -> the ROADMAP item that brings it
-_LATER = {"debug": "A11e, second part (util.rpdb)"}
 
 
 def _init_runtime(args):
@@ -414,10 +412,49 @@ def cmd_down(args) -> int:
     return 0
 
 
-def _cmd_later(args) -> int:
-    print(f"`{args.command}` is not ported yet: ROADMAP "
-          f"{_LATER[args.command]}", file=sys.stderr)
-    return 2
+def cmd_debug(args) -> int:
+    """List the remote debugger's active sessions, or attach to one.
+    Listing reads the head KV of the cluster ``--cluster`` or
+    ``RAY_TPU_ADDRESS`` names, else this process's runtime when one is up,
+    else the cluster file's; never a fresh runtime of its own."""
+    import ray_tpu_torch
+    from ray_tpu_torch.util import rpdb
+    named = args.cluster or os.environ.get("RAY_TPU_ADDRESS", "")
+    local = not named and ray_tpu_torch.is_initialized()
+    cluster = named or ("" if local else _try_cluster_address())
+    if args.session:
+        host, _, port = args.session.rpartition(":")
+        token = args.token
+        if not token and cluster:
+            # an externally bound session wants its KV-advertised token
+            head = _head(cluster)
+            try:
+                for s in rpdb.sessions_from_kv(head):
+                    if (str(s.get("port")) == port
+                            and s.get("host") == (host or "127.0.0.1")
+                            and s.get("token")):
+                        token = s["token"]
+                        break
+            finally:
+                head.close()
+        rpdb.connect(host or "127.0.0.1", int(port), token=token or None)
+        return 0
+    sessions = []
+    if cluster:
+        head = _head(cluster)
+        try:
+            sessions = rpdb.sessions_from_kv(head)
+        finally:
+            head.close()
+    elif local:
+        sessions = rpdb.active_sessions()
+    if not sessions:
+        print("no active debugger sessions")
+        return 0
+    for s in sessions:
+        print(f"{s['host']}:{s['port']}  pid={s['pid']} "
+              f"task={s.get('task_id')}  {s.get('banner', '')}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -499,9 +536,14 @@ def main(argv=None) -> int:
     p.add_argument("--duration", type=float, default=2.0)
     p = sub.add_parser("dashboard")
     p.add_argument("--port", type=int, default=8265)
-    for name in _LATER:
-        sub.add_parser(name, add_help=False).add_argument(
-            "rest", nargs=argparse.REMAINDER)
+    p = sub.add_parser("debug")
+    p.add_argument("session", nargs="?", default="",
+                   help="host:port of a session to attach; empty = list")
+    p.add_argument("--cluster", default="",
+                   help="head host:port (default: the cluster file)")
+    p.add_argument("--token", default="",
+                   help="session token of an externally bound session "
+                        "(default: resolved from the cluster KV)")
 
     args, extra = parser.parse_known_args(argv)
     if args.command == "loadgen":
@@ -511,8 +553,6 @@ def main(argv=None) -> int:
         args.rest = argv[argv.index("loadgen") + 1:]
     elif extra:
         parser.error("unrecognized arguments: " + " ".join(extra))
-    if args.command in _LATER:
-        return _cmd_later(args)
     handler = {
         "start": cmd_start, "stop": cmd_stop,
         "cluster-status": cmd_cluster_status, "drain": cmd_drain,
@@ -522,7 +562,7 @@ def main(argv=None) -> int:
         "status": cmd_status, "summary": cmd_summary,
         "memory": cmd_memory, "timeline": cmd_timeline,
         "profile": cmd_profile, "microbenchmark": cmd_microbenchmark,
-        "dashboard": cmd_dashboard,
+        "dashboard": cmd_dashboard, "debug": cmd_debug,
     }[args.command]
     return handler(args)
 

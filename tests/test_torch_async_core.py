@@ -1,11 +1,10 @@
 """The port's asyncio control-plane core (``cfg().async_core``, the
 default): copies of ``tests/test_async_core.py``'s loop-affinity sanitizer,
 coalesced-write, mixed-cluster hello, lag-watchdog and registry re-attach
-tests against ``ray_tpu_torch``, and the capability table held against a
-live hello reply.
-
-JAX's failpoint and netchaos parity tests of that file wait with those
-seams (ROADMAP A11e).
+tests against ``ray_tpu_torch``, its failpoint and netchaos parity tests
+(the threaded core's seam names, chaos below the frame layer, delays on
+``call_later`` chains), and the capability table held against a live hello
+reply.
 """
 
 import time
@@ -121,7 +120,11 @@ rpc.declare("ac_echo", "v")
 
 
 class _EchoSvc:
+    def __init__(self):
+        self.calls = 0
+
     def handle_ac_echo(self, conn, rid, msg):
+        self.calls += 1
         return {"v": msg["v"]}
 
 
@@ -142,6 +145,136 @@ def test_cores_interoperate_on_one_socket(server_core):
     finally:
         for client in clients:
             client.close()
+        server.stop()
+
+
+# ---------------------------------------------------------------------------
+# failpoint parity on the async wire (the threaded core's seam names)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def chaos_reset():
+    from ray_tpu_torch._private import failpoints as fp
+    from ray_tpu_torch._private import netchaos as nc
+    yield fp, nc
+    nc.reset()
+    fp.reset()
+
+
+def _async_pair(svc, timeout=0.5, chaos_roles=None):
+    from ray_tpu_torch._private import netchaos as nc
+    server = AsyncServer(svc).start()
+    client = AsyncClient(server.addr, timeout=timeout)
+    if chaos_roles:
+        local_role, peer_role = chaos_roles
+        nc.register_link(client._sock, peer_role, local_role=local_role)
+    return server, client
+
+
+def test_failpoint_server_recv_drop_parity(chaos_reset):
+    fp, _ = chaos_reset
+    svc = _EchoSvc()
+    server, client = _async_pair(svc, timeout=0.3)
+    try:
+        assert client.call("ac_echo", v=1)["v"] == 1
+        fp.activate("rpc.server.recv=drop:max=1")
+        with pytest.raises(rpc.RpcError):
+            client.call("ac_echo", v=2)
+        assert client.call("ac_echo", v=3)["v"] == 3
+        assert fp.fire_count("rpc.server.recv") == 1
+    finally:
+        client.close()
+        server.stop()
+
+
+def test_failpoint_client_send_drop_parity(chaos_reset):
+    fp, _ = chaos_reset
+    svc = _EchoSvc()
+    server, client = _async_pair(svc, timeout=0.2)
+    try:
+        fp.activate("rpc.client.send=drop:max=1")
+        with pytest.raises(rpc.RpcError):
+            client.call("ac_echo", v=1)
+        assert client.call("ac_echo", v=2)["v"] == 2
+        assert fp.fire_count("rpc.client.send") == 1
+    finally:
+        client.close()
+        server.stop()
+
+
+# ---------------------------------------------------------------------------
+# netchaos parity on the async wire (below the frame layer; the loop never
+# sleeps, delays ride call_later chains)
+# ---------------------------------------------------------------------------
+
+def test_netchaos_partition_and_heal_parity(chaos_reset):
+    _, nc = chaos_reset
+    svc = _EchoSvc()
+    server, client = _async_pair(svc, chaos_roles=("t", "svc"))
+    try:
+        assert client.call("ac_echo", v=1)["v"] == 1
+        nc.activate("t>svc=partition")
+        with pytest.raises(rpc.RpcError):
+            client.call("ac_echo", v=2)
+        assert svc.calls == 1           # request never arrived
+        assert nc.injected_count("drop") >= 1
+        nc.reset()
+        assert client.call("ac_echo", v=3)["v"] == 3    # link healed
+    finally:
+        client.close()
+        server.stop()
+
+
+def test_netchaos_duplicate_suppressed_at_caller_parity(chaos_reset):
+    _, nc = chaos_reset
+    svc = _EchoSvc()
+    server, client = _async_pair(svc, timeout=2.0,
+                                 chaos_roles=("t", "svc"))
+    try:
+        nc.activate("t>svc=dup=1.0")
+        assert client.call("ac_echo", v=7)["v"] == 7
+        deadline = time.monotonic() + 2.0
+        while svc.calls < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert svc.calls == 2           # the wire really duplicated
+        assert nc.injected_count("dup") >= 1
+    finally:
+        client.close()
+        server.stop()
+
+
+def test_netchaos_latency_delays_without_blocking_loop(chaos_reset):
+    """lat=120 delays the round trip, but a SECOND connection's traffic
+    must not stall behind it: the delay is a call_later chain on the
+    chaotic link, not a sleep on the shared loop."""
+    import threading
+    _, nc = chaos_reset
+    svc = _EchoSvc()
+    server, client = _async_pair(svc, timeout=5.0,
+                                 chaos_roles=("t", "svc"))
+    clean = AsyncClient(server.addr, timeout=5.0)   # no chaos role
+    try:
+        nc.activate("t>svc=lat=120")
+        done = {}
+
+        def slow():
+            t0 = time.monotonic()
+            out = client.call("ac_echo", v=1)
+            done["slow"] = (time.monotonic() - t0, out["v"])
+
+        th = threading.Thread(target=slow)
+        th.start()
+        time.sleep(0.01)                # slow call is now in flight
+        t0 = time.monotonic()
+        assert clean.call("ac_echo", v=2)["v"] == 2
+        clean_elapsed = time.monotonic() - t0
+        th.join(timeout=5.0)
+        assert done["slow"][0] >= 0.110 and done["slow"][1] == 1
+        # the clean link did not pay the chaotic link's delay
+        assert clean_elapsed < 0.110
+    finally:
+        client.close()
+        clean.close()
         server.stop()
 
 

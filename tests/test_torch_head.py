@@ -32,6 +32,9 @@ class _FakeConn:
     def reply(self, rid, **kw):
         self.replies.append((rid, kw))
 
+    def link(self, peer_role, link_id=""):
+        return self         # registration tags the chaos-link identity
+
 
 def _register(svc, node_id="n1", port=7001):
     return svc.handle_register_node(_FakeConn(), 1, {

@@ -12,10 +12,8 @@
   consumers coexist on one daemon, and everything degrades to the per-RPC
   path when the arena is unavailable;
 - reclamation: the per-client grant ledger, ``reclaim_client`` and the
-  heartbeat orphan sweep of the daemon's ``ObjectTable``.
-
-Left out of JAX's files: the two failpoint tests (``shm.attach`` and
-``shm.seal`` arms), whose failpoints come with ROADMAP A11e.
+  heartbeat orphan sweep of the daemon's ``ObjectTable``;
+- the ``shm.attach`` and ``shm.seal`` failpoint seams.
 """
 
 import os
@@ -796,3 +794,62 @@ def test_ext_release_n_floors_at_zero(table):
     assert _refs(table, slot) == 0
     assert table._shm.ext_release_n(slot, 1) == 0   # already zero
     assert _refs(table, slot) == 0
+
+
+# ---------------------------------------------------------------------------
+# failpoint seams of the worker's side of the plane
+# ---------------------------------------------------------------------------
+
+def test_shm_attach_failpoint_drops_to_rpc_fallback(monkeypatch):
+    """shm.attach drop arm: the worker's mapping fails -> the plane
+    disables for that process and object ops fall back per-RPC; the
+    task still succeeds (never task failure)."""
+    from ray_tpu_torch._private import failpoints as fp
+    monkeypatch.setenv("RAY_TPU_FAILPOINTS", "shm.attach=drop")
+    rt_api.init(num_nodes=1, resources={"CPU": 2}, cluster="daemons",
+                object_store_memory=64 << 20)
+    try:
+        @rt_api.remote
+        def round_trip(n):
+            a = np.ones(n // 4, dtype=np.float32)
+            ref = rt_api.put(a)
+            total = float(rt_api.get([ref])[0].sum())
+            from ray_tpu_torch.objectplane.arena import arena_stats
+            return total, arena_stats()
+
+        total, stats = rt_api.get(round_trip.remote(1 << 20))
+        assert total == float(1 << 18)
+        if stats:   # arena configured: the attach must have failed
+            assert stats["attached"] == 0
+            assert stats["attach_failures"] >= 1
+            assert stats["zero_copy_gets"] == 0
+    finally:
+        rt_api.shutdown()
+        fp.reset()
+
+
+@needs_native
+def test_shm_seal_drop_retries_idempotently(monkeypatch):
+    """shm.seal drop arm: the first seal message is lost; the writer
+    resends and the retried seal lands the SAME entry (exactly-once
+    object, correct bytes)."""
+    from ray_tpu_torch._private import failpoints as fp
+    monkeypatch.setenv("RAY_TPU_FAILPOINTS", "shm.seal=drop:max=1")
+    rt_api.init(num_nodes=1, resources={"CPU": 2}, cluster="daemons",
+                object_store_memory=64 << 20)
+    try:
+        @rt_api.remote
+        def put_and_read(n):
+            a = np.arange(n // 4, dtype=np.float32)
+            ref = rt_api.put(a)
+            got = rt_api.get([ref])[0]
+            from ray_tpu_torch.objectplane.arena import arena_stats
+            return float(got[n // 8]), arena_stats()
+
+        v, stats = rt_api.get(put_and_read.remote(1 << 20))
+        assert v == float(1 << 17)
+        if stats.get("attached"):
+            assert stats["direct_puts"] >= 1    # direct path survived
+    finally:
+        rt_api.shutdown()
+        fp.reset()

@@ -4,13 +4,8 @@
 daemon's heartbeat gate, ``MeteredLock``'s wait and hold histograms, the
 queue-dwell gauges, and the 2-node federation path (daemon profiles at the
 head, ``cluster_profile``'s merged speedscope view, lock, queue and arena
-metrics in the federated exposition).
-
-Left out of JAX's file, with the part of ROADMAP A11e that brings it:
-``test_gate_profile_flush_drop_then_retry`` and the fixture's
-``RAY_TPU_FAILPOINTS=profile.flush=drop:max=2`` arm (failpoints, the
-second part); the gate's cadence half runs here without the arm, and the
-federation test runs without the dropped flushes.
+metrics in the federated exposition, with each daemon's first two profile
+flushes dropped at the ``profile.flush`` seam).
 """
 
 import json
@@ -188,6 +183,40 @@ def test_gate_profile_flush_cadence():
             profiling._REMOTE.pop("worker:gate-test", None)
 
 
+def test_gate_profile_flush_drop_then_retry():
+    """The daemon's heartbeat gate: off-cadence -> None; a drop arm
+    nulls the payload (so the caller's push stamp never advances and
+    the FULL cumulative snapshot re-sends next period); disarmed, the
+    same snapshot flows again."""
+    from ray_tpu_torch._private import failpoints as fp
+    from ray_tpu_torch._private.daemon import _gate_profile_flush
+
+    rec = {"proc": "worker:gate-test", "pid": 1, "mode": "continuous",
+           "hz": 5.0, "samples": 1, "counts": {"t;a.py:f": 1}}
+    profiling.ingest_profile(rec)
+    try:
+        now = time.monotonic()
+        assert _gate_profile_flush(last_push=now, now=now) is None
+        payload = _gate_profile_flush(last_push=now - 10.0, now=now)
+        assert payload is not None
+        assert any(r["proc"] == "worker:gate-test"
+                   for r in payload["procs"])
+        fp.activate("profile.flush=drop:p=1")
+        try:
+            assert _gate_profile_flush(last_push=now - 10.0,
+                                       now=now) is None
+            assert fp.fire_count("profile.flush") >= 1
+        finally:
+            fp.reset()
+        retried = _gate_profile_flush(last_push=now - 10.0, now=now)
+        assert retried is not None      # same cumulative data, re-sent
+        assert any(r["proc"] == "worker:gate-test"
+                   for r in retried["procs"])
+    finally:
+        with profiling._REMOTE_LOCK:
+            profiling._REMOTE.pop("worker:gate-test", None)
+
+
 # ---------------------------------------------------------------------------
 # lock-contention observatory (units)
 # ---------------------------------------------------------------------------
@@ -295,12 +324,17 @@ def profiled_daemon_cluster():
     mp = pytest.MonkeyPatch()
     mp.setenv("RAY_TPU_PROFILING_HZ", "20")
     mp.setenv("RAY_TPU_LOCK_METRICS", "1")
+    # each daemon drops its first 2 profile flushes: federation below only
+    # passes because the unadvanced push stamp re-sends them
+    mp.setenv("RAY_TPU_FAILPOINTS", "profile.flush=drop:max=2")
     rt = rt_api.init(num_nodes=2, resources={"CPU": 4},
                      cluster="daemons", object_store_memory=128 << 20)
     yield rt
     rt_api.shutdown()
     profiling.stop_process_sampler()
     mp.undo()
+    from ray_tpu_torch._private import failpoints as fp
+    fp.reset()
     from ray_tpu_torch._private import config
     config.reset()
 
