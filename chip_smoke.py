@@ -427,6 +427,30 @@
    session or spill dir, and the card within 64 MiB of its base. Alone:
    ``python -c "import chip_smoke, torch;
    chip_smoke.chaos_path(torch.device('cuda'))"``.
+25. Tenancy, job config, runtime envs and the compiled DAG (the flash
+   counter at 0 before the phase): (a) JAX's isolation A/B
+   (tests/test_tenancy.py:403) on ``init(num_nodes=1, resources={"CPU":
+   2})``: a job "light" submits eight tasks one at a time, each making q,
+   k and v at phase 20's seeds and shapes, which the driver runs through
+   ``flash_fwd_wgmma`` (held to the plain version, bit for bit the first
+   output); alone under ``fairshare``, then behind 160 queued 50 ms tasks
+   of a job "heavy" with ``fairshare`` on (the light p99 within 3 x
+   max(solo p99, 0.15 s)) and off (above 3 x solo); a third job with a hard
+   CPU quota of 0 has its four tasks QUEUED (none runs) until the quota is
+   raised, then all give their values; the dashboard's ``/api/jobs`` is
+   printed; (b) ``init(job_config=JobConfig(...))`` with an env var and a
+   ``code_search_path`` module: a worker task imports the module, reads the
+   variable and makes q, k and v whose kernel output is (a)'s bit for bit;
+   a task's own ``working_dir`` env runs in a worker process from the
+   package cache; (c) process-worker stages ``Make -> Scale`` of q, k and v
+   (batch 2, 32 MiB a round) compiled over shm channels: 50 rounds
+   compiled and 50 through ``.execute()`` bit for bit, ms a round of each,
+   the kernel on each compiled round in the driver; then a channel-mode
+   DAG of in-process stages whose last one runs the kernel on the card,
+   compiled and dynamic, bit for bit the driver's outputs; (d) after it no
+   worker process or forkserver, no new ``/dev/shm`` segment, no session
+   dir, and the card within 64 MiB of its base. Alone: ``python -c "import
+   chip_smoke, torch; chip_smoke.tenancy_path(torch.device('cuda'))"``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -7125,6 +7149,453 @@ def chaos_path(dev, phase19=None, smi=None) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 25: tenancy, job config, runtime envs and the compiled DAG
+# ---------------------------------------------------------------------------
+
+# the compiled DAG's q, k and v: bench_400m's attention at batch 2 (32 MiB
+# of f32 a round through each shared-memory channel)
+DAG_SHAPES = {"q": (2, 2048, 8, 128), "k": (2, 2048, 4, 128),
+              "v": (2, 2048, 4, 128)}
+DAG_SCALE = {"q": 0.5, "k": 2.0, "v": -1.0}
+TENANT_MODULE = """import os
+
+import numpy as np
+
+
+def make(shapes):
+    return ({n: np.random.default_rng(i).standard_normal(s, dtype=np.float32)
+             for i, (n, s) in enumerate(shapes.items())},
+            os.environ.get("PHASE25_FLAG"), os.getpid())
+"""
+
+
+def make_qkv(shapes, base: int = 0) -> dict:
+    """q, k and v from seeds ``base``, ``base + 1`` and ``base + 2``
+    (phase 20's at ``base`` 0)."""
+    return {n: np.random.default_rng(base + i).standard_normal(
+        s, dtype=np.float32) for i, (n, s) in enumerate(shapes.items())}
+
+
+def flash_checked(dev, qkv: dict, part: str):
+    """q, k and v to the card as bf16 and ``flash_fwd_wgmma`` once, held to
+    the plain version at ``BF16_TOL``: (output, max_abs_err). The launch
+    counter is the phase's (it is not reset here)."""
+    import warnings
+    import torch
+    from ray_tpu_torch.ops import attention as attn
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # from_numpy of a read-only view
+        q, k, v = (torch.from_numpy(np.asarray(qkv[n])).to(dev)
+                   .to(torch.bfloat16) for n in ("q", "k", "v"))
+    out = attn.flash_attention_kernel(q, k, v, True)
+    plain = attn._flash_forward_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), plain.float(), **BF16_TOL)
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"phase 25({part}): a non-finite output")
+    return out, (out.float() - plain.float()).abs().max().item()
+
+
+def p99(xs) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(0.99 * len(xs)))]
+
+
+def fair_share_run(dev, fairshare: bool, heavy: int, ref_out) -> dict:
+    """One run of 25(a)'s A/B on ``init(num_nodes=1, resources={"CPU": 2})``:
+    ``heavy`` sleeping tasks of the job "heavy" queued first (none with
+    ``heavy`` 0), then eight tasks of the job "light", one at a time, each
+    making q, k and v at phase 20's seeds and shapes; the driver runs each
+    through the kernel, bit for bit ``ref_out`` once there is one."""
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.tenancy import job_context
+    rt.init(num_nodes=1, resources={"CPU": 2},
+            _system_config={"fairshare": fairshare})
+    try:
+        @rt.remote
+        def slow():
+            time.sleep(0.05)
+
+        @rt.remote
+        def light(shapes):
+            import numpy as np
+            return {n: np.random.default_rng(i).standard_normal(
+                s, dtype=np.float32) for i, (n, s) in enumerate(shapes.items())}
+
+        with job_context("light"):
+            rt.get(light.remote({n: (1, 128) + s[2:]
+                                 for n, s in ATTN_SHAPES.items()}))
+        with job_context("heavy"):
+            backlog = [slow.remote() for _ in range(heavy)]
+        lats, errs = [], []
+        with job_context("light", weight=1.0):
+            for _ in range(8):
+                t0 = time.perf_counter()
+                qkv = rt.get(light.remote(ATTN_SHAPES), timeout=300)
+                lats.append(time.perf_counter() - t0)
+                out, err = flash_checked(dev, qkv, "a")
+                errs.append(err)
+                if ref_out is None:
+                    ref_out = out
+                elif not torch.equal(out, ref_out):
+                    raise RuntimeError("phase 25(a): a light task's output "
+                                       "is not the first one's bit for bit")
+                del qkv, out
+        rt.get(backlog, timeout=300)        # the heavy work still completes
+        return {"p99_s": p99(lats), "lats_s": lats, "max_abs_err": max(errs),
+                "launches": len(lats), "out": ref_out}
+    finally:
+        rt.shutdown()
+
+
+def quota_checks(smi: str) -> dict:
+    """25(a)'s third job: a hard CPU quota of 0 queues its four tasks (the
+    verdicts QUEUED, none runs), raising it to 2 runs all four; the
+    dashboard's ``/api/jobs`` view is printed."""
+    import urllib.request
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch.dashboard.server import start_dashboard, stop_dashboard
+    from ray_tpu_torch.tenancy import job_context
+    from ray_tpu_torch.util import metrics
+    rt.init(num_nodes=1, resources={"CPU": 2},
+            _system_config={"fairshare": True})
+    try:
+        runtime = worker.global_runtime()
+        runtime.tenancy.set_quota("capped", hard={"CPU": 0.0})
+
+        @rt.remote
+        def work(i):
+            return i * 10
+
+        queued0 = sum(exposition_sum(metrics.prometheus_text(),
+                                     "ray_tpu_admission_total",
+                                     verdict="queued").values())
+        with job_context("capped") as jid:
+            refs = [work.remote(i) for i in range(4)]
+        queued = sum(exposition_sum(metrics.prometheus_text(),
+                                    "ray_tpu_admission_total",
+                                    verdict="queued").values()) - queued0
+        ready, _ = rt.wait(refs, num_returns=4, timeout=1.0)
+        if queued != 4 or ready:
+            raise RuntimeError(f"phase 25(a): the capped job's verdicts "
+                               f"QUEUED {queued} of 4, {len(ready)} ran "
+                               f"over the quota")
+        runtime.tenancy.set_quota("capped", hard={"CPU": 2.0})
+        values = sorted(rt.get(refs, timeout=60))
+        if values != [0, 10, 20, 30]:
+            raise RuntimeError(f"phase 25(a): the capped job gave {values}")
+        _host, port = start_dashboard(port=0)
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/api/jobs", timeout=30) as r:
+                view = json.loads(r.read())
+        finally:
+            stop_dashboard()
+        row = view["jobs"].get(jid.hex(), {})
+        if not view["fairshare_enabled"] or row.get("name") != "capped" \
+                or row.get("quota", {}).get("hard") != {"CPU": 2.0}:
+            raise RuntimeError(f"phase 25(a): /api/jobs gave {view}")
+        log(f"phase 25(a): /api/jobs {json.dumps(view, sort_keys=True)}")
+        return {"queued": queued, "values": values}
+    finally:
+        rt.shutdown()
+
+
+def fair_share(dev, smi: str) -> dict:
+    """Phase 25(a): JAX's isolation A/B (tests/test_tenancy.py:403) with
+    the light job's tasks making q, k and v into the kernel, and the
+    quota'd third job."""
+    solo = fair_share_run(dev, True, 0, None)
+    on = fair_share_run(dev, True, 160, solo["out"])
+    off = fair_share_run(dev, False, 160, solo["out"])
+    bound = 3.0 * max(solo["p99_s"], 0.15)
+    if on["p99_s"] > bound:
+        raise RuntimeError(f"phase 25(a): fair share on, the light job's "
+                           f"p99 {on['p99_s']:.3f} s > {bound:.3f} s")
+    if off["p99_s"] <= 3.0 * solo["p99_s"]:
+        raise RuntimeError(f"phase 25(a): fair share off, the light job's "
+                           f"p99 {off['p99_s']:.3f} s is not above 3 x "
+                           f"solo {solo['p99_s']:.3f} s")
+    quota = quota_checks(smi)
+    launches = solo["launches"] + on["launches"] + off["launches"]
+    err = max(solo["max_abs_err"], on["max_abs_err"], off["max_abs_err"])
+    log(f"phase 25(a): the light job's tasks made q {ATTN_SHAPES['q']}, k "
+        f"and v {ATTN_SHAPES['k']} f32 into flash_fwd_wgmma ({launches} "
+        f"launches, max_abs_err {err:.3e} against the plain version, each "
+        f"bit for bit the first): p99 solo {solo['p99_s'] * 1e3:.1f} ms, "
+        f"with 160 heavy tasks queued first {on['p99_s'] * 1e3:.1f} ms "
+        f"under fair share (bound {bound * 1e3:.1f} ms), "
+        f"{off['p99_s'] * 1e3:.1f} ms without; the capped job QUEUED "
+        f"{int(quota['queued'])} of 4 and all ran after the raise ({smi})")
+    return {"launches": launches, "max_abs_err": err, "out": solo["out"],
+            "p99_ms": {"solo": solo["p99_s"] * 1e3, "on": on["p99_s"] * 1e3,
+                       "off": off["p99_s"] * 1e3},
+            "bound_ms": bound * 1e3}
+
+
+def runtime_envs(dev, ref_out, tmp: str, smi: str) -> dict:
+    """Phase 25(b): ``init(job_config=JobConfig(...))`` with an env var and
+    a ``code_search_path`` module: a worker task imports the module, which
+    makes q, k and v (the kernel's output bit for bit (a)'s) and reads the
+    variable; a task's own ``working_dir`` env runs in a worker process."""
+    import os
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.job_config import JobConfig
+    mods = os.path.join(tmp, "search")
+    wd = os.path.join(tmp, "wd")
+    for d in (mods, wd):
+        os.makedirs(d)
+    with open(os.path.join(mods, "phase25_tenant.py"), "w") as f:
+        f.write(TENANT_MODULE)
+    with open(os.path.join(wd, "phase25_wd.py"), "w") as f:
+        f.write("VALUE = 'from-the-working-dir'\n")
+    rt.init(job_config=JobConfig(
+        runtime_env={"env_vars": {"PHASE25_FLAG": "on"}},
+        metadata={"phase": "25"}, code_search_path=[mods]))
+    try:
+        # the modules are this phase's own files, named by argument: the
+        # worker finds them only through the job's and the task's envs
+        @rt.remote
+        def tenant(module, shapes):
+            import importlib
+            return importlib.import_module(module).make(shapes)
+
+        @rt.remote(runtime_env={"working_dir": wd})
+        def in_wd(module):
+            import importlib
+            import os as _os
+            mod = importlib.import_module(module)
+            return mod.VALUE, mod.__file__, _os.getpid()
+
+        t0 = time.perf_counter()
+        qkv, flag, pid = rt.get(tenant.remote("phase25_tenant", ATTN_SHAPES),
+                                timeout=120)
+        tenant_s = time.perf_counter() - t0
+        value, path, wd_pid = rt.get(in_wd.remote("phase25_wd"), timeout=120)
+    finally:
+        rt.shutdown()
+    me = os.getpid()
+    if flag != "on" or pid == me or wd_pid == me or \
+            value != "from-the-working-dir" or "pkg_cache" not in path:
+        raise RuntimeError(f"phase 25(b): flag {flag!r}, pids {pid} and "
+                           f"{wd_pid} (driver {me}), {value!r} from {path}")
+    out, err = flash_checked(dev, qkv, "b")
+    if not torch.equal(out, ref_out):
+        raise RuntimeError("phase 25(b): the code_search_path module's "
+                           "q, k and v did not give (a)'s output")
+    log(f"phase 25(b): a worker task (pid {pid}) imported the job's "
+        f"code_search_path module and read PHASE25_FLAG={flag} from the "
+        f"job's env in {tenant_s:.2f} s; its q, k and v into "
+        f"flash_fwd_wgmma bit for bit (a)'s (max_abs_err {err:.3e}); a "
+        f"task's working_dir env ran in worker {wd_pid} from the package "
+        f"cache ({smi})")
+    return {"launches": 1, "max_abs_err": err, "tenant_s": tenant_s}
+
+
+def dag_actors(in_process: bool):
+    """The compiled DAG's stages: ``Make`` (q, k and v from seeds ``seed``
+    to ``seed + 2``), ``Scale`` (each times its ``DAG_SCALE``) and
+    ``Attend`` (to the card and the kernel; in-process always)."""
+    import ray_tpu_torch as rt
+    opts = {"_in_process": True} if in_process else {}
+
+    @rt.remote(**opts)
+    class Make:
+        def __init__(self, shapes):
+            self.shapes = shapes
+
+        def run(self, seed):
+            import numpy as np
+            return {n: np.random.default_rng(int(seed) + i).standard_normal(
+                s, dtype=np.float32)
+                for i, (n, s) in enumerate(self.shapes.items())}
+
+    @rt.remote(**opts)
+    class Scale:
+        def __init__(self, scale):
+            self.scale = scale
+
+        def run(self, qkv):
+            import numpy as np
+            return {n: (qkv[n] * np.float32(self.scale[n])).astype(
+                np.float32) for n in ("q", "k", "v")}
+
+    @rt.remote(_in_process=True)
+    class Attend:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def run(self, qkv):
+            return flash_checked(self.dev, qkv, "c")[0]
+
+    return Make, Scale, Attend
+
+
+def compiled_dag(dev, smi: str, rounds: int = 50, card_rounds: int = 10):
+    """Phase 25(c): process-worker stages over shm channels make and scale
+    q, k and v; ``rounds`` rounds compiled and ``rounds`` through
+    ``.execute()`` (the dynamic path) give the same arrays bit for bit, the
+    driver runs the kernel on each compiled round; then a channel-mode DAG
+    of in-process stages whose last one calls the kernel on the card gives
+    the driver's outputs bit for bit, compiled and dynamic."""
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.ops import attention as attn
+    seeds = [100 + 3 * i for i in range(rounds)]
+    rt.init()
+    try:
+        Make, Scale, Attend = dag_actors(False)
+        make, scale = Make.remote(DAG_SHAPES), Scale.remote(DAG_SCALE)
+        rt.get([make.run.remote(0), scale.run.remote(
+            make_qkv({n: (1, 8) for n in DAG_SHAPES}))])
+        with InputNode() as inp:
+            dag = scale.run.bind(make.run.bind(inp))
+        nbytes = sum(int(np.prod(s)) * 4 for s in DAG_SHAPES.values())
+        compiled = dag.experimental_compile(
+            buffer_size_bytes=nbytes + (1 << 20))
+        if compiled._proc is None:
+            raise RuntimeError("phase 25(c): the shm channel mode did not "
+                               "engage")
+        rt.get(compiled.execute(seeds[0]), timeout=120)     # warm
+        n0 = attn.flash_attention_kernel.launches
+        outs, errs, comp = [], [], []
+        t0 = time.perf_counter()
+        refs = [compiled.execute(s) for s in seeds]
+        for ref in refs:
+            comp.append(rt.get(ref, timeout=300))
+        compiled_ms = (time.perf_counter() - t0) * 1e3 / rounds
+        for i, qkv in enumerate(comp):
+            out, err = flash_checked(dev, qkv, "c")
+            errs.append(err)
+            if i < card_rounds:
+                outs.append(out)
+        t0 = time.perf_counter()
+        for s, got in zip(seeds, comp):
+            dyn = rt.get(dag.execute(s), timeout=300)
+            if any(not np.array_equal(dyn[n], got[n]) for n in got):
+                raise RuntimeError(f"phase 25(c): round {s} compiled and "
+                                   f"dynamic differ")
+        dynamic_ms = (time.perf_counter() - t0) * 1e3 / rounds
+        compiled.teardown()
+        del comp
+        # the channel-mode DAG: in-process stages, the last one on the card
+        Make2, Scale2, _ = dag_actors(True)
+        make2, scale2 = Make2.remote(DAG_SHAPES), Scale2.remote(DAG_SCALE)
+        attend = Attend.remote(dev)
+        with InputNode() as inp:
+            dag2 = attend.run.bind(scale2.run.bind(make2.run.bind(inp)))
+        compiled2 = dag2.experimental_compile()
+        if compiled2._executors is None:
+            raise RuntimeError("phase 25(c): the channel mode did not "
+                               "engage")
+        t0 = time.perf_counter()
+        card = [rt.get(compiled2.execute(s), timeout=300)
+                for s in seeds[:card_rounds]]
+        card_ms = (time.perf_counter() - t0) * 1e3 / card_rounds
+        card_dyn = [rt.get(dag2.execute(s), timeout=300)
+                    for s in seeds[:card_rounds]]
+        compiled2.teardown()
+        for a, b, c in zip(card, card_dyn, outs):
+            if not (torch.equal(a, c) and torch.equal(b, c)):
+                raise RuntimeError("phase 25(c): the card stage's output is "
+                                   "not the driver's bit for bit")
+        launches = attn.flash_attention_kernel.launches - n0
+        del card, card_dyn, outs
+    finally:
+        rt.shutdown()
+    if launches != rounds + 2 * card_rounds:
+        raise RuntimeError(f"phase 25(c): {launches} flash launches, not "
+                           f"{rounds} + 2 x {card_rounds}")
+    log(f"phase 25(c): {rounds} rounds of Make -> Scale over shm channels "
+        f"(q {DAG_SHAPES['q']}, k and v {DAG_SHAPES['k']} f32, "
+        f"{nbytes / 2**20:.0f} MiB a round) {compiled_ms:.2f} ms a round "
+        f"compiled, {dynamic_ms:.2f} ms through .execute(), bit for bit; "
+        f"flash_fwd_wgmma on each in the driver (max_abs_err "
+        f"{max(errs):.3e}); the channel-mode DAG with the kernel in its "
+        f"last, in-process stage {card_ms:.2f} ms a round, compiled and "
+        f"dynamic bit for bit the driver's outputs ({smi})")
+    return {"launches": launches, "max_abs_err": max(errs),
+            "compiled_ms": compiled_ms, "dynamic_ms": dynamic_ms,
+            "card_dag_ms": card_ms}
+
+
+def tenancy_path(dev, smi=None) -> dict:
+    """Phase 25: tenancy, job config, runtime envs and the compiled DAG
+    (see the module's docstring). Alone: ``python -c "import chip_smoke,
+    torch; chip_smoke.tenancy_path(torch.device('cuda'))"``."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker_process as wp
+    from ray_tpu_torch.ops import attention as attn
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    if rt.is_initialized():
+        raise RuntimeError("a runtime is still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    shm_before = set(glob.glob("/dev/shm/*"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tenancy_")
+    sessions = os.path.join(tempfile.gettempdir(), "ray_tpu_torch")
+    sessions_before = set(glob.glob(os.path.join(sessions, "session_*")))
+    attn.flash_attention_kernel.launches = 0
+    pids = set()
+    try:
+        a = fair_share(dev, smi)
+        b = runtime_envs(dev, a["out"], tmp, smi)
+        c = compiled_dag(dev, smi)
+        pids = {w.pid for w in wp.live_workers()}
+        template = wp.forkserver_pid()
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+        wp.stop_worker_plane()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = attn.flash_attention_kernel.launches
+    if launches != a["launches"] + b["launches"] + c["launches"]:
+        raise RuntimeError(f"phase 25: {launches} flash launches, the parts "
+                           f"count {a['launches']} + {b['launches']} + "
+                           f"{c['launches']}")
+    del a["out"]
+    deadline = time.monotonic() + 15
+    left = pids | {template}
+    while any(_alive(p) for p in left) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = sorted(p for p in left if _alive(p))
+    segments = sorted(set(glob.glob("/dev/shm/*")) - shm_before)
+    new_sessions = sorted(set(glob.glob(os.path.join(sessions, "session_*")))
+                          - sessions_before)
+    if left or wp.live_workers() or segments or new_sessions:
+        raise RuntimeError(f"phase 25(d): processes {left}, "
+                           f"{len(wp.live_workers())} workers, segments "
+                           f"{segments}, session dirs {new_sessions} left")
+    freed, _ = wait_freed(base, "phase 25 after shutdown()")
+    if freed - base > 64 << 20:
+        raise RuntimeError(f"phase 25(d): {freed - base} bytes above the "
+                           f"base after shutdown()")
+    seconds = time.perf_counter() - t0
+    log(f"phase 25(d): after shutdown() and stop_worker_plane() no worker "
+        f"({len(pids)} were live) and no forkserver left, no new /dev/shm "
+        f"segment (DAG channels, arenas), no session dir, {freed - base} "
+        f"bytes above the base; phase 25 in {seconds:.1f} s, {launches} "
+        f"flash launches ({smi})")
+    result = {"part": "25", "launches": launches,
+              "fair_share": {k: v for k, v in a.items()},
+              "runtime_envs": b, "dag": c,
+              "bytes_after_shutdown": freed, "base_bytes": base,
+              "seconds": seconds, "card": smi}
+    log(json.dumps(result))
+    return result
+
+
 def _alive(pid) -> bool:
     """Whether ``pid`` is a live process (a zombie is not)."""
     if pid is None:
@@ -7380,6 +7851,15 @@ def main() -> int:
     # debugger on a daemon worker, the disarmed lane's rate, nothing left
     chaos = chaos_path(dev, native, smi)
     rows[2]["launches"] += chaos["launches"]
+
+    # 25. tenancy, job config, runtime envs and the compiled DAG: the
+    # light job's q, k and v into the flash kernel under fair share (on
+    # and off) beside a heavy backlog, a quota'd job queued and resumed,
+    # a job config's env and code search path and a working_dir env in
+    # worker processes, a compiled DAG over shm channels into the kernel
+    # and a channel-mode DAG whose last stage runs it, nothing left
+    tenancy = tenancy_path(dev, smi)
+    rows[2]["launches"] += tenancy["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

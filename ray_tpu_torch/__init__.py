@@ -98,7 +98,8 @@ def init(num_nodes: int = 1,
          ignore_reinit_error: bool = False,
          _system_config: Optional[Dict[str, Any]] = None,
          cluster: Optional[str] = None,
-         address: Optional[str] = None) -> "_worker.Runtime":
+         address: Optional[str] = None,
+         job_config=None) -> "_worker.Runtime":
     """Start the runtime with ``num_nodes`` virtual nodes in this process,
     or, with ``cluster="daemons"`` (JAX's ``RAY_TPU_CLUSTER=daemons``), a
     head and ``num_nodes`` node-daemon processes on this host, each with
@@ -110,7 +111,9 @@ def init(num_nodes: int = 1,
 
     ``resources=None`` detects this host's: its CPUs, and its CUDA cards as
     ``GPU`` when it has any. ``_system_config`` overrides flags of the table
-    in ``ray_tpu_torch/_private/config.py``; an unknown flag raises."""
+    in ``ray_tpu_torch/_private/config.py``; an unknown flag raises.
+    ``job_config`` (``ray_tpu_torch.job_config.JobConfig``) gives the job's
+    default runtime env, its metadata and its code search path."""
     if _worker.global_runtime() is not None:
         if ignore_reinit_error:
             return _worker.global_runtime()
@@ -124,7 +127,7 @@ def init(num_nodes: int = 1,
     return _worker.init_runtime(
         num_nodes=num_nodes, resources_per_node=resources,
         object_store_memory=object_store_memory, namespace=namespace,
-        cluster=cluster, address=address)
+        cluster=cluster, address=address, job_config=job_config)
 
 
 def shutdown() -> None:

@@ -301,7 +301,7 @@ class AsyncClient:
 
     def _on_frame(self, msg: Dict[str, Any]) -> None:  #: loop-only
         # the threaded core's seam name: one seam, two cores
-        if _fp.ENABLED and _fp.fire(
+        if _fp.ENABLED and _fp.fire(  # raylint: disable=failpoint-registry
                 "rpc.client.recv", method=msg.get("m", "")) is _fp.DROP:
             return      # reply/push lost in transit
         rid = msg.get("i")
@@ -337,7 +337,7 @@ class AsyncClient:
             raise RpcError(f"connection to {self.addr} is dead")
         if eventloop.on_loop():
             # already on the loop (a push handler sending): stage direct
-            self._batcher.send(blob)
+            self._batcher.send(blob)  # raylint: disable=loop-affinity
         else:
             self._loop.call_soon_threadsafe(self._batcher.send, blob)
 
@@ -366,7 +366,7 @@ class AsyncClient:
         # the threaded client's discipline: the failpoint fires BEFORE the
         # pending slot exists, and a deadline-less caller surfaces a
         # dropped send as transport death
-        dropped = (_fp.ENABLED and _fp.fire(
+        dropped = (_fp.ENABLED and _fp.fire(  # raylint: disable=failpoint-registry
             "rpc.client.send", method=method) is _fp.DROP)
         if dropped and (timeout if timeout is not None
                         else self._timeout) is None:
@@ -404,7 +404,7 @@ class AsyncClient:
     def notify(self, method: str, **kw) -> None:
         """Fire-and-forget (no reply expected)."""
         _validate(method, kw)
-        if (_fp.ENABLED and _fp.fire("rpc.client.send",
+        if (_fp.ENABLED and _fp.fire("rpc.client.send",  # raylint: disable=failpoint-registry
                                      method=method) is _fp.DROP):
             return              # notification lost in transit
         msg = dict(kw)
@@ -487,7 +487,7 @@ class AsyncConnection:
         if self.closed or self._batcher is None:
             return      # as threaded: a send after death is dropped
         if eventloop.on_loop():
-            self._batcher.send(blob)
+            self._batcher.send(blob)  # raylint: disable=loop-affinity
         else:
             try:
                 self._loop.call_soon_threadsafe(self._batcher.send, blob)
@@ -555,7 +555,7 @@ class AsyncServer:
     def _dispatch(self, conn: AsyncConnection,
                   msg: Dict[str, Any]) -> None:  #: loop-only
         method = msg.get("m", "")
-        if _fp.ENABLED and _fp.fire(
+        if _fp.ENABLED and _fp.fire(  # raylint: disable=failpoint-registry
                 "rpc.server.recv", method=method) is _fp.DROP:
             return      # request lost before dispatch
         rid = msg.get("i")

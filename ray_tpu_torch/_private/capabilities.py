@@ -7,11 +7,10 @@ attribute and reads it there. The table is data: a test holds it against
 a live hello reply and against ``DaemonHandle`` (every bit is in the reply
 and its guard attribute exists).
 
-The port's wire carries three bits. JAX's ``batch`` and ``result_batch``
+The port's wire carries four bits. JAX's ``batch`` and ``result_batch``
 bits and the frame flags ``via_pump`` and ``term_pump`` are not
 advertised: the port's daemons always coalesce and always answer a classic
-submit on the result pump (ROADMAP C). ``tenancy`` comes with tenancy
-(A11e, third part).
+submit on the result pump (ROADMAP C).
 """
 
 CAPABILITY_FLAGS = {
@@ -27,6 +26,13 @@ CAPABILITY_FLAGS = {
                "(cfg().async_core). Frames are byte-identical across "
                "cores, so the bit gates nothing on the wire: it makes "
                "mixed clusters observable (describe_peers)",
+    },
+    "tenancy": {
+        "kind": "hello",
+        "guard": "_tenancy_supported",
+        "doc": "daemon accepts tenancy_sync job-table frames (per-job "
+               "quota/weight federation); drivers that never see the bit "
+               "fall back to unconditional admission",
     },
     "fence": {
         "kind": "hello",

@@ -43,8 +43,10 @@ batched tasks, prints the lines the daemons forward from their workers'
 logs (``worker_log``), and fans a profile burst out to a daemon
 (``DaemonHandle.profile_burst``).
 
-Left out, with the part of ROADMAP A11e that brings it: tenancy (the third
-part).
+Tenancy: the resource reporter's tick also runs the tenancy manager's
+federation (``maybe_sync``): dirty quota records to the head, the job
+table to the daemons that advertised the ``tenancy`` bit, the throttled
+per-job usage report.
 """
 
 from __future__ import annotations
@@ -459,6 +461,9 @@ class DaemonHandle:
         # hello advertises ``fence`` is fenced by epoch
         self.epoch = 0
         self._fence_supported = False
+        # fair-share federation: only a daemon that advertised the
+        # ``tenancy`` bit receives tenancy_sync job tables
+        self._tenancy_supported = False
         # zero-copy object plane (set from the hello reply)
         self.objectplane = False
         self.arena_name: Optional[str] = None
@@ -683,6 +688,7 @@ class DaemonHandle:
         self.client_id = out.get("client_id")
         self.epoch = int(out.get("epoch") or 0)
         self._fence_supported = bool(out.get("fence"))
+        self._tenancy_supported = bool(out.get("tenancy"))
         self._async_core_remote = bool(out.get("async_core"))
         self._job_id = job_id
         # submit_batch=False: one classic submit_task a task, whose
@@ -824,6 +830,7 @@ class DaemonHandle:
 
         from ray_tpu_torch._private.task_spec import TaskKind as _TK
         if (spec.kind == _TK.NORMAL and spec.num_returns == 1
+                and not spec.runtime_env
                 and not (spec.func is not None
                          and _inspect.isgeneratorfunction(spec.func))):
             fl = self._fast_client()
@@ -1313,7 +1320,8 @@ class RemoteActorInstance:
         """Plain calls ride the targeted lane (per-actor FIFO in the
         native core); streaming calls stay on the classic path."""
         if (self.fast_tag is not None
-                and spec.num_returns not in ("streaming", "dynamic")):
+                and spec.num_returns not in ("streaming", "dynamic")
+                and not spec.runtime_env):
             fl = self.daemon._fast_client()
             if fl is not None:
                 out = self.daemon._call_actor_fast(fl, self.fast_tag,
@@ -1513,7 +1521,7 @@ class _OwnerHolder:
     def release(self, key: str) -> None:
         """Drop one borrower's holds (the dropped ObjectRefs' __del__
         cascades into refcounting, outside the lock)."""
-        if not self._held:
+        if not self._held:  # raylint: disable=guarded-by
             return  # the common per-task case pays no lock
         with self._lock:
             dropped = self._held.pop(key, None)
@@ -1645,7 +1653,7 @@ class ClusterBackend:
         self._head_port = int(port)
         self.head_proc = None
         self._shutting_down = False
-        self.daemons = {}
+        self.daemons = {}       # raylint: disable=guarded-by
         self._lock = threading.Lock()
         self.owner_server = None
         self.head = HeadClient((host, self._head_port),
@@ -1656,7 +1664,7 @@ class ClusterBackend:
             for info in self.head.list_nodes():
                 if info["alive"]:
                     self._join_node(info, add_runtime_node=False)
-            if not self.daemons:
+            if not self.daemons:    # raylint: disable=guarded-by
                 raise RuntimeError(
                     f"cluster at {address} has no alive nodes to join")
         except BaseException:
@@ -1703,6 +1711,15 @@ class ClusterBackend:
                         continue  # a lost report: retried next tick
                     last = loads
                     last_sent = now
+                # fair-share federation rides the same tick: dirty quota
+                # records to the head (persisted) and the capable daemons,
+                # and the throttled per-job usage report
+                ten = getattr(self.runtime, "tenancy", None)
+                if ten is not None and ten.enabled:
+                    try:
+                        ten.maybe_sync(self)
+                    except Exception:
+                        pass  # dirty records retry next tick
 
         threading.Thread(target=loop, daemon=True,
                          name="resource-reporter").start()

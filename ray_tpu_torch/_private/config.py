@@ -8,11 +8,12 @@ Resolution order per flag (highest wins):
 3. the declared default
 
 An unknown ``_system_config`` key raises, as in the reference. The table
-holds only the flags the port's runtime reads (the core, its process
-workers, the daemon cluster, the asyncio control plane and graceful
-drain, the observability layer and chaos), each with JAX's name, type,
-default and variable. The reference's other flags belong to parts of its
-runtime the port does not have yet.
+is JAX's whole table, each flag with JAX's name, type, default and
+variable, except ``tpu_topology`` (the topology layer, not ported yet).
+``process_workers`` and ``fast_lane`` are the variables JAX's worker
+plane reads straight from the environment; here they are declared.
+``inline_object_size`` and ``bench_total_deadline`` are declared and read
+nowhere, as in JAX.
 """
 
 from __future__ import annotations
@@ -210,6 +211,21 @@ FLAG_DEFS = [
          "asyncio debug mode: per-callback timing feeds the slow-callback "
          "watchdog and logs each offender (debug mode taxes every "
          "callback)"),
+    Flag("inline_object_size", int, 100 * 1024, "values <= this inline in "
+         "the owner memory store (max_direct_call_object_size role)"),
+    Flag("bench_total_deadline", int, 540, "bench.py total wall-clock "
+         "budget (seconds)"),
+    # -- tenancy (tenancy/) --
+    Flag("fairshare", bool, False, "multi-tenant fair share: DRF "
+         "admission verdicts at submit, per-job quota gates and "
+         "deficit-ordered batch admission in node dispatch; off keeps "
+         "the dispatch hot path byte-identical (Node.tenancy is None)"),
+    Flag("job_default_weight", float, 1.0, "fair-share weight assigned "
+         "to jobs that never declared one; deficit quanta are split "
+         "proportionally to weight among jobs with pending work"),
+    Flag("admission_queue_max", int, 4096, "bounded per-job pending "
+         "queue: tasks over quota beyond this many outstanding get a "
+         "REJECTED verdict (AdmissionRejectedError) instead of QUEUED"),
 ]
 
 FLAGS: Dict[str, Flag] = {f.name: f for f in FLAG_DEFS}

@@ -67,9 +67,12 @@ the result pump, reclamation, leases, pushes, the OOM check and the beat's
 flushes), its role on the network-chaos graph, a ``PressureController``
 under ``memory_pressure`` (soft spills, hard rejects new reservations and
 puts, ``node_pressure`` pushes), and the ``fail_points``/``net_chaos``
-hooks that arm one daemon alone. Left out, with the part of ROADMAP A11e
-that brings it: tenancy (the third). Its handlers are not declared, so a
-call fails as any undeclared method does.
+hooks that arm one daemon alone.
+
+Tenancy: the daemon mirrors the driver's per-job quota and weight table
+(``tenancy_sync``, gated on the ``tenancy`` hello bit) for its metrics,
+and under ``memory_pressure`` its memory monitor preempts the workers of
+over-quota jobs first (``TenantAwarePolicy``).
 """
 
 from __future__ import annotations
@@ -137,6 +140,9 @@ declare("set_memory_limit", "limit")
 declare("oom_check", "task_id", "fast_lane")
 declare("push_chunk", "oid", "off", "total", "blob", "ref", "raw")
 declare("daemon_ping")
+# fair-share federation: the driver mirrors its per-job quota and weight
+# table here (gated on the "tenancy" hello bit)
+declare("tenancy_sync", "jobs")
 # chaos harness only: (de)activate a seeded netchaos or failpoint spec
 # inside THIS daemon process, where the env form (which reaches every
 # spawned process) is too blunt: one node's head link, one node's level
@@ -616,7 +622,7 @@ class ObjectTable:
         Caller holds self._lock (grants commit under the same lock, so
         the set cannot go stale mid-pass)."""
         pinned = set()
-        for slot, oid in self._slot_owners.items():
+        for slot, oid in self._slot_owners.items():  # raylint: disable=guarded-by — caller holds self._lock
             try:
                 if int(self._shm.ext_refs(slot)) > 0:
                     pinned.add(oid)
@@ -630,7 +636,7 @@ class ObjectTable:
         place, and arena bytes free through the native deferred-delete/
         reap path — a reader that raced past the restore check keeps a
         valid (deferred) mapping and re-reads from disk next time."""
-        if key in self._spilled or key not in self._entries:
+        if key in self._spilled or key not in self._entries:  # raylint: disable=guarded-by — caller holds self._lock
             return True     # idempotent: already parked / already gone
         if _fp.ENABLED:
             # drop/error arm = this spill attempt fails; the entry stays
@@ -658,9 +664,9 @@ class ObjectTable:
             os.replace(tmp, path)   # readers never see a torn file
         except OSError:
             return False
-        self._spilled[key] = (path, len(data))
-        self._spilled_total += len(data)
-        self._entries.pop(key, None)
+        self._spilled[key] = (path, len(data))  # raylint: disable=guarded-by — caller holds self._lock
+        self._spilled_total += len(data)  # raylint: disable=guarded-by — caller holds self._lock
+        self._entries.pop(key, None)  # raylint: disable=guarded-by — caller holds self._lock
         try:
             self._shm.delete(key)   # frees now, or defers until refs drop
         except Exception:
@@ -681,7 +687,7 @@ class ObjectTable:
         budget stops it. Returns entries spilled."""
         spilled = 0
         pinned = self._pinned_now()
-        for key in list(self._entries):
+        for key in list(self._entries):  # raylint: disable=guarded-by — caller holds self._lock
             if spilled >= max_entries:
                 break
             used = self._shm.used_bytes()
@@ -690,13 +696,13 @@ class ObjectTable:
                 break
             if floor_bytes is not None and used <= floor_bytes:
                 break
-            size = self._entries[key]
+            size = self._entries[key]  # raylint: disable=guarded-by — caller holds self._lock
             if key in exclude:
                 continue
             if key in pinned:
                 self._spill_stats["spill_skipped_pinned"] += 1
                 continue
-            if self.spill_budget and (self._spilled_total + size
+            if self.spill_budget and (self._spilled_total + size  # raylint: disable=guarded-by — caller holds self._lock
                                       > self.spill_budget):
                 break       # disk budget exhausted: pressure goes hard
             if self._spill_one_locked(key, size):
@@ -1235,7 +1241,7 @@ class _BatchReplyPump:
                 return      # a flush is already scheduled: coalesce
             self._armed = True
         if eventloop.on_loop():
-            self._arm_flush()
+            self._arm_flush()  # raylint: disable=loop-affinity — on_loop() guard
         else:
             self._aloop.call_soon_threadsafe(self._arm_flush)
 
@@ -1463,6 +1469,13 @@ class DaemonService:
         self._lease_seq = 0                        #: guarded by self._lock
         # task_id hex -> (client, worker rid) for cancel/gen_ack
         self._task_rids: Dict[str, Tuple[Any, str]] = {}  #: guarded by self._lock
+        # task hex -> job hex of running classic tasks: the memory
+        # monitor's owner key, so the tenant-aware policy can find an
+        # over-quota job's workers
+        self._task_jobs: Dict[str, str] = {}       #: guarded by self._lock
+        # the driver's tenancy table and its over-quota jobs (tenancy_sync)
+        self._tenancy_jobs: Dict[str, Dict[str, Any]] = {}
+        self._over_quota_jobs: set = set()
         # cross-language actors: name -> [actor id, seqno, call lock]
         self._xlang_actors: Dict[str, list] = {}   #: guarded by self._lock
         self._xlang_head_client = None             #: guarded by self._lock
@@ -1661,6 +1674,9 @@ class DaemonService:
                 "fast_port": self.fast_port,
                 # result fencing: outcomes carry this registration epoch
                 "epoch": self.epoch, "fence": True,
+                # fair-share federation: this daemon takes tenancy_sync
+                # job tables
+                "tenancy": True,
                 # which wire+dispatch core this daemon runs (frames are
                 # identical either way: observational, capabilities.py)
                 "async_core": self._batch_pump._aloop is not None,
@@ -2114,10 +2130,13 @@ class DaemonService:
                     "op": "execute_task", "fn_id": msg["fid"],
                     "ctx": client._ctx_fields(spec, self.node_stub,
                                               self.runtime),
+                    "runtime_env": spec.runtime_env,
                     "backpressure": msg["backpressure"],
                 }, split_joined(msg["args"]))
                 with self._lock:
                     self._task_rids[task_hex] = (client, wrid)
+                    if spec.job_id is not None:
+                        self._task_jobs[task_hex] = spec.job_id.hex()
                 outcome = client._wait_outcome(wrid, pend)
             except WorkerCrashed as e:
                 client.kill(expected=False)
@@ -2243,9 +2262,12 @@ class DaemonService:
                     "op": "call_method", "method": spec.method_name,
                     "ctx": client._ctx_fields(spec, self.node_stub,
                                               self.runtime),
+                    "runtime_env": spec.runtime_env,
                 }, split_joined(msg["args"]))
                 with self._lock:
                     self._task_rids[task_hex] = (client, wrid)
+                    if spec.job_id is not None:
+                        self._task_jobs[task_hex] = spec.job_id.hex()
                 outcome = client._wait_outcome(wrid, pend)
             except WorkerCrashed as e:
                 with self._lock:
@@ -2593,9 +2615,10 @@ class DaemonService:
             taken = f"xlang actor name {msg['name']!r} already taken"
             try:
                 with self._lock:
-                    if msg["name"] in self._xlang_actors:
-                        conn.reply(rid, outcome="err", error=taken)
-                        return
+                    exists = msg["name"] in self._xlang_actors
+                if exists:
+                    conn.reply(rid, outcome="err", error=taken)
+                    return
                 blob = self._xlang_kv_blob("actor", msg["cls"])
                 if blob is None:
                     conn.reply(rid, outcome="err",
@@ -2819,6 +2842,25 @@ class DaemonService:
         _fp.activate(spec, seed=int(seed) if seed is not None else None)
         return {"ok": True, "active": True, "arms": _fp.describe()}
 
+    def handle_tenancy_sync(self, conn, rid, msg):
+        """Adopt the driver's per-job quota and weight table. The daemon is
+        not the admission authority (dispatch gating runs in the driver);
+        it mirrors the table so its own metrics export the cluster's quota
+        configuration and its memory monitor knows the over-quota jobs."""
+        jobs = msg.get("jobs") or {}
+        self._tenancy_jobs = {str(j): dict(r) for j, r in jobs.items()}
+        self._over_quota_jobs = {str(j)
+                                 for j in (msg.get("over_quota") or ())}
+        for job, rec in self._tenancy_jobs.items():
+            for res, cap in (rec.get("quota") or {}).get(
+                    "hard", {}).items():
+                _metrics.Gauge(
+                    "ray_tpu_job_quota_bytes",
+                    "configured hard quota caps per job and resource "
+                    "axis", ("job_id", "resource")).set(
+                    float(cap), tags={"job_id": job, "resource": res})
+        return {"ok": True, "count": len(jobs)}
+
     def handle_daemon_stats(self, conn, rid, msg):
         with self._lock:
             leases = len(self._leases)
@@ -2854,6 +2896,11 @@ class DaemonService:
         out = []
         with self._lock:
             running = dict(self._task_rids)
+            # prune finished tasks' job attributions here, the one
+            # periodic scan, instead of at every pop site
+            for gone in set(self._task_jobs) - set(running):
+                self._task_jobs.pop(gone, None)
+            jobs = dict(self._task_jobs)
         router = self.runtime.process_router
         with router._lock:
             actors = dict(router._actor_workers)
@@ -2861,7 +2908,8 @@ class DaemonService:
         for task_hex, (client, _rid) in running.items():
             if client.alive() and client.proc.pid not in actor_pids:
                 out.append(_Candidate(client.proc.pid, "task",
-                                      task_id=task_hex, retriable=True))
+                                      task_id=task_hex, retriable=True,
+                                      owner_key=jobs.get(task_hex, "")))
         for actor_id, client in actors.items():
             if client.alive():
                 out.append(_Candidate(client.proc.pid, "actor",
@@ -2874,10 +2922,18 @@ class DaemonService:
 
     def start_memory_monitor(self) -> None:
         from ray_tpu_torch._private.config import cfg
-        from ray_tpu_torch._private.memory_monitor import MemoryMonitor
+        from ray_tpu_torch._private.memory_monitor import (MemoryMonitor,
+                                                           TenantAwarePolicy)
         if cfg().memory_monitor:
             self.memory_monitor = MemoryMonitor(
                 None, candidates_fn=self._memory_candidates)
+            if cfg().memory_pressure:
+                # the degradation order under pressure: the workers of
+                # over-quota tenants (the driver ledger's verdict, synced)
+                # die first
+                self.memory_monitor.policy = TenantAwarePolicy(
+                    self.memory_monitor.policy,
+                    lambda: self._over_quota_jobs)
             self.memory_monitor.start()
         if cfg().memory_pressure and cfg().pressure_tick_s > 0:
             from ray_tpu_torch._private.pressure import PressureController

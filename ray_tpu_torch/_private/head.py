@@ -44,9 +44,10 @@ gets its DRAINING state back with the remaining window) and its task
 events. Membership and the federated snapshots are not persisted: live
 daemons re-register, and re-send both, on their next heartbeats.
 
-Left out, with the part of ROADMAP A11e that brings them: tenancy records
-(the third part). Their methods are not declared here, so a call fails as
-any undeclared method does.
+Tenancy: the head is the durable store of the per-job quota and weight
+records the drivers' admission sets (``tenancy_set``/``tenancy_get``,
+persisted like the drains), and takes each driver's per-job usage report
+(``tenancy_report``, replace semantics).
 """
 
 from __future__ import annotations
@@ -90,6 +91,11 @@ declare("report_resources", "loads")
 declare("report_loads_gossip", "view")
 declare("task_events_push", "events")
 declare("task_events_get", "job_id", "name", "limit")
+# tenancy: persisted per-job quota/weight records (the admission
+# authority's durable store) and per-job accounting federation
+declare("tenancy_set", "job_id", "record")
+declare("tenancy_get")
+declare("tenancy_report", "jobs")
 declare("metrics_get")
 declare("profile_get")
 declare("head_stop")
@@ -246,6 +252,10 @@ _EPOCH_KEY = b"\x00epoch\x00"
 # Drain records persist under the same colon-free raw-prefix scheme, each
 # row a frame of the wire's encoding ({"deadline_wall", "reason"}).
 _DRAIN_KEY = b"\x00drain\x00"
+# Per-job tenancy records (quota/weight) persist the same way: a state
+# path survives a head respawn, so quotas outlive both the head process
+# and the driver that set them.
+_TENANCY_KEY = b"\x00tenancy\x00"
 
 
 class HeadService:
@@ -274,6 +284,11 @@ class HeadService:
         # restart (membership does not, so a record re-attaches when the
         # draining daemon re-registers after the respawn)
         self._drains: Dict[str, Tuple[float, str]] = {}  #: guarded by self._lock
+        # tenancy: job -> {"weight": .., "quota": {"hard": .., "soft": ..}}
+        # (persisted), and job -> the latest reported usage row (each
+        # driver's report replaces its previous one)
+        self._tenancy: Dict[str, Dict[str, Any]] = {}  #: guarded by self._lock
+        self._tenancy_usage: Dict[str, Dict[str, Any]] = {}  #: guarded by self._lock
         # the task-event store: sqlite with a state path, a bounded ring
         # in memory otherwise
         self._task_events_cap = 100_000
@@ -298,6 +313,14 @@ class HeadService:
                         float(rec["deadline_wall"]), str(rec["reason"]))
                 except Exception:
                     # a malformed record must not keep the head down
+                    self._store.delete(key)
+            for key in [k for k in self._kv
+                        if k.startswith(_TENANCY_KEY)]:
+                blob = self._kv.pop(key)
+                try:
+                    self._tenancy[key[len(_TENANCY_KEY):].decode()] = (
+                        rpc.loads_frame(blob))
+                except Exception:
                     self._store.delete(key)
             for key in [k for k in self._kv if k.startswith(_EPOCH_KEY)]:
                 blob = self._kv.pop(key)
@@ -568,6 +591,34 @@ class HeadService:
             for parked in self._parked.values():
                 parked[:] = [p for p in parked if p[0] is not conn]
 
+    # -- tenancy: the quota store and per-job accounting federation ------
+    def handle_tenancy_set(self, conn, rid, msg):
+        """Upsert one job's quota/weight record (persisted)."""
+        job = str(msg["job_id"])
+        record = msg.get("record") or {}
+        with self._lock:
+            self._tenancy[job] = record
+            if self._store is not None:
+                self._store.put(_TENANCY_KEY + job.encode(),
+                                rpc.dumps_frame(record))
+        return {"ok": True}
+
+    def handle_tenancy_get(self, conn, rid, msg):
+        """All job records, with the latest federated usage merged in."""
+        with self._lock:
+            jobs = {j: dict(r) for j, r in self._tenancy.items()}
+            for j, usage in self._tenancy_usage.items():
+                jobs.setdefault(j, {})["usage"] = usage
+        return {"jobs": jobs}
+
+    def handle_tenancy_report(self, conn, rid, msg):
+        """Per-job accounting federation (replace semantics per job)."""
+        jobs = msg.get("jobs") or {}
+        with self._lock:
+            for j, row in jobs.items():
+                self._tenancy_usage[str(j)] = row
+        return {"ok": True, "count": len(jobs)}
+
     # -- internal KV -----------------------------------------------------
     def handle_kv_put(self, conn, rid, msg):
         if _fp.ENABLED:
@@ -707,7 +758,7 @@ class HeadClient:
                 return
             # raises OSError while the head is down; the lock makes
             # concurrent callers wait for ONE reconnect
-            client = rpc.connect(self.addr).link("head")
+            client = rpc.connect(self.addr).link("head")  # raylint: disable=blocking-under-lock
             old, self._client = self._client, client
             old.close()
 
@@ -784,6 +835,17 @@ class HeadClient:
     def report_resources(self, loads: Dict[str, Dict[str, float]]) -> None:
         """Push per-node availability views."""
         self._call("report_resources", loads=loads, timeout=5.0)
+
+    # tenancy (the fair-share quota store and accounting federation)
+    def tenancy_set(self, job_id: str, record: Dict[str, Any]) -> None:
+        self._call("tenancy_set", job_id=job_id, record=record,
+                   timeout=5.0)
+
+    def tenancy_get(self) -> Dict[str, Dict[str, Any]]:
+        return self._call("tenancy_get", timeout=5.0)["jobs"]
+
+    def tenancy_report(self, jobs: Dict[str, Any]) -> None:
+        self._call("tenancy_report", jobs=jobs, timeout=5.0)
 
     # kv
     def kv_put(self, key: bytes, value: bytes, overwrite: bool = True,

@@ -253,7 +253,7 @@ class MeteredLock:
         else:
             self._hold_t0 = now
         # the lock is held here (taken by the acquire calls above)
-        self._bucket(self.wait_counts, wait)
+        self._bucket(self.wait_counts, wait)  # raylint: disable=guarded-by
         self.wait_sum += wait
         self.wait_total += 1
         if was_contended:

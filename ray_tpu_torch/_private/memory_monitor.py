@@ -16,8 +16,9 @@ the driver. The driver runs one monitor over its own workers, and each
 daemon one over its node's (``DaemonService.start_memory_monitor``).
 
 Each kill counts into ``ray_tpu_oom_preemptions_total{reason}``
-(``pressure.count_oom_preemption``). Left out: JAX's ``TenantAwarePolicy``
-(tenancy, the third part of ROADMAP A11e).
+(``pressure.count_oom_preemption``). ``TenantAwarePolicy`` points the
+kills at over-quota tenants' workers first (a daemon wraps its policy in
+it under ``memory_pressure``).
 """
 
 from __future__ import annotations
@@ -153,6 +154,36 @@ class GroupByOwnerPolicy:
         retriable = [c for c in biggest if c.retriable]
         pool = retriable or biggest
         return max(pool, key=lambda c: c.started_at)
+
+
+class TenantAwarePolicy:
+    """Point preemption at over-quota tenants first: when the driver's
+    fair-share ledger marks jobs at or over a hard cap (synced to daemons
+    with ``tenancy_sync``), their workers are the preferred victims; the
+    wrapped policy still orders within the preferred pool, and the full
+    pool backstops when no over-quota worker runs here. ``last_reason``
+    feeds the ``ray_tpu_oom_preemptions_total{reason}`` counter."""
+
+    def __init__(self, inner: Any, over_quota_fn: Any):
+        self.inner = inner
+        self.over_quota_fn = over_quota_fn
+        self.last_reason = "host"
+
+    def pick(self, candidates: List[_Candidate]) -> Optional[_Candidate]:
+        over = set()
+        try:
+            over = set(self.over_quota_fn() or ())
+        except Exception:
+            pass
+        if over:
+            preferred = [c for c in candidates if c.owner_key in over]
+            if preferred:
+                victim = self.inner.pick(preferred)
+                if victim is not None:
+                    self.last_reason = "tenant_quota"
+                    return victim
+        self.last_reason = "host"
+        return self.inner.pick(candidates)
 
 
 class MemoryMonitor:

@@ -159,6 +159,19 @@ class ResourceLedger:
         self._fire_on_change()
 
 
+class _DirectOp:
+    """A closure queued on an ActorExecutor by a compiled DAG.
+    ``on_dead(cause)`` runs when the actor dies with the op still queued,
+    so the DAG's channel fails at once instead of timing out."""
+
+    __slots__ = ("fn", "on_dead")
+
+    def __init__(self, fn: Callable[[Any], None],
+                 on_dead: Optional[Callable[[str], None]] = None):
+        self.fn = fn
+        self.on_dead = on_dead
+
+
 class ActorExecutor:
     """Executes one actor's tasks: FIFO by seqno, optional concurrency,
     async actors and concurrency groups."""
@@ -209,6 +222,25 @@ class ActorExecutor:
         name = getattr(spec, "concurrency_group", "") or ""
         return name if name in self._groups else ""
 
+    def submit_direct(self, fn: Callable[[Any], None],
+                      on_dead: Optional[Callable[[str], None]] = None
+                      ) -> bool:
+        """A compiled DAG's channel op: run ``fn(instance)`` on this
+        actor's executor thread, in FIFO order with its method calls, with
+        none of the task machinery (no TaskSpec, scheduler, futures or
+        refcounting on the per-call path)."""
+        from ray_tpu_torch._private.ids import next_seqno
+        with self._cond:
+            if self._dead or self.is_async:
+                return False
+            self._push_seq += 1
+            heapq.heappush(self._groups[""]["heap"],
+                           (next_seqno(), self._push_seq,
+                            _DirectOp(fn, on_dead)))
+            self.num_pending += 1
+            self._cond.notify_all()
+        return True
+
     def submit(self, spec: TaskSpec) -> bool:
         with self._cond:
             if self._dead:
@@ -228,12 +260,20 @@ class ActorExecutor:
                 return []
             self._dead = True
             self.death_cause = cause
-            pending = [spec for g in self._groups.values()
+            dropped = [spec for g in self._groups.values()
                        for _, _, spec in g["heap"]]
+            pending = [s for s in dropped if not isinstance(s, _DirectOp)]
+            direct_ops = [s for s in dropped if isinstance(s, _DirectOp)]
             for g in self._groups.values():
                 g["heap"].clear()
             self.num_pending = 0
             self._cond.notify_all()
+        for op in direct_ops:   # fail the compiled DAG's channels now
+            if op.on_dead is not None:
+                try:
+                    op.on_dead(cause)
+                except Exception:
+                    pass
         if self._loop is not None:
             try:
                 self._loop.call_soon_threadsafe(self._loop.stop)
@@ -270,6 +310,13 @@ class ActorExecutor:
             spec = self._next(group)
             if spec is None:
                 return
+            if isinstance(spec, _DirectOp):
+                try:
+                    spec.fn(self.instance)
+                except Exception:   # the op delivers errors on its channel
+                    pass
+                spec = None
+                continue
             self._run_task(spec, self.instance)
             # drop the finished spec before waiting for the next: its args
             # hold ObjectRefs whose values would stay pinned until then
@@ -397,6 +444,14 @@ class _ExecPool:
                 self._spawned -= 1
 
 
+def _bucket_job(key: tuple) -> str:
+    """Job hex of a backlog bucket key. Tenancy-keyed buckets are
+    ``(job_hex, shape_tuple)``; plain ones are the shape tuple itself
+    (possible around an enablement toggle) and attribute to the
+    anonymous driver job."""
+    return key[0] if (len(key) == 2 and isinstance(key[0], str)) else ""
+
+
 class Node:
     """One (virtual) node: resources + store + dispatch pass + actors."""
 
@@ -422,6 +477,14 @@ class Node:
         # the dependency-staging hook called at enqueue
         self.daemon = None
         self.prefetch: Optional[Callable[[TaskSpec], None]] = None
+        # multi-tenant fair share (set by the runtime when the
+        # ``fairshare`` flag is on): backlog buckets become (job, shape)
+        # keyed, admission runs in deficit order under per-job quota
+        # gates. None keeps this dispatch path the single-tenant one.
+        self.tenancy = None
+        # the last per-job backlog counts pushed to the tenancy ledger
+        # (dispatch side only): an unchanged round skips the call
+        self._tenancy_qcounts: Dict[str, int] = {}
         self.actors: Dict[ActorID, ActorExecutor] = {}  #: guarded by self._actors_lock
         self._actors_lock = tracked_lock("node.actors", reentrant=False)
         self._queue: "queue.Queue[Optional[TaskSpec]]" = queue.Queue()
@@ -560,7 +623,13 @@ class Node:
     def _ingest(self, spec: TaskSpec) -> None:
         """Bucket one submitted spec into the backlog (the dispatch thread
         or the event loop, whichever owns the backlog in this mode)."""
+        # re-read per spec: the runtime attaches the tenancy manager right
+        # after construction
+        ten = self.tenancy
         key = tuple(sorted(spec.resources.items()))
+        if ten is not None:
+            key = (spec.job_id.hex() if spec.job_id is not None else "",
+                   key)
         bucket = self._backlog.get(key)
         if bucket is None:
             bucket = self._backlog[key] = deque()
@@ -607,6 +676,7 @@ class Node:
         """One admission pass over the backlog buckets (shared by both
         dispatchers). Returns whether any bucket made progress; the caller
         decides how to wait when blocked."""
+        ten = self.tenancy
         if self.draining and (self._backlog_n
                               or self._exec_pool.has_handback_pending()):
             # hand queued-but-unstarted work back to the cluster scheduler
@@ -616,15 +686,33 @@ class Node:
             self._resubmit_backlog()
         progressed = False
         self.loop_stats["dispatch_iterations"] += 1
-        for key in list(self._backlog):
+        if ten is not None and self._backlog:
+            # deficit-ordered batch admission: a job's same-shape ready
+            # group is taken whole, highest fair-share deficit first, so
+            # a light job's small groups cut ahead of a saturating job's
+            # backlog
+            keys = [k for _job, k in ten.order_buckets(
+                [((_bucket_job(k), k), len(b))
+                 for k, b in self._backlog.items()])]
+        else:
+            keys = list(self._backlog)
+        for key in keys:
             bucket = self._backlog.get(key)
             if bucket is None:
                 continue
             while bucket:
                 demand = bucket[0].resources
+                want = len(bucket)
+                if ten is not None:
+                    # the per-job hard-cap gate: a clamped group stays
+                    # QUEUED in the backlog (never lost) until the job's
+                    # own completions free quota headroom
+                    want = ten.admit_cap(_bucket_job(key), demand, want)
+                    if want <= 0:
+                        break
                 # every task in a bucket shares one resource shape, so one
                 # ledger round-trip admits as many as currently fit
-                n = self.ledger.try_acquire_many(demand, len(bucket))
+                n = self.ledger.try_acquire_many(demand, want)
                 if n <= 0:
                     break
                 admitted = [bucket.popleft() for _ in range(n)]
@@ -655,6 +743,8 @@ class Node:
                 # counted before the pool takes them: a task may finish
                 # (and a get observe it) before control returns here
                 self.loop_stats["tasks_launched"] += n
+                if ten is not None:
+                    ten.note_admitted(_bucket_job(key), demand, n)
                 with self._running_lock:
                     self._running.update(s.task_id for s in admitted)
                 self._exec_pool.submit_batch(admitted)
@@ -663,6 +753,16 @@ class Node:
                 progressed = True
             if not bucket:
                 self._backlog.pop(key, None)
+        if ten is not None:
+            counts: Dict[str, int] = {}
+            for k, b in self._backlog.items():
+                job = _bucket_job(k)
+                counts[job] = counts.get(job, 0) + len(b)
+            # unchanged since the last round: the ledger already saw this
+            # state (its idle deficit reset included)
+            if counts != self._tenancy_qcounts:
+                self._tenancy_qcounts = counts
+                ten.observe_queued(self.node_id.hex(), counts)
         return progressed
 
     def _run_spec(self, spec: TaskSpec) -> None:
@@ -678,6 +778,13 @@ class Node:
                 # the runtime releases them on actor death.
                 spec._resources_released = True
                 self.stage_release(spec.resources)
+            ten = self.tenancy
+            if ten is not None and spec.kind != TaskKind.ACTOR_CREATION:
+                # per-job usage (a lock-free append); an actor creation
+                # settles when the runtime releases its lifetime hold
+                ten.note_done(spec.job_id.hex()
+                              if spec.job_id is not None else "",
+                              spec.resources)
 
     def is_idle(self) -> bool:
         """No task running, admitted or queued here (the drain's clean
@@ -814,6 +921,11 @@ class Node:
             if not getattr(spec, "_resources_released", True):
                 spec._resources_released = True
                 self.stage_release(spec.resources)
+                if self.tenancy is not None:
+                    self.tenancy.note_done(
+                        spec.job_id.hex()
+                        if spec.job_id is not None else "",
+                        spec.resources)
         return handback
 
     # -- actor hosting -----------------------------------------------------

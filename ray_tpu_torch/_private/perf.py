@@ -1,10 +1,7 @@
 """Core-op microbenchmarks, the harness behind the CLI's
 ``microbenchmark`` (counterpart of ``ray_tpu/_private/perf.py``): task,
-actor-call, put and put/get rates of the port's runtime, timed on the
-host's clock.
-
-Left out, with the part of ROADMAP A11e that brings it: JAX's
-compiled-DAG row (the compiled DAG, the third part).
+actor-call, put, put/get and compiled-DAG round rates of the port's
+runtime, timed on the host's clock.
 """
 
 from __future__ import annotations
@@ -75,6 +72,32 @@ def run_microbenchmarks(duration_s: float = 2.0) -> List[Dict]:
         return 10
     results.append(_timeit("put_get_1MiB_per_second", put_get_1mb,
                            duration_s))
+
+    # compiled-DAG rounds over shm channels (no RPC in the steady state)
+    # through a two-stage process-worker pipeline; on a daemon cluster the
+    # actors live in daemons and the DAG takes the dynamic schedule, which
+    # the row then measures
+    from ray_tpu_torch.dag import InputNode
+
+    @ray_tpu_torch.remote
+    class _Stage:
+        def f(self, x):
+            return x + 1
+
+    s1, s2 = _Stage.remote(), _Stage.remote()
+    ray_tpu_torch.get([s1.f.remote(0), s2.f.remote(0)])
+    with InputNode() as inp:
+        dag = s2.f.bind(s1.f.bind(inp))
+    compiled = dag.experimental_compile()
+
+    def dag_rounds():
+        refs = [compiled.execute(i) for i in range(50)]
+        for r in refs:
+            ray_tpu_torch.get(r)
+        return 50
+    results.append(_timeit("compiled_dag_execs_per_second", dag_rounds,
+                           duration_s))
+    compiled.teardown()
 
     if own:
         ray_tpu_torch.shutdown()

@@ -78,6 +78,10 @@ class ClusterScheduler:
         # (resource-shape, cluster-epoch) -> feasible candidate nodes
         self._feas_cache: Dict[tuple, Any] = {}  #: guarded by self._lock
         self._feas_epoch = -1                    #: guarded by self._lock
+        # the fair-share consult (set by the runtime when ``fairshare`` is
+        # on): an over-cap job spreads its queued work instead of packing,
+        # so per-node quota gates free evenly
+        self.tenancy = None
 
     def pick_node(self, spec: TaskSpec, nodes: List[Node],
                   preferred: Optional[Node] = None) -> Optional[Node]:
@@ -86,6 +90,13 @@ class ClusterScheduler:
         Raises SchedulingError if no node can ever fit the demand.
         """
         strategy = spec.scheduling_strategy
+        if (strategy == "DEFAULT" and self.tenancy is not None
+                and self.tenancy.prefers_spread(
+                    spec.job_id.hex() if spec.job_id is not None
+                    else "")):
+            # the feasibility cache is keyed on the resource shape only,
+            # so demoting pack to spread cannot pollute it
+            strategy = "SPREAD"
         if strategy == "DEFAULT" or strategy == "SPREAD":
             # hot path: plain strategies share one feasibility scan per
             # (resource shape, cluster epoch)

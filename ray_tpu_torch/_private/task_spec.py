@@ -42,12 +42,6 @@ ACTOR_ONLY_OPTIONS = {
     "max_task_retries", "max_pending_calls", "namespace", "get_if_exists",
     "object_store_memory",
 }
-# Options of the reference that need a part of the runtime the port does
-# not have yet: naming one raises instead of being silently dropped.
-NOT_PORTED_OPTIONS = {
-    "runtime_env": "runtime environments",
-}
-
 DEFAULT_TASK_OPTIONS = {"num_cpus": 1, "max_retries": 3, "num_returns": 1}
 DEFAULT_ACTOR_OPTIONS = {"num_cpus": 0, "max_restarts": 0,
                          "max_task_retries": 0, "max_concurrency": 1,
@@ -61,10 +55,6 @@ def validate_options(options: Dict[str, Any], for_actor: bool) -> Dict[str, Any]
         if k not in allowed:
             kind = "actor" if for_actor else "task"
             raise ValueError(f"invalid option {k!r} for a {kind}")
-        if k in NOT_PORTED_OPTIONS and options[k] is not None:
-            raise NotImplementedError(
-                f"option {k!r} needs {NOT_PORTED_OPTIONS[k]}, which "
-                f"ray_tpu_torch does not have yet")
     lifetime = options.get("lifetime")
     if lifetime not in (None, "detached", "non_detached"):
         raise ValueError(f"lifetime must be 'detached'|'non_detached', "
@@ -186,6 +176,9 @@ class TaskSpec:
     # run in the caller's process; every task of the in-process core does
     in_process: bool = False
     label_selector: Optional[Dict[str, Any]] = None
+    # the prepared runtime env (runtime_env.py): directories packaged into
+    # pkg:// URIs at submit, applied around the execution wherever it runs
+    runtime_env: Optional[Dict[str, Any]] = None
     # placement group capture
     placement_group_id: Optional[PlacementGroupID] = None
     # the demand before it was rewritten onto bundle-scoped resource

@@ -44,6 +44,7 @@ import copy
 import inspect
 import os
 import shutil
+import sys
 import tempfile
 import threading
 import time
@@ -171,10 +172,28 @@ class Runtime:
                  namespace: Optional[str] = None,
                  session_dir: Optional[str] = None,
                  cluster: Optional[str] = None,
-                 address: Optional[str] = None):
+                 address: Optional[str] = None,
+                 job_config=None):
         self.job_id = JobID.from_random()
         self.worker_id = WorkerID.from_random()
         self.namespace = namespace or self.job_id.hex()
+        # the per-job config: its runtime env is the job's default one
+        # (prepare_runtime_env). The code search path rides that env as
+        # py_modules, so pooled workers forked before this init see it
+        # too; it also joins this process's sys.path for local imports.
+        self.job_config = job_config
+        self._job_default_env = None
+        if job_config is not None:
+            env = dict(job_config.runtime_env or {})
+            if job_config.code_search_path:
+                paths = [os.path.abspath(p)
+                         for p in job_config.code_search_path]
+                env["py_modules"] = (list(env.get("py_modules") or [])
+                                     + paths)
+                for p in paths:
+                    if p not in sys.path:
+                        sys.path.insert(0, p)
+            self._job_default_env = env or None
         # spilled objects land here; created on the first spill only
         self.session_dir = session_dir or os.path.join(
             tempfile.gettempdir(), "ray_tpu_torch",
@@ -193,6 +212,14 @@ class Runtime:
 
         self.gcs = GCS()
         self.scheduler = ClusterScheduler()
+        # multi-tenant fair share (tenancy/): submit-time verdicts and
+        # deficit-ordered dispatch. The manager always exists (job records
+        # and /api/jobs work either way); it hooks into the scheduler and
+        # the nodes only when the ``fairshare`` flag is on.
+        from ray_tpu_torch.tenancy import TenancyManager
+        self.tenancy = TenancyManager(runtime=self)
+        if self.tenancy.enabled:
+            self.scheduler.tenancy = self.tenancy
         self.futures = FutureTable()
         self.lineage = LineageTable()
         self.refcounter = ReferenceCounter(on_zero=self._free_object)
@@ -305,6 +332,10 @@ class Runtime:
             for _ in range(num_nodes):
                 self.add_node(dict(resources_per_node),
                               object_store_memory=object_store_memory)
+        if self.cluster_backend is not None and self.tenancy.enabled:
+            # quota records persisted at the head (another driver, or an
+            # earlier incarnation of this one, may have set them)
+            self.tenancy.load_from_head(self.cluster_backend.head)
 
     # ------------------------------------------------------------------
     # cluster topology
@@ -330,6 +361,8 @@ class Runtime:
                                    node_id.hex()[:8]))
         node = Node(node_id, resources, labels or {}, store,
                     execute_task=self._execute_on_node)
+        if self.tenancy.enabled:
+            node.tenancy = self.tenancy
         with self._nodes_lock:
             self._nodes[node_id] = node
         self.gcs.register_node(node.info())
@@ -345,6 +378,8 @@ class Runtime:
         store = RemoteStore(handle)
         node = Node(handle.node_id, resources, {}, store,
                     execute_task=self._execute_on_remote_node)
+        if self.tenancy.enabled:
+            node.tenancy = self.tenancy
         node.daemon = handle
         handle.runtime = self
         # dependency staging: enqueue-time pushes overlap the transfer
@@ -811,6 +846,12 @@ class Runtime:
             raise RuntimeError(f"no daemon store on node {node_hex!r}")
         register(oid, bytes(key), int(nbytes),
                  raw=tuple(raw) if raw else None)
+        if self.tenancy.enabled:
+            from ray_tpu_torch.tenancy import current_job_id
+            jid = current_job_id(self)
+            self.tenancy.note_put(
+                oid.hex(), jid.hex() if jid is not None else "",
+                int(nbytes))
         with self._loc_lock:
             self._locations.setdefault(oid, set()).add(node.node_id)
         ref = ObjectRef(oid, owner_hex=self.worker_id.hex(),
@@ -836,15 +877,26 @@ class Runtime:
         if nested:
             self.refcounter.add_nested_refs(oid, [r.id for r in nested])
         size = _nbytes_of(value)
+        if self.tenancy.enabled:
+            from ray_tpu_torch.tenancy import current_job_id
+            jid = current_job_id(self)
+            self.tenancy.note_put(
+                oid.hex(), jid.hex() if jid is not None else "", size)
         if size <= INLINE_OBJECT_SIZE or prefer_node is None:
             self.memory_store.put(oid, value, nbytes=size)
             return
         prefer_node.store.put(oid, value, nbytes=size)
         with self._loc_lock:
             self._locations.setdefault(oid, set()).add(prefer_node.node_id)
+            # a fresh copy is not lost: a node removal that marked the old
+            # copy lost after a get had already started rebuilding it must
+            # not send the next get into a second reconstruction
+            self._lost.discard(oid)
 
     def _free_object(self, oid: ObjectID) -> None:
         """Refcount hit zero: drop the value everywhere + its lineage."""
+        if self.tenancy.enabled:
+            self.tenancy.note_free(oid.hex())
         self.memory_store.delete(oid)
         with self._loc_lock:
             locs = self._locations.pop(oid, set())
@@ -948,6 +1000,10 @@ class Runtime:
     # ------------------------------------------------------------------
     def submit_task(self, spec: TaskSpec,
                     record_lineage: bool = True) -> List[ObjectRef]:
+        if self.tenancy.enabled:
+            # the fair-share verdict; REJECTED raises AdmissionRejectedError
+            # here, before any future or lineage state exists
+            self.tenancy.admit(spec)
         self.stats["tasks_submitted"] += 1
         trace_events.stamp_trace(spec)
         refs = [ObjectRef(oid, owner_hex=self.worker_id.hex(),
@@ -1241,6 +1297,7 @@ class Runtime:
                 with self._loc_lock:
                     self._locations.setdefault(oid, set()).add(
                         node.node_id)
+                    self._lost.discard(oid)     # a fresh copy
                 self.task_events.record(task_id=spec.task_id.hex(),
                                         name=spec.name, event="FINISHED")
                 self._release_task_resources(spec, node)
@@ -1253,9 +1310,14 @@ class Runtime:
                         end_mono=now)
                 self._on_task_done(spec, TaskState.FINISHED)
                 return
-            # a multi-return tuple stored in the daemon: fetch once, split
+            # a multi-return tuple stored in the daemon: fetch once, split,
+            # and free the tuple's blob once each return is stored on its
+            # own (kept, the node would hold every large return twice)
             from ray_tpu_torch._private.cluster import _load_blob
             value = _load_blob(node.daemon.get_object_blob(daemon_key))
+            self._finish_task(spec, node, result=value)
+            node.daemon.queue_free(daemon_key)
+            return
         self._finish_task(spec, node, result=value)
 
     def _on_daemon_crash(self, node: Node) -> None:
@@ -1361,9 +1423,11 @@ class Runtime:
             task_name=spec.name, placement_group_id=spec.placement_group_id,
             pg_capture=spec.pg_capture)
         t_exec0 = time.perf_counter() if spec.trace_sampled else 0.0
+        from ray_tpu_torch.runtime_env import apply_runtime_env
         from ray_tpu_torch.util.rpdb import post_mortem_on_error
         try:
-            with post_mortem_on_error():
+            with apply_runtime_env(spec.runtime_env), \
+                    post_mortem_on_error():
                 result = spec.func(*args, **kwargs)
         except BaseException as e:  # noqa: BLE001
             self._finish_task(spec, node,
@@ -1724,8 +1788,10 @@ class Runtime:
                 resources=spec.resources, task_name=spec.name,
                 placement_group_id=spec.placement_group_id,
                 pg_capture=spec.pg_capture)
+            from ray_tpu_torch.runtime_env import apply_runtime_env
             try:
-                instance = spec.func(*args, **kwargs)
+                with apply_runtime_env(spec.runtime_env):
+                    instance = spec.func(*args, **kwargs)
             except BaseException as e:  # noqa: BLE001
                 self._actor_creation_failed(
                     spec, exc.TaskError(e, spec.name), node)
@@ -1921,6 +1987,7 @@ class Runtime:
                     with self._loc_lock:
                         self._locations.setdefault(oid, set()).add(
                             node.node_id)
+                        self._lost.discard(oid)     # a fresh copy
                     self.task_events.record(task_id=spec.task_id.hex(),
                                             name=spec.name,
                                             event="FINISHED")
@@ -2072,6 +2139,13 @@ class Runtime:
             host = self.get_node(info.node_id)
             if host is not None and host.alive:
                 host.ledger.release(info.creation_spec.resources)
+                if host.tenancy is not None:
+                    # settle the creation's per-job usage, held for the
+                    # actor's whole lifetime (node._run_spec)
+                    host.tenancy.note_done(
+                        info.creation_spec.job_id.hex()
+                        if info.creation_spec.job_id is not None else "",
+                        info.creation_spec.resources)
             info.node_id = None
         can_restart = (may_restart and info.creation_spec is not None
                        and (graceful or info.max_restarts == -1

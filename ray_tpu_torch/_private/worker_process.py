@@ -75,8 +75,13 @@ its result frame into the host's span buffer and profile store; user
 metrics drain to the host after each task (``metrics_push``); and a
 ``profile_burst`` op samples the worker's stacks on demand.
 
-Left out, with the part of ROADMAP A11e that brings them: the compiled-DAG
-stages and runtime environments (the third part).
+Runtime environments: a task's prepared env rides its message; the worker
+resolves its ``pkg://`` URIs into the node-local package cache (the blob is
+fetched once from the owner with the ``fetch_runtime_pkg`` core op) and
+applies the env around the body. The compiled DAG's cross-process mode
+binds an actor worker's stages to shared-memory channels with one
+``dag_start`` op; a loop thread then runs them each round with no message
+on this pipe, until a ``dag_stop`` of the same generation.
 """
 
 from __future__ import annotations
@@ -150,7 +155,9 @@ class _Channel:
 
     def __init__(self, sock: socket.socket):
         self.sock = sock
-        self._lock = threading.Lock()
+        # a wire lock: it keeps one message's frames contiguous on the
+        # socket, and nothing else is done while it is held
+        self._send_lock = threading.Lock()
         for opt in (socket.SO_SNDBUF, socket.SO_RCVBUF):
             try:
                 sock.setsockopt(socket.SOL_SOCKET, opt, _SOCK_BUF)
@@ -162,7 +169,7 @@ class _Channel:
         views = [memoryview(p).cast("B") for p in parts]
         prefix = _HEAD.pack(len(header), len(views)) + b"".join(
             _LEN.pack(v.nbytes) for v in views)
-        with self._lock:
+        with self._send_lock:
             self.sock.sendall(prefix + header)
             for v in views:
                 self.sock.sendall(v)
@@ -433,26 +440,52 @@ class WorkerProxyRuntime:
         nbytes) metadata from the daemon, ``np.frombuffer`` on the mapping;
         no payload crosses the pipe and raw-tier arrays skip serialization.
         Per-object slot refs (taken daemon-side on our behalf) keep every
-        view safe from eviction until released. Returns None to take the
+        view safe from eviction until released. An object not in the arena
+        yet (its producer still running) is waited for and looked up once
+        more before it takes the owner's copy. Returns None to take the
         classic owner path (no arena: not in a daemon, or attach failed)."""
         from ray_tpu_torch.objectplane import arena as _oparena
         ar = _oparena.get_arena()
         if ar is None or not refs or ar.store() is None:
             return None
+        values: List[Any] = [None] * len(refs)
+        missing = self._shm_resolve(ar, refs, range(len(refs)), values)
+        if missing is None:
+            return None
+        if missing:
+            try:
+                self.wait([refs[i] for i in missing],
+                          num_returns=len(missing), timeout=timeout)
+                again = self._shm_resolve(ar, refs, missing, values)
+            except Exception:
+                again = None
+            if again is not None:
+                missing = again
+        if missing:
+            fetched = self._state.call_host(
+                "get", refs=[refs[i] for i in missing], timeout=timeout)
+            for i, v in zip(missing, fetched):
+                values[i] = v
+        return values
+
+    def _shm_resolve(self, ar, refs, indices, values) -> Optional[List[int]]:
+        """Resolve ``refs[i]`` for each ``i`` in ``indices`` into
+        ``values`` from the arena; returns the indices not in it, or None
+        when the arena path failed (every granted slot ref released)."""
+        from ray_tpu_torch._private.fast_lane import loads_joined
+        indices = list(indices)
         try:
             metas = self._state.call_host(
-                "shm_get_meta", oids=[r.id.binary() for r in refs])
+                "shm_get_meta", oids=[refs[i].id.binary() for i in indices])
         except Exception:
             return None
-        if not isinstance(metas, list) or len(metas) != len(refs):
+        if not isinstance(metas, list) or len(metas) != len(indices):
             return None
-        from ray_tpu_torch._private.fast_lane import loads_joined
-        values: List[Any] = [None] * len(refs)
         missing: List[int] = []
-        pending = {i: m for i, m in enumerate(metas)
+        pending = {i: m for i, m in zip(indices, metas)
                    if isinstance(m, dict)}
         try:
-            for i, meta in enumerate(metas):
+            for i, meta in zip(indices, metas):
                 if not isinstance(meta, dict):
                     missing.append(i)
                     continue
@@ -477,12 +510,7 @@ class WorkerProxyRuntime:
             for meta in pending.values():
                 ar.release_slot(meta["slot"])
             return None
-        if missing:
-            fetched = self._state.call_host(
-                "get", refs=[refs[i] for i in missing], timeout=timeout)
-            for i, v in zip(missing, fetched):
-                values[i] = v
-        return values
+        return missing
 
     def put(self, value):
         ref = self._shm_put(value)
@@ -621,6 +649,11 @@ class _WorkerState:
         self._fn_cache: Dict[str, Any] = {}
         self._gen_sems: Dict[str, threading.Semaphore] = {}
         self.proxy = WorkerProxyRuntime(self)
+        # the compiled DAG's channel loop (dag_start/dag_stop ops)
+        self._dag_stop: Any = None
+        self._dag_thread: Any = None
+        self._dag_channels: Dict[str, Any] = {}
+        self._dag_gen: Any = None
 
     def send(self, msg: Dict[str, Any], parts: Sequence[Any] = ()) -> None:
         self.chan.send(msg, parts)
@@ -665,7 +698,7 @@ class _WorkerState:
                     slot[2] = _unpack(parts)
                     slot[0].set()
             elif op in ("execute_task", "create_actor", "call_method",
-                        "reset_actor"):
+                        "reset_actor", "dag_start", "dag_stop"):
                 t = threading.Thread(target=self._handle, args=(msg,),
                                      daemon=True,
                                      name=f"task-{msg['id']}")
@@ -737,6 +770,112 @@ class _WorkerState:
         ctypes.pythonapi.PyThreadState_SetAsyncExc(
             ctypes.c_ulong(t.ident), ctypes.py_object(KeyboardInterrupt))
 
+    def _resolve_runtime_env(self, renv):
+        """pkg:// URIs to node-local extracted dirs (fetched once from the
+        owner through the host channel, then cached)."""
+        if not renv:
+            return renv
+        from ray_tpu_torch._private import runtime_env_packaging as pkg
+
+        def resolve(value):
+            if not (isinstance(value, str)
+                    and value.startswith(pkg.PKG_SCHEME)):
+                return value
+            local = pkg.cached_dir(value)
+            if local is None:
+                local = pkg.extract_blob(
+                    value, self.call_host("fetch_runtime_pkg", uri=value))
+            return local
+
+        out = dict(renv)
+        if out.get("working_dir"):
+            out["working_dir"] = resolve(out["working_dir"])
+        if out.get("py_modules"):
+            out["py_modules"] = [resolve(m) for m in out["py_modules"]]
+        return out
+
+    # -- the compiled DAG's channel loop ---------------------------------
+    # After one dag_start, every execute() flows only through the
+    # pre-allocated shm channels: no task submission, no object store.
+    def _dag_start(self, spec: Dict[str, Any]):
+        from ray_tpu_torch.dag.shm_channel import ShmChannel
+        if self._dag_thread is not None:
+            # a superseded binding (a CompiledDAG abandoned without a
+            # teardown): stop the stale loop, serve the new one
+            self._dag_teardown()
+        channels = {name: ShmChannel(name=name)
+                    for name in spec["channels"]}
+        consts = spec["consts"]
+        stages = spec["stages"]
+        stop = threading.Event()
+
+        def loop():
+            from ray_tpu_torch.dag.shm_channel import ChannelClosed
+            while not stop.is_set():
+                try:
+                    for st in stages:
+                        self._dag_run_stage(st, channels, consts, stop)
+                except ChannelClosed:
+                    return
+                except Exception:
+                    # e.g. ChannelFull on an oversized stage output: leave
+                    # a diagnostic the driver sees (worker logs reach it)
+                    # before the loop dies
+                    print("[compiled-dag] worker loop died:\n"
+                          + traceback.format_exc(), file=sys.stderr,
+                          flush=True)
+                    return
+
+        t = threading.Thread(target=loop, daemon=True, name="dag-loop")
+        self._dag_stop = stop
+        self._dag_thread = t
+        self._dag_channels = channels
+        self._dag_gen = spec.get("gen")
+        t.start()
+        return None
+
+    def _dag_run_stage(self, st, channels, consts, stop) -> None:
+        def fetch(src):
+            kind, key = src
+            if kind == "chan":
+                # idle waiting has no deadline: a compiled DAG parked for
+                # hours still answers the next execute(); the stop event
+                # is the only exit
+                return channels[key].read(stop=stop, timeout=None)
+            return ("ok", consts[key])
+
+        inputs = [fetch(s) for s in st["args"]]
+        kw_in = {k: fetch(s) for k, s in st["kwargs"].items()}
+        err = next((v for s, v in inputs if s != "ok"),
+                   next((v for s, v in kw_in.values() if s != "ok"),
+                        None))
+        if err is not None:
+            out = ("err", err)       # an upstream failure propagates
+        else:
+            try:
+                method = getattr(self.actor_instance, st["method"])
+                out = ("ok", method(
+                    *[v for _, v in inputs],
+                    **{k: v for k, (_, v) in kw_in.items()}))
+            except BaseException as e:  # noqa: BLE001 - via the channel
+                out = ("err", e)
+        for name in st["out"]:
+            channels[name].write(out[0], out[1], stop=stop,
+                                 timeout=3600.0)
+
+    def _dag_teardown(self):
+        if self._dag_stop is not None:
+            self._dag_stop.set()
+        if self._dag_thread is not None:
+            self._dag_thread.join(timeout=5)
+        for ch in self._dag_channels.values():
+            ch.close()
+        self._dag_stop = None
+        self._dag_thread = None
+        self._dag_channels = {}
+        self._dag_gen = None
+        return None
+
     def _fn(self, msg: Dict[str, Any]):
         fid = msg["fn_id"]
         fn = self._fn_cache.get(fid)
@@ -781,7 +920,9 @@ class _WorkerState:
             if locked:
                 self.actor_lock.acquire()
             try:
-                with _post_mortem_on_error():
+                from ray_tpu_torch.runtime_env import apply_runtime_env
+                renv = self._resolve_runtime_env(msg.get("runtime_env"))
+                with apply_runtime_env(renv), _post_mortem_on_error():
                     op = msg["op"]
                     if op == "create_actor":
                         cls = self._fn(msg)
@@ -792,7 +933,17 @@ class _WorkerState:
                         method = getattr(self.actor_instance, msg["method"])
                         args, kwargs = _unpack(msg["parts"])
                         result = method(*args, **kwargs)
+                    elif op == "dag_start":
+                        result = self._dag_start(_unpack(msg["parts"]))
+                    elif op == "dag_stop":
+                        gen = _unpack(msg["parts"])
+                        # generation-scoped: a stale CompiledDAG being
+                        # collected must not stop a newer binding's loop
+                        result = (self._dag_teardown()
+                                  if gen is None or gen == self._dag_gen
+                                  else None)
                     elif op == "reset_actor":
+                        self._dag_teardown()    # a recycle leaves no loop
                         # Clean actor teardown: drop the instance so the
                         # process can go back to the idle pool. If anything
                         # still holds the instance after gc (a thread the actor
@@ -821,14 +972,18 @@ class _WorkerState:
                             sem = threading.Semaphore(bp)
                             self._gen_sems[rid] = sem
                         try:
-                            self.send({"id": rid, "op": "gen_start"})
+                            # the actor lock spans a whole method call, a
+                            # streaming one's sends included; the host's
+                            # reader never takes it, so a send that blocks
+                            # cannot deadlock
+                            self.send({"id": rid, "op": "gen_start"})  # raylint: disable=blocking-under-lock
                             for item in result:
                                 if sem is not None:
                                     sem.acquire()
-                                self.send({"id": rid, "op": "yield"},
+                                self.send({"id": rid, "op": "yield"},  # raylint: disable=blocking-under-lock
                                           _pack(item))
                             self._flush_metrics()   # before the release
-                            self.send({"id": rid, "op": "result", "ok": True,
+                            self.send({"id": rid, "op": "result", "ok": True,  # raylint: disable=blocking-under-lock
                                        "span": exec_span()}, _pack(None))
                         finally:
                             self._gen_sems.pop(rid, None)
@@ -1169,6 +1324,10 @@ def dispatch_core_op(rt, holder, call: str, kw: Dict[str, Any],
             return store.kv_keys(kw["prefix"], namespace=ns)
     if call == "fetch_function":
         return fetch_function_blob(kw["fid"])
+    if call == "fetch_runtime_pkg":
+        from ray_tpu_torch._private.runtime_env_packaging import \
+            fetch_pkg_blob
+        return fetch_pkg_blob(kw["uri"])
     if call == "put_stored":
         # a daemon worker's direct put: the payload is already written and
         # sealed in its node's arena; the owner records ownership,
@@ -1516,6 +1675,7 @@ class WorkerClient:
         rid, pend = self._request({
             "op": "execute_task", "fn_id": fid,
             "ctx": self._ctx_fields(spec, node, self.runtime),
+            "runtime_env": spec.runtime_env,
             "backpressure": spec.backpressure_num_objects,
         }, args_parts)
         router = self.runtime.process_router
@@ -1538,6 +1698,7 @@ class WorkerClient:
         rid, pend = self._request({
             "op": "create_actor", "fn_id": fid,
             "ctx": self._ctx_fields(spec, node, self.runtime),
+            "runtime_env": spec.runtime_env,
         }, args_parts)
         return self._wait_outcome(rid, pend)
 
@@ -1547,7 +1708,14 @@ class WorkerClient:
         rid, pend = self._request({
             "op": "call_method", "method": spec.method_name,
             "ctx": self._ctx_fields(spec, node, self.runtime),
+            "runtime_env": spec.runtime_env,
         }, args_parts)
+        return self._wait_outcome(rid, pend)
+
+    def dag_op(self, op: str, value: Any):
+        """A compiled-DAG binding op (``dag_start`` with the stages' spec,
+        ``dag_stop`` with the generation), answered like a task."""
+        rid, pend = self._request({"op": op, "ctx": {}}, _pack(value))
         return self._wait_outcome(rid, pend)
 
     def _count_call(self) -> None:
@@ -1925,6 +2093,7 @@ class ProcessRouter:
     def _fast_eligible(self, spec: TaskSpec) -> bool:
         return (not self._fast_disabled
                 and spec.num_returns == 1
+                and not spec.runtime_env
                 and not (spec.func is not None
                          and inspect.isgeneratorfunction(spec.func)))
 

@@ -13,6 +13,9 @@ from ray_tpu_torch._private.task_spec import (DEFAULT_ACTOR_OPTIONS, TaskKind,
                                               resources_from_options,
                                               strategy_from_options,
                                               validate_options)
+from ray_tpu_torch._private.runtime_env_packaging import \
+    prepare_runtime_env as _prepare_runtime_env
+from ray_tpu_torch.tenancy import context as _tenancy_ctx
 
 
 class ActorMethod:
@@ -32,6 +35,12 @@ class ActorMethod:
     def remote(self, *args, **kwargs):
         return self._handle._submit_method(
             self._method_name, args, kwargs, self._options)
+
+    def bind(self, *args, **kwargs):
+        """Build a DAG node (``ray_tpu_torch.dag``)."""
+        from ray_tpu_torch.dag.node import ClassMethodNode
+        return ClassMethodNode(self._handle, self._method_name, args,
+                               kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -107,7 +116,7 @@ class ActorHandle:
             return_ids=[ObjectID.from_random() for _ in range(n_ids)],
             max_retries=info.max_task_retries,
             scheduling_strategy="DEFAULT",
-            job_id=rt.job_id,
+            job_id=_tenancy_ctx.current_job_id(rt),
             actor_id=self._actor_id,
             method_name=method_name,
             seqno=next_seqno(),
@@ -159,6 +168,8 @@ class ActorClass:
         spec = TaskSpec(
             task_id=TaskID.from_random(),
             kind=TaskKind.ACTOR_CREATION,
+            runtime_env=_prepare_runtime_env(
+                options.get("runtime_env")),
             name=f"{self._cls.__name__}.__init__",
             func=self._cls,
             args=tuple(args),
@@ -168,7 +179,7 @@ class ActorClass:
             return_ids=[ObjectID.from_random()],
             scheduling_strategy=worker.capture_parent_pg_strategy(
                 strategy_from_options(options)),
-            job_id=rt.job_id,
+            job_id=_tenancy_ctx.current_job_id(rt),
             actor_id=actor_id,
             max_restarts=options.get("max_restarts", 0),
             max_task_retries=options.get("max_task_retries", 0),

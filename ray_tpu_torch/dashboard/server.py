@@ -11,6 +11,9 @@ Endpoints:
                               and worker lanes (head-store spans with
                               clock correction applied)
   GET /api/config             resolved flag table + provenance
+  GET /api/jobs               per-tenant fair-share state: this driver's
+                              ledger view with the head's persisted
+                              quota/weight records overlaid
   GET /api/profile            cluster-wide stack profile as speedscope
                               JSON (burst fan-out + head aggregates;
                               ?duration=N seconds, clamped to 30)
@@ -22,9 +25,6 @@ Endpoints:
   GET /api/serve, /api/train, /api/data   the libraries' state
   GET /api/profile/cpu, /api/profile/memory   this process's stacks and
                               tracemalloc's top allocations
-
-Left out, with the part of ROADMAP A11e that brings it: JAX's
-``/api/jobs`` (per-tenant fair-share state; tenancy, the third part).
 """
 
 from __future__ import annotations
@@ -111,6 +111,28 @@ class _DashboardHandler(BaseHTTPRequestHandler):
                 # ray_config_def.h surface, observable)
                 from ray_tpu_torch._private.config import cfg
                 self._json(cfg().describe())
+            elif path == "/api/jobs":
+                # per-tenant fair-share state: this driver's live ledger
+                # view, overlaid with the quota/weight records persisted
+                # at the head (other drivers' jobs appear through it)
+                rt = _worker.global_runtime()
+                ten = getattr(rt, "tenancy", None)
+                jobs = ten.jobs_view() if ten is not None else {}
+                backend = getattr(rt, "cluster_backend", None)
+                head = getattr(backend, "head", None)
+                if head is not None:
+                    try:
+                        for job, rec in (head.tenancy_get() or {}).items():
+                            row = jobs.setdefault(str(job), {})
+                            for k, v in dict(rec).items():
+                                row.setdefault(k, v)
+                    except Exception:
+                        pass  # head unreachable: the local view only
+                self._json({
+                    "fairshare_enabled": bool(
+                        ten is not None and ten.enabled),
+                    "jobs": jobs,
+                })
             elif path == "/api/cluster_status":
                 rt = _worker.global_runtime()
                 import ray_tpu_torch
@@ -159,6 +181,7 @@ class _DashboardHandler(BaseHTTPRequestHandler):
                     "/api/nodes", "/api/tasks", "/api/actors",
                     "/api/placement_groups", "/api/objects",
                     "/api/cluster_status", "/api/timeline", "/api/config",
+                    "/api/jobs",
                     "/api/serve", "/api/train", "/api/data",
                     "/api/profile", "/api/profile/cpu",
                     "/api/profile/memory",

@@ -4,8 +4,8 @@
 The entrypoint runs as a subprocess of the supervisor's worker, with the
 job's ``runtime_env["env_vars"]`` in its environment; its output is kept
 as the job's log, and its state changes are export events (``JOB``).
-Left out, with the part of ROADMAP A11e that brings it: the tenancy
-context the supervisor is created in (the third part).
+The supervisor is created in the job's tenancy context, so it and every
+task its entrypoint fans out are attributed to the job's tenant.
 """
 
 from __future__ import annotations
@@ -112,9 +112,14 @@ class JobSubmissionClient:
                    metadata: Optional[Dict] = None,
                    submission_id: Optional[str] = None) -> str:
         job_id = submission_id or f"raysubmit_{uuid.uuid4().hex[:12]}"
+        # the supervisor is spawned inside the job's tenancy scope: its
+        # creation spec and every task the entrypoint fans out carry this
+        # job id, so fair share and /api/jobs attribute the whole tree
+        from ray_tpu_torch.tenancy import job_context
         sup_cls = ray_tpu_torch.remote(_JobSupervisor)
-        sup = sup_cls.options(max_concurrency=4).remote(
-            job_id, entrypoint, runtime_env, metadata)
+        with job_context(job_id):
+            sup = sup_cls.options(max_concurrency=4).remote(
+                job_id, entrypoint, runtime_env, metadata)
         self._supervisors[job_id] = sup
         return job_id
 

@@ -6,8 +6,9 @@ with ``--replicas`` replicas on the card (``--device cpu``: on the CPU),
 drives it open-loop through serve handles, and prints the human summary and
 one machine-readable JSON line. ``--url`` drives an HTTP proxy that is
 already running instead; ``--http`` serves the self-hosted app through the
-HTTP proxy and measures at the client. ``--jobs`` above 1 needs the tenancy
-layer (ROADMAP A11e, third part) and raises.
+HTTP proxy and measures at the client. ``--jobs`` above 1 runs that many
+tenants at once (``--job-weights`` gives their fair-share weights) and
+reports per-job goodput, Jain's fairness index and the isolation ratio.
 """
 
 from __future__ import annotations
@@ -65,9 +66,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the self-hosted app's device: the card by "
                         "default, 'cpu' off it")
     p.add_argument("--jobs", type=int, default=1,
-                   help="concurrent tenant jobs; above 1 needs the "
-                        "tenancy layer (ROADMAP A11e, third part) "
-                        "and raises")
+                   help="run N concurrent tenant jobs (offered rate "
+                        "split evenly); reports per-job goodput plus "
+                        "Jain fairness + isolation p99 ratio")
+    p.add_argument("--job-weights", default="", metavar="W1,W2,...",
+                   help="per-job fair-share weights for --jobs "
+                        "(default: all 1.0)")
     p.add_argument("--json", default="", metavar="PATH",
                    help="also write the full JSON report to PATH")
     return p
@@ -119,6 +123,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     from ray_tpu_torch.loadgen.recorder import SLO
     from ray_tpu_torch.loadgen.runner import (HTTPTarget, LoadSpec,
+                                              format_multi_report,
                                               format_report, run_load,
                                               run_multi_job_load)
 
@@ -130,30 +135,40 @@ def main(argv: Optional[List[str]] = None) -> int:
         timeout_s=args.timeout_s, drain_timeout_s=args.drain_timeout_s,
         slo=SLO(ttft_s=args.slo_ttft_s, e2e_s=args.slo_e2e_s))
 
-    if args.jobs > 1:
-        # raises: the tenancy layer is not ported (ROADMAP A11e,
-        # third part)
-        run_multi_job_load(None, spec, jobs=args.jobs)
     cleanup = None
     if args.url:
         target = HTTPTarget.from_url(args.url, timeout_s=spec.timeout_s)
     else:
         target, cleanup = _self_hosted_target(args, spec)
     try:
-        report = run_load(target, spec)
+        if args.jobs > 1:
+            weights = [float(w) for w in args.job_weights.split(",")
+                       if w.strip()]
+            report = run_multi_job_load(target, spec, jobs=args.jobs,
+                                        weights=weights)
+        else:
+            report = run_load(target, spec)
     finally:
         if cleanup is not None:
             cleanup()
 
-    print(format_report(report))
+    if args.jobs > 1:
+        print(format_multi_report(report))
+    else:
+        print(format_report(report))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(report, f, indent=2)
             f.write("\n")
         print(f"report written to {args.json}")
     print(json.dumps(report))
-    done = report["requests"]["completed"]
-    errs = report["requests"]["errors"]
+    if args.jobs > 1:
+        reqs = [r["requests"] for r in report["jobs"].values()]
+        done = sum(r["completed"] for r in reqs)
+        errs = sum(r["errors"] for r in reqs)
+    else:
+        done = report["requests"]["completed"]
+        errs = report["requests"]["errors"]
     return 0 if done > 0 and not errs else 1
 
 

@@ -15,8 +15,9 @@ Targets are callables ``(payload, rec, t0)`` that run one request and stamp
   token; TTFT = the first chunk) or unary;
 - :class:`HTTPTarget` drives the HTTP proxy, SSE-aware.
 
-``run_multi_job_load`` needs the tenancy layer's ``job_context``, which the
-port does not have yet (ROADMAP A11e, third part): it raises ``NotImplementedError``.
+``run_multi_job_load`` drives several tenants at once, each request in its
+job's ``tenancy.job_context``, and reports per-job goodput, Jain's fairness
+index and the isolation ratio of the jobs' E2E p99s.
 
 One departure: ``HTTPTarget`` reads the SSE stream with ``read1``, which
 returns what has arrived. JAX's ``read(4096)`` waits for 4 KiB or the end
@@ -302,20 +303,99 @@ def run_multi_job_load(target: Target, spec: LoadSpec, jobs: int = 2,
                        weights: Optional[List[float]] = None,
                        job_prefix: str = "loadgen-job"
                        ) -> Dict[str, Any]:
-    """Drive ``jobs`` concurrent tenants through one target, each request
-    in its job's ``job_context``. That context is the tenancy layer's
-    (``ray_tpu.tenancy``), which the port does not have yet."""
-    raise NotImplementedError(
-        "run_multi_job_load needs the tenancy layer's job_context, which "
-        "ray_tpu_torch does not have yet (ROADMAP A11e, third part)")
+    """Drive ``jobs`` concurrent tenants through one target.
+
+    Each job runs its own open-loop :func:`run_load` (offered rate
+    split evenly, independent arrival/payload seeds) with every request
+    wrapped in that job's :func:`ray_tpu_torch.tenancy.job_context` — the
+    wrapper re-enters the scope inside the client worker thread because
+    contextvars do not cross thread boundaries. The combined report
+    carries per-job reports plus a ``multitenancy`` section:
+
+    - ``fairness_index`` — Jain's index over weight-normalized goodput
+      (``goodput_j / weight_j``);
+    - ``isolation_p99_ratio`` — max/min per-job E2E p99: 1.0 means no
+      job's tail is inflated by its neighbors.
+    """
+    from ray_tpu_torch.tenancy import job_context
+
+    n = max(1, int(jobs))
+    ws = [float(w) for w in (weights or [])][:n]
+    ws += [1.0] * (n - len(ws))
+    reports: Dict[str, Dict[str, Any]] = {}
+    errors: List[BaseException] = []
+
+    def one_job(idx: int) -> None:
+        name = f"{job_prefix}-{idx}"
+        jspec = dataclasses.replace(
+            spec, rate=spec.rate / n, seed=spec.seed + 1000 * idx)
+
+        def wrapped(payload, rec, t0, _name=name, _w=ws[idx]):
+            with job_context(_name, weight=_w):
+                target(payload, rec, t0)
+
+        try:
+            reports[name] = run_load(wrapped, jspec)
+        except BaseException as e:   # surfaced after join
+            errors.append(e)
+
+    runners = [threading.Thread(target=one_job, args=(i,), daemon=True,
+                                name=f"loadgen-job-{i}")
+               for i in range(n)]
+    t0 = time.perf_counter()
+    for r in runners:
+        r.start()
+    for r in runners:
+        r.join()
+    if errors:
+        raise errors[0]
+    wall_s = time.perf_counter() - t0
+
+    names = sorted(reports)
+    goodput = {
+        name: float((reports[name].get("goodput") or {})
+                    .get("requests_per_second", 0.0))
+        for name in names}
+    weights_by_job = {f"{job_prefix}-{i}": ws[i] for i in range(n)}
+    shares = [goodput[name] / max(weights_by_job[name], 1e-9)
+              for name in names]
+    p99s = [float(reports[name]["e2e_s"]["p99"] or 0.0)
+            for name in names]
+    iso = (max(p99s) / max(min(p99s), 1e-9)) if p99s else 0.0
+    return {
+        "jobs": reports,
+        "wall_s": wall_s,
+        "multitenancy": {
+            "num_jobs": n,
+            "weights": weights_by_job,
+            "goodput_per_job": goodput,
+            "fairness_index": jain_fairness(shares),
+            "isolation_p99_ratio": iso,
+        },
+        "spec": spec.to_dict(),
+        "target": repr(target),
+    }
 
 
 def format_multi_report(report: Dict[str, Any]) -> str:
-    """Human-readable summary of a :func:`run_multi_job_load` report, which
-    the port cannot produce until the tenancy layer lands."""
-    raise NotImplementedError(
-        "format_multi_report formats run_multi_job_load's report, which "
-        "needs the tenancy layer (ROADMAP A11e, third part)")
+    """Human-readable summary of a :func:`run_multi_job_load` report."""
+    mt = report["multitenancy"]
+    lines = ["== loadgen multi-job report =="]
+    for name in sorted(report["jobs"]):
+        rep = report["jobs"][name]
+        req = rep["requests"]
+        lines.append(
+            f"{name} (w={mt['weights'][name]:g}): "
+            f"{req['completed']}/{req['total']} done, "
+            f"goodput {mt['goodput_per_job'][name]:.2f} req/s, "
+            f"E2E p99 {rep['e2e_s']['p99'] * 1e3:.1f} ms")
+    lines.append(
+        f"fairness index (Jain, weight-normalized goodput): "
+        f"{mt['fairness_index']:.3f}")
+    lines.append(
+        f"isolation p99 ratio (max/min across jobs): "
+        f"{mt['isolation_p99_ratio']:.2f}")
+    return "\n".join(lines)
 
 
 def format_report(report: Dict[str, Any]) -> str:

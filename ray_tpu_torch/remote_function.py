@@ -10,11 +10,14 @@ from typing import Any, Dict, List, Optional, Union
 from ray_tpu_torch._private import worker
 from ray_tpu_torch._private.ids import ObjectID, TaskID
 from ray_tpu_torch._private.object_ref import ObjectRef
+from ray_tpu_torch._private.runtime_env_packaging import \
+    prepare_runtime_env as _prepare_runtime_env
 from ray_tpu_torch._private.task_spec import (DEFAULT_TASK_OPTIONS, TaskKind,
                                               TaskSpec,
                                               resources_from_options,
                                               strategy_from_options,
                                               validate_options)
+from ray_tpu_torch.tenancy import context as _tenancy_ctx
 
 
 class ObjectRefGenerator:
@@ -107,6 +110,15 @@ class RemoteFunction:
     def remote(self, *args, **kwargs):
         return self._remote(args, kwargs, self._default_options)
 
+    def bind(self, *args, **kwargs):
+        """Build a DAG node (``ray_tpu_torch.dag``)."""
+        from ray_tpu_torch.dag.node import FunctionNode
+        return FunctionNode(self, args, kwargs)
+
+    @property
+    def _function_name(self) -> str:
+        return getattr(self._function, "__name__", "fn")
+
     def _remote(self, args, kwargs, options) -> Union[ObjectRef,
                                                       List[ObjectRef],
                                                       ObjectRefGenerator]:
@@ -129,9 +141,11 @@ class RemoteFunction:
             return_ids=[ObjectID.from_random() for _ in range(n_ids)],
             max_retries=options.get("max_retries", 3),
             retry_exceptions=options.get("retry_exceptions", False),
+            runtime_env=_prepare_runtime_env(
+                options.get("runtime_env")),
             scheduling_strategy=worker.capture_parent_pg_strategy(
                 strategy_from_options(options)),
-            job_id=rt.job_id,
+            job_id=_tenancy_ctx.current_job_id(rt),
             backpressure_num_objects=options.get(
                 "_generator_backpressure_num_objects", -1),
             label_selector=options.get("label_selector"),

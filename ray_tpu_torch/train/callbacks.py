@@ -3,9 +3,10 @@ of ``ray_tpu/train/callbacks.py``, a copy of the JAX package's module).
 
 Hooks invoked on run start, every report, every checkpoint and run end, and
 the JSON and CSV file loggers. Attach via ``RunConfig(callbacks=[...])``,
-which ``JaxTrainer`` and ``tune.Tuner`` (each trial's reports) honour. JAX's
-Weights & Biases and MLflow callbacks are left out: they import packages
-that the port may not (ROADMAP A11e, third part).
+which ``JaxTrainer`` and ``tune.Tuner`` (each trial's reports) honour. The
+Weights & Biases and MLflow callbacks import their packages lazily, when
+one is constructed; without the package the constructor raises
+``ImportError`` naming it.
 """
 
 from __future__ import annotations
@@ -104,6 +105,76 @@ class CSVLoggerCallback(Callback):
             self._f.close()
             self._f = None
             self._writer = None
+
+
+class WandbLoggerCallback(Callback):
+    """Weights & Biases."""
+
+    def __init__(self, project: str, **init_kwargs):
+        try:
+            import wandb  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "WandbLoggerCallback requires the `wandb` package, which "
+                "is not installed; use JsonLoggerCallback/"
+                "CSVLoggerCallback or install wandb.") from e
+        self._project = project
+        self._init_kwargs = init_kwargs
+        self._run = None
+
+    def on_run_start(self, run_name, config=None):
+        import wandb
+
+        self._run = wandb.init(project=self._project, name=run_name,
+                               config=config, **self._init_kwargs)
+
+    def on_report(self, metrics, iteration, rank=0, trial_id=""):
+        if self._run is not None and rank == 0:
+            self._run.log(metrics, step=iteration)
+
+    def on_run_end(self, result=None, error=None):
+        if self._run is not None:
+            self._run.finish()
+            self._run = None
+
+
+class MLflowLoggerCallback(Callback):
+    """MLflow."""
+
+    def __init__(self, tracking_uri: Optional[str] = None,
+                 experiment_name: str = "ray_tpu_torch"):
+        try:
+            import mlflow  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "MLflowLoggerCallback requires the `mlflow` package, "
+                "which is not installed; use JsonLoggerCallback/"
+                "CSVLoggerCallback or install mlflow.") from e
+        self._tracking_uri = tracking_uri
+        self._experiment_name = experiment_name
+
+    def on_run_start(self, run_name, config=None):
+        import mlflow
+
+        if self._tracking_uri:
+            mlflow.set_tracking_uri(self._tracking_uri)
+        mlflow.set_experiment(self._experiment_name)
+        mlflow.start_run(run_name=run_name)
+        if config:
+            mlflow.log_params(config)
+
+    def on_report(self, metrics, iteration, rank=0, trial_id=""):
+        import mlflow
+
+        if rank == 0:
+            mlflow.log_metrics(
+                {k: v for k, v in metrics.items()
+                 if isinstance(v, (int, float))}, step=iteration)
+
+    def on_run_end(self, result=None, error=None):
+        import mlflow
+
+        mlflow.end_run()
 
 
 def invoke(callbacks, hook: str, *args, **kwargs) -> None:

@@ -4,9 +4,12 @@ coalesced-write, mixed-cluster hello, lag-watchdog and registry re-attach
 tests against ``ray_tpu_torch``, its failpoint and netchaos parity tests
 (the threaded core's seam names, chaos below the frame layer, delays on
 ``call_later`` chains), and the capability table held against a live hello
-reply.
+reply, and the registry-pollution pair run back to back.
 """
 
+import os
+import subprocess
+import sys
 import time
 
 import pytest
@@ -438,3 +441,21 @@ def test_metric_write_survives_registry_clear():
         assert "pollution_pin_total 3.0" in metrics.prometheus_text()
     finally:
         metrics.clear_registry()
+
+
+@pytest.mark.slow
+def test_polluting_pair_back_to_back():
+    """The original failure order, pinned end to end: an observability
+    test that clears the registry, then the tenancy test asserting
+    ray_tpu_admission_total appears in the exposition — back to back
+    in one fresh interpreter, no other tests in between."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q",
+         "-p", "no:cacheprovider", "-p", "no:randomly",
+         "tests/test_torch_observability.py::test_prometheus_label_escaping",
+         "tests/test_torch_tenancy.py::"
+         "test_queued_is_delayed_never_lost_and_resumes"],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -3,9 +3,7 @@ failpoint and network-chaos schedules replayed across topologies.
 
 Run with ``pytest -m chaos``. Every test here is also marked slow, as
 JAX's are, so the tier-1 sweep (``-m 'not slow'``) never pays for cluster
-boots and fault windows. JAX's
-``test_chaos_quota_exceeded_job_degrades_others_unharmed`` waits for
-tenancy (ROADMAP A11e, third part).
+boots and fault windows.
 
 Each schedule is deterministic for a given seed: probabilistic arms draw
 from the registry's seeded RNG, hit-count arms count per seam, and every
@@ -441,6 +439,50 @@ def test_chaos_drain_deadline_races_escalation_daemons(seed,
 # ---------------------------------------------------------------------------
 # multi-tenant fair-share under fault injection
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", SEEDS[:1])
+def test_chaos_quota_exceeded_job_degrades_others_unharmed(seed):
+    """A tenant that blows through its CPU quota while the
+    ``admission.verdict`` seam is erroring degrades gracefully (its
+    submits fall back to QUEUED — delayed, never lost) and the
+    well-behaved tenant on the same cluster is unharmed: every task
+    from BOTH jobs completes and the seam's hit log shows the faults
+    actually fired."""
+    from ray_tpu_torch.tenancy import job_context
+
+    rt = ray_tpu.init(num_nodes=1, resources={"CPU": 2},
+                      _system_config={"fairshare": True})
+    try:
+        # the greedy tenant gets a 1-CPU hard cap on a 2-CPU cluster
+        rt.tenancy.set_quota("greedy", hard={"CPU": 1.0})
+
+        @ray_tpu.remote
+        def work(i):
+            time.sleep(0.02)
+            return i
+
+        # every 2nd admission decision errors: those submits must
+        # degrade to QUEUED (dispatch gate re-decides), not crash
+        fp.activate("admission.verdict=error(RuntimeError):every=2:max=20",
+                    seed=seed)
+        with job_context("greedy"):
+            greedy_refs = [work.remote(i) for i in range(20)]
+        with job_context("polite"):
+            polite_refs = [work.remote(i) for i in range(10)]
+        fired = fp.fire_count("admission.verdict")
+        assert fired > 0     # the schedule actually cut the seam
+        # the polite job is unharmed: all results arrive
+        assert sorted(ray_tpu.get(polite_refs, timeout=60)) == \
+            list(range(10))
+        # the degraded job is delayed, never lost: all results arrive
+        # even though half its verdicts came from the error arm and its
+        # quota held it to 1 CPU throughout
+        assert sorted(ray_tpu.get(greedy_refs, timeout=120)) == \
+            list(range(20))
+        assert fp.hit_count("admission.verdict") >= fired
+    finally:
+        ray_tpu.shutdown()
+
 
 # ---------------------------------------------------------------------------
 # process-death reclamation campaign: SIGKILL'd clients leak nothing

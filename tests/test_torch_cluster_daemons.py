@@ -814,45 +814,6 @@ def test_sigkilled_driver_leaves_no_head_or_daemon(tmp_path):
     assert not os.path.exists(info["session"])
 
 
-_CLUSTER_FLAGS = [
-    "cluster", "head_grace_s", "heartbeat_interval_s", "node_dead_after_s",
-    "pull_chunk", "objectplane_attach", "direct_put_min_bytes",
-    "raw_tier_min_bytes", "push_prefetch", "memory_pressure",
-    "arena_spill_dir", "arena_spill_budget_bytes", "submit_batch_max",
-    "submit_linger_us", "free_batch_max", "free_flush_ms",
-    "result_batch_max", "result_linger_us", "control_call_timeout_s"]
-
-
-@pytest.mark.parametrize("name", _CLUSTER_FLAGS)
-def test_cluster_flag_matches_jax(name):
-    """Each flag the daemon cluster reads is JAX's flag: same name, type,
-    default and environment variable."""
-    from ray_tpu._private import config as jax_config
-    from ray_tpu_torch._private import config as port_config
-    jax_flag = jax_config.FLAGS[name]
-    flag = port_config.FLAGS[name]
-    assert (flag.type, flag.default, flag.env_var) == (
-        jax_flag.type, jax_flag.default, jax_flag.env_var)
-
-
-_CORE_AND_DRAIN_FLAGS = [
-    "async_core", "loop_lag_probe_s", "loop_slow_callback_s",
-    "async_debug", "lock_sanitizer", "drain_deadline_s",
-    "drain_notice_file"]
-
-
-@pytest.mark.parametrize("name", _CORE_AND_DRAIN_FLAGS)
-def test_core_and_drain_flag_matches_jax(name):
-    """The asyncio core's and the drain's flags are JAX's: same name,
-    type, default (``async_core`` True, the asyncio core) and variable."""
-    from ray_tpu._private import config as jax_config
-    from ray_tpu_torch._private import config as port_config
-    jax_flag = jax_config.FLAGS[name]
-    flag = port_config.FLAGS[name]
-    assert (flag.type, flag.default, flag.env_var) == (
-        jax_flag.type, jax_flag.default, jax_flag.env_var)
-
-
 def test_a_daemon_started_by_hand_joins_the_driver(daemon_cluster):
     """A daemon started against the live head (not by the driver) joins it
     through the head's ``added`` event (``ClusterBackend._join_node``): it

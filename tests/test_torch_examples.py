@@ -1,5 +1,5 @@
-"""The port's copies of the A8 example scripts run end to end on the CPU
-(the three tests of ``tests/test_examples.py`` that the port's runtime
+"""The port's copies of the example scripts run end to end on the CPU
+(the four tests of ``tests/test_examples.py`` that the port's runtime
 carries, at their sizes, with JAX's assertions), with process workers on."""
 
 import pytest
@@ -46,6 +46,21 @@ def test_full_stack_pipeline_example(ray_start_regular):
     assert abs(out["b"] - 1.0) < 0.5
     expected = out["w"] * 0.5 + out["b"]
     assert abs(out["served_prediction"] - expected) < 1e-6
+
+
+
+def test_compiled_dag_pipeline_example():
+    """The three-actor pipeline engages the shm-channel mode on the
+    port's default topology (JAX's test pins ``cluster="local"``, the
+    port's default) and gives one float a round."""
+    from ray_tpu_torch.examples import compiled_dag_pipeline
+    ray_tpu_torch.init(num_nodes=1, resources={"CPU": 8})
+    try:
+        outs = compiled_dag_pipeline.main(rounds=20)
+        assert len(outs) == 20
+        assert all(isinstance(o, float) for o in outs)
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def test_examples_ask_for_the_card_by_default():

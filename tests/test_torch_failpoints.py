@@ -463,11 +463,9 @@ WIRED_SEAMS = [
     "arena.spill",
     "arena.restore",
     "pressure.level",
+    "admission.verdict",
+    "tenancy.quota_sync",
 ]
-
-# JAX's two tenancy seams, which wait for tenancy (ROADMAP A11e, third
-# part): no site of the port fires them yet
-TENANCY_SEAMS = ["admission.verdict", "tenancy.quota_sync"]
 
 
 def _fire_sites():
@@ -484,14 +482,12 @@ def _fire_sites():
 
 
 def test_every_wired_seam_has_a_site_in_the_port():
-    """Each of the 35 catalogued seams is fired somewhere in
-    ``ray_tpu_torch/`` and no site fires a name outside the catalogue;
-    the tenancy seams have no site yet."""
+    """Each of JAX's 37 catalogued seams is fired somewhere in
+    ``ray_tpu_torch/`` and no site fires a name outside the catalogue."""
     sites = _fire_sites()
-    assert len(WIRED_SEAMS) == len(set(WIRED_SEAMS)) == 35
+    assert len(WIRED_SEAMS) == len(set(WIRED_SEAMS)) == 37
     assert sorted(sites) == sorted(WIRED_SEAMS), (
         set(WIRED_SEAMS) ^ set(sites))
-    assert not set(TENANCY_SEAMS) & set(sites)
 
 
 def test_every_wired_seam_activates_and_fires():

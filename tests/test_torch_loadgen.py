@@ -234,6 +234,29 @@ def test_cli_smoke_debug_app(tmp_path):
     assert disk["requests"] == rep["requests"]
 
 
+def test_cli_runs_tenant_jobs(tmp_path):
+    """``--jobs 2 --job-weights 2,1`` drives the self-hosted app as two
+    tenants and prints the multi-job report and one JSON line."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.loadgen", "--clients", "2",
+         "--rate", "8", "--duration", "1.0", "--prompt-len", "8",
+         "--output-len", "4", "--replicas", "1", "--seed", "1",
+         "--jobs", "2", "--job-weights", "2,1", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=REPO_ROOT)
+    assert proc.returncode == 0, (proc.stdout[-500:], proc.stderr[-800:])
+    assert "== loadgen multi-job report ==" in proc.stdout
+    rep = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith("{")][-1])
+    assert sorted(rep["jobs"]) == ["loadgen-job-0", "loadgen-job-1"]
+    assert rep["multitenancy"]["weights"] == {"loadgen-job-0": 2.0,
+                                              "loadgen-job-1": 1.0}
+    for job in rep["jobs"].values():
+        assert job["requests"]["errors"] == 0
+        assert job["requests"]["completed"] > 0
+
+
 # ---------------------------------------------------------------------------
 # the same specs through both packages
 # ---------------------------------------------------------------------------
@@ -303,16 +326,56 @@ def test_recorder_summary_equals_jax():
 
 
 def test_multi_job_load_waits_for_tenancy():
+    """``run_multi_job_load`` (the tenancy layer's ``job_context`` around
+    each request) on both packages with one synthetic target: each job's
+    requests run as that job's tenant, the reports have JAX's shape and
+    request counts, and ``format_multi_report``/``jain_fairness`` are
+    JAX's."""
     from ray_tpu_torch.loadgen import (format_multi_report, jain_fairness,
                                        run_multi_job_load)
-    from ray_tpu_torch.loadgen.__main__ import main
+    from ray_tpu_torch.tenancy import current_job_id
+    from ray_tpu_torch.tenancy.context import canonical_job
     import ray_tpu.loadgen as jl
-    with pytest.raises(NotImplementedError, match="A11e"):
-        run_multi_job_load(lambda *a: None, LoadSpec(), jobs=2)
-    with pytest.raises(NotImplementedError, match="A11e"):
-        format_multi_report({})
-    with pytest.raises(NotImplementedError, match="A11e"):
-        main(["--jobs", "2", "--device", "cpu"])
+    from ray_tpu.tenancy import current_job_id as j_current_job_id
+
+    def make_target(current):
+        seen = []
+
+        def target(payload, rec, t0):
+            seen.append(current().hex())
+            now = time.perf_counter() - t0
+            rec.sent_at = now
+            rec.first_token_at = now + 0.001
+            rec.finished_at = now + 0.002
+            rec.output_tokens = 4
+        return target, seen
+
+    spec = dict(rate=40.0, duration_s=0.5, clients=2, seed=3)
+    port_target, port_seen = make_target(current_job_id)
+    jax_target, jax_seen = make_target(j_current_job_id)
+    port = run_multi_job_load(port_target, LoadSpec(**spec), jobs=2,
+                              weights=[2.0])
+    jax = jl.run_multi_job_load(jax_target, jl.LoadSpec(**spec), jobs=2,
+                                weights=[2.0])
+    assert sorted(port["jobs"]) == sorted(jax["jobs"])
+    assert port["multitenancy"]["weights"] == jax["multitenancy"]["weights"]
+    assert set(port["multitenancy"]) == set(jax["multitenancy"])
+    for name in port["jobs"]:
+        assert (port["jobs"][name]["requests"]
+                == jax["jobs"][name]["requests"])
+    # every request ran inside its own job's context
+    expected = {canonical_job(n)[0] for n in port["jobs"]}
+    assert set(port_seen) == expected == set(jax_seen)
+    # the formatter on one fixed report
+    fixed = {"jobs": {n: {"requests": {"completed": 3, "total": 4},
+                          "e2e_s": {"p99": 0.25}}
+                      for n in ("job-a", "job-b")},
+             "multitenancy": {"weights": {"job-a": 2.0, "job-b": 1.0},
+                              "goodput_per_job": {"job-a": 1.5,
+                                                  "job-b": 0.5},
+                              "fairness_index": 0.8,
+                              "isolation_p99_ratio": 1.0}}
+    assert format_multi_report(fixed) == jl.format_multi_report(fixed)
     for shares in ([1.0, 1.0], [3.0, 1.0, 0.0], []):
         assert jain_fairness(shares) == jl.jain_fairness(shares)
 

@@ -471,6 +471,57 @@ def test_memory_pressure_flag_spills_into_the_session_dir(monkeypatch):
     assert not os.path.exists(session)
 
 
+@rt_api.remote(num_returns=2)
+def _two_returns():
+    return np.ones(1 << 20, dtype=np.uint8), 5
+
+
+@rt_api.remote
+def _one_return():
+    return np.ones(1 << 20, dtype=np.uint8)
+
+
+@needs_native
+def test_two_return_task_holds_one_copy_in_the_arena():
+    """A task with two returns costs its array's bytes once in the
+    daemon's arena, as a one-return task does: the tuple's blob, which the
+    driver fetches once and splits, is freed when the returns are stored
+    on their own (JAX's daemons keep it as well and hold the array twice,
+    ROADMAP C24), and freeing both refs empties the arena again."""
+    rt = rt_api.init(num_nodes=1, resources={"CPU": 2}, cluster="daemons",
+                     object_store_memory=64 << 20)
+    try:
+        handle = next(iter(rt.cluster_backend.daemons.values()))
+
+        def used():
+            return handle.client.call("daemon_stats")["store_used"]
+
+        def settle(want, timeout=10.0):
+            deadline = time.monotonic() + timeout
+            got = used()
+            while got != want and time.monotonic() < deadline:
+                time.sleep(0.05)
+                got = used()
+            return got
+
+        base = used()
+        one = _one_return.remote()
+        rt_api.get(one)
+        one_cost = settle(base + (1 << 20)) - base
+        del one
+        settle(base)
+        a, b = _two_returns.remote()
+        assert rt_api.get(b) == 5
+        assert int(rt_api.get(a).sum()) == 1 << 20
+        two_cost = settle(base + one_cost) - base
+        assert one_cost == 1 << 20
+        assert two_cost == one_cost
+        del a, b
+        assert settle(base) == base
+    finally:
+        rt_api.shutdown()
+
+
 def test_push_receiver_distinct_range_accounting_and_raw_meta():
     """Review regressions: (1) duplicate/overlapping chunks from two
     concurrent senders must not count toward completion twice (a buffer

@@ -979,25 +979,6 @@ def test_export_events_as_in_jax(monkeypatch):
     assert port_out == jax_out
 
 
-_OBSERVABILITY_FLAGS = [
-    "task_trace", "trace_sample", "export_events", "profiling_hz",
-    "lock_metrics", "memory_monitor", "memory_monitor_interval",
-    "memory_usage_threshold", "memory_limit_bytes", "worker_killing_policy",
-    "log_to_driver", "log_dir"]
-
-
-@pytest.mark.parametrize("name", _OBSERVABILITY_FLAGS)
-def test_observability_flag_matches_jax(name):
-    """Each flag the observability layer reads is JAX's flag: same name,
-    type, default and environment variable."""
-    from ray_tpu._private import config as jax_config
-    from ray_tpu_torch._private import config as port_config
-    jax_flag = jax_config.FLAGS[name]
-    flag = port_config.FLAGS[name]
-    assert (flag.type, flag.default, flag.env_var) == (
-        jax_flag.type, jax_flag.default, jax_flag.env_var)
-
-
 def test_cli_read_commands_against_a_cluster(daemon_cluster_for_cli):
     """``status``, ``summary``, ``memory``, ``timeline`` and ``profile``
     exit 0 against a running cluster's address (each joins it as a

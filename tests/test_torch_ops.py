@@ -550,7 +550,10 @@ def test_port_imports_only_the_stdlib_torch_and_numpy():
     cluster tier adds two: ``yaml`` in ``cluster_launcher.py`` (a YAML
     config; a JSON one is read with ``json`` first) and ``joblib`` in
     ``util/joblib_backend.py`` (its backend subclasses a joblib class, so
-    the class is built inside ``register_ray``)."""
+    the class is built inside ``register_ray``). The tracking callbacks
+    add ``wandb`` and ``mlflow`` in ``train/callbacks.py``, imported when
+    a ``WandbLoggerCallback`` or ``MLflowLoggerCallback`` is constructed
+    and used, as in JAX; neither package is on the card's machine."""
     import sys
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy",
                                               "ray_tpu_torch"}
@@ -559,7 +562,8 @@ def test_port_imports_only_the_stdlib_torch_and_numpy():
                  ("pyarrow", "dataset.py"), ("pyarrow", "read_api.py"),
                  ("PIL", "read_api.py"), ("pyarrow", "offline.py"),
                  ("yaml", "cluster_launcher.py"),
-                 ("joblib", "joblib_backend.py")}
+                 ("joblib", "joblib_backend.py"),
+                 ("wandb", "callbacks.py"), ("mlflow", "callbacks.py")}
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     lazy = set()
@@ -580,4 +584,6 @@ def test_port_imports_only_the_stdlib_torch_and_numpy():
         ("PIL", "ray_tpu_torch/data/read_api.py"),
         ("pyarrow", "ray_tpu_torch/rl/offline.py"),
         ("yaml", "ray_tpu_torch/cluster_launcher.py"),
-        ("joblib", "ray_tpu_torch/util/joblib_backend.py")}
+        ("joblib", "ray_tpu_torch/util/joblib_backend.py"),
+        ("wandb", "ray_tpu_torch/train/callbacks.py"),
+        ("mlflow", "ray_tpu_torch/train/callbacks.py")}

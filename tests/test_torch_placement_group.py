@@ -188,7 +188,7 @@ def test_bundle_index_out_of_range(ray_start_cluster):
 def test_legacy_placement_group_options_name_the_group(ray_start_cluster):
     """``placement_group=`` and ``placement_group_bundle_index=`` place the
     task in that bundle (the reference's legacy options; JAX's package
-    accepts them and drops them)."""
+    accepts them and drops them), with its runtime env around the body."""
     pg = placement_group([{"CPU": 1}, {"CPU": 1}], strategy="STRICT_SPREAD")
     assert pg.wait(10)
     for i in (0, 1):
@@ -196,8 +196,17 @@ def test_legacy_placement_group_options_name_the_group(ray_start_cluster):
             placement_group=pg, placement_group_bundle_index=i,
             num_cpus=1).remote(), timeout=10)
         assert got == pg.bundle_nodes()[i].hex()
-    with pytest.raises(NotImplementedError, match="runtime_env"):
-        where.options(runtime_env={"env_vars": {}})
+
+    @ray_tpu_torch.remote
+    def flag_and_node():
+        import os
+        return (os.environ.get("PG_FLAG"),
+                ray_tpu_torch.get_runtime_context().get_node_id())
+
+    flag, node = ray_tpu_torch.get(flag_and_node.options(
+        placement_group=pg, placement_group_bundle_index=1, num_cpus=1,
+        runtime_env={"env_vars": {"PG_FLAG": "on"}}).remote(), timeout=10)
+    assert (flag, node) == ("on", pg.bundle_nodes()[1].hex())
 
 
 def test_bundle_holding_gpu_keeps_other_tasks_off_the_card():

@@ -11,9 +11,10 @@
   ride to success after relief;
 - pick_node soft-exclusion of hard-pressure nodes (DRAINING's peer).
 
-JAX's ``test_tenant_aware_policy_prefers_over_quota`` waits for tenancy
-(ROADMAP A11e, third part). The ballast-driven campaign lives in the
-chaos tier: tests/test_torch_chaos.py::test_chaos_memory_*.
+- the tenant-aware preemption order (over-quota jobs' workers first).
+
+The ballast-driven campaign lives in the chaos tier:
+tests/test_torch_chaos.py::test_chaos_memory_*.
 """
 
 import os
@@ -299,6 +300,39 @@ def test_hard_rejection_is_typed_and_retry_succeeds(monkeypatch):
 # ---------------------------------------------------------------------------
 # tenant-preferring preemption order
 # ---------------------------------------------------------------------------
+
+def test_tenant_aware_policy_prefers_over_quota():
+    from ray_tpu_torch._private.memory_monitor import (
+        RetriableFIFOPolicy,
+        TenantAwarePolicy,
+        _Candidate,
+    )
+    cands = [
+        _Candidate(1, "task", task_id="a", started_at=5.0,
+                   owner_key="job-greedy"),
+        _Candidate(2, "task", task_id="b", started_at=9.0,
+                   owner_key="job-quiet"),
+        _Candidate(3, "task", task_id="c", started_at=7.0,
+                   owner_key="job-greedy"),
+    ]
+    over = set()
+    policy = TenantAwarePolicy(RetriableFIFOPolicy(), lambda: over)
+
+    # no tenant over quota: plain host-pressure order (newest first)
+    assert policy.pick(cands).task_id == "b"
+    assert policy.last_reason == "host"
+
+    # the over-quota tenant's workers go first — newest WITHIN the
+    # preferred pool, even though a newer innocent task exists
+    over = {"job-greedy"}
+    assert policy.pick(cands).task_id == "c"
+    assert policy.last_reason == "tenant_quota"
+
+    # no over-quota worker running here: the full pool backstops
+    over = {"job-absent"}
+    assert policy.pick(cands).task_id == "b"
+    assert policy.last_reason == "host"
+
 
 # ---------------------------------------------------------------------------
 # pressure-aware placement

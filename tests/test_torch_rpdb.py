@@ -3,7 +3,6 @@ pdb sessions advertised in the cluster KV, post-mortem attach, and the
 CLI's session listing.
 """
 
-import os
 import threading
 import time
 
@@ -57,12 +56,10 @@ def test_set_trace_breakpoint(ray_start_regular):
 
 def test_post_mortem_attach(ray_start_regular):
     """A crashing task holds its frame for post-mortem inspection, then
-    the error still propagates to the caller. The port has no runtime
-    envs yet (A11e, third part), so the task body sets the flag in its
-    own worker: the hook reads it when the exception leaves the body."""
-    @ray_tpu.remote
+    the error still propagates to the caller. The flag rides the task's
+    runtime_env so it reaches pooled workers forked before the test."""
+    @ray_tpu.remote(runtime_env={"env_vars": {"RAY_TPU_POST_MORTEM": "1"}})
     def boom():
-        os.environ["RAY_TPU_POST_MORTEM"] = "1"
         clue = "the-clue"
         raise ValueError(f"exploded with {clue}")
 

@@ -6,9 +6,9 @@ elastic and callback tests (``tests/test_train.py``,
 
 The checkpoint tests of ``tests/test_train.py`` have their copies in
 ``tests/test_torch_parallel.py``, and ``test_callbacks_on_tune_trials`` in
-``tests/test_torch_tune.py``. Left uncopied:
-``test_tracking_integrations_import_gated`` (the W&B and MLflow callbacks,
-ROADMAP A11e).
+``tests/test_torch_tune.py``. The W&B and MLflow callbacks are held to
+JAX's with stand-in ``wandb`` and ``mlflow`` modules (neither package is
+installed here or on the card's machine).
 """
 
 import json
@@ -421,6 +421,65 @@ def test_elastic_resize_on_worker_failure(ray_start_regular, tmp_path):
 # ---------------------------------------------------------------------------
 # tests/test_callbacks.py
 # ---------------------------------------------------------------------------
+
+def test_tracking_integrations_import_gated():
+    from ray_tpu_torch.train.callbacks import (MLflowLoggerCallback,
+                                               WandbLoggerCallback)
+    with pytest.raises(ImportError, match="wandb"):
+        WandbLoggerCallback(project="x")
+    with pytest.raises(ImportError, match="mlflow"):
+        MLflowLoggerCallback()
+
+
+def _stand_in_tracking_modules(monkeypatch):
+    """``wandb`` and ``mlflow`` stand-ins that log every call."""
+    import sys
+    import types
+    calls = []
+
+    class Run:
+        def log(self, metrics, step=None):
+            calls.append(("wandb.log", dict(metrics), step))
+
+        def finish(self):
+            calls.append(("wandb.finish",))
+
+    wandb = types.ModuleType("wandb")
+    wandb.init = lambda **kw: (calls.append(("wandb.init", kw)), Run())[1]
+    mlflow = types.ModuleType("mlflow")
+    for name in ("set_tracking_uri", "set_experiment", "start_run",
+                 "log_params", "log_metrics", "end_run"):
+        setattr(mlflow, name,
+                lambda *a, _n=name, **kw: calls.append(
+                    ("mlflow." + _n, a, kw)))
+    monkeypatch.setitem(sys.modules, "wandb", wandb)
+    monkeypatch.setitem(sys.modules, "mlflow", mlflow)
+    return calls
+
+
+def test_tracking_callbacks_make_jax_calls(monkeypatch):
+    """The same hook sequence through the port's and JAX's W&B and MLflow
+    callbacks makes the same calls on the tracking modules (the MLflow
+    experiment's default name is each package's own)."""
+    from ray_tpu.train import callbacks as jax_cb
+    from ray_tpu_torch.train import callbacks as port_cb
+    calls = _stand_in_tracking_modules(monkeypatch)
+    seqs = []
+    for cb in (port_cb, jax_cb):
+        del calls[:]
+        for make in (lambda: cb.WandbLoggerCallback(project="p", tags=["t"]),
+                     lambda: cb.MLflowLoggerCallback(
+                         tracking_uri="file:/x", experiment_name="e")):
+            logger = make()
+            logger.on_run_start("run", config={"lr": 0.1})
+            logger.on_report({"loss": 0.5, "note": "s"}, 1)
+            logger.on_report({"loss": 0.4}, 2, rank=1)
+            logger.on_run_end()
+        seqs.append(list(calls))
+    assert seqs[0] == seqs[1]
+    assert ("wandb.log", {"loss": 0.5, "note": "s"}, 1) in seqs[0]
+    assert ("mlflow.log_metrics", ({"loss": 0.5},), {"step": 1}) in seqs[0]
+
 
 def test_json_and_csv_loggers_on_trainer(ray_start_regular, tmp_path):
     events = []
