@@ -31,10 +31,12 @@
 4. Compares ``decode_step_paged`` through the kernel with the reference
    implementation on identical (cloned) live pools at the repo's bf16 bar.
 5. Training path, every launch counter at 0 (the server freed first):
-   ``run_train`` on ``LlamaConfig.bench_400m()`` (443 M params, random from
-   seed 0), batch 8 x seq 2048, 2 warm-up + 10 timed AdamW steps of one
-   batch, full remat. The flash kernel must have run twice per layer per
-   step (forward and remat recompute), and the loss must fall.
+   ``run_train`` on ``LlamaConfig.bench_400m()`` at 8 of its 24 layers
+   (``BENCH_LAYERS``: 191 M params, random from seed 0; every bench_400m
+   of phases 5-10, 14, 15, 17-19 and 22(c) is cut so, phase 16 keeps 24),
+   batch 8 x seq 2048, 2 warm-up + 10 timed AdamW steps of one batch,
+   full remat. The flash kernel must have run twice per layer per step
+   (forward and remat recompute), and the loss must fall.
 6. The loss through the flash kernel against the blockwise path on the
    same f32 params and batch, at the repo's bar (rtol 1e-3, atol 1e-4).
 7. The other model families train on the card, one after another, each
@@ -77,9 +79,9 @@
    bench_400m's attention shapes: bf16 against the flash kernel at the
    bf16 bar, f32 gradients against autograd through the reference at the
    gradient bar, each timed; (c) the GPipe schedule (``pipelined``) over
-   the mesh's one stage of bench_400m's 24 layers, ``PipelinedLlama``'s
+   the mesh's one stage of bench_400m's 8 layers, ``PipelinedLlama``'s
    stage body and apply, 4 microbatches of 2 x 2048, remat: first loss
-   against phase 5's at rtol 1e-3, flash launched 2 x 24 x 4 times a
+   against phase 5's at rtol 1e-3, flash launched 2 x 8 x 4 times a
    step, step time beside phase 5's; (d) ``dryrun_mesh(8)``: one step of
    each parallel layout on 8 gloo ranks of this machine's CPU (NCCL holds
    one rank a card, so meshes of more ranks meet this torch here), each
@@ -141,17 +143,18 @@
    chip_smoke.serve_path(torch.device('cuda'))"``.
 14. The open-loop serving bench (``ray_tpu_torch.llm.bench``) on a fresh
    ``init()``, every counter at 0 before each run: (a)
-   ``run_serving_bench()`` (``bench_400m`` at max_seq 1024, random from
-   seed 0, one replica of 32 slots, the paged kernel; seeded Poisson
-   arrivals at 6 requests/s for 16 s, 64 clients, prompts of 32-256 tokens,
-   64 new tokens, every prefill bucket warmed first), streams through the
+   ``run_serving_bench(n_layers=8)`` (``bench_400m`` at max_seq 1024 and
+   8 of its 24 layers, random from seed 0, one replica of 32 slots, the
+   paged kernel; seeded Poisson arrivals at 6 requests/s for 16 s, 64
+   clients, prompts of 32-256 tokens, 64 new tokens, every prefill bucket
+   warmed first), streams through the
    handle: every scheduled request completes with no error and no
    abandoned client, the paged kernel once per layer per decode step of the
    replica's engine and no other kernel; ``serving_section`` with the
    client's TTFT/E2E/TPOT percentiles, goodput and the engine's own
    ``ttft_s``; (b) the same load as unary calls (the router's waiter path),
-   beside (a); (c) ``run_http_proxy_bench()``: 64 requests, 16 at a time,
-   64 tokens, every SSE stream ending in ``[DONE]``; then the card's
+   beside (a); (c) ``run_http_proxy_bench(n_layers=8)``: 64 requests, 16
+   at a time, 64 tokens, every SSE stream ending in ``[DONE]``; then the card's
    allocated bytes are back within 256 MiB of the base. Before (a), the
    paged kernel is held to its plain version at the bench's shapes (B 32,
    8 query / 4 KV heads, D 128, block 32, lengths 32-320 across the
@@ -163,11 +166,11 @@
    placement group whose bundle holds the card (``ScalingConfig(use_gpu=
    True)``) trains bench_400m for 6 AdamW steps at phase 5's batch (8 x
    2048, seed 0, full remat) through ``make_train_step``: the flash kernel
-   2 x 24 times a step, the first loss held to phase 5's, a ``num_gpus=1``
+   2 x 8 times a step, the first loss held to phase 5's, a ``num_gpus=1``
    task submitted during ``fit()`` pending until the group is gone, the
    step time beside phase 5's; (b) the same with
    ``FailureConfig(max_failures=1)``: rank 0 checkpoints params and AdamW
-   state after step 3 (5.3 GB in f32), the loop raises once before step 4,
+   state after step 3 (2.3 GB in f32), the loop raises once before step 4,
    the group re-forms from the checkpoint and steps 4-5 are held to (a)'s;
    the checkpoint's write and restore seconds; (c) no train worker thread
    left and the card's allocated bytes back within 256 MiB of the base.
@@ -175,13 +178,15 @@
    chip_smoke.train_driver_path(torch.device('cuda'))"``.
 16. Tune and the utilities (``ray_tpu_torch.tune``, ``ray_tpu_torch.util``)
    on a fresh ``init()``, the flash counter at 0 before each part: (a) a
-   ``Tuner`` over a function trainable (bench_400m at phase 5's batch, up
-   to 6 AdamW steps at the trial's lr, each reported) with
+   ``Tuner`` over a function trainable (bench_400m at all of its 24
+   layers, ``TUNE_LAYERS``, and phase 5's batch, up to 6 AdamW steps at
+   the trial's lr, each reported) with
    ``AsyncHyperBandScheduler(grace_period=2, reduction_factor=2,
    max_t=6)`` over lr 1e-3, 0.0 and 3e-4, one trial at a time: every
-   first loss is phase 5's, the lr 0.0 trial is stopped at iteration 2
-   with the initial loss, the best lr is 1e-3, the scheduler's decisions
-   replay on a fresh one, flash 2 x 24 times a reported step, and each
+   first loss is ``run_train``'s at that depth, the lr 0.0 trial is
+   stopped at iteration 2 with the initial loss, the best lr is 1e-3, the
+   scheduler's decisions replay on a fresh one, flash 2 x 24 times a
+   reported step, and each
    trial starts with the card's bytes within 256 MiB of the base (a
    stopped trial's model is freed, ROADMAP C11); (b) Train-on-Tune: a
    ``Tuner`` over a ``JaxTrainer`` of phase 15's loop (3 steps,
@@ -195,7 +200,7 @@
    ``ActorPool.map`` and ``Queue`` handing a CUDA tensor over uncopied;
    after ``shutdown()`` no trial, train-worker, queue or collective thread
    is left and the card's bytes are back within 256 MiB of the base.
-   Alone (it runs phase 5 first): ``python -c "import chip_smoke, torch;
+   Alone: ``python -c "import chip_smoke, torch;
    chip_smoke.tune_path(torch.device('cuda'))"``.
 17. The data layer and the device feed (``ray_tpu_torch.data``) on a fresh
    ``init()``, the flash counter at 0: (a) ``JaxTrainer(datasets={"train":
@@ -204,7 +209,7 @@
    ``map_batches``, 8 blocks; the loop feeds
    ``get_dataset_shard("train").to_jax(batch_size=8, prefetch=2)`` (pinned
    staging, a side-stream copy) into bench_400m's step for 6 AdamW steps
-   (full remat): the flash kernel 2 x 24 x 6 times, the first batch phase
+   (full remat): the flash kernel 2 x 8 x 6 times, the first batch phase
    5's and the first loss phase 5's to every printed digit, the step
    median beside phase 5's; (b) BASELINE config 4 at ImageNet's widths:
    2,048 records of a 224 x 224 x 3 uint8 image, a label and an index
@@ -213,14 +218,15 @@
    normalised to f32 by an actor pool, ``streaming_split(1)``; pass 1
    feeds the card alone (images/s, GB/s beside a plain pinned ``copy_`` of
    one batch, the object store's peak, the first batch held to its
-   records' values), pass 2 feeds ViT-L/16's train step at 32 images
-   (images/s beside the bare step on a resident batch, the device-busy
-   share of one profiled window; head_dim 64 runs the reference
-   attention, so no kernel of the port); (c) TFRecord and Avro round
-   trips, ``iter_torch_batches`` onto the card, the feed's pinned staging
-   and side stream checked directly; after ``shutdown()`` no prefetch,
-   map-pool, shuffle or train-worker thread is left and the card's bytes
-   are back within 256 MiB of the base. Alone (it runs phase 5 first):
+   records' values), pass 2 feeds ViT-L/16's train step (8 of its 24
+   layers, ``VIT_LAYERS``) at 32 images (images/s beside the bare step
+   on a resident batch, the device-busy share of one profiled window;
+   head_dim 64 runs the reference attention, so no kernel of the port);
+   (c) TFRecord and Avro round trips, ``iter_torch_batches`` onto the
+   card, the feed's pinned staging and side stream checked directly;
+   after ``shutdown()`` no prefetch, map-pool, shuffle or train-worker
+   thread is left and the card's bytes are back within 256 MiB of the
+   base. Alone (it runs phase 5 first):
    ``python -c "import chip_smoke, torch;
    chip_smoke.data_path(torch.device('cuda'))"``.
 
@@ -240,7 +246,7 @@
    normalising actor pool in worker processes: images/s alone and into
    ViT-L/16's step beside phase 17's in-thread figures and the bare step;
    (c) phase 17(a) with the dataset's tasks in worker processes, the flash
-   counter at 0: 2 x 24 x 6 launches, the first loss phase 5's exactly;
+   counter at 0: 2 x 8 x 6 launches, the first loss phase 5's exactly;
    (d) a 256 MiB bf16 CUDA tensor and a one-rank DTensor through
    ``wire_dumps``/``wire_loads``: back on the card bit-equal, and CPU
    tensors bit-equal in a worker; (e) after ``shutdown()`` and
@@ -265,7 +271,7 @@
    counted) and are held to the plain version at the bf16 bar; the
    ``/dev/shm`` mount's size and the arena's; (c) phase 17(a) with the
    data's plain tasks on the lane (the core counts them), the flash
-   counter at 0: 2 x 24 x 6 launches, the first loss phase 5's exactly;
+   counter at 0: 2 x 8 x 6 launches, the first loss phase 5's exactly;
    (d) after ``shutdown()`` and ``stop_worker_plane()`` no lane worker, the
    core's port closed, no ``/dev/shm`` segment of this process and no bytes
    above the base on the card. Alone (it runs phase 5 first):
@@ -348,7 +354,7 @@
    ``Reconciler`` on (a)'s cluster provision a real daemon for a
    ``{"CPU": 16}`` bundle, a ``num_cpus=9`` task lands there, and idle it
    is drained and its process ends; (c) on a fresh ``init()``, bench_400m's
-   app (phase 14's, 32 slots) behind ``start_grpc_proxy()`` takes 8
+   app (phase 14's, 32 slots, 8 layers) behind ``start_grpc_proxy()`` takes 8
    ``predict`` and 8 ``predict_stream`` requests (prompts of 32-256 tokens,
    32 new, greedy, one at a time) and gives the tokens of the same requests
    through the handle of a second copy of the app, the paged kernel once
@@ -451,6 +457,26 @@
    worker process or forkserver, no new ``/dev/shm`` segment, no session
    dir, and the card within 64 MiB of its base. Alone: ``python -c "import
    chip_smoke, torch; chip_smoke.tenancy_path(torch.device('cuda'))"``.
+26. Topology (the flash counter at 0 after the driver's own launch): (a)
+   with no pod variable set, ``detect_tpu_chips()`` is
+   ``torch.cuda.device_count()``, ``accelerator_resources()`` is ``GPU``
+   and the card's accelerator type, and ``detect_local_topology()`` is None
+   for one card; (b) ``init(num_nodes=4, resources={"CPU": 4, "GPU": 4},
+   _system_config={"tpu_topology": "v5p:2x2x4"})``, a virtual slice on one
+   card: a PACK group of two 4-chip bundles claims one contiguous 8-chip
+   box on exactly two hosts, and a ``num_gpus=1`` task in each bundle draws
+   q, k and v on the card at phase 5's shapes and launches
+   ``flash_fwd_wgmma``, each output bit for bit the driver's launch outside
+   any group (held to the plain version); (c) a second group fills the 16
+   chips and a third stays pending until the first is removed, then claims
+   a contiguous box and its task launches the kernel; its node removed,
+   it is placed again on the surviving hosts, the allocator holding one
+   slice for it, and its task launches again; (d) a node that holds a
+   running task while it drains takes no new bundle; (e) with the groups
+   removed and after ``shutdown()`` the allocator is empty, no worker is
+   left and the card is within 64 MiB of its base. Alone: ``python -c
+   "import chip_smoke, torch;
+   chip_smoke.topology_path(torch.device('cuda'))"``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -489,6 +515,31 @@ LOSS_TOL = dict(atol=1e-4, rtol=1e-3)        # tests/test_ops.py:378
 # phase 18(b, c) repeats with the data's tasks in worker processes. Every
 # other phase runs on the runtime's default, process workers.
 IN_THREADS = {"process_workers": False}
+
+# Depth cut: the script's time limit stays fixed while its phases grow, so
+# every bench_400m of phases 5-10, 14, 15, 17-19 and 22(c) runs
+# BENCH_LAYERS of the preset's 24 layers, and the ViT-L/16 of phases 17(b)
+# and 18(b) VIT_LAYERS of its 24. Widths, shapes, batches, step counts and
+# checks are the presets'. The MoE, GPT-2 and ViT of phases 7, 8 and 10(a)
+# keep their depth.
+BENCH_LAYERS = 8
+VIT_LAYERS = 8
+# Phase 16 keeps bench_400m's 24 layers: its check that ASHA's best trial
+# is lr 1e-3 holds that depth (at 8 layers lr 3e-4 reaches the lower loss)
+TUNE_LAYERS = 24
+
+
+def bench_config(n_layers: int = BENCH_LAYERS, **kw):
+    """``LlamaConfig.bench_400m(**kw)`` at ``n_layers`` layers."""
+    from ray_tpu_torch.models import LlamaConfig
+    return dataclasses.replace(LlamaConfig.bench_400m(**kw),
+                               n_layers=n_layers)
+
+
+def vit_config():
+    """``ViTConfig.vit_l16()`` at ``VIT_LAYERS`` layers."""
+    from ray_tpu_torch.models import ViTConfig
+    return dataclasses.replace(ViTConfig.vit_l16(), n_layers=VIT_LAYERS)
 
 
 def log(msg: str) -> None:
@@ -984,7 +1035,8 @@ def train_path(dev, n_layers: int) -> dict:
     from ray_tpu_torch.bench import run_train
     from ray_tpu_torch.ops import attention as attn
     attn.flash_attention_kernel.launches = 0
-    out = run_train(dev, batch=8, seq=2048, steps=10, warmup=2, seed=0)
+    out = run_train(dev, batch=8, seq=2048, steps=10, warmup=2, seed=0,
+                    config=bench_config())
     launches = attn.flash_attention_kernel.launches
     steps = out["steps"] + out["warmup"]
     log(f"run_train(bench_400m, {out['model_params']} params, batch 8 x seq "
@@ -1146,8 +1198,8 @@ def bench_batch(cfg, rows: int = 8):
 def launches_per_step(dev, mesh) -> dict:
     """One bench_400m train step (batch 8 x 2048) on ``mesh`` or with
     none, profiled (``step_profile``)."""
-    from ray_tpu_torch.models import LlamaConfig, LlamaModel
-    cfg = LlamaConfig.bench_400m()
+    from ray_tpu_torch.models import LlamaModel
+    cfg = bench_config()
     return step_profile(LlamaModel(cfg, device=dev, mesh=mesh),
                         bench_batch(cfg))
 
@@ -1159,7 +1211,7 @@ def mesh_train(dev, mesh, plain: dict, n_layers: int) -> dict:
     from ray_tpu_torch.ops import attention as attn
     attn.flash_attention_kernel.launches = 0
     out = run_train(dev, batch=8, seq=2048, steps=10, warmup=2, seed=0,
-                    mesh=mesh)
+                    config=bench_config(), mesh=mesh)
     out["launches"] = attn.flash_attention_kernel.launches
     steps = out["steps"] + out["warmup"]
     gaps = {k: abs(out[k] / plain[k] - 1)
@@ -1194,11 +1246,11 @@ def mesh_checkpoint(dev, mesh) -> dict:
     import shutil
     import tempfile
     import torch
-    from ray_tpu_torch.models import LlamaConfig, LlamaModel
+    from ray_tpu_torch.models import LlamaModel
     from ray_tpu_torch.train import make_train_step, shard_batch
     from ray_tpu_torch.train.checkpoint import Checkpoint
     from ray_tpu_torch.train.spmd import mirror_shardings
-    cfg = LlamaConfig.bench_400m()
+    cfg = bench_config()
     ts = make_train_step(LlamaModel(cfg, device=dev, mesh=mesh), mesh=mesh)
     params, opt = ts.init_fn(0)
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 2048))
@@ -1237,8 +1289,8 @@ def _same_tree(a, b, dtensors: list) -> int:
         dtensors.append(isinstance(b, DTensor))
         fa = a.full_tensor() if isinstance(a, DTensor) else a
         fb = b.full_tensor() if isinstance(b, DTensor) else b
-        if fa.dtype != fb.dtype or not torch.equal(fa.detach().cpu(),
-                                                   fb.detach().cpu()):
+        if fa.dtype != fb.dtype or not torch.equal(
+                fa.detach(), fb.detach().to(fa.device)):
             raise RuntimeError("checkpoint: a restored leaf differs")
         return 1
     if isinstance(a, dict):
@@ -1318,7 +1370,7 @@ def mesh_path(dev, plain: dict, gpt2_plain: dict, n_layers: int) -> dict:
 # phase 10: sequence, expert and pipeline parallelism
 # ---------------------------------------------------------------------------
 
-def moe_alltoall(dev, mesh, plain: dict, n_layers: int) -> dict:
+def moe_alltoall(dev, mesh, plain: dict) -> dict:
     """(a) Phase 7's MoE workload with the expert all-to-all on ``mesh``:
     the same seed and batch, so at ep 1 the same first loss."""
     import torch
@@ -1327,6 +1379,7 @@ def moe_alltoall(dev, mesh, plain: dict, n_layers: int) -> dict:
     from ray_tpu_torch.ops import attention as attn
     cfg = dataclasses.replace(bench.moe_bench_config(),
                               moe_dispatch="alltoall")
+    n_layers = cfg.n_layers
     _, batch = bench.family_workload("moe", dev)
     torch.cuda.reset_peak_memory_stats(dev)
     attn.flash_attention_kernel.launches = 0
@@ -1423,7 +1476,7 @@ def pipeline_one_stage(dev, mesh, plain: dict, n_layers: int) -> dict:
     ``PipelinedLlama``'s init, stage body and apply, 4 microbatches of
     2 x 2048 (phase 5's batch and seed), remat."""
     from ray_tpu_torch import bench
-    from ray_tpu_torch.models import LlamaConfig, LlamaModel, PipelinedLlama
+    from ray_tpu_torch.models import LlamaModel, PipelinedLlama
     from ray_tpu_torch.ops import attention as attn
 
     class OneStage(PipelinedLlama):
@@ -1436,7 +1489,7 @@ def pipeline_one_stage(dev, mesh, plain: dict, n_layers: int) -> dict:
             self.device = device
             self._base = LlamaModel(cfg, device=device, mesh=mesh)
 
-    cfg = LlamaConfig.bench_400m()
+    cfg = bench_config()
     micro = 4
     attn.flash_attention_kernel.launches = 0
     out = bench.time_train_steps(OneStage(cfg, mesh, micro, dev),
@@ -1473,7 +1526,7 @@ def parallel_layouts(dev, gen, plain: dict, moe_plain: dict,
     from ray_tpu_torch.dryrun import dryrun_mesh
     from ray_tpu_torch.parallel import MeshSpec, build_mesh
     mesh = build_mesh(MeshSpec())
-    out = {"moe": moe_alltoall(dev, mesh, moe_plain, n_layers)}
+    out = {"moe": moe_alltoall(dev, mesh, moe_plain)}
     out["context"] = context_parallel_sp1(dev, gen)
     out["pipeline"] = pipeline_one_stage(dev, mesh, plain, n_layers)
     log("dryrun_mesh(8): 8 gloo ranks on this machine's CPU, by design: "
@@ -2644,8 +2697,7 @@ def bench_row(what: str, out: dict, smi: str) -> dict:
                            f"{s['errors']} errors, "
                            f"{detail.get('abandoned_clients', 0)} clients "
                            f"abandoned")
-    from ray_tpu_torch.models import LlamaConfig
-    n_layers = LlamaConfig.bench_400m().n_layers
+    n_layers = BENCH_LAYERS
     launches = read_launches()
     steps = sum(st["decode_steps"] for st in detail["engine_stats"])
     check_paged_only(what, launches, steps, n_layers)
@@ -2725,7 +2777,6 @@ def serving_bench_path(dev, smi=None) -> dict:
     import ray_tpu_torch as rt
     from ray_tpu_torch.llm.bench import run_http_proxy_bench, \
         run_serving_bench
-    from ray_tpu_torch.models import LlamaConfig
     t0 = time.perf_counter()
     smi = smi or card_name()
     kernel_check = check_bench_paged(dev, smi)
@@ -2740,12 +2791,14 @@ def serving_bench_path(dev, smi=None) -> dict:
         for key, stream in (("stream", True), ("unary", False)):
             for c in kernel_counters():
                 c.launches = 0
-            out = run_serving_bench(dev, stream=stream)
+            out = run_serving_bench(dev, stream=stream,
+                                    n_layers=BENCH_LAYERS)
             if out["device"] != smi:
                 raise RuntimeError(f"the bench names {out['device']!r}")
             rows[key] = bench_row(
                 f"open-loop bench ({'streams' if stream else 'unary'}, "
-                f"bench_400m, 6 requests/s for 16 s, 64 clients)", out, smi)
+                f"bench_400m at {BENCH_LAYERS} layers, 6 requests/s for 16 "
+                f"s, 64 clients)", out, smi)
         a, b = rows["stream"]["serving"], rows["unary"]["serving"]
         log(f"unary beside streams: {b['requests_per_second']} / "
             f"{a['requests_per_second']} requests/s, ttft p99 "
@@ -2755,14 +2808,14 @@ def serving_bench_path(dev, smi=None) -> dict:
             f"{a['goodput_requests_per_second']} requests/s ({smi})")
         for c in kernel_counters():
             c.launches = 0
-        http = run_http_proxy_bench(dev)
+        http = run_http_proxy_bench(dev, n_layers=BENCH_LAYERS)
         launches = read_launches()
         d = http["detail"]
         steps = sum(st["decode_steps"] for st in d["engine_stats"])
         if d["streams_done"] != d["requests"] or d["requests"] != 64 \
                 or d["output_tokens"] != 64 * 64:
             raise RuntimeError(f"HTTP bench: {d}")
-        n_layers = LlamaConfig.bench_400m().n_layers
+        n_layers = BENCH_LAYERS
         check_paged_only("HTTP bench", launches, steps, n_layers)
         log(f"HTTP bench (64 requests, 16 at a time, 64 tokens, SSE): "
             f"every stream ended in [DONE]; {http['value']} tokens/s, ttft "
@@ -2789,14 +2842,14 @@ def serving_bench_path(dev, smi=None) -> dict:
 # phase 15: the train driver
 # ---------------------------------------------------------------------------
 
-def bench_step(dev, lr=None) -> tuple:
-    """bench_400m's train step on ``dev`` through ``make_train_step``
-    (AdamW at ``lr``; None: the default, 3e-4) and phase 5's batch (8 x
-    2048, seed 0)."""
+def bench_step(dev, lr=None, n_layers: int = BENCH_LAYERS) -> tuple:
+    """bench_400m's train step at ``n_layers`` layers on ``dev`` through
+    ``make_train_step`` (AdamW at ``lr``; None: the default, 3e-4) and
+    phase 5's batch (8 x 2048, seed 0)."""
     import torch
     from ray_tpu_torch import train
-    from ray_tpu_torch.models import LlamaConfig, LlamaModel
-    cfg = LlamaConfig.bench_400m()
+    from ray_tpu_torch.models import LlamaModel
+    cfg = bench_config(n_layers)
     optimizer = None
     if lr is not None:
         def optimizer(leaves):
@@ -2821,7 +2874,8 @@ def bench_train_loop(config: dict) -> None:
     from ray_tpu_torch import train
     loop_t0 = time.time()
     dev = torch.device(config["device"])
-    ts, batch = bench_step(dev, config.get("lr"))
+    ts, batch = bench_step(dev, config.get("lr"),
+                           config.get("layers", BENCH_LAYERS))
     prev, start, restore_s = train.get_checkpoint(), 0, None
     if prev is None:
         params, opt = ts.init_fn(0)
@@ -2890,10 +2944,9 @@ def train_driver_path(dev, phase5=None, smi=None) -> dict:
     from ray_tpu_torch import train
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.train.callbacks import Callback
-    from ray_tpu_torch.models import LlamaConfig
     t0 = time.perf_counter()
     smi = smi or card_name()
-    n_layers = LlamaConfig.bench_400m().n_layers
+    n_layers = BENCH_LAYERS
     if phase5 is None:
         phase5 = train_path(dev, n_layers)
         free_card()
@@ -3013,9 +3066,10 @@ def train_driver_path(dev, phase5=None, smi=None) -> dict:
 # phase 16: tune and the utilities
 # ---------------------------------------------------------------------------
 
-def tune_trainable(config: dict, device) -> None:
+def tune_trainable(config: dict, device, layers: int) -> None:
     """One trial of phase 16(a): the card's allocated bytes before the model
-    is built, then ``bench_step`` at the trial's lr for up to 6 steps, each
+    is built, then ``bench_step`` at the trial's lr and ``layers`` for up to
+    6 steps, each
     reported with its loss, its time and the card's peak bytes since the
     trial began (one trial runs at a time)."""
     import torch
@@ -3023,7 +3077,7 @@ def tune_trainable(config: dict, device) -> None:
     dev = torch.device(device)
     start_bytes = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    ts, batch = bench_step(dev, config["lr"])
+    ts, batch = bench_step(dev, config["lr"], layers)
     params, opt = ts.init_fn(0)
     for i in range(6):
         t0 = time.perf_counter()
@@ -3036,9 +3090,10 @@ def tune_trainable(config: dict, device) -> None:
         tune.report(metrics)
 
 
-def tune_asha(dev, phase5: dict, base: int, n_layers: int, smi: str):
-    """Phase 16(a): ASHA over three lrs of bench_400m, one trial at a
-    time."""
+def tune_asha(dev, ref: dict, base: int, n_layers: int, smi: str):
+    """Phase 16(a): ASHA over three lrs of bench_400m at ``n_layers``
+    layers, one trial at a time; ``ref`` is ``run_train``'s at that
+    depth."""
     from ray_tpu_torch import tune
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.tune import AsyncHyperBandScheduler
@@ -3060,7 +3115,7 @@ def tune_asha(dev, phase5: dict, base: int, n_layers: int, smi: str):
     attn.flash_attention_kernel.launches = 0
     t0 = time.perf_counter()
     grid = tune.Tuner(
-        tune.with_parameters(tune_trainable, device=dev),
+        tune.with_parameters(tune_trainable, device=dev, layers=n_layers),
         param_space={"lr": tune.grid_search([1e-3, 0.0, 3e-4])},
         tune_config=tune.TuneConfig(metric="loss", mode="min",
                                     max_concurrent_trials=1,
@@ -3070,7 +3125,7 @@ def tune_asha(dev, phase5: dict, base: int, n_layers: int, smi: str):
     if grid.errors:
         raise RuntimeError(f"phase 16(a) trials failed: {grid.errors}")
     trials = {t.config["lr"]: t for t in grid.trials}
-    first = phase5["loss_first"]
+    first = ref["loss_first"]
     for lr, t in trials.items():
         torch_close(t.results[0]["loss"], first)
         if t.results[0]["start_bytes"] - base > 256 << 20:
@@ -3109,9 +3164,9 @@ def tune_asha(dev, phase5: dict, base: int, n_layers: int, smi: str):
          "start_bytes": t.results[0]["start_bytes"],
          "peak_bytes": max(r["peak"] for r in t.results)}
         for lr, t in trials.items()],
-        "stops": stops, "best_lr": 1e-3, "phase5_loss_first": first,
+        "stops": stops, "best_lr": 1e-3, "ref_loss_first": first,
         "step_ms_median": float(np.median(step_s)) * 1e3,
-        "phase5_step_ms": phase5["step_ms"], "base_bytes": base,
+        "ref_step_ms": ref["step_ms"], "base_bytes": base,
         "flash_launches": launches, "reported_steps": steps,
         "fit_s": fit_s, "card": smi}
     log(json.dumps(out))
@@ -3123,7 +3178,7 @@ def torch_close(a: float, b: float) -> None:
     torch.testing.assert_close(torch.tensor(a), torch.tensor(b), **LOSS_TOL)
 
 
-def tune_trainer(dev, phase5: dict, asha: dict, tmp: str, n_layers: int,
+def tune_trainer(dev, ref: dict, asha: dict, tmp: str, n_layers: int,
                  smi: str) -> dict:
     """Phase 16(b): Train-on-Tune, two trials of a one-worker JaxTrainer
     holding the card, both trial actors started at once."""
@@ -3149,7 +3204,8 @@ def tune_trainer(dev, phase5: dict, asha: dict, tmp: str, n_layers: int,
     grid = tune.Tuner(
         train.JaxTrainer(
             bench_train_loop,
-            train_loop_config={"device": str(dev), "steps": 3},
+            train_loop_config={"device": str(dev), "steps": 3,
+                               "layers": n_layers},
             scaling_config=train.ScalingConfig(use_gpu=True),
             run_config=train.RunConfig(name="phase16b", storage_path=tmp,
                                        callbacks=[reports])),
@@ -3171,7 +3227,7 @@ def tune_trainer(dev, phase5: dict, asha: dict, tmp: str, n_layers: int,
                 t.last_result["loss"] != mine[-1]["loss"]:
             raise RuntimeError(f"phase 16(b) lr {lr}: reports {mine}, "
                                f"result {t.last_result}")
-        torch_close(mine[0]["loss"], phase5["loss_first"])
+        torch_close(mine[0]["loss"], ref["loss_first"])
         windows.append((mine[0]["window"][0], mine[-1]["window"][1]))
         waits[lr] = mine[0]["loop_t0"] - wall0
         losses[lr] = [m["loss"] for m in mine]
@@ -3288,21 +3344,24 @@ def tune_utilities(dev, smi: str) -> dict:
     return out
 
 
-def tune_path(dev, phase5=None, smi=None) -> dict:
+def tune_path(dev, smi=None) -> dict:
     """Phase 16: tune and the utilities on a fresh ``init()`` (see the
-    module's docstring). Alone (it first runs phase 5 for its loss and step
-    time): ``python -c "import chip_smoke, torch;
+    module's docstring). Alone: ``python -c "import chip_smoke, torch;
     chip_smoke.tune_path(torch.device('cuda'))"``."""
     import shutil
     import tempfile
     import torch
     import ray_tpu_torch as rt
-    from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.bench import run_train
     t0 = time.perf_counter()
     smi = smi or card_name()
-    n_layers = LlamaConfig.bench_400m().n_layers
-    if phase5 is None:
-        phase5 = train_path(dev, n_layers)
+    n_layers = TUNE_LAYERS
+    # the trials' reference at their depth (phase 5 runs BENCH_LAYERS)
+    ref = run_train(dev, batch=8, seq=2048, steps=1, warmup=1, seed=0,
+                    config=bench_config(n_layers))
+    log(f"phase 16's reference: run_train(bench_400m, {n_layers} layers, "
+        f"1 + 1 steps): first loss {ref['loss_first']:.6f}, step "
+        f"{ref['step_ms']:.2f} ms")
     if rt.is_initialized():
         raise RuntimeError("a runtime is still up")
     free_card()
@@ -3313,8 +3372,8 @@ def tune_path(dev, phase5=None, smi=None) -> dict:
     try:
         if rt.available_resources().get("GPU") != 1.0:
             raise RuntimeError(f"init() found {rt.cluster_resources()}")
-        asha = tune_asha(dev, phase5, base, n_layers, smi)
-        trainer = tune_trainer(dev, phase5, asha, tmp, n_layers, smi)
+        asha = tune_asha(dev, ref, base, n_layers, smi)
+        trainer = tune_trainer(dev, ref, asha, tmp, n_layers, smi)
         util = tune_utilities(dev, smi)
         threads = actor_threads({"_TrialActor", "_TrainWorker",
                                  "_QueueActor", "_Coordinator", "Rank"})
@@ -3570,9 +3629,9 @@ def data_stream(dev, tmp: str, smi: str, n: int = 2048, size: int = 224,
     import os
     import torch
     from ray_tpu_torch import data as rdata
-    from ray_tpu_torch.models import ViTConfig, ViTModel
+    from ray_tpu_torch.models import ViTModel
     from ray_tpu_torch.train import make_train_step
-    vit_cfg = vit_cfg or ViTConfig.vit_l16()
+    vit_cfg = vit_cfg or vit_config()
     t0 = time.perf_counter()
     rec = image_records(n, size)
     path = os.path.join(tmp, "images")
@@ -3658,9 +3717,10 @@ def data_stream(dev, tmp: str, smi: str, n: int = 2048, size: int = 224,
     del held
     losses = streamed["losses"]
     log(f"phase {part} pass 2: the same stream into ViT-L/16's train step "
-        f"({streamed['steps']} steps of {batch} images, AdamW, bf16 with "
-        f"remat): {streamed['images_s']:.1f} images/s from step 1 (one "
-        f"sync at each end), beside {batch / bare_ms * 1e3:.1f} images/s "
+        f"at {vit_cfg.n_layers} of its 24 layers ({streamed['steps']} "
+        f"steps of {batch} images, AdamW, bf16 with remat): "
+        f"{streamed['images_s']:.1f} images/s from step 1 (one sync at each "
+        f"end), beside {batch / bare_ms * 1e3:.1f} images/s "
         f"of the bare step on one resident batch ({bare_ms:.2f} ms, 20 "
         f"steps back to back) and {from_store['images_s']:.1f} images/s fed "
         f"from the normalised blocks held in the store (no reading or "
@@ -3755,10 +3815,9 @@ def data_path(dev, phase5=None, smi=None) -> dict:
     import tempfile
     import torch
     import ray_tpu_torch as rt
-    from ray_tpu_torch.models import LlamaConfig
     t0 = time.perf_counter()
     smi = smi or card_name()
-    cfg = LlamaConfig.bench_400m()
+    cfg = bench_config()
     if phase5 is None:
         phase5 = train_path(dev, cfg.n_layers)
     if rt.is_initialized():
@@ -4109,10 +4168,9 @@ def process_path(dev, phase5=None, phase12=None, phase17=None,
     import ray_tpu_torch as rt
     from ray_tpu_torch._private import worker
     from ray_tpu_torch._private import worker_process as wp
-    from ray_tpu_torch.models import LlamaConfig
     t0 = time.perf_counter()
     smi = smi or card_name()
-    cfg = LlamaConfig.bench_400m()
+    cfg = bench_config()
     if phase5 is None:
         phase5 = train_path(dev, cfg.n_layers)
     if rt.is_initialized():
@@ -4422,10 +4480,9 @@ def native_path(dev, phase5=None, phase18=None, smi=None) -> dict:
     import ray_tpu_torch as rt
     from ray_tpu_torch._private import worker
     from ray_tpu_torch._private import worker_process as wp
-    from ray_tpu_torch.models import LlamaConfig
     t0 = time.perf_counter()
     smi = smi or card_name()
-    cfg = LlamaConfig.bench_400m()
+    cfg = bench_config()
     if phase5 is None:
         phase5 = train_path(dev, cfg.n_layers)
     classic = (phase18 or {}).get("checks", {}).get("classic_tasks_per_s")
@@ -4868,11 +4925,10 @@ def daemon_path(dev, phase5=None, phase19=None, smi=None) -> dict:
     import os
     import torch
     import ray_tpu_torch as rt
-    from ray_tpu_torch.models import LlamaConfig
     t0 = time.perf_counter()
     smi = smi or card_name()
     if phase5 is None:
-        phase5 = train_path(dev, LlamaConfig.bench_400m().n_layers)
+        phase5 = train_path(dev, BENCH_LAYERS)
     if rt.is_initialized():
         raise RuntimeError("a runtime is still up")
     free_card()
@@ -5337,12 +5393,11 @@ def control_plane_path(dev, phase5=None, smi=None) -> dict:
     import os
     import torch
     import ray_tpu_torch as rt
-    from ray_tpu_torch.models import LlamaConfig
     from ray_tpu_torch.scripts.cli import CLUSTER_FILE
     t0 = time.perf_counter()
     smi = smi or card_name()
     if phase5 is None:
-        phase5 = train_path(dev, LlamaConfig.bench_400m().n_layers)
+        phase5 = train_path(dev, BENCH_LAYERS)
     if rt.is_initialized():
         raise RuntimeError("a runtime is still up")
     free_card()
@@ -5741,9 +5796,10 @@ def autoscale_checks(runtime, smi: str) -> dict:
 
 
 def grpc_ingress(dev, smi: str) -> dict:
-    """Phase 22(c): bench_400m's app (32 slots, phase 14's) behind
-    ``start_grpc_proxy()``: 8 requests by ``predict`` and 8 by
-    ``predict_stream`` (prompts of 32-256 tokens, 32 new tokens, greedy),
+    """Phase 22(c): bench_400m's app (32 slots, phase 14's; on the card
+    ``BENCH_LAYERS`` deep) behind ``start_grpc_proxy()``: 8 requests by
+    ``predict`` and 8 by ``predict_stream`` (prompts of 32-256 tokens, 32
+    new tokens, greedy),
     one at a time; then the same 16 through the handle of a second copy of
     the app (same config and seed: both engines cold for each prompt, each
     serving one request at a time). The tokens must be equal, the paged
@@ -5757,7 +5813,8 @@ def grpc_ingress(dev, smi: str) -> dict:
     from ray_tpu_torch.serve.grpc_proxy import (GrpcServeClient,
                                                 start_grpc_proxy,
                                                 stop_grpc_proxy)
-    setup = bench_setup(dev)
+    setup = bench_setup(dev, n_layers=BENCH_LAYERS
+                        if dev.type == "cuda" else None)
     mcfg = setup["model_config"]
     rng = np.random.default_rng(22)
     lens = rng.integers(32, 257, 16) if dev.type == "cuda" \
@@ -5839,12 +5896,12 @@ def grpc_ingress(dev, smi: str) -> dict:
                            f"the handle's: {via['grpc']['tokens'][:2]} / "
                            f"{via['handle']['tokens'][:2]}")
     g, h = via["grpc"], via["handle"]
-    log(f"phase 22(c): bench_400m's app (32 slots) behind the second "
-        f"ingress: 8 predict + 8 predict_stream requests (prompts "
-        f"{lens.min()}-{lens.max()} tokens, {new} new, greedy, one at a "
-        f"time) gave the tokens of the same requests through a second "
-        f"copy's handle; median time to the "
-        f"first item: a stream's first chunk {g['stream_first_ms']:.1f} ms "
+    log(f"phase 22(c): bench_400m's app ({mcfg.n_layers} layers, 32 "
+        f"slots) behind the second ingress: 8 predict + 8 predict_stream "
+        f"requests (prompts {lens.min()}-{lens.max()} tokens, {new} new, "
+        f"greedy, one at a time) gave the tokens of the same requests "
+        f"through a second copy's handle; median time to the first item: "
+        f"a stream's first chunk {g['stream_first_ms']:.1f} ms "
         f"through the proxy, {h['stream_first_ms']:.1f} ms through the "
         f"handle, a unary result {g['unary_ms']:.1f} / {h['unary_ms']:.1f} "
         f"ms; {g['tokens_per_s']:.1f} / {h['tokens_per_s']:.1f} tokens/s; "
@@ -7596,6 +7653,296 @@ def tenancy_path(dev, smi=None) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 26: topology on the card
+# ---------------------------------------------------------------------------
+
+TOPO_SPEC = "v5p:2x2x4"     # 16 chips, four hosts of a (2, 2, 1) block
+TOPO_SEED = 26
+TPU_VARS = ("TPU_VISIBLE_CHIPS", "TPU_ACCELERATOR_TYPE", "TPU_WORKER_ID",
+            "TPU_NAME", "TPU_TOPOLOGY")
+
+
+def topology_detect() -> dict:
+    """26(a): with no pod variable set, the chips are the cards, the
+    resources are ``GPU`` and the card's accelerator type, and one card
+    forms no slice (JAX's single-host fallback gives None for one device)."""
+    import os
+    import torch
+    from ray_tpu_torch._private import accelerators as acc
+    from ray_tpu_torch.parallel import detect_local_topology
+    saved = {v: os.environ.pop(v) for v in TPU_VARS if v in os.environ}
+    try:
+        count = torch.cuda.device_count()
+        chips = acc.detect_tpu_chips()
+        res = acc.accelerator_resources()
+        topo = detect_local_topology()
+    finally:
+        os.environ.update(saved)
+    kind = torch.cuda.get_device_name(0).lower().replace(" ", "")
+    want = {"GPU": float(count), f"accelerator_type:{kind}-{count}": 1.0}
+    if chips != count or res != want or (count == 1 and topo is not None):
+        raise RuntimeError(f"phase 26(a): chips {chips} of {count} cards, "
+                           f"resources {res} (want {want}), topology "
+                           f"{topo!r}")
+    log(f"phase 26(a): detect_tpu_chips() {chips} = "
+        f"torch.cuda.device_count(); accelerator_resources() {res}; "
+        f"detect_local_topology() {topo!r}"
+        + (f" (pod variables {sorted(saved)} set aside)" if saved else ""))
+    return {"chips": chips, "resources": res, "topology": repr(topo)}
+
+
+def topo_qkv(dev):
+    """q, k and v at phase 5's attention shapes, bf16, drawn on the card
+    from ``TOPO_SEED``."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(TOPO_SEED)
+    return tuple(torch.randn(ATTN_SHAPES[n], generator=gen, device=dev,
+                             dtype=torch.bfloat16) for n in ("q", "k", "v"))
+
+
+def topology_flash(dev, ref_out, pg, bundles, part: str) -> int:
+    """One ``num_gpus=1`` task in each of ``bundles`` of ``pg``: it draws q, k
+    and v on the card and launches the flash kernel; each output is held
+    bit for bit to ``ref_out`` (the driver's launch outside any group), and
+    each task ran in this process on its bundle's node. The number of
+    tasks."""
+    import os
+    import torch
+    import ray_tpu_torch as rt
+
+    @rt.remote(num_gpus=1, num_cpus=0)      # the bundles hold chips only
+    def gang_flash():
+        from ray_tpu_torch.ops import attention as attn
+        q, k, v = topo_qkv(torch.device("cuda"))
+        out = attn.flash_attention_kernel(q, k, v, True)
+        return (out, os.getpid(),
+                rt.get_runtime_context().get_node_id())
+
+    refs = [gang_flash.options(
+        scheduling_strategy=rt.PlacementGroupSchedulingStrategy(
+            placement_group=pg, placement_group_bundle_index=i)).remote()
+        for i in bundles]
+    for i, (out, pid, node) in zip(bundles, rt.get(refs, timeout=300)):
+        if not torch.equal(out, ref_out):
+            raise RuntimeError(f"phase 26({part}): bundle {i}'s kernel "
+                               f"output is not the driver's bit for bit")
+        if pid != os.getpid() or node != pg.bundles[i].node_id.hex():
+            raise RuntimeError(f"phase 26({part}): bundle {i}'s task ran in "
+                               f"pid {pid} on node {node[:8]}, not here on "
+                               f"{pg.bundles[i].node_id.hex()[:8]}")
+        del out
+    del refs
+    return len(bundles)
+
+
+def topology_entry(pg, mgr) -> dict:
+    """The group's claimed chips (one contiguous box), nodes and hosts."""
+    from ray_tpu_torch.util import placement_group_table
+    e = placement_group_table()[pg.id.hex()]
+    chips = [tuple(c) for cs in e["bundle_chips"] for c in cs or []]
+    lo = [min(c[i] for c in chips) for i in range(len(chips[0]))]
+    hi = [max(c[i] for c in chips) for i in range(len(chips[0]))]
+    box = int(np.prod([b - a + 1 for a, b in zip(lo, hi)]))
+    if box != len(chips) or len(set(chips)) != len(chips):
+        raise RuntimeError(f"phase 26: the claimed chips {chips} are not "
+                           f"one contiguous box")
+    return {"origin": tuple(e["subslice"]["origin"]),
+            "shape": tuple(e["subslice"]["shape"]), "chips": len(chips),
+            "nodes": len(set(e["bundle_nodes"])),
+            "hosts": mgr.topology.hosts_of_subslice(pg.subslice)}
+
+
+def topology_gang(dev, ref_out) -> dict:
+    """26(b)-(d) on ``init(num_nodes=4, resources={"CPU": 4, "GPU": 4},
+    _system_config={"tpu_topology": "v5p:2x2x4"})``; returns the launches
+    and what each part saw, with the topology manager for (e)."""
+    import os
+    import tempfile
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.util import placement_group, remove_placement_group
+    runtime = rt.init(num_nodes=4, resources={"CPU": 4, "GPU": 4},
+                      _system_config={"tpu_topology": TOPO_SPEC})
+    mgr = runtime.tpu_topology
+    log(f"phase 26(b): tpu_topology {TOPO_SPEC!r} is {mgr.topology!r}, a "
+        f"virtual slice on one card: its four torus hosts bind to the "
+        f"runtime's four nodes of 4 GPU each, and the one card runs every "
+        f"task a bundle places")
+    groups, tasks = [], 0
+    try:
+        # (b) one 8-chip box on exactly two hosts, a task a bundle
+        pg_a = placement_group([{"GPU": 4}, {"GPU": 4}], "PACK")
+        groups.append(pg_a)
+        if not pg_a.wait(30):
+            raise RuntimeError("phase 26(b): the PACK group did not place")
+        b = topology_entry(pg_a, mgr)
+        if b["chips"] != 8 or b["nodes"] != 2 or len(b["hosts"]) != 2:
+            raise RuntimeError(f"phase 26(b): the group claimed {b}")
+        tasks += topology_flash(dev, ref_out, pg_a, [0, 1], "b")
+        log(f"phase 26(b): [{{GPU: 4}}, {{GPU: 4}}] PACK claimed the box at "
+            f"{b['origin']} of shape {b['shape']} on hosts {b['hosts']} "
+            f"(two nodes); its two tasks launched the kernel, each output "
+            f"the driver's bit for bit")
+
+        # (c) fill the slice: a third group stays pending until the first
+        # is removed, then claims a contiguous box; a node's death
+        pg_b = placement_group([{"GPU": 4}, {"GPU": 4}], "PACK")
+        groups.append(pg_b)
+        if not pg_b.wait(30):
+            raise RuntimeError("phase 26(c): the second group did not place")
+        pg_c = placement_group([{"GPU": 4}], "PACK")
+        groups.append(pg_c)
+        if pg_c.wait(1.5) or pg_c.state != "PENDING":
+            raise RuntimeError(f"phase 26(c): a third group on a full slice "
+                               f"is {pg_c.state}")
+        remove_placement_group(pg_a)
+        if not pg_c.wait(30):
+            raise RuntimeError("phase 26(c): the third group did not place "
+                               "once the first was removed")
+        c1 = topology_entry(pg_c, mgr)
+        tasks += topology_flash(dev, ref_out, pg_c, [0], "c")
+        first, victim = pg_c.subslice, pg_c.bundles[0].node_id
+        runtime.remove_node(runtime.get_node(victim))
+        if not pg_c.wait(30):
+            raise RuntimeError("phase 26(c): the group was not placed again "
+                               "after its node's death")
+        c2 = topology_entry(pg_c, mgr)
+        held = mgr.topology._allocated
+        if (pg_c.bundles[0].node_id == victim or first in held
+                or sum(s is pg_c.subslice for s in held) != 1
+                or len(held) != 2):
+            raise RuntimeError(f"phase 26(c): after the death the allocator "
+                               f"holds {held}, the group {c2}")
+        tasks += topology_flash(dev, ref_out, pg_c, [0], "c")
+        log(f"phase 26(c): 16 of 16 chips claimed, a third group PENDING; "
+            f"with the first removed it claimed {c1['origin']} "
+            f"{c1['shape']} on host {c1['hosts']} and its task launched the "
+            f"kernel; its node removed, it was placed again at "
+            f"{c2['origin']} {c2['shape']} on host {c2['hosts']}, the "
+            f"allocator holding one slice for it (and the second group's), "
+            f"and its task launched the kernel again, bit for bit")
+
+        # (d) C25: a node that holds a running task while it drains takes
+        # no new bundle, though it has the most free capacity
+        big = runtime.add_node({"CPU": 16})
+        marker = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_c25_"),
+                              "started")
+
+        @rt.remote
+        def hold(path):
+            open(path, "w").close()
+            time.sleep(2)
+            return os.getpid()
+
+        held_ref = hold.options(
+            scheduling_strategy=rt.NodeAffinitySchedulingStrategy(
+                big.node_id.hex(), soft=False)).remote(marker)
+        deadline = time.monotonic() + 60
+        while not os.path.exists(marker) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        if not os.path.exists(marker):
+            raise RuntimeError("phase 26(d): the pinned task never started")
+        if not rt.drain_node(big.node_id.hex(), deadline_s=30):
+            raise RuntimeError("phase 26(d): the drain did not start")
+        pg_d = placement_group([{"CPU": 1}], "PACK")
+        groups.append(pg_d)
+        if not pg_d.wait(30) or pg_d.bundles[0].node_id == big.node_id:
+            raise RuntimeError(f"phase 26(d): the bundle is {pg_d.state} on "
+                               f"the draining node")
+        worker_pid = rt.get(held_ref, timeout=60)
+        deadline = time.monotonic() + 30
+        while (runtime.get_node(big.node_id) is not None
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        os.remove(marker)
+        os.rmdir(os.path.dirname(marker))
+        log(f"phase 26(d): a task running in worker {worker_pid} on a "
+            f"16-CPU node that drains; a PACK [{{CPU: 1}}] group created "
+            f"then landed on node {pg_d.bundles[0].node_id.hex()[:8]}, not "
+            f"the draining {big.node_id.hex()[:8]}; the drained node left: "
+            f"{runtime.get_node(big.node_id) is None}")
+        for pg in groups:
+            remove_placement_group(pg)
+        if mgr.topology._allocated:
+            raise RuntimeError(f"phase 26(e): the allocator holds "
+                               f"{mgr.topology._allocated} with every "
+                               f"group removed")
+        launches = attn.flash_attention_kernel.launches
+        if launches != tasks:
+            raise RuntimeError(f"phase 26: {launches} flash launches for "
+                               f"{tasks} tasks")
+        return {"launches": tasks, "pack": b, "third": c1, "replaced": c2,
+                "mgr": mgr}
+    finally:
+        rt.shutdown()
+
+
+def topology_path(dev, smi=None) -> dict:
+    """Phase 26: topology on the card (see the module's docstring). Alone:
+    ``python -c "import chip_smoke, torch;
+    chip_smoke.topology_path(torch.device('cuda'))"``."""
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker_process as wp
+    from ray_tpu_torch.ops import attention as attn
+    t0 = time.perf_counter()
+    smi = smi or card_name()
+    if rt.is_initialized():
+        raise RuntimeError("a runtime is still up")
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    a = topology_detect()
+    # the driver's launch outside any group, held to the plain version
+    q, k, v = topo_qkv(dev)
+    ref_out = attn.flash_attention_kernel(q, k, v, True)
+    plain = attn._flash_forward_plain(q, k, v, causal=True)
+    torch.testing.assert_close(ref_out.float(), plain.float(), **BF16_TOL)
+    err = (ref_out.float() - plain.float()).abs().max().item()
+    if not torch.isfinite(ref_out).all():
+        raise RuntimeError("phase 26: a non-finite output")
+    del q, k, v, plain
+    attn.flash_attention_kernel.launches = 0
+    pids = set()
+    try:
+        gang = topology_gang(dev, ref_out)
+        pids = {w.pid for w in wp.live_workers()}
+        template = wp.forkserver_pid()
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+        wp.stop_worker_plane()
+    launches = attn.flash_attention_kernel.launches
+    mgr = gang.pop("mgr")
+    del ref_out
+    # (e) nothing left
+    deadline = time.monotonic() + 15
+    left = pids | {template}
+    while any(_alive(p) for p in left) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = sorted(p for p in left if _alive(p))
+    if left or wp.live_workers() or mgr.topology._allocated:
+        raise RuntimeError(f"phase 26(e): processes {left}, "
+                           f"{len(wp.live_workers())} workers, allocator "
+                           f"{mgr.topology._allocated} left")
+    freed, _ = wait_freed(base, "phase 26 after shutdown()")
+    if freed - base > 64 << 20:
+        raise RuntimeError(f"phase 26(e): {freed - base} bytes above the "
+                           f"base after shutdown()")
+    seconds = time.perf_counter() - t0
+    log(f"phase 26(e): with the groups removed and after shutdown() the "
+        f"allocator is empty, no worker ({len(pids)} were live) and no "
+        f"forkserver left, {freed - base} bytes above the base; phase 26 in "
+        f"{seconds:.1f} s, {launches} flash launches in the groups' tasks, "
+        f"max_abs_err {err:.2e} against the plain version ({smi})")
+    result = {"part": "26", "launches": launches, "max_abs_err": err,
+              "detect": a, **gang, "bytes_after_shutdown": freed,
+              "base_bytes": base, "seconds": seconds, "card": smi}
+    log(json.dumps(result))
+    return result
+
+
 def _alive(pid) -> bool:
     """Whether ``pid`` is a live process (a zombie is not)."""
     if pid is None:
@@ -7623,7 +7970,7 @@ def main() -> int:
     from ray_tpu_torch import _build
     from ray_tpu_torch.bench import moe_bench_config
     from ray_tpu_torch.llm import LLMServer
-    from ray_tpu_torch.models import LlamaConfig, LlamaModel, MoEModel
+    from ray_tpu_torch.models import LlamaModel, MoEModel
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.ops import decode_attention as dec
     from ray_tpu_torch.ops import paged_attention as paged
@@ -7650,8 +7997,8 @@ def main() -> int:
                     or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"built {len(names)} sources in {time.perf_counter() - t0:.1f} s")
-    for name, lib_path in zip(names, lib_paths):
-        check_sass(name, lib_path)
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(check_sass, names, lib_paths))
 
     # 2. kernels against their plain versions
     rows = check_kernels(dev, gen)
@@ -7723,12 +8070,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. the training path
-    train = train_path(dev, LlamaConfig.bench_400m().n_layers)
+    train = train_path(dev, BENCH_LAYERS)
     rows[2]["launches"] = train["launches"]
 
     # 6. the flash kernel's loss against the blockwise path
     loss_k, loss_b = kernel_vs_blockwise_loss(dev, LlamaModel,
-                                              LlamaConfig.bench_400m(), 8)
+                                              bench_config(), 8)
     log(f"loss through the flash kernel {loss_k:.6f}, through the blockwise "
         f"path {loss_b:.6f} (rtol 1e-3 atol 1e-4; bench_400m, f32 params, "
         f"bf16 compute, batch 8 x seq 2048)")
@@ -7753,13 +8100,11 @@ def main() -> int:
         free_card()
 
     # 9. the mesh path, every counter at 0
-    mesh = mesh_path(dev, train, runs["gpt2"],
-                     LlamaConfig.bench_400m().n_layers)
+    mesh = mesh_path(dev, train, runs["gpt2"], BENCH_LAYERS)
     rows[2]["launches"] += mesh["launches"]
 
     # 10. sequence, expert and pipeline parallelism, every counter at 0
-    par = parallel_layouts(dev, gen, train, runs["moe"],
-                           LlamaConfig.bench_400m().n_layers)
+    par = parallel_layouts(dev, gen, train, runs["moe"], BENCH_LAYERS)
     rows[2]["launches"] += par["moe"]["launches"] + \
         par["pipeline"]["launches"]
 
@@ -7791,7 +8136,7 @@ def main() -> int:
     # 16. tune and the utilities: Tune trials and Train-on-Tune on the
     # card, the flash counter at 0 before each part; util.collective,
     # ActorPool and Queue on CUDA tensors
-    tuned = tune_path(dev, train, smi)
+    tuned = tune_path(dev, smi)
     rows[2]["launches"] += tuned["launches"]
 
     # 17. the data layer and the device feed: datasets on the runtime,
@@ -7860,6 +8205,13 @@ def main() -> int:
     # and a channel-mode DAG whose last stage runs it, nothing left
     tenancy = tenancy_path(dev, smi)
     rows[2]["launches"] += tenancy["launches"]
+
+    # 26. topology: detection on the card, a declared v5p slice over four
+    # nodes, gang groups that claim contiguous sub-slices and whose tasks
+    # launch the flash kernel (the counter at 0), fragmentation, a node's
+    # death, a bundle beside a drain, nothing left
+    topo = topology_path(dev, smi)
+    rows[2]["launches"] += topo["launches"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -9,7 +9,7 @@ Resolution order per flag (highest wins):
 
 An unknown ``_system_config`` key raises, as in the reference. The table
 is JAX's whole table, each flag with JAX's name, type, default and
-variable, except ``tpu_topology`` (the topology layer, not ported yet).
+variable.
 ``process_workers`` and ``fast_lane`` are the variables JAX's worker
 plane reads straight from the environment; here they are declared.
 ``inline_object_size`` and ``bench_total_deadline`` are declared and read
@@ -106,6 +106,10 @@ FLAG_DEFS = [
     Flag("pressure_tick_s", float, 0.5, "PressureController evaluation "
          "period (seconds); 0 disarms the controller even when "
          "memory_pressure is on"),
+    # -- accelerator topology (parallel/topology.py) --
+    Flag("tpu_topology", str, "", "TPU slice topology for ICI-aware gang "
+         "scheduling, '<gen>:<AxBxC>' (e.g. 'v5p:4x4x4'); '' = no "
+         "topology (resource-count placement only)"),
     Flag("submit_batch", bool, True, "coalesce driver->daemon task "
          "submissions into push_task_batch frames (False = one "
          "submit_task RPC per task; completions still ride the result "

@@ -273,13 +273,21 @@ class Runtime:
 
         self._generators: Dict[TaskID, GeneratorState] = {}
         self._shutdown = False
+        # the declared TPU slice (the tpu_topology flag): placement groups
+        # that hold chips claim contiguous sub-slices of it. On one card
+        # the slice is virtual: it binds the nodes to torus hosts.
+        from ray_tpu_torch._private.config import cfg as _cfg
+        self.tpu_topology = None
+        if _cfg().tpu_topology:
+            from ray_tpu_torch.parallel.topology import TpuTopologyManager
+            self.tpu_topology = TpuTopologyManager.from_spec(
+                _cfg().tpu_topology)
         self.pg_manager = PlacementGroupManager(self)
         # deterministic fault injection and network chaos: the flags arm
         # this process and export their env form, so the daemons, head
         # and workers it spawns arm the same seams and links
         from ray_tpu_torch._private import failpoints as _failpoints
         from ray_tpu_torch._private import netchaos as _netchaos
-        from ray_tpu_torch._private.config import cfg as _cfg
         _failpoints.maybe_activate_from_config(_cfg())
         _netchaos.maybe_activate_from_config(_cfg())
         _netchaos.set_local_role("driver")
@@ -540,6 +548,12 @@ class Runtime:
 
     def alive_nodes(self) -> List[Node]:
         return [n for n in self.nodes() if n.alive]
+
+    def schedulable_nodes(self) -> List[Node]:
+        """Live nodes that accept new placements (draining ones left out);
+        every live node when all of them are draining."""
+        alive = self.alive_nodes()
+        return [n for n in alive if not n.draining] or alive
 
     def get_node(self, node_id: NodeID) -> Optional[Node]:
         with self._nodes_lock:

@@ -35,7 +35,7 @@ import json
 import subprocess
 import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -84,13 +84,14 @@ def serving_section(report: dict) -> dict:
     }
 
 
-def bench_setup(dev, decode_attention: str = "kernel") -> Dict[str, Any]:
+def bench_setup(dev, decode_attention: str = "kernel",
+                n_layers: Optional[int] = None) -> Dict[str, Any]:
     """The bench's model, engine and load: on the card JAX's TPU row
     (``bench_400m`` at max_seq 1024, random from seed 0; one replica of 32
     slots; 6 requests/s for 16 s from 64 clients, prompts of 32-256 tokens,
     64 new tokens, SLO TTFT 2 s / E2E 30 s; every prefill bucket warmed);
     on the CPU its fallback (the debug model, two replicas of 4 slots, 12
-    requests/s for 2.5 s)."""
+    requests/s for 2.5 s). ``n_layers`` cuts the model's depth."""
     from ray_tpu_torch.loadgen import SLO, LoadSpec
     from ray_tpu_torch.models.llama import LlamaConfig
 
@@ -114,17 +115,19 @@ def bench_setup(dev, decode_attention: str = "kernel") -> Dict[str, Any]:
         warm_lens = (8, 24)
         config = "debug"
     model_cfg = dataclasses.replace(model_cfg,
-                                    decode_attention=decode_attention)
+                                    decode_attention=decode_attention,
+                                    n_layers=n_layers or model_cfg.n_layers)
     return {"model_config": model_cfg, "replicas": replicas,
             "max_slots": max_slots, "max_seq": max_seq, "spec": spec,
             "warm_lens": warm_lens, "config": config}
 
 
-def http_setup(dev, decode_attention: str = "kernel") -> Dict[str, Any]:
+def http_setup(dev, decode_attention: str = "kernel",
+               n_layers: Optional[int] = None) -> Dict[str, Any]:
     """The proxy bench's model and load: on the card ``bench_400m`` at
     max_seq 1024 and 64 requests of 64 prompt tokens, 16 at a time, 64 new
     tokens each; on the CPU the debug model and 8 requests of 12, 4 at a
-    time, 8 new tokens."""
+    time, 8 new tokens. ``n_layers`` cuts the model's depth."""
     from ray_tpu_torch.models.llama import LlamaConfig
 
     if dev.type == "cuda":
@@ -137,7 +140,8 @@ def http_setup(dev, decode_attention: str = "kernel") -> Dict[str, Any]:
                "requests": 8, "concurrency": 4, "max_tokens": 8,
                "prompt_len": 12, "max_seq": 128}
     out["model_config"] = dataclasses.replace(
-        out["model_config"], decode_attention=decode_attention)
+        out["model_config"], decode_attention=decode_attention,
+        n_layers=n_layers or out["model_config"].n_layers)
     return out
 
 
@@ -192,10 +196,12 @@ def warm_replicas(rt, model_id: str, warm_lens) -> list:
 
 def run_serving_bench(device: DeviceLike = None, *,
                       decode_attention: str = "kernel",
-                      stream: bool = True) -> dict:
+                      stream: bool = True,
+                      n_layers: Optional[int] = None) -> dict:
     """Open-loop serving bench through the whole serve data plane, measured
     at the client. ``stream=False`` sends the same load as unary calls (the
-    router's waiter path); TTFT then equals E2E."""
+    router's waiter path); TTFT then equals E2E. ``n_layers`` cuts the
+    model's depth."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
     from ray_tpu_torch.llm.serving import (LLMConfig, build_llm_app,
@@ -203,7 +209,7 @@ def run_serving_bench(device: DeviceLike = None, *,
     from ray_tpu_torch.loadgen import HandleTarget, run_load
 
     dev = resolve_device(device)
-    setup = bench_setup(dev, decode_attention)
+    setup = bench_setup(dev, decode_attention, n_layers)
     spec = dataclasses.replace(setup["spec"], stream=stream)
     own = not rt.is_initialized()
     if own:
@@ -303,18 +309,20 @@ def run_direct_bench(device: DeviceLike = None, *,
 
 
 def run_http_proxy_bench(device: DeviceLike = None, *,
-                         decode_attention: str = "kernel") -> dict:
+                         decode_attention: str = "kernel",
+                         n_layers: Optional[int] = None) -> dict:
     """Proxy-level serving bench: TTFT and output tokens/s measured at the
     HTTP client through the asyncio ingress, serve's data plane and the
     engine. On the card: 64 requests of 64 prompt tokens, 16 at a time,
-    64 new tokens each; on the CPU 8 of 12, 4 at a time, 8 new tokens."""
+    64 new tokens each; on the CPU 8 of 12, 4 at a time, 8 new tokens.
+    ``n_layers`` cuts the model's depth."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
     from ray_tpu_torch.llm.serving import (LLMConfig, build_llm_app,
                                            join_engine_threads)
 
     dev = resolve_device(device)
-    setup = http_setup(dev, decode_attention)
+    setup = http_setup(dev, decode_attention, n_layers)
     model_cfg, max_seq = setup["model_config"], setup["max_seq"]
     n_requests, concurrency = setup["requests"], setup["concurrency"]
     max_tokens, prompt_len = setup["max_tokens"], setup["prompt_len"]

@@ -10,11 +10,14 @@ Each placed bundle turns node capacity into bundle-scoped resources
 (``_pg_<id>_<index>_<name>``) on the node's ledger, and a task placed in the
 group has its demand rewritten onto those names, so bundle accounting rides
 the node's own dispatch. A bundle holding ``GPU`` holds the card: nothing
-outside the group can take it while the group lives.
+outside the group can take it while the group lives. A daemon-backed node
+takes its bundles in two phases (prepare, then commit or cancel), and a
+group with a bundle on a dead node is placed again.
 
-Left out, with the parts of the runtime they serve: the TPU-topology
-sub-slice allocator (ROADMAP A12), the daemon's two-phase bundle commit and
-the re-placement of bundles on node death (A11c).
+Under a declared ``tpu_topology`` a group's chips (``GPU``, the port's chip
+resource, where JAX reads ``TPU``) claim one axis-aligned contiguous
+sub-slice of the torus (``parallel/topology.py``), and its bundles land on
+that sub-slice's hosts. Draining nodes take no new bundle.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ class Bundle:
     index: int
     resources: Dict[str, float]
     node_id: Optional[NodeID] = None
+    # the torus coords this bundle's chips claimed (the topology path)
+    tpu_chips: Optional[List[tuple]] = None
 
     def scoped_resources(self, pg_id: PlacementGroupID) -> Dict[str, float]:
         return {scoped_resource(pg_id, self.index, k): v
@@ -55,6 +60,9 @@ class PlacementGroup:
         self.strategy = strategy
         self.name = name
         self.state = "PENDING"
+        # the contiguous sub-slice the group's chips claimed under a
+        # declared topology; freed on remove, node death and abort
+        self.subslice = None
         self._ready_event = threading.Event()
         self._ready_ref: Optional[ObjectID] = None
 
@@ -131,6 +139,20 @@ class PlacementGroupManager:
         for b in bundles:
             if not b or any(v < 0 for v in b.values()):
                 raise ValueError(f"invalid bundle {b!r}")
+        topo = self._rt.tpu_topology
+        if topo is not None:
+            cap = topo.topology.chips_per_host
+            for b in bundles:
+                t = b.get("GPU", 0)
+                if t != int(t):
+                    raise ValueError(
+                        f"fractional TPU bundle {b!r}: chips are whole "
+                        "torus nodes under a declared topology")
+                if t > cap:
+                    raise ValueError(
+                        f"bundle {b!r} wants {int(t)} chips but hosts of "
+                        f"{topo.topology!r} have {cap}; a bundle is one "
+                        "node's reservation — split it across bundles")
         pg = PlacementGroup(
             PlacementGroupID.from_random(),
             [Bundle(i, dict(b)) for i, b in enumerate(bundles)],
@@ -152,6 +174,16 @@ class PlacementGroupManager:
                 if daemon is not None:
                     daemon.cancel_bundle(pg.id.hex(), b.index)
             b.node_id = None
+        self._free_subslice(pg)
+
+    def _free_subslice(self, pg: PlacementGroup) -> None:
+        """Return the group's sub-slice to the allocator."""
+        topo = self._rt.tpu_topology
+        if pg.subslice is not None and topo is not None:
+            topo.free(pg.subslice)
+        pg.subslice = None
+        for b in pg.bundles:
+            b.tpu_chips = None
 
     def remove(self, pg: PlacementGroup) -> None:
         with self._lock:
@@ -211,7 +243,12 @@ class PlacementGroupManager:
     def on_node_death(self, node_id: NodeID) -> None:
         """Re-place the groups that had a bundle on a dead node: every
         surviving bundle's reservation is released and the group goes
-        back to the pending queue (RESCHEDULING; waiters block again)."""
+        back to the pending queue (RESCHEDULING; waiters block again). The
+        dead node's torus host is unbound, and its group's sub-slice freed:
+        a replacement node binds to that host on the next placement."""
+        topo = self._rt.tpu_topology
+        if topo is not None:
+            topo.unbind_node(node_id)
         with self._lock:
             for pg in self._groups.values():
                 if pg.state != "CREATED":
@@ -229,6 +266,7 @@ class PlacementGroupManager:
                                     daemon.cancel_bundle(pg.id.hex(),
                                                          b.index)
                         b.node_id = None
+                    self._free_subslice(pg)
                     pg.state = "RESCHEDULING"
                     pg._ready_event.clear()
                     self._pending.append(pg)
@@ -241,6 +279,10 @@ class PlacementGroupManager:
                 "bundles": {b.index: dict(b.resources) for b in pg.bundles},
                 "bundle_nodes": [b.node_id.hex() if b.node_id else None
                                  for b in pg.bundles],
+                **({"subslice": {"origin": sub.origin, "shape": sub.shape},
+                    "bundle_chips": [b.tpu_chips for b in pg.bundles]}
+                   # a snapshot: _free_subslice clears the field unlocked
+                   if (sub := pg.subslice) is not None else {}),
             } for pg in self._groups.values()}
 
     def stop(self) -> None:
@@ -277,7 +319,10 @@ class PlacementGroupManager:
                 pg._ready_event.set()
 
     def _try_place(self, pg: PlacementGroup) -> bool:
-        nodes = self._rt.alive_nodes()
+        # draining nodes take no new bundle (their capacity is on its way
+        # out); schedulable_nodes falls back to them only when every live
+        # node drains
+        nodes = self._rt.schedulable_nodes()
         if not nodes:
             return False
         assignment = self._assign(pg, nodes)
@@ -304,6 +349,7 @@ class PlacementGroupManager:
                 daemon = getattr(node, "daemon", None)
                 if daemon is not None:
                     daemon.cancel_bundle(pg.id.hex(), bundle.index)
+            self._free_subslice(pg)
             return False
         for bundle, node in acquired:
             node.ledger.add_total(bundle.scoped_resources(pg.id))
@@ -314,9 +360,14 @@ class PlacementGroupManager:
                 daemon.commit_bundle(pg.id.hex(), bundle.index)
         return True
 
-    @staticmethod
-    def _assign(pg: PlacementGroup, nodes) -> Optional[List[tuple]]:
-        """Map bundles to nodes per strategy using *available* capacity."""
+    def _assign(self, pg: PlacementGroup, nodes) -> Optional[List[tuple]]:
+        """Map bundles to nodes per strategy using *available* capacity; a
+        group that holds chips under a declared topology takes
+        ``_assign_tpu``."""
+        topo = self._rt.tpu_topology
+        if topo is not None and any(
+                b.resources.get("GPU", 0) > 0 for b in pg.bundles):
+            return self._assign_tpu(pg, nodes, topo)
         avail = {n.node_id: n.effective_available() for n in nodes}
 
         def fits(node, bundle) -> bool:
@@ -361,6 +412,119 @@ class PlacementGroupManager:
                     break
             else:
                 return None
+        return out
+
+    @staticmethod
+    def _assign_tpu(pg: PlacementGroup, nodes, topo) -> Optional[List[tuple]]:
+        """The topology path: the group's chips claim ONE axis-aligned
+        contiguous sub-slice of the torus and its bundles land on that
+        sub-slice's hosts. The claim goes on the group (``pg.subslice`` and
+        each bundle's chip coords) and is freed on remove, node death and
+        the two-phase commit's abort."""
+        chips = [int(b.resources.get("GPU", 0)) for b in pg.bundles]
+        total = sum(chips)
+        # bind the nodes that hold chips to torus hosts (first seen, stable)
+        chip_nodes = [n for n in nodes if n.ledger.total.get("GPU", 0) > 0]
+        topo.bind_nodes([n.node_id for n in chip_nodes])
+        node_by_id = {n.node_id: n for n in chip_nodes}
+        host_node = {h: topo.node_of_host(h)
+                     for h in range(topo.topology.num_hosts)}
+        avail = {n.node_id: n.effective_available() for n in nodes}
+        strategy = pg.strategy
+
+        chip_items = [(b, c) for b, c in zip(pg.bundles, chips) if c > 0]
+        plain_items = [b for b, c in zip(pg.bundles, chips) if c == 0]
+
+        def try_pack(cand) -> Optional[List[tuple]]:
+            """Greedy bundle -> host packing for one candidate box, the
+            largest bundles first (fewer fragments a host). Chip-less
+            bundles place by the generic strategy on ANY node: they must
+            not be forced onto, or burn, the sub-slice's hosts. Returns
+            [(bundle, node, chip coords)] or None."""
+            remaining = topo.chips_by_host(cand)
+            trial = {nid: dict(a) for nid, a in avail.items()}
+            packed: List[tuple] = []
+            used_hosts: set = set()
+            used_nodes: List = []
+
+            def fits(node, bundle) -> bool:
+                a = trial[node.node_id]
+                return all(a.get(k, 0.0) >= v - 1e-9
+                           for k, v in bundle.resources.items())
+
+            def charge(node, bundle) -> None:
+                a = trial[node.node_id]
+                for k, v in bundle.resources.items():
+                    a[k] = a.get(k, 0.0) - v
+
+            for bundle, c in sorted(chip_items, key=lambda t: -t[1]):
+                hosts = sorted(remaining)
+                if strategy in ("SPREAD", "STRICT_SPREAD"):
+                    # fresh hosts first (STRICT_SPREAD: fresh hosts only)
+                    order = [h for h in hosts if h not in used_hosts]
+                    if strategy == "SPREAD":
+                        order += [h for h in hosts if h in used_hosts]
+                else:
+                    order = hosts
+                for h in order:
+                    if len(remaining[h]) < c:
+                        continue
+                    node = node_by_id.get(host_node.get(h))
+                    if (node is None or not node.alive
+                            or not fits(node, bundle)):
+                        continue
+                    charge(node, bundle)
+                    taken = [remaining[h].pop(0) for _ in range(c)]
+                    used_hosts.add(h)
+                    if node not in used_nodes:
+                        used_nodes.append(node)
+                    packed.append((bundle, node, taken))
+                    break
+                else:
+                    return None
+            for bundle in plain_items:
+                if strategy == "STRICT_PACK":
+                    cands = used_nodes[:1] or list(nodes)
+                elif strategy == "STRICT_SPREAD":
+                    cands = [n for n in nodes if n not in used_nodes]
+                elif strategy == "SPREAD":
+                    cands = ([n for n in nodes if n not in used_nodes]
+                             + used_nodes)
+                else:  # PACK
+                    cands = (used_nodes
+                             + [n for n in nodes if n not in used_nodes])
+                for node in cands:
+                    if not node.alive or not fits(node, bundle):
+                        continue
+                    charge(node, bundle)
+                    if node not in used_nodes:
+                        used_nodes.append(node)
+                    packed.append((bundle, node, []))
+                    break
+                else:
+                    return None
+            return packed
+
+        plan: Dict[str, List[tuple]] = {}
+
+        def accept(cand) -> bool:
+            p = try_pack(cand)
+            if p is None:
+                return False
+            plan["packed"] = p
+            return True
+
+        # STRICT_PACK is one node, so the box must fit one host's block
+        sub = topo.allocate(total,
+                            max_hosts=1 if strategy == "STRICT_PACK" else None,
+                            accept=accept)
+        if sub is None:
+            return None      # the slice is full or fragmented: stay pending
+        out: List[tuple] = []
+        for bundle, node, taken in plan["packed"]:
+            bundle.tpu_chips = taken or None
+            out.append((bundle, node))
+        pg.subslice = sub
         return out
 
 

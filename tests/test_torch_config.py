@@ -2,9 +2,8 @@
 
 The whole flag table is held to JAX's (``ray_tpu/_private/config.py``):
 every flag JAX declares is the port's, with the same name, type, default
-and environment variable. The one named exception is ``tpu_topology``,
-which belongs to the topology layer, not ported yet. The two flags only
-the port declares are the variables JAX's worker plane reads straight
+and environment variable, with no exception. The two flags only the port
+declares are the variables JAX's worker plane reads straight
 from the environment.
 
 The lint gate runs JAX's static-analysis passes (``tools/raylint``) over
@@ -23,9 +22,6 @@ from ray_tpu_torch._private import config as port_config
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# JAX's flags the port does not declare yet, each with the part that
-# brings it
-NOT_YET = {"tpu_topology": "the topology layer"}
 # flags only the port declares: JAX reads these variables straight from
 # the environment (ray_tpu/_private/worker_process.py)
 PORT_ONLY = {"process_workers": ("RAY_TPU_PROCESS_WORKERS", True),
@@ -36,10 +32,6 @@ PORT_ONLY = {"process_workers": ("RAY_TPU_PROCESS_WORKERS", True),
 def test_flag_matches_jax(name):
     """Each of JAX's flags is the port's: same name, type, default and
     environment variable."""
-    if name in NOT_YET:
-        assert name not in port_config.FLAGS, (
-            f"{name} is declared now; drop it from NOT_YET")
-        return
     jax_flag = jax_config.FLAGS[name]
     flag = port_config.FLAGS[name]
     assert (flag.type, flag.default, flag.env_var) == (

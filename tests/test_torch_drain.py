@@ -230,6 +230,50 @@ def test_drain_excluded_from_new_placements(cluster):
         victim.draining = False
 
 
+def _bundle_beside_a_drain(pkg, marker):
+    """A 2-CPU node and a 16-CPU node; a 6 s task pinned to the 16-CPU
+    node, which then drains with a 30 s deadline; a PACK group of one CPU
+    bundle. Returns (the bundle's node, the draining node)."""
+    import importlib
+    api = importlib.import_module(pkg)
+    pg_mod = importlib.import_module(f"{pkg}.util.placement_group")
+    rt = api.init(num_nodes=1, resources={"CPU": 2})
+    try:
+        big = rt.add_node({"CPU": 16})
+
+        @api.remote
+        def hold(path):
+            open(path, "w").close()
+            time.sleep(6)
+            return 1
+
+        ref = hold.options(scheduling_strategy=api.NodeAffinitySchedulingStrategy(
+            big.node_id.hex(), soft=False)).remote(marker)
+        deadline = time.monotonic() + 30
+        while not os.path.exists(marker) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert os.path.exists(marker), "the pinned task never started"
+        assert api.drain_node(big.node_id.hex(), deadline_s=30)
+        pg = pg_mod.placement_group([{"CPU": 1}], "PACK")
+        assert pg.wait(10)
+        placed = pg.bundle_nodes()[0]
+        assert api.get(ref, timeout=30) == 1
+        return placed, big.node_id
+    finally:
+        api.shutdown()
+
+
+@pytest.mark.parametrize("pkg", ["ray_tpu", "ray_tpu_torch"])
+def test_new_bundle_avoids_a_draining_node(pkg, tmp_path):
+    """A placement group created while a node drains lands elsewhere, as
+    JAX's ``_try_place`` does through ``schedulable_nodes``: the group's
+    reservation would go down with the node at the end of its drain. The
+    draining node has the most free capacity, so PACK's order alone would
+    pick it."""
+    placed, draining = _bundle_beside_a_drain(pkg, str(tmp_path / "started"))
+    assert placed is not None and placed != draining
+
+
 def test_drain_label_selector_never_widens(one_node):
     """A hard label selector is honored even when its only match is
     draining: the task runs on the draining matching node rather than

@@ -440,6 +440,20 @@ def test_serving_bench_unary_and_http_cpu(one_thread):
     assert 0 < d["ttft_p50_ms"] <= d["ttft_p90_ms"]
 
 
+@pytest.mark.parametrize("name", ["bench_setup", "http_setup"])
+def test_bench_setup_cuts_depth_only(name):
+    """``n_layers`` (chip_smoke.py's depth cut) changes the bench model's
+    depth and nothing else of its config."""
+    import dataclasses
+    from ray_tpu_torch.llm import bench
+
+    setup = getattr(bench, name)
+    whole = setup(torch.device("cpu"))["model_config"]
+    cut = setup(torch.device("cpu"), n_layers=1)["model_config"]
+    assert whole.n_layers > 1 and cut.n_layers == 1
+    assert dataclasses.replace(cut, n_layers=whole.n_layers) == whole
+
+
 def test_direct_bench_cpu_smoke(one_thread):
     """The bench's streaming load straight into an ``LLMServer``: every
     scheduled request completes, with the bench's result keys."""
