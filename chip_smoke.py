@@ -107,7 +107,8 @@
    learner's at rtol 1e-6.
 12. The runtime on the card (``ray_tpu_torch.init()``): (a) the card is
    detected as ``GPU``, a ``num_gpus=1`` task runs in this process on it
-   and gives the resource back; (b) a 256 MiB bf16 CUDA tensor through
+   and gives the resource back, and the GCS's KV snapshot, restored over
+   a delete, an overwrite and a new key, gives its tables back; (b) a 256 MiB bf16 CUDA tensor through
    ``put``/``get`` keeps its storage and allocates nothing, a
    ``num_gpus=1`` task's sum of it equals this process's, and it is freed on
    ``del``; (c) ``LLMServer`` as a ``num_gpus=1``, ``max_concurrency=16``
@@ -258,7 +259,7 @@
    (``_private/fast_lane.py``, the C++ core ``csrc/daemon_core.cc`` on a
    thread of this process) and the shared-memory store
    (``native_store.py``, ``csrc/shm_store.cc``), both built with g++ from
-   the checkout: (a) 1,000 no-op tasks counted by the lane's core, none in
+   the checkout at the script's start: (a) 1,000 no-op tasks counted by the lane's core, none in
    the driver, every lane worker without the card, their rate beside 18(a)'s
    classic pipe and the driver's threads; a running lane task cancelled
    soft and forced; a lane worker SIGKILLed mid-task and its task's retry
@@ -344,8 +345,9 @@
    seeds and shapes into the arenas (a worker ``put``), the driver reads
    them as read-only views into ``flash_fwd_wgmma`` (one launch, counted),
    held to the plain version; its worker SIGKILLed, the actor answers
-   under a fresh tag; (b) g++ builds ``csrc/cpp_client.cc`` and
-   ``csrc/api_demo.cc`` into the build directory; the demo (no Python in
+   under a fresh tag; (b) ``csrc/cpp_client.cc`` and
+   ``csrc/api_demo.cc``, g++-built into the build directory at the
+   script's start; the demo (no Python in
    its process) drives the cluster and prints the CPU test's lines; the
    client (through ``cpp_client.py``) writes q's bytes into a daemon's
    table, the driver reads them (``get_object_blob``) into the kernel (one
@@ -478,7 +480,10 @@
    "import chip_smoke, torch;
    chip_smoke.topology_path(torch.device('cuda'))"``.
 
-It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+Early it prints the host's cores and a pure-Python yardstick; along the
+way a ``stamp <label>: <s> s (at <s> s)`` line for each lettered sub-step
+of phases 11-13 and 18-25 and each runtime ``init``/``shutdown``. It
+prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
 script then exits non-zero; without a CUDA device it exits 2 and prints no
 result.
@@ -486,6 +491,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -544,6 +550,38 @@ def vit_config():
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def poll(cond, timeout: float, what: str, every: float = 0.01) -> None:
+    """Wait until ``cond()`` holds: the condition a fixed sleep would only
+    hope for. Raises after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"phase {what}: not within {timeout} s")
+        time.sleep(every)
+
+
+class timed(contextlib.ContextDecorator):
+    """A sub-step's host-clock seconds, logged as ``stamp <label>: <s> s
+    (at <s since the script started> s)`` when a decorated function or a
+    ``with`` block ends, passed or failed."""
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def __enter__(self):
+        self.t = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        now = time.perf_counter()
+        log(f"stamp {self.label}: {now - self.t:.2f} s (at "
+            f"{now - T_START:.1f} s)")
+        return False
 
 
 def tol_ratio(a, b, tol=BF16_TOL) -> float:
@@ -1678,6 +1716,7 @@ def state_ratio(a, b, bar: dict) -> float:
                          bar) for k in sa)
 
 
+@timed("11(a) rl_card_vs_cpu")
 def rl_card_vs_cpu(dev) -> dict:
     """(a) Each case's learner on the CPU and on ``dev`` from the same state
     (``load_learner_state``) takes the same update; params and metrics are
@@ -1704,6 +1743,7 @@ def rl_card_vs_cpu(dev) -> dict:
     return worst
 
 
+@timed("11(b) rl_learning")
 def rl_learning(dev) -> dict:
     """(b) The JAX package's learning bars (tests/test_rl.py) through the
     port's ``Algorithm``, learners on ``dev``."""
@@ -1914,6 +1954,7 @@ def iteration_split(algo, iterations: int = 3) -> dict:
     return out
 
 
+@timed("11(c) rl_contracts")
 def rl_contracts(dev) -> dict:
     """(c) The tuned CartPole contracts on ``dev`` through
     ``rl.tuned_examples.run``, reported and not gated: each trains until
@@ -1961,6 +2002,7 @@ def rl_contracts(dev) -> dict:
     return out
 
 
+@timed("11(d) rl_group_one_rank")
 def rl_group_one_rank(dev, mesh) -> dict:
     """(d) ``LearnerGroup`` on the one-rank mesh: PPO's and IMPALA's update
     against the plain learner's at rtol 1e-6."""
@@ -2052,6 +2094,7 @@ def finished_ok(reason, n: int) -> bool:
 # phase 12: the runtime on the card
 # ---------------------------------------------------------------------------
 
+@timed("12(a) runtime_resources")
 def runtime_resources() -> dict:
     """(a) ``init()`` detects the card as ``GPU``; a ``num_gpus=1`` task runs
     in this process on the card and gives its resource back."""
@@ -2075,9 +2118,38 @@ def runtime_resources() -> dict:
         raise RuntimeError(f"GPU not given back: {avail} of {total}")
     log(f"runtime resources {total}; a num_gpus=1 task ran in this process "
         f"(pid {pid}) on cuda:{current}; available afterwards {avail}")
+    snapshot_restore()
     return {"total": total, "device": current}
 
 
+def snapshot_restore() -> None:
+    """The runtime's GCS snapshots its KV (two namespaces) to a file; after
+    a delete, an overwrite and a new key, ``restore`` gives the snapshot's
+    tables back."""
+    import os
+    import tempfile
+    from ray_tpu_torch._private import worker
+    gcs = worker.global_runtime().gcs
+    gcs.kv_put(b"phase12", b"kept")
+    gcs.kv_put(b"phase12", b"serve's", namespace=b"serve")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = gcs.snapshot(os.path.join(tmp, "gcs.snap"))
+        size = os.path.getsize(path)
+        gcs.kv_del(b"phase12")
+        gcs.kv_put(b"phase12", b"changed", namespace=b"serve")
+        gcs.kv_put(b"later", b"x")
+        gcs.restore(path)
+        ms = (time.perf_counter() - t0) * 1e3
+    got = (gcs.kv_get(b"phase12"), gcs.kv_get(b"phase12", namespace=b"serve"),
+           gcs.kv_get(b"later"))
+    if got != (b"kept", b"serve's", None):
+        raise RuntimeError(f"phase 12(a): the GCS restored {got}")
+    log(f"phase 12(a): the GCS's KV snapshot ({size} bytes) restored over a "
+        f"delete, an overwrite and a new key in {ms:.2f} ms")
+
+
+@timed("12(b) runtime_device_tier")
 def runtime_device_tier(gen) -> dict:
     """(b) A 256 MiB bf16 CUDA tensor through ``put``/``get`` keeps its
     storage and allocates nothing; a ``num_gpus=1`` task sums it on the
@@ -2176,6 +2248,7 @@ def actor_requests(server, mix: dict) -> dict:
             "full": sum(n == 32 for _, n in results)}
 
 
+@timed("12(c) runtime_serving")
 def runtime_serving(llm_config, mix: dict, lone_ids: list,
                     phase3: dict) -> dict:
     """(c) ``LLMServer`` as a ``num_gpus=1`` actor with phase 3's config:
@@ -2235,6 +2308,7 @@ def runtime_serving(llm_config, mix: dict, lone_ids: list,
             "wall_s": served["wall_s"], "up_s": up_s}
 
 
+@timed("12(d) runtime_rates")
 def runtime_rates(smi: str) -> dict:
     """(d) The runtime's own cost on this host: no-op tasks, calls on one
     actor and put/get round trips of a 1 MiB numpy array, a second each."""
@@ -2449,6 +2523,7 @@ def http_lone(port: int, prompt: list, lone_ids: list) -> None:
                            f"{lone_ids}")
 
 
+@timed("13(a-c) serve_llm_app")
 def serve_llm_app(config, mix: dict, lone_ids: list, smi: str,
                   base: int) -> dict:
     """(a) the LLM app through a serve handle, (b) over HTTP, (c) freed on
@@ -2519,6 +2594,7 @@ def serve_llm_app(config, mix: dict, lone_ids: list, smi: str,
             "first_chunk_s": first, "ttft_s": ttft, "up_s": up_s}
 
 
+@timed("13(d) serve_pd_app")
 def serve_pd_app(config, mix: dict, lone_ids: list, smi: str,
                  base: int) -> dict:
     """(d) the prefill/decode graph: the lone request, then phase 3's 16
@@ -2582,6 +2658,7 @@ def serve_pd_app(config, mix: dict, lone_ids: list, smi: str,
             "copy_ms": copy_ms, "prefill_ms": prefill_ms}
 
 
+@timed("13(e) serve_rates")
 def serve_rates(smi: str, actor_calls_per_s=None) -> dict:
     """(e) The serve data plane's own cost on this host: a no-op function
     deployment with 2 replicas, 1,000 sequential calls and 1,000 in flight
@@ -3445,6 +3522,7 @@ def data_train_loop(config: dict) -> None:
         it.close()
 
 
+@timed("17/18/19(c) data_llama")
 def data_llama(dev, phase5: dict, cfg, tmp: str, smi: str,
                part: str = "17(a)") -> dict:
     """Phase 17(a) (and 18(c)): ``JaxTrainer(datasets={"train":
@@ -3616,6 +3694,7 @@ def vit_pass(ts, params, opt, batches, dev, profile_at=None,
     return out
 
 
+@timed("17/18(b) data_stream")
 def data_stream(dev, tmp: str, smi: str, n: int = 2048, size: int = 224,
                 batch: int = 32, vit_cfg=None, part: str = "17(b)") -> dict:
     """Phase 17(b): ``n`` records of ``size`` x ``size`` x 3 uint8 images
@@ -3894,6 +3973,7 @@ def probe_workers(pids: set, part: str) -> None:
                            f"as {probed}")
 
 
+@timed("18(a) classic_rate")
 def classic_rate() -> tuple:
     """Phase 18(a)'s classic-pipe reference: 1,000 no-op tasks on a fresh
     ``init()`` with the fast lane off, none in the driver; (tasks/s, worker
@@ -3914,6 +3994,7 @@ def classic_rate() -> tuple:
     return rate, len(pids)
 
 
+@timed("18(a) process_checks")
 def process_checks(smi: str, tmp: str, classic: tuple) -> dict:
     """Phase 18(a): 1,000 no-op tasks in worker processes (none in the
     driver, the card hidden in every one), their rate beside the same tasks
@@ -4063,6 +4144,7 @@ def card_plane_checks(driver: int) -> str:
             "a CUDA argument")
 
 
+@timed("18(d) wire_checks")
 def wire_checks(dev, tmp: str, smi: str, mib: int = 256) -> dict:
     """Phase 18(d): a ``mib`` MiB bf16 tensor on ``dev`` (the card) and a
     one-rank DTensor through ``wire_dumps``/``wire_loads``: back on
@@ -4249,6 +4331,7 @@ ATTN_SHAPES = {"q": (8, 2048, 8, 128), "k": (8, 2048, 4, 128),
                "v": (8, 2048, 4, 128)}     # bench_400m's attention, f32
 
 
+@timed("19(a) lane_checks")
 def lane_checks(tmp: str, smi: str, classic: float) -> dict:
     """Phase 19(a): 1,000 no-op tasks counted by the lane's core, none in
     the driver, every lane worker without the card; tasks/s beside the pipe
@@ -4367,6 +4450,7 @@ def shm_mount() -> tuple:
     return st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
 
 
+@timed("19(b) store_flash")
 def store_flash(dev, smi: str) -> dict:
     """Phase 19(b): lane tasks return q, k and v as f32 numpy arrays at
     bench_400m's attention shapes; the node's store takes each into its
@@ -4618,6 +4702,7 @@ def cluster_pids(rt_obj, worker_pids: set) -> set:
     return pids
 
 
+@timed("20(a) daemon_cluster_checks")
 def daemon_cluster_checks(smi: str, phase19) -> dict:
     """Phase 20(a): the head and both daemons alive, ``daemon_ping`` gives
     each one's pid; 1,000 no-op tasks in the daemons' workers, none in the
@@ -4693,6 +4778,7 @@ def daemon_cluster_checks(smi: str, phase19) -> dict:
     return {"tasks_per_s": rate, "worker_pids": pids, "pings": pings}
 
 
+@timed("20(b) daemon_flash")
 def daemon_flash(dev, smi: str) -> dict:
     """Phase 20(b): daemon tasks make q, k and v (q and v on one daemon, k
     on the other), each left in its daemon's arena; one chunked pull copies
@@ -4819,6 +4905,7 @@ def daemon_flash(dev, smi: str) -> dict:
             "make_s": make_s, "home": home}
 
 
+@timed("20(c) daemon_death")
 def daemon_death(dev, flash: dict, smi: str) -> dict:
     """Phase 20(c): the driver's views released, the daemon holding k is
     SIGKILLed; the head marks it dead; an actor on it (max_restarts=1)
@@ -5045,6 +5132,7 @@ def descendants(pids: set) -> set:
     return out
 
 
+@timed("21(a) core_rates")
 def core_rates(smi: str, pairs: int = 3) -> dict:
     """Phase 21(a): ``init()`` runs the loop core (``debug_state()`` has
     ``loop=`` and the process's event loop runs); 1,000 no-op tasks on the
@@ -5105,6 +5193,7 @@ def core_rates(smi: str, pairs: int = 3) -> dict:
             "lag_max_ms": peak[0] * 1e3, "slow_callbacks": slow}
 
 
+@timed("21(b) cli_start")
 def cli_start() -> tuple:
     """Phase 21(b)'s cluster: ``cli start --head`` with two daemons on the
     threaded core; (address, seconds)."""
@@ -5117,6 +5206,7 @@ def cli_start() -> tuple:
             time.perf_counter() - t0)
 
 
+@timed("21(b) cli_cluster_flash")
 def cli_cluster_flash(dev, address: str, up_s: float, smi: str) -> dict:
     """Phase 21(b): this driver joins the CLI's cluster (daemons on the
     threaded core) on the asyncio core (``init(address=)``); three daemon
@@ -5204,6 +5294,7 @@ def arena_spans(backend, handles) -> dict:
     return spans
 
 
+@timed("21(c) cli_cluster_drain")
 def cli_cluster_drain(dev, part_b: dict, smi: str) -> dict:
     """Phase 21(c): an actor (``max_restarts=1``) and a 3 s task on k's
     daemon, then ``drain_node(<k's node>, deadline_s=20)``: the head and
@@ -5213,6 +5304,7 @@ def cli_cluster_drain(dev, part_b: dict, smi: str) -> dict:
     daemon leaves and the head marks it dead; the driver's get of k is a
     view in the survivor's arena, and the kernel on it gives (b)'s output
     bit for bit (one more launch)."""
+    import os
     import warnings
     import torch
     import ray_tpu_torch as rt
@@ -5230,16 +5322,18 @@ def cli_cluster_drain(dev, part_b: dict, smi: str) -> dict:
             return rt.get_runtime_context().get_node_id()
 
     @rt.remote(max_retries=0)
-    def busy(s):
+    def busy(s, path):
+        open(path, "w").close()
         time.sleep(s)
         return rt.get_runtime_context().get_node_id()
 
     actor = Where.options(scheduling_strategy=rt.NodeAffinitySchedulingStrategy(
         node_id=vhex, soft=True)).remote()
     first = rt.get(actor.node.remote())
+    marker = os.path.join(backend.session_dir, "phase21c_busy")
     running = busy.options(scheduling_strategy=rt.NodeAffinitySchedulingStrategy(
-        node_id=vhex, soft=False)).remote(3.0)
-    time.sleep(0.5)     # the task runs on the victim
+        node_id=vhex, soft=False)).remote(3.0, marker)
+    poll(lambda: os.path.exists(marker), 30, "21(c): the busy task started")
     gc.collect()
     rebuilt0 = runtime.stats["objects_reconstructed"]
     t0 = time.perf_counter()
@@ -5314,6 +5408,7 @@ def cli_cluster_drain(dev, part_b: dict, smi: str) -> dict:
             "survivor": survivor}
 
 
+@timed("21(d) other_drivers")
 def other_drivers(part_b: dict, survivor, smi: str) -> dict:
     """Phase 21(d): a second driver, a CPU subprocess run through ``cli
     attach``, runs tasks on the survivor; ``cli job-submit`` runs an
@@ -5602,6 +5697,7 @@ def lane_restart(runtime, lane) -> dict:
             "restart_s": restart_s}
 
 
+@timed("22(a) lane_path")
 def lane_path(dev, smi: str) -> dict:
     """Phase 22(a): the targeted actor lane on the daemon cluster."""
     import ray_tpu_torch as rt
@@ -5640,6 +5736,25 @@ def lane_path(dev, smi: str) -> dict:
             "restart_s": restart["restart_s"]}
 
 
+def build_demo() -> str:
+    """g++ builds ``csrc/api_demo.cc`` into the build directory unless a
+    build of this source and ``ray_tpu_api.h`` is there; its path."""
+    import hashlib
+    import os
+    from ray_tpu_torch import _build
+    src = _build.CSRC / "api_demo.cc"
+    key = hashlib.sha256(src.read_bytes() + (
+        _build.CSRC / "ray_tpu_api.h").read_bytes()).hexdigest()[:16]
+    demo = _build.BUILD_DIR / f"api_demo-{key}"
+    if not demo.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = demo.with_name(f"{demo.name}.{os.getpid()}.tmp")
+        subprocess.run(["g++", "-O2", "-std=c++17", "-Wall", "-o", str(tmp),
+                        str(src), "-ldl"], check=True, timeout=300)
+        os.replace(tmp, demo)
+    return str(demo)
+
+
 def demo_lines(demo: str, lib: str, head_port: int, daemon) -> tuple:
     """Run the native demo against the cluster; (its KEY=value lines,
     seconds)."""
@@ -5655,9 +5770,11 @@ def demo_lines(demo: str, lib: str, head_port: int, daemon) -> tuple:
                  for line in out.stdout.strip().splitlines()), seconds)
 
 
+@timed("22(b) native_program")
 def native_program(dev, flash: dict, smi: str) -> dict:
-    """Phase 22(b): g++ builds ``csrc/cpp_client.cc`` and the demo
-    ``csrc/api_demo.cc`` (over ``ray_tpu_api.h``) into the build directory;
+    """Phase 22(b): ``csrc/cpp_client.cc`` and the demo ``csrc/api_demo.cc``
+    (over ``ray_tpu_api.h``), g++-built into the build directory (at the
+    script's start, or here when run alone);
     the demo drives the cluster (KV, ping, objects, an exported task and
     actor) and prints the CPU test's lines; the client (through
     ``cpp_client.py``) writes q's bytes into a daemon's object table, the
@@ -5672,10 +5789,7 @@ def native_program(dev, flash: dict, smi: str) -> dict:
     daemon = list(backend.daemons.values())[0]
     t0 = time.perf_counter()
     lib = str(_build.build_host("cpp_client"))
-    demo = str(_build.BUILD_DIR / "api_demo")
-    subprocess.run(["g++", "-O2", "-std=c++17", "-Wall", "-o", demo,
-                    str(_build.CSRC / "api_demo.cc"), "-ldl"], check=True,
-                   timeout=300)
+    demo = build_demo()
     build_s = time.perf_counter() - t0
 
     def add(a, b):
@@ -5726,9 +5840,10 @@ def native_program(dev, flash: dict, smi: str) -> dict:
                            f"{(out.float() - flash['out'].float()).abs().max().item()}")
     mb_s = q_seed.nbytes / put_s / 1e6
     del q, out, blob, q_host
-    log(f"phase 22(b): g++ built the client library and the demo in "
-        f"{build_s:.1f} s; the demo (no Python in its process) ran in "
-        f"{demo_s * 1e3:.0f} ms and printed the CPU test's lines {lines}; "
+    log(f"phase 22(b): the client library and the demo (g++ built them at "
+        f"the script's start) found in {build_s:.1f} s; the demo (no Python "
+        f"in its process) ran in {demo_s * 1e3:.0f} ms and printed the CPU "
+        f"test's lines {lines}; "
         f"the client wrote q ({q_seed.nbytes / 2**20:.0f} MiB) into daemon "
         f"{daemon.node_id.hex()[:8]}'s table in {put_s * 1e3:.1f} ms "
         f"({mb_s:.0f} MB/s); flash_fwd_wgmma on it, 1 launch, equal to "
@@ -5737,6 +5852,7 @@ def native_program(dev, flash: dict, smi: str) -> dict:
             "put_mb_s": mb_s}
 
 
+@timed("22(d) autoscale_checks")
 def autoscale_checks(runtime, smi: str) -> dict:
     """Phase 22(d), the autoscaler: a ``ProcessHostProvider`` and a
     ``Reconciler`` on 22(a)'s cluster provision a real daemon for a
@@ -5795,6 +5911,7 @@ def autoscale_checks(runtime, smi: str) -> dict:
             "provision_s": up_s, "task_s": task_s, "end_s": end_s}
 
 
+@timed("22(c) grpc_ingress")
 def grpc_ingress(dev, smi: str) -> dict:
     """Phase 22(c): bench_400m's app (32 slots, phase 14's; on the card
     ``BENCH_LAYERS`` deep) behind ``start_grpc_proxy()``: 8 requests by
@@ -5912,6 +6029,7 @@ def grpc_ingress(dev, smi: str) -> dict:
                for k in ("stream_first_ms", "unary_ms", "tokens_per_s")}}
 
 
+@timed("22(d) launcher_checks")
 def launcher_checks(tmp: str, smi: str, seen: list) -> dict:
     """Phase 22(d), the launcher: ``cluster_launcher.up`` from a JSON config
     (a head and two workers, the subprocess provider); a CPU driver (a
@@ -6078,6 +6196,7 @@ def trace_lanes(trace, task_hex: str) -> set:
             if s.get("args", {}).get("task_id") == task_hex}
 
 
+@timed("23(a) obs_spans")
 def obs_spans(dev, smi: str) -> dict:
     """Phase 23(a): daemon tasks make q, k and v (phase 20's seeds and
     shapes), the driver reads them as arena views into the flash kernel
@@ -6235,6 +6354,7 @@ def obs_spans(dev, smi: str) -> dict:
             "breakdown": bd, "refs": refs}
 
 
+@timed("23(b) obs_federation")
 def obs_federation(runtime, smi: str) -> dict:
     """Phase 23(b): a user counter incremented once a task on both daemons
     sums to the tasks at the head's federated exposition, with the phase
@@ -6350,6 +6470,7 @@ def obs_federation(runtime, smi: str) -> dict:
             "cli_s": cli_s}
 
 
+@timed("23(c) obs_profile")
 def obs_profile(dev, runtime, qkv, smi: str) -> dict:
     """Phase 23(c): the flash kernel launched in a loop for ~1.5 s by this
     process's main thread while ``cluster_profile(duration_s=1.0)`` samples
@@ -6425,6 +6546,7 @@ def obs_profile(dev, runtime, qkv, smi: str) -> dict:
             "launcher_samples": launcher, "thread_probe": probe}
 
 
+@timed("23(d) obs_memory")
 def obs_memory(out, smi: str) -> dict:
     """Phase 23(d), memory: on the local runtime the kernel's output (a
     CUDA tensor) is ``put``; the owner store's ``device-hbm`` tier holds
@@ -6460,6 +6582,7 @@ def obs_memory(out, smi: str) -> dict:
     return {"device_bytes": held, "limit": limit, "used": used}
 
 
+@timed("23(e) obs_trace_cost")
 def obs_trace_cost(smi: str, pairs: int = 3, n: int = 2000) -> dict:
     """Phase 23(e): 2,000 no-op tasks on the default local runtime with
     ``task_trace`` on and off, three alternated pairs (tasks/s each, the
@@ -6679,6 +6802,7 @@ def chaos_track(runtime, track: dict) -> None:
     track["sessions"].append(backend.session_dir)
 
 
+@timed("24(a) chaos_seeded")
 def chaos_seeded(dev, tmp: str, smi: str, track: dict) -> dict:
     """Phase 24(a): q, k and v made by daemon tasks and read into the flash
     kernel, on a cluster with nothing armed and on one with seed 24's
@@ -6805,6 +6929,7 @@ def chaos_seeded(dev, tmp: str, smi: str, track: dict) -> dict:
             "pings": a["pings"], "pings_served": a["pings_served"]}
 
 
+@timed("24(b) chaos_partition")
 def chaos_partition(dev, ref_out, tmp: str, smi: str, track: dict) -> dict:
     """Phase 24(b): the lane's first connect rides ``RetryPolicy`` past two
     injected errors; a one-way driver->daemon partition with a 3 s window
@@ -6838,7 +6963,8 @@ def chaos_partition(dev, ref_out, tmp: str, smi: str, track: dict) -> dict:
             return i, i * 11
 
         @rt.remote(max_retries=5, num_returns=2)
-        def slow(i):
+        def slow(i, mark):
+            open(f"{mark}.{i}", "w").close()
             time.sleep(2.5)
             return i, -i
 
@@ -6853,9 +6979,11 @@ def chaos_partition(dev, ref_out, tmp: str, smi: str, track: dict) -> dict:
         fenced0 = sum(exposition_sum(
             prometheus_text(), "ray_tpu_fenced_results_total").values())
         at_victim = rt.NodeAffinitySchedulingStrategy(node_id=vh, soft=True)
-        stale = [slow.options(scheduling_strategy=at_victim).remote(i)
+        mark = os.path.join(tmp, "slow_b")
+        stale = [slow.options(scheduling_strategy=at_victim).remote(i, mark)
                  for i in range(2)]
-        time.sleep(0.3)     # the slow bodies are running on the victim
+        poll(lambda: all(os.path.exists(f"{mark}.{i}") for i in range(2)),
+             30, "24(b): the slow bodies started on the victim")
         nc.activate(f"driver>daemon@{vh}=partition:dur=3000;"
                     f"driver>daemon@lane:{vh}=partition:dur=3000",
                     seed=CHAOS_SEED)
@@ -6918,6 +7046,7 @@ def chaos_partition(dev, ref_out, tmp: str, smi: str, track: dict) -> dict:
             "lane_retries": lane_retries, "seconds": burst_s}
 
 
+@timed("24(c) chaos_pressure")
 def chaos_pressure(dev, ref_out, tmp: str, smi: str, track: dict) -> dict:
     """Phase 24(c) and (d): ``memory_pressure`` on, each arena 8 x q's
     bytes (512 MiB), watermarks 0.2,0.45 and a spill budget of 1.5 x q's
@@ -7032,12 +7161,16 @@ def chaos_pressure(dev, ref_out, tmp: str, smi: str, track: dict) -> dict:
             except Exception as e:  # noqa: BLE001 - reported below
                 done["error"] = repr(e)
 
+        def retries():
+            return exposition_sum(prometheus_text(), "ray_tpu_retries_total",
+                                  loop="put.backpressure").get("", 0.0)
+
         putter = threading.Thread(target=put, name="pressure-put")
         putter.start()
-        time.sleep(0.5)         # the put meets the hard level
-        retries_hard = exposition_sum(
-            prometheus_text(), "ray_tpu_retries_total",
-            loop="put.backpressure").get("", 0.0)
+        # the put meets the hard level: its first retry, or its end
+        poll(lambda: retries() >= 1 or not putter.is_alive(), 30,
+             "24(c): the put met the hard level", every=0.05)
+        retries_hard = retries()
         ballast.clear()         # relief: the refs go, the arena drains
         gc.collect()
         putter.join(timeout=35)
@@ -7113,6 +7246,7 @@ def chaos_pressure(dev, ref_out, tmp: str, smi: str, track: dict) -> dict:
             "debug_s": debug_s}
 
 
+@timed("24(e) chaos_disarmed")
 def chaos_disarmed(phase19, smi: str) -> dict:
     """Phase 24(e): everything disarmed, the lane's no-op tasks/s on the
     default ``init()`` beside phase 19's figure (every seam then costs one
@@ -7306,6 +7440,7 @@ def fair_share_run(dev, fairshare: bool, heavy: int, ref_out) -> dict:
         rt.shutdown()
 
 
+@timed("25(a) quota_checks")
 def quota_checks(smi: str) -> dict:
     """25(a)'s third job: a hard CPU quota of 0 queues its four tasks (the
     verdicts QUEUED, none runs), raising it to 2 runs all four; the
@@ -7360,6 +7495,7 @@ def quota_checks(smi: str) -> dict:
         rt.shutdown()
 
 
+@timed("25(a) fair_share")
 def fair_share(dev, smi: str) -> dict:
     """Phase 25(a): JAX's isolation A/B (tests/test_tenancy.py:403) with
     the light job's tasks making q, k and v into the kernel, and the
@@ -7392,6 +7528,7 @@ def fair_share(dev, smi: str) -> dict:
             "bound_ms": bound * 1e3}
 
 
+@timed("25(b) runtime_envs")
 def runtime_envs(dev, ref_out, tmp: str, smi: str) -> dict:
     """Phase 25(b): ``init(job_config=JobConfig(...))`` with an env var and
     a ``code_search_path`` module: a worker task imports the module, which
@@ -7491,6 +7628,7 @@ def dag_actors(in_process: bool):
     return Make, Scale, Attend
 
 
+@timed("25(c) compiled_dag")
 def compiled_dag(dev, smi: str, rounds: int = 50, card_rounds: int = 10):
     """Phase 25(c): process-worker stages over shm channels make and scale
     q, k and v; ``rounds`` rounds compiled and ``rounds`` through
@@ -7832,7 +7970,11 @@ def topology_gang(dev, ref_out) -> dict:
         @rt.remote
         def hold(path):
             open(path, "w").close()
-            time.sleep(2)
+            # held until the driver has placed and checked the group
+            deadline = time.monotonic() + 30
+            while not os.path.exists(f"{path}.release") \
+                    and time.monotonic() < deadline:
+                time.sleep(0.02)
             return os.getpid()
 
         held_ref = hold.options(
@@ -7850,12 +7992,17 @@ def topology_gang(dev, ref_out) -> dict:
         if not pg_d.wait(30) or pg_d.bundles[0].node_id == big.node_id:
             raise RuntimeError(f"phase 26(d): the bundle is {pg_d.state} on "
                                f"the draining node")
+        if not runtime.get_node(big.node_id).draining:
+            raise RuntimeError("phase 26(d): the node stopped draining "
+                               "before the group was placed")
+        open(f"{marker}.release", "w").close()
         worker_pid = rt.get(held_ref, timeout=60)
         deadline = time.monotonic() + 30
         while (runtime.get_node(big.node_id) is not None
                and time.monotonic() < deadline):
             time.sleep(0.05)
         os.remove(marker)
+        os.remove(f"{marker}.release")
         os.rmdir(os.path.dirname(marker))
         log(f"phase 26(d): a task running in worker {worker_pid} on a "
             f"16-CPU node that drains; a PACK [{{CPU: 1}}] group created "
@@ -7961,12 +8108,48 @@ def card_name() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def stamp_runtime_calls() -> None:
+    """Stamp every ``init`` and ``shutdown`` of the port's runtime as a
+    sub-step: a daemon cluster's boot and teardown are seconds of host
+    time."""
+    import functools
+    import ray_tpu_torch as rt
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            what = kw.get("cluster") or ("address" if kw.get("address")
+                                         else "local")
+            with timed(f"{fn.__name__}({what})"):
+                return fn(*args, **kw)
+        return run
+    rt.init, rt.shutdown = wrap(rt.init), wrap(rt.shutdown)
+
+
+def host_class() -> str:
+    """This host's cores and a fixed pure-Python workload's ms: the
+    host-bound phases run at that interpreter's pace (phase 7's MLP step
+    is the steadier yardstick)."""
+    import os
+    import pickle
+    blob = {str(i): list(range(20)) for i in range(2000)}
+    t = time.perf_counter()
+    for _ in range(20):
+        pickle.loads(pickle.dumps(blob))
+        sum(i * i for i in range(20000))
+    ms = (time.perf_counter() - t) * 1e3
+    return (f"host: {os.cpu_count()} cores, {len(os.sched_getaffinity(0))} "
+            f"usable; the Python yardstick {ms:.1f} ms")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    log(host_class())
+    stamp_runtime_calls()
     from ray_tpu_torch import _build
     from ray_tpu_torch.bench import moe_bench_config
     from ray_tpu_torch.llm import LLMServer
@@ -7975,6 +8158,7 @@ def main() -> int:
     from ray_tpu_torch.ops import decode_attention as dec
     from ray_tpu_torch.ops import paged_attention as paged
 
+    import os
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
@@ -7983,10 +8167,20 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     log(smi)
+    # the worker template (numpy and torch preloaded) starts while the
+    # kernels build: phase 11's first worker process forks at once
+    from ray_tpu_torch._private import worker_process
+    threading.Thread(target=worker_process._mp_context, daemon=True,
+                     name="worker-template").start()
 
-    # 1. build, one nvcc per source, all at once
+    # 1. build, one nvcc per source, all at once; beside them g++ builds
+    # the host tier's libraries and the C++ demo that phases 19-22 run
     t0 = time.perf_counter()
     names = ("decode_attention", "flash_attention")
+    host = ThreadPoolExecutor(len(_build.HOST_LIBS) + 1)
+    host_builds = [host.submit(_build.build_host, n)
+                   for n in _build.HOST_LIBS] + [host.submit(build_demo)]
+    host.shutdown(wait=False)
     with ThreadPoolExecutor(len(names)) as pool:
         lib_paths = list(pool.map(_build.build, names))
     for name, lib_path in zip(names, lib_paths):
@@ -7997,6 +8191,10 @@ def main() -> int:
                     or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"built {len(names)} sources in {time.perf_counter() - t0:.1f} s")
+    for b in host_builds:
+        log(f"build: {os.path.basename(str(b.result()))}")
+    log(f"with the host code's {len(host_builds)} in "
+        f"{time.perf_counter() - t0:.1f} s")
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(check_sass, names, lib_paths))
 

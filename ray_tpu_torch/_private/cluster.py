@@ -60,6 +60,7 @@ import tempfile
 import threading
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch._private import daemon as _daemon_schemas  # noqa: F401 - declares the daemon RPC schemas
@@ -1610,20 +1611,37 @@ class ClusterBackend:
             self._supervisor.start()
             self.owner_service = OwnerService(runtime)
             self.owner_server = rpc.serve(self.owner_service).start()
-            for _ in range(num_daemons):
-                node_id = NodeID.from_random()
-                proc, port = _spawn("ray_tpu_torch._private.daemon", [
+
+            def spawn_daemon(node_id):
+                return _spawn("ray_tpu_torch._private.daemon", [
                     "--head", f"127.0.0.1:{self._head_port}",
                     "--node-id", node_id.hex(),
                     "--resources", json.dumps(resources_per_daemon),
                     "--object-store-bytes", str(object_store_bytes),
                     "--session-dir", self.session_dir,
                 ])
+
+            # the daemons start at once (each process's start and its
+            # warm worker pool take seconds on a slow host), in node order
+            node_ids = [NodeID.from_random() for _ in range(num_daemons)]
+            with ThreadPoolExecutor(max(1, num_daemons)) as pool:
+                spawns = [pool.submit(spawn_daemon, n) for n in node_ids]
+            failed = None
+            for node_id, spawned in zip(node_ids, spawns):
+                try:
+                    proc, port = spawned.result()
+                except BaseException as e:
+                    failed = failed or e
+                    continue
                 handle = DaemonHandle(node_id, ("127.0.0.1", port), proc,
                                       self.arenas)
                 with self._lock:
                     self.daemons[node_id] = handle
                 handle.runtime = runtime
+            if failed is not None:
+                raise failed
+            for node_id in node_ids:
+                handle = self.daemons[node_id]  # raylint: disable=guarded-by
                 handle.hello(self.owner_server.addr, runtime.job_id,
                              runtime.namespace)
                 handle.on_actor_worker_died = self._make_actor_death_cb()
@@ -1927,10 +1945,12 @@ class ClusterBackend:
         with self._lock:
             daemons = list(self.daemons.values())
             self.daemons.clear()
-        for handle in daemons:
-            if self._owns_cluster:
-                handle.stop()
-            else:       # a joined cluster: disconnect, do not stop
+        if self._owns_cluster and daemons:
+            # each stop waits for its process to exit: all at once
+            with ThreadPoolExecutor(len(daemons)) as pool:
+                list(pool.map(lambda h: h.stop(), daemons))
+        else:       # a joined cluster: disconnect, do not stop
+            for handle in daemons:
                 handle.detach()
         if self.head is not None:
             if self._owns_cluster:

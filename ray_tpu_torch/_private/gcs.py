@@ -2,9 +2,10 @@
 ``ray_tpu/_private/gcs.py``).
 
 Node membership, the actor directory with named actors per namespace, the
-internal KV, a table of live objects (the port's own: serve's controller
-checkpoint) and a pubsub bus for state changes, as an in-process service
-owned by the Runtime.
+internal KV, the job table, a table of live objects (the port's own: serve's
+controller checkpoint) and a pubsub bus for state changes, as an in-process
+service owned by the Runtime. The KV and job tables snapshot to a file and
+restore from it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from ray_tpu_torch._private.ids import ActorID, NodeID
+from ray_tpu_torch._private.ids import ActorID, JobID, NodeID
 
 
 class ActorState(enum.Enum):
@@ -51,6 +52,13 @@ class NodeInfo:
     start_time: float = field(default_factory=time.time)
 
 
+@dataclass
+class JobInfo:
+    job_id: JobID
+    start_time: float = field(default_factory=time.time)
+    metadata: Dict[str, str] = field(default_factory=dict)
+
+
 class Pubsub:
     """In-process pubsub bus."""
 
@@ -79,6 +87,7 @@ class GCS:
         self.actors: Dict[ActorID, ActorInfo] = {}
         self._named_actors: Dict[Tuple[str, str], ActorID] = {}
         self._kv: Dict[str, Dict[bytes, bytes]] = {}
+        self.jobs: Dict[JobID, JobInfo] = {}
         self.pubsub = Pubsub()
 
     # -- nodes -------------------------------------------------------------
@@ -179,6 +188,34 @@ class GCS:
                 if all_namespaces or ns == namespace:
                     out.append({"name": name, "namespace": ns})
             return out
+
+    # -- persistence: the KV and job tables to a file and back ------------
+    def snapshot(self, path: str) -> str:
+        """Write every namespace's KV table and the job table to ``path``,
+        read under the lock: a stdlib pickle of plain data (a job is its id's
+        bytes and its fields), which ``restore`` reads refusing any global,
+        as the wire does."""
+        from ray_tpu_torch._private.rpc import dumps_frame
+        with self._lock:
+            payload = {"kv": {ns: dict(t) for ns, t in self._kv.items()},
+                       "jobs": {jid.binary(): {"start_time": j.start_time,
+                                               "metadata": dict(j.metadata)}
+                                for jid, j in self.jobs.items()}}
+        with open(path, "wb") as f:
+            f.write(dumps_frame(payload))
+        return path
+
+    def restore(self, path: str) -> None:
+        """Load a ``snapshot``: the KV tables are replaced, the jobs merged
+        into the job table."""
+        from ray_tpu_torch._private.rpc import loads_frame
+        with open(path, "rb") as f:
+            payload = loads_frame(f.read())
+        jobs = {JobID(raw): JobInfo(JobID(raw), **fields)
+                for raw, fields in payload.get("jobs", {}).items()}
+        with self._lock:
+            self._kv = {ns: dict(t) for ns, t in payload["kv"].items()}
+            self.jobs.update(jobs)
 
     # -- internal KV (function table, collective rendezvous) ---------------
     def kv_put(self, key: bytes, value: bytes, overwrite: bool = True,

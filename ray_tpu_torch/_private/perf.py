@@ -1,7 +1,8 @@
 """Core-op microbenchmarks, the harness behind the CLI's
 ``microbenchmark`` (counterpart of ``ray_tpu/_private/perf.py``): task,
 actor-call, put, put/get and compiled-DAG round rates of the port's
-runtime, timed on the host's clock.
+runtime, timed on the host's clock; with ``PERF_ENVELOPE=1`` the scale
+envelope's rows too.
 """
 
 from __future__ import annotations
@@ -182,7 +183,87 @@ def main() -> int:
     # scaling TREND: does the drain rate hold at 3x the backlog?
     print(json.dumps(queued_task_drain(3 * drain_n)))
     sys.stdout.flush()
+    if os.environ.get("PERF_ENVELOPE") == "1":
+        for row in envelope_rows():
+            print(json.dumps(row))
+            sys.stdout.flush()
     return 0
+
+
+def envelope_rows() -> List[Dict]:
+    """The scale envelope's single-host slices (the reference's 1M+
+    queued tasks, 40k actors, 2,000 nodes): a backlog ladder of 100k, 300k
+    and 1M queued tasks, 5,000 live actors created and called, 256 tasks
+    spread over 64 virtual nodes. Leaves no runtime up."""
+    import os
+    import ray_tpu_torch
+
+    rows: List[Dict] = []
+    if not ray_tpu_torch.is_initialized():
+        ray_tpu_torch.init(num_nodes=1, resources={"CPU": 8})
+
+    @ray_tpu_torch.remote(_in_process=True)
+    def val(i):
+        return i
+
+    # climb the ladder until the host cannot hold the next rung (memory,
+    # threads, pids) or a rung outlasts the budget (the next would take
+    # ~3x as long); every rung that held is a row
+    budget_s = float(os.environ.get("PERF_ENVELOPE_DRAIN_BUDGET_S", "120"))
+    for n in (100_000, 300_000, 1_000_000):
+        t0 = time.perf_counter()
+        try:
+            refs = [val.remote(i) for i in range(n)]
+            submit_s = time.perf_counter() - t0
+            out = ray_tpu_torch.get(refs)
+            total_s = time.perf_counter() - t0
+            assert out[-1] == n - 1
+            del refs, out
+        except Exception:
+            break       # the rung below is the host's envelope
+        rows.append({"name": f"queued_{n}_task_drain", "n": n,
+                     "submit_seconds": round(submit_s, 3),
+                     "total_seconds": round(total_s, 3),
+                     "submit_per_s": round(n / submit_s, 1),
+                     "drain_per_s": round(n / total_s, 1)})
+        if total_s > budget_s:
+            break
+
+    @ray_tpu_torch.remote(_in_process=True)
+    class Cell:
+        def __init__(self, i):
+            self.i = i
+
+        def get(self):
+            return self.i
+
+    t0 = time.perf_counter()
+    cells = [Cell.remote(i) for i in range(5000)]
+    out = ray_tpu_torch.get([c.get.remote() for c in cells])
+    total_s = time.perf_counter() - t0
+    assert out[-1] == 4999
+    rows.append({"name": "actors_5000_create_and_call",
+                 "throughput_per_s": round(5000 / total_s, 1),
+                 "count": 5000, "seconds": round(total_s, 3)})
+    for c in cells:
+        ray_tpu_torch.kill(c)
+
+    # the node count is an init argument: the spread has its own runtime
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_nodes=64, resources={"CPU": 2})
+
+    @ray_tpu_torch.remote(_in_process=True, scheduling_strategy="SPREAD")
+    def where():
+        return ray_tpu_torch.get_runtime_context().get_node_id()
+
+    t0 = time.perf_counter()
+    nodes = set(ray_tpu_torch.get([where.remote() for _ in range(256)]))
+    total_s = time.perf_counter() - t0
+    rows.append({"name": "spread_256_tasks_64_nodes",
+                 "throughput_per_s": round(256 / total_s, 1),
+                 "count": len(nodes), "seconds": round(total_s, 3)})
+    ray_tpu_torch.shutdown()
+    return rows
 
 
 if __name__ == "__main__":

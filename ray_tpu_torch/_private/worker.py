@@ -308,7 +308,10 @@ class Runtime:
         if cfg().memory_monitor:
             self.memory_monitor.start()
 
-        if resources_per_node is None:
+        # a driver that joins a running cluster takes the nodes' resources
+        # from its head: it detects none (detection imports torch, seconds
+        # of a CLI command's or a CPU driver's start)
+        if resources_per_node is None and not address:
             resources_per_node = self._detect_resources()
         self.cluster_backend = None
         if cluster is None:
@@ -354,6 +357,8 @@ class Runtime:
         a host without a card has no ``GPU`` key, so a ``num_gpus`` demand
         fails there instead of running on the CPU."""
         res: Dict[str, float] = {"CPU": float(os.cpu_count() or 1)}
+        if os.environ.get("CUDA_VISIBLE_DEVICES") == "":
+            return res      # the card is hidden: no torch import to learn it
         import torch
         if torch.cuda.is_available():
             res["GPU"] = float(torch.cuda.device_count())
@@ -641,9 +646,11 @@ class Runtime:
                     n.daemon.flush_frees()
                 except Exception:
                     pass
+        moved: List[ActorID] = []
         try:
             self._migrate_node_objects(node)
-            self._migrate_node_actors(node, reason, deadline=deadline)
+            moved += self._migrate_node_actors(node, reason,
+                                               deadline=deadline)
         except Exception:
             pass    # the escalation still bounds the drain
         while time.monotonic() < deadline:
@@ -652,15 +659,31 @@ class Runtime:
                 # created while draining live here too), then leave with
                 # no reconstruction debt
                 try:
-                    self._migrate_node_actors(node, reason,
-                                              deadline=deadline)
+                    moved += self._migrate_node_actors(node, reason,
+                                                       deadline=deadline)
                     self._migrate_node_objects(node)
                 except Exception:
                     pass
+                self._await_restarts(moved, deadline)
                 self._finish_drain(node, reason)
                 return
             time.sleep(0.05)
         self._escalate_drain(node, reason)
+
+    def _await_restarts(self, actor_ids: List[ActorID],
+                        deadline: float) -> None:
+        """Hold a clean drain's departure until the actors it moved have
+        left RESTARTING (their new worker may take seconds to start on a
+        loaded host), so the node leaves with its actors ALIVE elsewhere
+        (ROADMAP C27; JAX's drain leaves at once). The drain's deadline
+        bounds the wait; a restart still pending then finishes after the
+        node is gone."""
+        while time.monotonic() < deadline:
+            infos = [self.gcs.get_actor_info(a) for a in actor_ids]
+            if not any(i is not None and i.state == ActorState.RESTARTING
+                       for i in infos):
+                return
+            time.sleep(0.05)
 
     def _migrate_node_objects(self, node: Node) -> int:
         """Copy sole-replica objects off the draining node so its
@@ -717,10 +740,12 @@ class Runtime:
         return moved
 
     def _migrate_node_actors(self, node: Node, reason: str,
-                             deadline: Optional[float] = None) -> int:
+                             deadline: Optional[float] = None
+                             ) -> List[ActorID]:
         """Restart the draining node's actors on surviving nodes through
         the restart machinery, gracefully: pending tasks replay on the new
-        incarnation and the planned move does not consume max_restarts."""
+        incarnation and the planned move does not consume max_restarts.
+        Returns the ids of the actors it moved."""
         from ray_tpu_torch._private.task_spec import (
             NodeAffinitySchedulingStrategy)
         with node._actors_lock:
@@ -740,7 +765,7 @@ class Runtime:
         with node._actors_lock:
             for actor_id in migrate:
                 node.actors.pop(actor_id, None)
-        moved = 0
+        moved: List[ActorID] = []
         cause = f"node draining ({reason})"
         for actor_id, executor in migrate.items():
             pending = executor.kill(cause)
@@ -757,11 +782,11 @@ class Runtime:
                 self._handle_actor_death(actor_id, cause,
                                          pending_tasks=pending,
                                          may_restart=True, graceful=True)
-                moved += 1
+                moved.append(actor_id)
             except Exception:
                 continue
         if moved:
-            self.stats["drain_actors_migrated"] += moved
+            self.stats["drain_actors_migrated"] += len(moved)
         return moved
 
     def _finish_drain(self, node: Node, reason: str) -> None:

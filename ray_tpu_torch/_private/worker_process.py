@@ -1109,8 +1109,9 @@ _OUR_FORKSERVER = None
 
 def _mp_context():
     """The forkserver context every worker forks from. The forkserver is the
-    template process: it preloads this module, numpy and pyarrow once (a
-    preload that is not installed is skipped), with the card
+    template process: it preloads this module, numpy, pyarrow and, where
+    this process has imported it, torch once (a preload that is not
+    installed is skipped), with the card
     hidden (``CUDA_VISIBLE_DEVICES=""`` in its environment), and never
     initialises CUDA."""
     global _MP_CTX, _OUR_FORKSERVER
@@ -1144,9 +1145,15 @@ def _mp_context():
             # pyarrow as JAX's template does: its first import in a task's
             # thread, then its use from another thread after that one
             # exits, segfaults (a plain-process repro, no fork needed)
+            # torch too where this process has it: a worker's first use of
+            # it (a policy, a probe, a tensor argument) then costs no
+            # import, seconds on a slow host; importing it initialises no
+            # CUDA, and a process without torch (a daemon) keeps its
+            # templates light
             _OUR_FORKSERVER.set_forkserver_preload(
                 ["ray_tpu_torch._private.worker_process",
-                 "ray_tpu_torch._private.worker", "numpy", "pyarrow"])
+                 "ray_tpu_torch._private.worker", "numpy", "pyarrow"]
+                + (["torch"] if torch is not None else []))
             _OUR_FORKSERVER.ensure_running()
         finally:
             for k, v in saved.items():

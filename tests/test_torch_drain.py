@@ -16,6 +16,7 @@ import pytest
 
 import ray_tpu_torch as rt_api
 from ray_tpu_torch._private.gcs import ActorState
+from ray_tpu_torch._private.ids import NodeID
 
 
 @pytest.fixture
@@ -211,6 +212,34 @@ def test_drain_under_combined_load_integration(cluster):
     assert rt_api.get(blobs, timeout=20)[3][0][0] == 3
     assert rt.stats["objects_reconstructed"] == 0
     assert rt.stats["drain_objects_migrated"] > 0
+    assert rt.stats["drain_escalations_total"] == 0
+
+
+def test_drained_node_leaves_with_its_actors_alive_elsewhere(cluster,
+                                                             tmp_path):
+    """C27: an actor whose new worker takes 1.5 s to come up (a loaded
+    host's process start) is ALIVE on another node by the time its drained
+    node is gone; JAX's drain leaves at once, with the actor RESTARTING."""
+    rt = cluster
+
+    @rt_api.remote(max_restarts=0, max_task_retries=0)
+    class Slow:
+        def __init__(self, mark):
+            if os.path.exists(mark):
+                time.sleep(1.5)     # the incarnation after the move
+            open(mark, "w").close()
+
+        def node(self):
+            return rt_api.get_runtime_context().get_node_id()
+
+    actor = Slow.remote(str(tmp_path / "created"))
+    victim_hex = rt_api.get(actor.node.remote(), timeout=30)
+    victim = rt.get_node(NodeID.from_hex(victim_hex))
+    assert rt_api.drain_node(victim_hex, deadline_s=20)
+    assert _wait_node_gone(rt, victim.node_id, timeout=30)
+    assert rt.gcs.get_actor_info(actor._ray_actor_id).state \
+        == ActorState.ALIVE
+    assert rt_api.get(actor.node.remote(), timeout=10) != victim_hex
     assert rt.stats["drain_escalations_total"] == 0
 
 
@@ -483,7 +512,6 @@ def test_preemption_watcher_notice_file_and_sigterm(tmp_path, monkeypatch):
     from ray_tpu_torch._private import rpc
     from ray_tpu_torch._private.cluster import _spawn
     from ray_tpu_torch._private.head import HeadClient
-    from ray_tpu_torch._private.ids import NodeID
     notice = tmp_path / "notice"
     monkeypatch.setenv("RAY_TPU_DRAIN_NOTICE_FILE", str(notice))
     monkeypatch.setenv("RAY_TPU_DRAIN_DEADLINE_S", "120")
