@@ -325,12 +325,15 @@
    done and the head marks it dead; the get of k is a view in the
    survivor's arena and the kernel on it gives (b)'s output bit for bit
    (one more launch); the drain's ms to the migration, the actor's answer
-   and the node's exit; (d) a second driver, a CPU subprocess through ``cli
-   attach``, runs tasks on the survivor; ``cli job-submit`` runs an
-   entrypoint to SUCCEEDED; a ``util.client`` subprocess puts 64 MiB
-   through ``serve_cluster`` in this driver and gets a task's sum of it;
-   nvidia-smi lists one context and no process of the cluster maps the
-   CUDA driver; (e) this driver's ``shutdown()`` leaves the cluster up
+   and the node's exit; (d) with this driver's tasks in flight, three
+   more drivers at once: a CPU subprocess through ``cli attach`` runs tasks
+   on the survivor, a ``cli job-submit`` entrypoint joins as a driver and
+   runs to SUCCEEDED, a ``util.client`` subprocess puts 64 MiB through
+   ``serve_cluster`` in this driver and gets a task's sum of it; each runs a
+   lambda only it knows, each driver's worker lines reach it alone, and a
+   task of this driver started after they joined runs a fresh function
+   and a nested put/get; nvidia-smi lists one context and no process of
+   the cluster maps the CUDA driver; (e) this driver's ``shutdown()`` leaves the cluster up
    (``cluster-status`` answers), then ``cli stop``: no head, daemon or
    worker process, no ``/dev/shm`` segment of the arenas, no cluster file
    or session dir and no bytes above the base on the card. Alone (it runs
@@ -5408,75 +5411,236 @@ def cli_cluster_drain(dev, part_b: dict, smi: str) -> dict:
             "survivor": survivor}
 
 
+# 21(d)'s other drivers, each a CPU process attached at once: each waits at
+# a barrier (a file a driver, in <dir>/joined.*) until all three have
+# joined, runs a lambda only it knows, and prints a marker from a task. A
+# driver's ``done.*`` file says its own marker reached its own stdout; it
+# leaves once the phase writes ``release``.
+_21D_COMMON = """\
+import os, sys, time
+DIR = sys.argv[1]
+NAMES = ("attach", "job", "client")
+
+
+class Tee:
+    def __init__(self, inner):
+        self.inner, self.text = inner, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.inner.write(s)
+
+    def flush(self):
+        self.inner.flush()
+
+
+def wait_for(path, what):
+    deadline = time.monotonic() + 180
+    while not os.path.exists(os.path.join(DIR, path)):
+        if time.monotonic() > deadline:
+            raise SystemExit(f"{what}: no {path} within 180 s")
+        time.sleep(0.02)
+
+
+def barrier(name):
+    open(os.path.join(DIR, "joined." + name), "w").close()
+    for other in NAMES:
+        wait_for("joined." + other, name)
+
+
+def finish(name, tee, mark):
+    deadline = time.monotonic() + 30
+    while mark not in "".join(tee.text):
+        if time.monotonic() > deadline:
+            raise SystemExit(f"{name}: its marker never reached its stdout")
+        time.sleep(0.02)
+    open(os.path.join(DIR, "done." + name), "w").close()
+    wait_for("release", name)
+"""
+
+_21D_DRIVER = _21D_COMMON + """\
+import ray_tpu_torch as rt
+name, mark = sys.argv[2], sys.argv[3]
+tee = sys.stdout = Tee(sys.stdout)
+r = rt.init(address=sys.argv[4])
+barrier(name)
+if name == "attach":
+    f = rt.remote(lambda x: (rt.get_runtime_context().get_node_id(), x * 3))
+    out = rt.get([f.remote(i) for i in range(8)], timeout=120)
+    print("SECOND", sorted({n for n, _ in out}), [x for _, x in out])
+else:
+    f = rt.remote(lambda: 6 * 7)
+    print("job says", rt.get(f.remote(), timeout=120))
+say = rt.remote(lambda m: print(m, flush=True) or m)
+assert rt.get(say.remote(mark), timeout=120) == mark
+finish(name, tee, mark)
+rt.shutdown()
+"""
+
+_21D_CLIENT = _21D_COMMON + """\
+import numpy as np
+from ray_tpu_torch.util.client import connect
+c = connect(sys.argv[2])
+barrier("client")
+x = np.arange(16 << 20, dtype=np.float32)
+ref = c.put(x)
+total = c.remote(lambda a: float(a.sum(dtype=np.float64)))
+print("CLIENT", c.get(total.remote(ref), timeout=120),
+      float(x.sum(dtype=np.float64)), flush=True)
+open(os.path.join(DIR, "done.client"), "w").close()
+wait_for("release", "client")
+c.close()
+"""
+
+
 @timed("21(d) other_drivers")
 def other_drivers(part_b: dict, survivor, smi: str) -> dict:
-    """Phase 21(d): a second driver, a CPU subprocess run through ``cli
-    attach``, runs tasks on the survivor; ``cli job-submit`` runs an
-    entrypoint to SUCCEEDED; a ``util.client`` subprocess puts 64 MiB
-    through ``serve_cluster`` in this driver and gets a task's sum of it."""
+    """Phase 21(d): three more drivers at once, while this driver's tasks
+    are in flight: a CPU subprocess through ``cli attach``, a ``cli
+    job-submit`` entrypoint that joins as a driver, and a ``util.client``
+    subprocess that puts 64 MiB through ``serve_cluster`` in this driver.
+    Each runs a lambda only it knows and checks its answer; each driver's
+    worker lines reach it alone; a task of this driver that starts after
+    the others joined runs a fresh function and a nested put/get."""
     import os
+    import tempfile
+    import uuid
+    import numpy as np
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker
     from ray_tpu_torch.util.client import serve_cluster
     address = part_b["address"]
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    backend = worker.global_runtime().cluster_backend
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=here)
     env.pop("RAY_TPU_ASYNC_CORE", None)
-    script = ("import ray_tpu_torch as rt\n"
-              "r = rt.init()\n"
-              "@rt.remote\n"
-              "def where(x):\n"
-              "    return rt.get_runtime_context().get_node_id(), x * 3\n"
-              "out = rt.get([where.remote(i) for i in range(8)])\n"
-              "print('SECOND', sorted({n for n, _ in out}), "
-              "[x for _, x in out])\n"
-              "rt.shutdown()\n")
+    work = tempfile.mkdtemp(prefix="phase21d_", dir=backend.session_dir)
+    nonce = uuid.uuid4().hex[:8]
+    marks = {k: f"MARK21D_{k}_{nonce}" for k in ("self", "attach", "job")}
+    for name, body in (("driver.py", _21D_DRIVER),
+                       ("client.py", _21D_CLIENT)):
+        with open(os.path.join(work, name), "w") as f:
+            f.write(body)
+    driver_py = os.path.join(work, "driver.py")
+
+    def linger(s):
+        time.sleep(s)
+        return os.getpid()
+
     t0 = time.perf_counter()
-    out = cli("attach", "--cluster", address, "--", sys.executable, "-c",
-              script, env=env)
-    attach_s = time.perf_counter() - t0
-    want = f"SECOND {[survivor.node_id.hex()]} {[i * 3 for i in range(8)]}"
-    if want not in out.stdout:
-        raise RuntimeError(f"phase 21(d): the attached driver printed "
-                           f"{out.stdout[-500:]}")
-    t0 = time.perf_counter()
-    job = cli("job-submit", "python -c \"print('job says', 6 * 7)\"",
-              env=dict(env, RAY_TPU_ADDRESS=address))
-    job_s = time.perf_counter() - t0
-    if "job says 42" not in job.stdout or "SUCCEEDED" not in job.stdout:
-        raise RuntimeError(f"phase 21(d): the job printed {job.stdout[-500:]}")
+    in_flight = [rt.remote(linger).remote(4.0) for _ in range(2)]
     server = serve_cluster(port=0)
-    client_script = (
-        "import sys, numpy as np\n"
-        "from ray_tpu_torch.util.client import connect\n"
-        "c = connect(sys.argv[1])\n"
-        "x = np.arange(16 << 20, dtype=np.float32)\n"
-        "ref = c.put(x)\n"
-        "total = c.remote(lambda a: float(a.sum(dtype=np.float64)))\n"
-        "print('CLIENT', c.get(total.remote(ref), timeout=120),"
-        " float(x.sum(dtype=np.float64)))\n"
-        "c.close()\n")
+    tee = sys.stdout = _Tee(sys.stdout)
+    procs = {}
+    logs = {}
+
+    def start(name, argv, penv):
+        # output to files: a full pipe must not stall a driver at the barrier
+        logs[name] = [open(os.path.join(work, f"{name}.{k}"), "w+")
+                      for k in ("out", "err")]
+        procs[name] = subprocess.Popen(
+            argv, stdout=logs[name][0], stderr=logs[name][1], text=True,
+            env=penv, cwd=here)
+
+    def read(name, k):
+        f = logs[name][k]
+        f.flush()
+        f.seek(0)
+        return f.read()
+
     try:
-        here = os.path.dirname(os.path.abspath(__file__))
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-c", client_script,
-             f"{server.address[0]}:{server.address[1]}"],
-            capture_output=True, text=True, timeout=180, cwd=here,
-            env=dict(env, PYTHONPATH=here))
-        client_s = time.perf_counter() - t0
+        start("attach", [sys.executable, "-m", "ray_tpu_torch.scripts.cli",
+                         "attach", "--cluster", address, "--",
+                         sys.executable, driver_py, work, "attach",
+                         marks["attach"], address], env)
+        start("job", [sys.executable, "-m", "ray_tpu_torch.scripts.cli",
+                      "job-submit", f"{sys.executable} {driver_py} {work} "
+                      f"job {marks['job']} {address}"],
+              dict(env, RAY_TPU_ADDRESS=address))
+        start("client", [sys.executable, os.path.join(work, "client.py"),
+                         work, f"{server.address[0]}:{server.address[1]}"],
+              env)
+
+        def joined():
+            for name, p in procs.items():
+                if p.poll() is not None:
+                    raise RuntimeError(
+                        f"phase 21(d): {name} exited {p.returncode} before "
+                        f"the barrier: {read(name, 0)[-800:]} "
+                        f"{read(name, 1)[-1500:]}")
+            return all(os.path.exists(os.path.join(work, "joined." + n))
+                       for n in procs)
+
+        poll(joined, 180, "21(d): the three drivers joined", every=0.02)
+        joined_s = time.perf_counter() - t0
+        # this driver's fresh function and a nested put/get, with all the
+        # others attached
+        fresh = rt.remote(lambda a, m: (print(m, flush=True) or m,
+                                        a * 5))
+        nested = rt.remote(lambda: int(rt.get(rt.put(np.arange(9))).sum()))
+        mine = rt.get([fresh.remote(7, marks["self"]), nested.remote()],
+                      timeout=120)
+        if mine != [(marks["self"], 35), 36]:
+            raise RuntimeError(f"phase 21(d): this driver's fresh function "
+                               f"and nested put/get gave {mine}")
+        poll(lambda: marks["self"] in "".join(tee.seen) and all(
+            os.path.exists(os.path.join(work, "done." + n)) for n in procs),
+            120, "21(d): every driver's own marker arrived", every=0.02)
+        time.sleep(0.6)     # a line routed wrong would land by now
+        with open(os.path.join(work, "release"), "w"):
+            pass
+        outs = {}
+        for name, p in procs.items():
+            p.wait(timeout=180)
+            outs[name] = read(name, 0)
+            if p.returncode != 0:
+                raise RuntimeError(f"phase 21(d): {name} exited "
+                                   f"{p.returncode}: {outs[name][-800:]} "
+                                   f"{read(name, 1)[-1500:]}")
+        all_s = time.perf_counter() - t0
+        pids = rt.get(in_flight, timeout=60)
     finally:
+        sys.stdout = tee.out
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for files in logs.values():
+            for f in files:
+                f.close()
         server.shutdown()
-    got = [ln.split()[1:] for ln in res.stdout.splitlines()
+    outs["self"] = "".join(tee.seen)
+    want = f"SECOND {[survivor.node_id.hex()]} {[i * 3 for i in range(8)]}"
+    if want not in outs["attach"]:
+        raise RuntimeError(f"phase 21(d): the attached driver printed "
+                           f"{outs['attach'][-500:]}")
+    if "job says 42" not in outs["job"] or "SUCCEEDED" not in outs["job"]:
+        raise RuntimeError(f"phase 21(d): the job printed "
+                           f"{outs['job'][-500:]}")
+    got = [ln.split()[1:] for ln in outs["client"].splitlines()
            if ln.startswith("CLIENT")]
-    if res.returncode != 0 or not got or got[0][0] != got[0][1]:
-        raise RuntimeError(f"phase 21(d): the client exited "
-                           f"{res.returncode}: {res.stdout[-300:]} "
-                           f"{res.stderr[-1500:]}")
-    log(f"phase 21(d): `cli attach -- python -c ...`, a CPU driver with "
-        f"RAY_TPU_ADDRESS, ran 8 tasks on the survivor in {attach_s:.2f} s "
-        f"of command; `cli job-submit` ran its entrypoint to SUCCEEDED in "
-        f"{job_s:.2f} s; a util.client subprocess put 64 MiB through "
-        f"serve_cluster in this driver and got a task's sum of it "
-        f"({got[0][0]}) in {client_s:.2f} s ({smi})")
-    return {"second_driver_s": attach_s, "job_s": job_s, "client_s": client_s}
+    if not got or got[0][0] != got[0][1]:
+        raise RuntimeError(f"phase 21(d): the client printed "
+                           f"{outs['client'][-300:]}")
+    for owner, mark in marks.items():
+        wrong = [k for k in ("self", "attach", "job")
+                 if (mark in outs[k]) != (k == owner)]
+        if wrong:
+            raise RuntimeError(f"phase 21(d): {owner}'s worker line "
+                               f"{mark} misrouted: present/absent wrongly "
+                               f"in {wrong}")
+    if len(pids) != 2:
+        raise RuntimeError(f"phase 21(d): the in-flight tasks gave {pids}")
+    log(f"phase 21(d): with 2 of this driver's 4 s tasks in flight, a "
+        f"`cli attach` driver, a `cli job-submit` entrypoint driver and a "
+        f"util.client subprocess started at once and all joined after "
+        f"{joined_s:.2f} s; each ran a lambda only it knew (8 tasks on the "
+        f"survivor, 6 * 7, the sum of 64 MiB put through serve_cluster in "
+        f"this driver: {got[0][0]}); after they joined this driver ran a "
+        f"fresh function and a nested put/get; each driver's worker line "
+        f"reached its own stdout and no other; all done in {all_s:.2f} s "
+        f"({smi})")
+    return {"joined_s": joined_s, "other_drivers_s": all_s}
 
 
 def control_plane_path(dev, phase5=None, smi=None) -> dict:

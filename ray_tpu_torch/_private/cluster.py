@@ -750,7 +750,7 @@ class DaemonHandle:
         from ray_tpu_torch._private import fast_lane as _fle
         payload = _fle.build_payload(
             spec, fid, args_blob, spec.job_id or self._job_id,
-            self.node_id)
+            self.node_id, self.client_id)
         return self._lane_roundtrip(fl, spec, lambda: fl.submit(payload))
 
     def _call_actor_fast(self, fl, tag: int, spec, args_blob: bytes):
@@ -759,7 +759,8 @@ class DaemonHandle:
         when the caller should take the classic path (nothing ran)."""
         from ray_tpu_torch._private import fast_lane as _fle
         payload = _fle.build_actor_payload(
-            spec, args_blob, spec.job_id or self._job_id, self.node_id)
+            spec, args_blob, spec.job_id or self._job_id, self.node_id,
+            self.client_id)
         return self._lane_roundtrip(
             fl, spec, lambda: fl.submit_targeted(tag, payload))
 

@@ -34,10 +34,25 @@ Python per task.
 Worker-initiated core ops (nested ``ray_tpu_torch.*`` calls inside tasks)
 forward as blobs to the owner (the driver) over a connection of their own.
 
+Several drivers at once: a ``--persist`` daemon keeps one record per
+attached driver (its connection, owner client, job and namespace), named by
+a token, its connection's ledger id. Every task, actor creation and method
+call carries its driver's token to the worker: the daemon stamps it on
+the classic path, the driver puts it in the lane frame. The worker binds
+it to the task's thread and to the threads that task starts, sends it
+back on each nested core op, which goes to that driver (a nested op that
+names no driver goes to the only one attached, else fails), and marks
+each change of the writing thread's driver in its log streams, so each
+worker line goes to the driver whose task printed it. A line of no
+driver's thread goes to every attached driver. The reference keeps one
+driver slot and routes everything to the latest driver.
+
 Lifetime: a daemon the driver spawned ends when that driver's connection
 closes; one started with ``--persist`` (``ray-tpu start``) serves every
-driver that joins, ends a departed driver's actors, and once the last
-driver is gone drops its leases and actors and waits for the next.
+driver that joins. A departing driver's record goes, with its actors,
+leases and batch records, and the other drivers' work is untouched. Once
+the last driver is gone the daemon drops every lease and actor and waits
+for the next.
 Preemption: SIGTERM, the ``drain_notice_file`` appearing, or
 ``PreemptionWatcher.notify`` announce one graceful drain to the head.
 
@@ -87,7 +102,7 @@ import threading
 import time
 import uuid
 from collections import OrderedDict
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch._private import failpoints as _fp
 from ray_tpu_torch._private import netchaos as _nc
@@ -1360,6 +1375,8 @@ class DaemonRuntime:
 
     def __init__(self, service: "DaemonService"):
         self.service = service
+        # a daemon serves several drivers: a task's job rides its spec, and
+        # a spec without one runs under no job (never another driver's)
         self.job_id = None
         self.namespace = None
         self._shutdown = False
@@ -1381,18 +1398,19 @@ class DaemonRuntime:
         identity for crash reclamation."""
         return self.service.handle_worker_shm_op(call, kw, client)
 
-    def forward_core_op(self, call: str, payload,
-                        key: Optional[str]) -> Tuple[bool, bytes]:
-        owner = self.service.owner
-        if owner is None:
-            raise RuntimeError("daemon has no owner connection")
+    def forward_core_op(self, call: str, payload, key: Optional[str],
+                        own: Optional[str] = None) -> Tuple[bool, bytes]:
+        """A worker's nested core op, to the driver ``own`` names (the
+        token its task carried)."""
+        owner = self.service.driver_of(own).owner
         out = owner.call("core_op", call=call, payload=payload, task=key,
                          timeout=None)
         return out["ok"], out["value"]
 
     def on_actor_worker_died(self, actor_id: ActorID, cause: str) -> None:
-        self.service.notify_driver("actor_worker_died",
-                                   actor_id=actor_id.hex(), cause=cause)
+        self.service.notify_driver(
+            "actor_worker_died", self.service.actor_drivers(actor_id),
+            actor_id=actor_id.hex(), cause=cause)
 
 
 
@@ -1400,6 +1418,22 @@ def _load_spec(blob: bytes):
     """The driver's slim task spec (no function, no arguments: those ride
     as blobs the daemon never loads)."""
     return pickle.loads(blob)
+
+
+class _Driver:
+    """One attached driver: its connection, the client its workers' nested
+    core ops reach (its owner server), its job and namespace, and the token
+    that names it on task frames (its connection's ledger id)."""
+
+    __slots__ = ("conn", "owner", "job_id", "namespace", "token")
+
+    def __init__(self, conn, owner: Client, job_id, namespace: str,
+                 token: str):
+        self.conn = conn
+        self.owner = owner
+        self.job_id = job_id
+        self.namespace = namespace
+        self.token = token
 
 
 # ---------------------------------------------------------------------------
@@ -1451,11 +1485,13 @@ class DaemonService:
             from ray_tpu_torch._private import worker_process as _wp
             _wp.set_arena_info(self.objects.arena_name,
                                self.objects._shm.capacity())
-        self.owner: Optional[Client] = None
-        self.driver_conn: Optional[Connection] = None
-        # every attached driver's connection -> its owner client, oldest
-        # first (a --persist daemon may serve several at once)
-        self._drivers: "OrderedDict[Connection, Client]" = OrderedDict()  #: guarded by self._lock
+        # every attached driver by connection, oldest first, and by token
+        # (a --persist daemon may serve several at once)
+        self._drivers: "OrderedDict[Connection, _Driver]" = OrderedDict()  #: guarded by self._lock
+        self._driver_tokens: Dict[str, _Driver] = {}  #: guarded by self._lock
+        # (pid, stream) -> the driver token of the worker's latest log
+        # marker (the log monitor's thread only)
+        self._log_owners: Dict[Tuple[int, str], str] = {}
         # fencing epoch minted by the head at register_node; stamped into
         # heartbeats, hello replies and every result/stream frame
         self.epoch = 0
@@ -1465,10 +1501,12 @@ class DaemonService:
         self.runtime = DaemonRuntime(self)
         self.node_stub = _NodeStub(self.node_id)
         self._lock = tracked_lock("daemon.ledger", reentrant=False)
-        self._leases: Dict[str, Any] = {}          #: guarded by self._lock
+        # lease id -> (worker client, the granting driver's connection)
+        self._leases: Dict[str, Tuple[Any, Any]] = {}  #: guarded by self._lock
         self._lease_seq = 0                        #: guarded by self._lock
-        # task_id hex -> (client, worker rid) for cancel/gen_ack
-        self._task_rids: Dict[str, Tuple[Any, str]] = {}  #: guarded by self._lock
+        # task_id hex -> (client, worker rid, the pushing driver's
+        # connection) for cancel/gen_ack
+        self._task_rids: Dict[str, Tuple[Any, str, Any]] = {}  #: guarded by self._lock
         # task hex -> job hex of running classic tasks: the memory
         # monitor's owner key, so the tenant-aware policy can find an
         # over-quota job's workers
@@ -1481,10 +1519,11 @@ class DaemonService:
         self._xlang_head_client = None             #: guarded by self._lock
         # batched-submit dedupe keyed (task hex, attempt): a retried frame
         # must not double-execute: running tasks are skipped, finished
-        # ones get their recorded outcome resent
-        self._batch_running: set = set()           #: guarded by self._lock
+        # ones get their recorded outcome resent. Each entry keeps the
+        # submitting driver's connection, so its departure drops them.
+        self._batch_running: Dict[tuple, Any] = {}  #: guarded by self._lock
         #: guarded by self._lock
-        self._batch_done: "OrderedDict[tuple, Dict[str, Any]]" = OrderedDict()
+        self._batch_done: "OrderedDict[tuple, Tuple[Any, Dict[str, Any]]]" = OrderedDict()
         self._batch_pump = _BatchReplyPump(self.task_events, node_id_hex)
         self._bundles: Dict[Tuple[str, int], Dict[str, Any]] = {}  #: guarded by self._lock
         # the node's memory-pressure level, advertised on heartbeats and
@@ -1542,7 +1581,12 @@ class DaemonService:
         self._log_monitor = None
         if _lm.log_to_driver_enabled():
             self._log_monitor = _lm.LogMonitor(
-                _lm.session_log_dir(), self._forward_worker_log)
+                _lm.session_log_dir(), self._forward_worker_log,
+                on_owner=self._note_log_owner)
+            # a dead worker's driver is forgotten once its last lines are in
+            self._forget_worker = lambda c: self._log_monitor.forget(c.pid)
+            from ray_tpu_torch._private import worker_process as _wp
+            _wp.DEATH_HOOKS.append(self._forget_worker)
         self.memory_monitor = None      # started by main()
         self.agent_port: Optional[int] = None
         self._agent = None
@@ -1550,9 +1594,30 @@ class DaemonService:
         # daemon's record and its workers' ship to the head on heartbeats
         _profiling.maybe_start_from_config(f"daemon:{node_id_hex[:8]}")
 
+    def _note_log_owner(self, pid: int, stream: str, token: str) -> None:
+        """A worker's marker: its lines that follow go to ``token``'s
+        driver; an empty token (no driver's thread, or the worker died)
+        leaves them to every attached driver."""
+        if token:
+            self._log_owners[(pid, stream)] = token
+        else:
+            self._log_owners.pop((pid, stream), None)
+
     def _forward_worker_log(self, pid: int, stream: str,
                             line: str) -> None:
-        self.notify_driver("worker_log", pid=pid, stream=stream,
+        """A worker's line goes to the driver whose task it ran when it
+        printed it (the file's latest marker); one before any marker, to
+        every attached driver; one of a departed driver's task, nowhere."""
+        token = self._log_owners.get((pid, stream))
+        if token is None:
+            drivers = None
+        else:
+            with self._lock:
+                drv = self._driver_tokens.get(token)
+            if drv is None:
+                return
+            drivers = [drv]
+        self.notify_driver("worker_log", drivers, pid=pid, stream=stream,
                            line=line, node=self.node_id.hex()[:8])
 
     # -- fast lane (native core) workers --------------------------------
@@ -1620,36 +1685,74 @@ class DaemonService:
             fresh.close()
         return peer
 
-    def _locate_via_owner(self, oid: bytes):
+    def _locate_via_owner(self, oid: bytes, conn=None):
         """Owner-keyed object directory: ask the object's owner which
-        nodes hold a copy."""
-        if self.owner is None:
-            return []
+        nodes hold a copy. The owner is the driver of ``conn`` (the driver
+        whose task reads the object); without one (a push's dedupe), every
+        attached driver is asked, and only the owner knows the object."""
         from ray_tpu_torch._private.fast_lane import join_parts, loads_joined
         from ray_tpu_torch._private.worker_process import _pack
-        out = self.owner.call(
-            "core_op", call="locate_object",
-            payload=bytes(join_parts(_pack({"oid": oid}))), task=None,
-            timeout=30.0)
-        if not out.get("ok"):
-            return []
-        return loads_joined(out["value"])
+        drv = conn.meta.get("driver") if conn is not None else None
+        with self._lock:
+            drivers = ([drv] if drv is not None
+                       else list(self._drivers.values()))
+        payload = bytes(join_parts(_pack({"oid": oid})))
+        holders: list = []
+        for d in drivers:
+            try:
+                out = d.owner.call("core_op", call="locate_object",
+                                   payload=payload, task=None, timeout=30.0)
+            except Exception:   # noqa: BLE001 - that driver left
+                continue
+            if out.get("ok"):
+                holders.extend(loads_joined(out["value"]))
+        return holders
 
     # -- wiring ----------------------------------------------------------
+    def driver_of(self, token: Optional[str]) -> _Driver:
+        """The driver a worker's task belongs to (``token`` rode the task's
+        frame); a frame with none (a thread the task started) falls to the
+        only attached driver. Never another driver's: a task whose driver
+        left gets an error."""
+        with self._lock:
+            drv = self._driver_tokens.get(token) if token else None
+            if drv is None and not token and len(self._drivers) == 1:
+                drv = next(iter(self._drivers.values()))
+            attached = len(self._drivers)
+        if drv is None:
+            raise RuntimeError(
+                f"the driver of this task ({token or 'not named'}) is not "
+                f"attached to daemon {self.node_id.hex()[:8]} "
+                f"({attached} drivers are)")
+        return drv
+
+    def actor_drivers(self, actor_id: ActorID) -> List[_Driver]:
+        """The attached driver that created ``actor_id`` (none if it left)."""
+        with self._lock:
+            return [d for d in self._drivers.values()
+                    if actor_id in d.conn.meta.get("actors", ())]
+
+    @staticmethod
+    def _token_of(conn) -> Optional[str]:
+        """The token of the driver whose connection ``conn`` is."""
+        drv = conn.meta.get("driver")
+        return drv.token if drv is not None else None
+
     def handle_hello_driver(self, conn, rid, msg):
         conn.link("driver")
         owner = rpc.connect(tuple(msg["owner_addr"]),
                             timeout=None).link("driver")
+        drv = _Driver(conn, owner, _load_spec(msg["job_id"]),
+                      msg["namespace"], self._conn_client_id(conn))
         with self._lock:
-            # a persistent daemon may serve several drivers at once (a
-            # second one joined by `init(address=)`): the latest is the
-            # current owner; one that leaves hands back to the one before
-            self._drivers[conn] = owner
-            self._drivers.move_to_end(conn)
-        self.driver_conn = conn
-        self.owner = owner
-        self.runtime.job_id = _load_spec(msg["job_id"])
-        self.runtime.namespace = msg["namespace"]
+            # a persistent daemon may serve several drivers at once (more
+            # joined by `init(address=)`): each keeps its own record
+            old = self._drivers.pop(conn, None)
+            self._drivers[conn] = drv
+            self._driver_tokens[drv.token] = drv
+        conn.meta["driver"] = drv
+        if old is not None:     # a repeated hello on one connection
+            old.owner.close()
         # the driver's import roots: future workers get them in the boot
         # frame, running ones (prestarted pool, lane) an extend op, so
         # by-reference pickles of the driver's modules resolve
@@ -1688,13 +1791,18 @@ class DaemonService:
                                    if self.objects._shm else 0),
                 # connection-scoped grant-ledger identity: every grant or
                 # reservation this connection asks for is charged here and
-                # reclaimed when the connection dies
-                "client_id": self._conn_client_id(conn)}
+                # reclaimed when the connection dies. It is also this
+                # driver's token, which its lane frames carry.
+                "client_id": drv.token}
 
-    def notify_driver(self, kind: str, **kw) -> None:
-        conn = self.driver_conn
-        if conn is not None and not conn.closed:
-            conn.push(kind, **kw)
+    def notify_driver(self, kind: str, drivers=None, **kw) -> None:
+        """Push to ``drivers`` (every attached driver when None)."""
+        if drivers is None:
+            with self._lock:
+                drivers = list(self._drivers.values())
+        for drv in drivers:
+            if not drv.conn.closed:
+                drv.conn.push(kind, **kw)
 
     def on_disconnect(self, conn: Connection) -> None:
         cid = conn.meta.get("arena_client_id")
@@ -1703,25 +1811,24 @@ class DaemonService:
             # here): reclaim every grant and reservation charged to it
             self.reclaim_client(cid, "disconnect")
         with self._lock:
-            owner = self._drivers.pop(conn, None)
-            rest = list(self._drivers.items())
-        if owner is None:
+            drv = self._drivers.pop(conn, None)
+            if drv is not None:
+                self._driver_tokens.pop(drv.token, None)
+            rest = bool(self._drivers)
+        if drv is None:
             return      # not a driver's connection
-        if rest:
-            # another driver is still attached: it becomes the owner
-            # again, and only the departed driver's actors go
-            self.driver_conn, self.owner = rest[-1]
-            owner.close()
-            self._kill_actors(conn.meta.get("actors", ()))
+        if not rest and not self.persist:
+            # driver gone: this daemon's work is orphaned; exit, as a
+            # raylet whose session ended
+            threading.Thread(target=self._exit_soon, daemon=True).start()
             return
-        if self.persist:
-            # a shared cluster (`ray-tpu start`): drop the departed
-            # driver's state and wait for the next one
+        # only the departed driver's record, actors, leases and batch
+        # records go; the others' work is untouched
+        self._drop_driver(drv)
+        if not rest:
+            # a shared cluster (`ray-tpu start`) whose last driver left:
+            # the next one starts clean
             self._reset_for_new_driver()
-            return
-        # driver gone: this daemon's work is orphaned; exit, as a raylet
-        # whose session ended
-        threading.Thread(target=self._exit_soon, daemon=True).start()
 
     def _kill_actors(self, actor_ids) -> None:
         router = self.runtime.process_router
@@ -1735,20 +1842,44 @@ class DaemonService:
                 except Exception:
                     pass
 
-    def _reset_for_new_driver(self) -> None:
-        """Tear down the departed driver's leases and actors so the next
-        driver starts clean (its objects stay until arena pressure: a
-        cross-driver growth bounded by the arena's capacity)."""
-        self.driver_conn = None
-        old_owner, self.owner = self.owner, None
-        if old_owner is not None:
-            try:
-                old_owner.close()
-            except OSError:
-                pass
+    def _drop_driver(self, drv: _Driver) -> None:
+        """A departed driver's state, with the others' still attached: its
+        owner client, the leases it holds (leased mid-task: state unknown,
+        killed), its batch dedupe records and task entries, its actors.
+        Its tasks still running finish; a nested op of theirs fails, as
+        ``driver_of`` finds no driver."""
+        try:
+            drv.owner.close()
+        except OSError:
+            pass
+        conn = drv.conn
         with self._lock:
-            self._drivers.clear()
-            leases = list(self._leases.values())
+            leases = [self._leases.pop(lid)[0]
+                      for lid, (_c, lc) in list(self._leases.items())
+                      if lc is conn]
+            for key in [k for k, c in self._batch_running.items()
+                        if c is conn]:
+                del self._batch_running[key]
+            for key in [k for k, (c, _o) in self._batch_done.items()
+                        if c is conn]:
+                del self._batch_done[key]
+            for task in [t for t, e in self._task_rids.items()
+                         if e[2] is conn]:
+                del self._task_rids[task]
+        for client in leases:
+            try:
+                client.kill(expected=True)
+            except Exception:
+                pass
+        self._kill_actors(conn.meta.get("actors", ()))
+
+    def _reset_for_new_driver(self) -> None:
+        """After the last driver's ``_drop_driver``: what no driver holds
+        goes too (bundles, leases and actors of other connections), so the
+        next driver starts clean (its objects stay until arena pressure: a
+        cross-driver growth bounded by the arena's capacity)."""
+        with self._lock:
+            leases = [c for c, _conn in self._leases.values()]
             self._leases.clear()
             self._task_rids.clear()
             self._bundles.clear()
@@ -1778,6 +1909,8 @@ class DaemonService:
             self.memory_monitor.stop()
         if self._log_monitor is not None:
             self._log_monitor.stop()
+            if self._forget_worker in wp.DEATH_HOOKS:
+                wp.DEATH_HOOKS.remove(self._forget_worker)
         if self._own_log_dir is not None:
             shutil.rmtree(self._own_log_dir, ignore_errors=True)
         if self._agent is not None:
@@ -1902,21 +2035,21 @@ class DaemonService:
         with self._lock:
             self._lease_seq += 1
             lease_id = f"l{self._lease_seq}"
-            self._leases[lease_id] = client
+            self._leases[lease_id] = (client, conn)
         return {"lease_id": lease_id, "worker_pid": client.pid}
 
     def handle_return_worker(self, conn, rid, msg):
         from ray_tpu_torch._private import worker_process as wp
 
         with self._lock:
-            client = self._leases.pop(msg["lease_id"], None)
+            client, _conn = self._leases.pop(msg["lease_id"], (None, None))
         if client is not None and client.actor_id is None:
             wp.release_worker(client)
         return {"ok": True}
 
     def _leased(self, lease_id: str):
         with self._lock:
-            client = self._leases.get(lease_id)
+            client, _conn = self._leases.get(lease_id, (None, None))
         if client is None:
             raise KeyError(f"unknown lease {lease_id!r}")
         return client
@@ -2006,9 +2139,9 @@ class DaemonService:
                     continue        # duplicate of an in-flight task
                 done = self._batch_done.get(key)
                 if done is not None:
-                    resend.append(done)
+                    resend.append(done[1])
                     continue
-                self._batch_running.add(key)
+                self._batch_running[key] = conn
             starts.append(self._start_batch_task(conn, entry, key))
         if len(starts) == 1 or not eventloop.on_loop():
             for start in starts:
@@ -2039,9 +2172,9 @@ class DaemonService:
                 return {"outcome": "pump"}  # a duplicate of one in flight
             resend = self._batch_done.get(key)
             if resend is None:
-                self._batch_running.add(key)
+                self._batch_running[key] = conn
         if resend is not None:
-            self._batch_pump.add(conn, resend)
+            self._batch_pump.add(conn, resend[1])
         else:
             self._task_pool.submit(self._start_batch_task(conn, msg, key))
         return {"outcome": "pump"}
@@ -2077,8 +2210,10 @@ class DaemonService:
     def _batch_task_done(self, conn, key: tuple,
                          out: Dict[str, Any]) -> None:
         with self._lock:
-            self._batch_running.discard(key)
-            self._batch_done[key] = out
+            self._batch_running.pop(key, None)
+            if conn.meta.get("driver") is None or conn in self._drivers:
+                # a departed driver's outcomes are not kept for a resend
+                self._batch_done[key] = (conn, out)
             while len(self._batch_done) > _BATCH_DONE_CAP:
                 self._batch_done.popitem(last=False)
         self._batch_pump.add(conn, out)
@@ -2094,6 +2229,10 @@ class DaemonService:
         spec = _load_spec(msg["spec"])
         spec.backpressure_num_objects = msg["backpressure"]
         task_hex = spec.task_id.hex()
+        # the pushing driver: its token rides to the worker, and its
+        # departure drops this task's entry
+        root = conn.conn if isinstance(conn, _BatchTaskConn) else conn
+        own = self._token_of(root)
 
         def release_lease(crashed: bool) -> None:
             from ray_tpu_torch._private import worker_process as wp
@@ -2132,9 +2271,10 @@ class DaemonService:
                                               self.runtime),
                     "runtime_env": spec.runtime_env,
                     "backpressure": msg["backpressure"],
+                    "own": own,
                 }, split_joined(msg["args"]))
                 with self._lock:
-                    self._task_rids[task_hex] = (client, wrid)
+                    self._task_rids[task_hex] = (client, wrid, root)
                     if spec.job_id is not None:
                         self._task_jobs[task_hex] = spec.job_id.hex()
                 outcome = client._wait_outcome(wrid, pend)
@@ -2162,7 +2302,7 @@ class DaemonService:
             entry = self._task_rids.get(msg["task_id"])
         if entry is None:
             return {"found": False}
-        client, wrid = entry
+        client, wrid, _conn = entry
         if msg["force"]:
             client.expected_death = False
             client.proc.terminate()
@@ -2174,7 +2314,7 @@ class DaemonService:
         with self._lock:
             entry = self._task_rids.get(msg["task_id"])
         if entry is not None:
-            client, wrid = entry
+            client, wrid, _conn = entry
             try:
                 client._send({"op": "gen_ack", "target": wrid})
             except Exception:
@@ -2194,7 +2334,7 @@ class DaemonService:
             try:
                 kind, blob = client.create_actor_instance(
                     spec, self.node_stub, msg["fid"],
-                    split_joined(msg["args"]))
+                    split_joined(msg["args"]), own=self._token_of(conn))
             except wp.WorkerCrashed as e:
                 client.kill(expected=False)
                 conn.reply(rid, outcome="crashed", error=str(e))
@@ -2207,11 +2347,16 @@ class DaemonService:
             router = self.runtime.process_router
             with router._lock:
                 router._actor_workers[spec.actor_id] = client
-            # the creating driver's actors end when it leaves
-            conn.meta.setdefault("actors", set()).add(spec.actor_id)
-            actor_id = spec.actor_id
-            client.add_death_callback(
-                lambda c, aid=actor_id: router._actor_worker_died(aid, c))
+            # the creating driver's actors end when it leaves, and their
+            # deaths are reported to it
+            actors = conn.meta.setdefault("actors", set())
+            actors.add(spec.actor_id)
+
+            def died(c, aid=spec.actor_id):
+                router._actor_worker_died(aid, c)
+                actors.discard(aid)
+
+            client.add_death_callback(died)
             conn.reply(rid, outcome="ok", worker_pid=client.pid,
                        fast_tag=self._grant_fast_tag(client, spec))
 
@@ -2263,9 +2408,10 @@ class DaemonService:
                     "ctx": client._ctx_fields(spec, self.node_stub,
                                               self.runtime),
                     "runtime_env": spec.runtime_env,
+                    "own": self._token_of(conn),
                 }, split_joined(msg["args"]))
                 with self._lock:
-                    self._task_rids[task_hex] = (client, wrid)
+                    self._task_rids[task_hex] = (client, wrid, conn)
                     if spec.job_id is not None:
                         self._task_jobs[task_hex] = spec.job_id.hex()
                 outcome = client._wait_outcome(wrid, pend)
@@ -2470,7 +2616,7 @@ class DaemonService:
         tried = set()
         for phase in range(2):
             candidates = hint if phase == 0 else [
-                tuple(a) for a in self._locate_via_owner(oid)]
+                tuple(a) for a in self._locate_via_owner(oid, conn)]
             for addr in candidates:
                 if addr in tried:
                     continue
@@ -2867,6 +3013,14 @@ class DaemonService:
             running = len(self._task_rids)
             bundles = {f"{k[0]}:{k[1]}": v["state"]
                        for k, v in self._bundles.items()}
+            # one row per attached driver, oldest first
+            drivers = [{"token": d.token,
+                        "job_id": d.job_id.hex() if d.job_id else None,
+                        "namespace": d.namespace,
+                        "leases": sum(1 for _c, lc in self._leases.values()
+                                      if lc is d.conn),
+                        "actors": len(d.conn.meta.get("actors", ()))}
+                       for d in self._drivers.values()]
         fast = (self.fast_core.stats()
                 if self.fast_core is not None else {})
         # "running" covers both planes: classic tasks and lane tasks in
@@ -2884,6 +3038,7 @@ class DaemonService:
                 "spill": self.objects.spill_stats(),
                 "bundles": bundles,
                 "agent_port": self.agent_port,
+                "drivers": drivers,
                 "actors": len(
                     self.runtime.process_router._actor_workers)}
 
@@ -2905,7 +3060,7 @@ class DaemonService:
         with router._lock:
             actors = dict(router._actor_workers)
         actor_pids = {c.proc.pid for c in actors.values()}
-        for task_hex, (client, _rid) in running.items():
+        for task_hex, (client, _rid, _conn) in running.items():
             if client.alive() and client.proc.pid not in actor_pids:
                 out.append(_Candidate(client.proc.pid, "task",
                                       task_id=task_hex, retriable=True,

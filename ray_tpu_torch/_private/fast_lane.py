@@ -495,12 +495,15 @@ class FastLaneClient:
             pass
 
 
-def build_payload(spec, fid: str, args_blob, job_id, node_id) -> bytes:
+def build_payload(spec, fid: str, args_blob, job_id, node_id,
+                  own: Optional[str] = None) -> bytes:
     """Driver-side: the task payload the worker lane decodes. Everything the
     worker's execution context needs travels here (classic path:
-    ``WorkerClient._ctx_fields``)."""
+    ``WorkerClient._ctx_fields``), and ``own``, the driver's token at the
+    daemon, which its nested core ops and output lines go back to."""
     return pickle.dumps({
         "fid": fid,
+        "own": own,
         "args": args_blob,
         "job": job_id.binary() if job_id is not None else b"",
         "task": spec.task_id.binary(),
@@ -513,10 +516,12 @@ def build_payload(spec, fid: str, args_blob, job_id, node_id) -> bytes:
     }, protocol=5)
 
 
-def build_actor_payload(spec, args_blob, job_id, node_id) -> bytes:
+def build_actor_payload(spec, args_blob, job_id, node_id,
+                        own: Optional[str] = None) -> bytes:
     """Driver-side: the payload of a targeted actor-method call."""
     return pickle.dumps({
         "method": spec.method_name,
+        "own": own,
         "args": args_blob,
         "job": job_id.binary() if job_id is not None else b"",
         "task": spec.task_id.binary(),
@@ -603,11 +608,13 @@ def worker_fast_lane_start(addr: Tuple[str, int], state,
     from ray_tpu_torch._private.ids import (ActorID, JobID, NodeID,
                                             PlacementGroupID, TaskID)
     from ray_tpu_torch._private.worker_process import (
-        _current_rid, _dump_exc, _pack, _post_mortem_on_error)
+        _current_rid, _dump_exc, _pack, _post_mortem_on_error, _set_owner)
 
     def run_one(tid: int, msg: dict) -> None:
         current["tid"] = tid
         _current_rid.rid = f"fl{tid}"
+        # the submitting driver's token (the daemon never sees lane tasks)
+        _set_owner(msg.get("own"))
         try:
             ctx = {
                 "job_id": JobID(msg["job"]) if msg["job"] else None,
@@ -681,6 +688,7 @@ def worker_fast_lane_start(addr: Tuple[str, int], state,
         finally:
             current["tid"] = 0
             _current_rid.rid = None
+            _current_rid.own = None
 
     def exec_loop() -> None:
         while True:

@@ -20,9 +20,50 @@ import os
 import re
 import tempfile
 import threading
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 _FILE_RE = re.compile(r"worker-(\d+)\.(out|err)$")
+
+# A daemon's worker writes this, then a driver's token, as a line of its own
+# whenever a thread of another driver than the last line's writes to the
+# stream: the lines that follow belong to that driver (an empty token: to
+# every attached driver). The monitor hands the token to ``on_owner`` and
+# never passes the marker on as output.
+OWNER_MARK = "\x1eray_tpu_torch:owner="
+
+
+class OwnerMarkedStream:
+    """Worker side: a text stream that puts an owner marker before a write
+    whose thread's driver (``owner()``) differs from the last write's. A
+    marker after a write without a newline starts a line of its own."""
+
+    def __init__(self, raw, owner: Callable[[], Optional[str]]):
+        self._raw = raw
+        self._owner = owner
+        self._last = ""         # no marker yet: every attached driver
+        self._at_line_start = True
+        self._lock = threading.RLock()
+
+    def write(self, text: str) -> int:
+        own = self._owner() or ""
+        with self._lock:
+            if own != self._last:
+                self._raw.write(("" if self._at_line_start else "\n")
+                                + OWNER_MARK + own + "\n")
+                self._last = own
+                self._at_line_start = True
+            n = self._raw.write(text)
+            if text:
+                self._at_line_start = text.endswith("\n")
+            return n
+
+    def writelines(self, lines) -> None:
+        for line in lines:
+            self.write(line)
+
+    def __getattr__(self, name):
+        return getattr(self._raw, name)
+
 
 _session_dir: Optional[str] = None
 _session_lock = threading.Lock()
@@ -57,10 +98,14 @@ def set_session_log_dir(path: str) -> None:
         _session_dir = path
 
 
-def redirect_process_output(log_dir: str) -> None:
+def redirect_process_output(
+        log_dir: str, owner: Optional[Callable[[], Optional[str]]] = None
+) -> None:
     """Point THIS process's fds 1/2 at per-pid log files (worker boot).
     fd-level dup2 so C/extension writes land there too; line-buffered so
-    the monitor sees prints promptly."""
+    the monitor sees prints promptly. With ``owner`` (the calling thread's
+    driver token), ``sys.stdout``/``sys.stderr`` mark each change of
+    driver (``OwnerMarkedStream``)."""
     import sys
 
     pid = os.getpid()
@@ -78,20 +123,27 @@ def redirect_process_output(log_dir: str) -> None:
         sys.stderr.reconfigure(line_buffering=True)
     except Exception:
         pass
+    if owner is not None:
+        sys.stdout = OwnerMarkedStream(sys.stdout, owner)
+        sys.stderr = OwnerMarkedStream(sys.stderr, owner)
 
 
 class LogMonitor:
     """Tails ``worker-*.{out,err}`` files in a directory, delivering each
-    new complete line to ``sink(pid, stream, line)``."""
+    new complete line to ``sink(pid, stream, line)``, and each owner marker's
+    token to ``on_owner(pid, stream, token)``."""
 
     def __init__(self, log_dir: str,
                  sink: Callable[[int, str, str], None],
-                 interval: float = 0.2, start_at_end: bool = False):
+                 interval: float = 0.2, start_at_end: bool = False,
+                 on_owner: Optional[Callable[[int, str, str], None]] = None):
         self.log_dir = log_dir
         self.sink = sink
+        self.on_owner = on_owner
         self.interval = interval
         self._offsets: Dict[str, int] = {}
         self._partial: Dict[str, str] = {}
+        self._gone: List[int] = []      # pids whose owner to forget
         if start_at_end:
             # Skip lines from a previous runtime in this process (the
             # worker pool and its log files outlive init/shutdown).
@@ -117,8 +169,23 @@ class LogMonitor:
         if self._thread is not threading.current_thread():
             self._thread.join(timeout=5.0)
 
+    def forget(self, pid: int) -> None:
+        """A worker died: after the scan that reads its last lines, its
+        files' owner is reset (``on_owner(pid, stream, "")``)."""
+        self._gone.append(pid)
+
     def poll_once(self) -> None:
         """One scan (also used directly by tests for determinism)."""
+        gone, self._gone = self._gone, []
+        try:
+            self._scan()
+        finally:
+            if self.on_owner is not None:
+                for pid in gone:
+                    for stream in ("out", "err"):
+                        self.on_owner(pid, stream, "")
+
+    def _scan(self) -> None:
         try:
             names = os.listdir(self.log_dir)
         except OSError:
@@ -144,11 +211,22 @@ class LogMonitor:
             if lines and lines[-1]:
                 self._partial[name] = lines[-1]   # incomplete tail
             for line in lines[:-1]:
-                if line:
-                    try:
+                if not line:
+                    continue
+                try:
+                    # a marker after a write of C code without a newline
+                    # ends that line: its text goes before the new owner
+                    at = line.find(OWNER_MARK)
+                    if at < 0:
                         self.sink(pid, stream, line)
-                    except Exception:
-                        pass
+                        continue
+                    if at > 0:
+                        self.sink(pid, stream, line[:at])
+                    if self.on_owner is not None:
+                        self.on_owner(pid, stream,
+                                      line[at + len(OWNER_MARK):])
+                except Exception:
+                    pass
 
     def _loop(self) -> None:
         while not self._stop.wait(self.interval):

@@ -286,6 +286,40 @@ def fetch_function_blob(fid: str) -> bytes:
 _current_rid = threading.local()
 
 
+def _set_owner(own: Optional[str]) -> None:
+    """Bind the running task's driver token (a daemon's worker: the driver
+    that pushed it) to this thread. It rides every nested core op back to
+    the daemon and names the driver of the thread's output lines."""
+    _current_rid.own = own
+
+
+def _current_owner() -> Optional[str]:
+    """This thread's driver token: its task's, else the one its starter
+    held (``_inherit_owner_in_threads``), else None. Never another
+    thread's: with several drivers attached, the daemon refuses a nested op
+    that names none."""
+    own = getattr(_current_rid, "own", None)
+    if own is None:
+        own = getattr(threading.current_thread(), "_rt_owner", None)
+    return own
+
+
+def _inherit_owner_in_threads() -> None:
+    """Worker boot: a thread a task starts (a ``Thread``, a pool's, a
+    ``Timer``) keeps the task's driver token for its life, so its nested
+    ops and lines go to that driver after the worker has moved on to
+    another driver's task."""
+    start = threading.Thread.start
+
+    def start_with_owner(self):
+        own = _current_owner()
+        if own is not None:
+            self._rt_owner = own
+        start(self)
+
+    threading.Thread.start = start_with_owner
+
+
 def _borrower_key() -> Optional[str]:
     """The owner-side borrow key of refs created on this caller's behalf:
     in an actor, 'a:<actor hex>' (held for the actor's lifetime), else
@@ -666,7 +700,8 @@ class _WorkerState:
             self._pending[rid] = slot
         self.send({"op": "core", "id": rid, "call": call,
                    "task": getattr(_current_rid, "rid", None),
-                   "task_key": _borrower_key()}, _pack(kw))
+                   "task_key": _borrower_key(),
+                   "own": _current_owner()}, _pack(kw))
         ev.wait()
         if slot[1]:
             return slot[2]
@@ -677,7 +712,8 @@ class _WorkerState:
         pending slot and is dropped."""
         self.send({"op": "core", "id": f"w{next(self._ids)}", "call": call,
                    "task": getattr(_current_rid, "rid", None),
-                   "task_key": _borrower_key()}, _pack(kw))
+                   "task_key": _borrower_key(),
+                   "own": _current_owner()}, _pack(kw))
 
     # -- main loop -------------------------------------------------------
     def serve_forever(self) -> None:
@@ -889,6 +925,7 @@ class _WorkerState:
 
         rid = msg["id"]
         _current_rid.rid = rid
+        _set_owner(msg.get("own"))
         # a lane-bound actor's pipe call holds the actor lock through a
         # streaming drain too: it must not interleave with a lane call
         locked = msg["op"] == "call_method" and self._lane_bound
@@ -1067,9 +1104,10 @@ def _child_main(sock: socket.socket) -> None:
         from ray_tpu_torch._private.log_monitor import \
             redirect_process_output
         try:
-            redirect_process_output(boot["log_dir"])
+            redirect_process_output(boot["log_dir"], _current_owner)
         except OSError:
             pass
+    _inherit_owner_in_threads()
     if boot.get("force_cpu_platform"):
         from ray_tpu_torch._private.platform import force_cpu_platform
         force_cpu_platform()
@@ -1474,7 +1512,7 @@ class WorkerClient:
             p.q.put(_DEAD)
         self._holds.clear()
         callbacks, self._on_death = self._on_death, []
-        for cb in callbacks:
+        for cb in callbacks + list(DEATH_HOOKS):
             try:
                 cb(self)
             except Exception:
@@ -1539,12 +1577,13 @@ class WorkerClient:
             elif local_fn is not None:
                 parts, ok = _pack(local_fn), True
             elif forward is not None:
-                # in a daemon: a blob round trip to the owner (the driver),
-                # loaded only at its edge
+                # in a daemon: a blob round trip to the owner (the driver
+                # the task's token names), loaded only at its edge
                 from ray_tpu_torch._private.fast_lane import (join_parts,
                                                               split_joined)
                 ok, blob = forward(call, join_parts(msg["parts"]),
-                                   msg.get("task_key") or msg.get("task"))
+                                   msg.get("task_key") or msg.get("task"),
+                                   msg.get("own"))
                 parts = split_joined(blob)
             else:
                 kw = _unpack(msg["parts"])
@@ -1700,12 +1739,14 @@ class WorkerClient:
         return outcome
 
     def create_actor_instance(self, spec: TaskSpec, node, fid: str,
-                              args_parts: Sequence[Any]):
+                              args_parts: Sequence[Any],
+                              own: Optional[str] = None):
         self._count_call()
         rid, pend = self._request({
             "op": "create_actor", "fn_id": fid,
             "ctx": self._ctx_fields(spec, node, self.runtime),
             "runtime_env": spec.runtime_env,
+            "own": own,
         }, args_parts)
         return self._wait_outcome(rid, pend)
 
@@ -1772,6 +1813,9 @@ def _untrack_after(router, task_id, it):
 _POOL_LOCK = threading.Lock()
 _IDLE: List[WorkerClient] = []
 _ALL_WORKERS: "weakref.WeakSet" = weakref.WeakSet()
+# called with every worker of this process that dies, after its own
+# callbacks (a daemon's log monitor forgets the worker's driver)
+DEATH_HOOKS: List[Any] = []
 _PRESTARTING = [0]
 _FILL_RUNNING = [False]
 _POOL_CLOSED = threading.Event()   # interpreter exiting: no new spawns
